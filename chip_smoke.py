@@ -14,26 +14,39 @@ fails (nothing is caught):
    (llama3.2-1b: 32 query heads, 8 KV heads, head_dim 64, 16-token pages,
    bf16, 8 rows of about 512 tokens over a page pool of the slice's size)
    and is held against its plain PyTorch version on the same inputs, then
-   timed beside that plain version, a PyTorch library call computing the
-   same function, and the least time the card could take;
-4. reference: on a small input, the paged serving path (through the
-   kernels) is held against the dense plain-PyTorch path of the same model;
-5. slice: full-width llama3.2-1b in bf16 with random weights, built by
-   ``repro_torch.launch.serve`` (SCLS, one worker, persistent paged KV with
-   ``kv_retain="request"`` and prefix sharing), serves a CodeFuse trace
-   plus requests that repeat an earlier prompt's leading pages.  Every
-   request must complete, prefix sharing must hit, and each kernel must
-   have launched exactly once per layer per prefill stage / decode step;
-6. profile: one more slice (8 fresh 256-token requests, 32 decode steps)
-   under ``torch.profiler``, for the device's busy share of its wall time.
+   timed beside that plain version, PyTorch yardsticks computing the same
+   function, and the least time the card could take;
+4. reference: on a small input, the paged serving path with either
+   ``attn_impl`` (through the kernels) is held against the dense
+   plain-PyTorch path of the same model;
+5. unfused slice: full-width llama3.2-1b in bf16 with random weights,
+   built by ``repro_torch.launch.serve`` (SCLS, one worker, persistent
+   paged KV with ``kv_retain="request"`` and prefix sharing), serves a
+   CodeFuse trace plus requests that repeat an earlier prompt's leading
+   pages.  Every request must complete, prefix sharing must hit, and each
+   unfused kernel must have launched exactly once per layer per prefill
+   stage / decode step; then one more slice (8 fresh 256-token requests,
+   32 decode steps) under ``torch.profiler``, for the device's busy share;
+6. fused slice: small fused and unfused engines serve the same batches
+   (token streams equal but for recorded near-ties), then
+   ``StaticEngine(attn_impl="fused")`` workers on the launcher's model,
+   weights, estimator and memory model serve the same trace: every request
+   completes, prefix sharing hits, nothing is re-prefilled, and only the
+   fused kernels launch, once per layer per prefill stage / decode step;
+   then the profiler window of phase 5 on a fused engine;
+7. dense slice: the launcher with ``--kv-layout dense --kv-retain slice``
+   (the paper's SCLS, which re-prefills prompt + generated tokens at every
+   reschedule) serves the same trace: every request completes, re-prefill
+   is above zero and no kernel runs.
 
 The last line of standard output is ``{"ok": true, "device": {...}}``; the
 line before it is the ``nvidia-smi`` reading and the one before that the
-per-kernel JSON (launches from phase 5, times from phase 3).
+per-kernel JSON (launches from phases 5 and 6, times from phase 3).
 """
 from __future__ import annotations
 
 import dataclasses
+import gc
 import json
 import os
 import subprocess
@@ -45,9 +58,11 @@ import torch
 ROOT = os.path.dirname(os.path.abspath(__file__))
 HBM_BYTES_PER_S = 3.35e12    # H100 SXM device memory rate
 BF16_FLOP_PER_S = 989e12     # H100 SXM dense bf16 tensor-core peak
+F32_FLOP_PER_S = 67e12       # H100 SXM float32 outside the tensor cores
 DECODE_TOL = 2e-2            # bf16 decode attention vs its plain version
 REF_TOL = 5e-2               # logits, paged kernels vs dense plain path,
                              # relative to the largest |logit| (bf16, 16 layers)
+MAX_ULPS = 1                 # rotated K, fused kernel vs its plain version
 ITERS = 50
 SLEEP_CYCLES = 2_000_000     # ~1 ms of device sleep at the H100's clocks
 
@@ -86,12 +101,23 @@ def time_ms(fn, flush: torch.Tensor, iters: int = ITERS) -> float:
     return total / iters
 
 
-def bound(n_bytes: float, n_flops: float):
+def bound(n_bytes: float, n_flops: float, flop_rate: float = BF16_FLOP_PER_S):
     """(bound_ms, bound_by): the larger of bytes over the memory rate and
-    operations over the bf16 peak."""
+    operations over the peak rate of their type (bf16 by default)."""
     t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
-    t_ops = n_flops / BF16_FLOP_PER_S * 1e3
+    t_ops = n_flops / flop_rate * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def max_ulps(a: torch.Tensor, b: torch.Tensor) -> int:
+    """Largest distance in units in the last place between two tensors of
+    one float type (same-sign values)."""
+    ints = {torch.float32: torch.int32, torch.bfloat16: torch.int16}
+    ne = a != b
+    if not bool(ne.any()):
+        return 0
+    return int((a[ne].view(ints[a.dtype]).long()
+                - b[ne].view(ints[b.dtype]).long()).abs().max().item())
 
 
 # ---------------------------------------------------------------------------
@@ -254,14 +280,241 @@ def check_write(cfg, n_pages: int, pg: int, gen: torch.Generator,
                            n_valid_tokens=n_valid, pool_pages=n_pages + 1))
 
 
+def written_slots(positions: torch.Tensor, bt: torch.Tensor, pg: int,
+                  n_pool: int) -> torch.Tensor:
+    """(P, pg) mask of the pool slots that the valid tokens name."""
+    valid = positions >= 0
+    slot = positions.clamp(min=0).long()
+    page = torch.gather(bt.long(), 1, slot // pg)[valid]
+    mask = torch.zeros((n_pool, pg), dtype=torch.bool, device=bt.device)
+    mask[page, (slot % pg)[valid]] = True
+    return mask
+
+
+def check_fused_write(cfg, n_pages: int, pg: int, gen: torch.Generator,
+                      flush: torch.Tensor) -> dict:
+    from repro_torch.kernels import fused_rope_prefill_write as kmod
+    from repro_torch.kernels import paged_prefill_write as unfused_kmod
+    from repro_torch.kernels import ref
+    from repro_torch.models.common import apply_rope
+    from repro_torch.models.transformer import make_positions
+    dev = torch.device("cuda")
+    B, T, Hkv, D = 8, 512, cfg.n_kv_heads, cfg.head_dim
+    theta = cfg.rope_theta
+    # check_write's stage-A batch: left-padded rows, the last a stage-A'
+    # tail past a 2-page shared prefix (its slots below 32 untouched)
+    lengths = torch.tensor([512, 497, 480, 505, 460, 489, 300, 544],
+                           device=dev)
+    start = torch.tensor([0] * 7 + [2 * pg], device=dev)
+    tokens = torch.zeros((B, T), dtype=torch.int32, device=dev)
+    base = make_positions(tokens, lengths - start)
+    positions = torch.where(base >= 0, base + start[:, None],
+                            -1).to(torch.int32)
+    nb = -(-int(lengths.max()) // pg)
+    shape = (n_pages + 1, pg, Hkv, D)
+    k_pool = torch.randn(shape, generator=gen, device=dev).to(cfg.dtype)
+    v_pool = torch.randn(shape, generator=gen, device=dev).to(cfg.dtype)
+    perm = torch.randperm(n_pages, generator=gen, device=dev) + 1
+    bt = perm[:B * nb].reshape(B, nb).to(torch.int32).contiguous()
+    k_new = torch.randn((B, T, Hkv, D), generator=gen, device=dev).to(cfg.dtype)
+    v_new = torch.randn((B, T, Hkv, D), generator=gen, device=dev).to(cfg.dtype)
+
+    k_a, v_a = k_pool.clone(), v_pool.clone()
+    kmod.fused_rope_prefill_write(k_new, v_new, positions, bt, k_a, v_a,
+                                  theta=theta)
+    k_b, v_b = k_pool.clone(), v_pool.clone()
+    ref.fused_rope_prefill_write_ref(k_new, v_new, positions, bt, k_b, v_b,
+                                     theta=theta)
+    torch.cuda.synchronize()
+    written = written_slots(positions, bt, pg, n_pages + 1)
+    v_exact = torch.equal(v_a, v_b)
+    untouched = torch.equal(k_a[~written], k_pool[~written])
+    ulps = max_ulps(k_a[written], k_b[written])
+    err = (k_a[written].float() - k_b[written].float()).abs().max().item()
+    log(f"fused_rope_prefill_write: V bit-identical {v_exact}, unwritten "
+        f"slots untouched {untouched}, K within {ulps} ulp (max |diff| "
+        f"{err:.3e}; tolerance: V exact, K {MAX_ULPS} ulp)")
+    if not (v_exact and untouched and ulps <= MAX_ULPS):
+        raise SystemExit("fused_rope_prefill_write disagrees with its plain "
+                         "version")
+    del k_b, v_b
+
+    valid = positions >= 0
+    flat = valid.reshape(-1).nonzero().squeeze(1)
+    slot = positions.clamp(min=0).long()
+    page = torch.gather(bt.long(), 1, slot // pg).reshape(-1)[flat]
+    off = (slot % pg).reshape(-1)[flat]
+    rope_pos = positions.clamp(min=0)
+    v_rows = v_new.reshape(B * T, Hkv, D)[flat]
+
+    def rope_index_put():
+        kr = apply_rope(k_new, rope_pos, theta).reshape(B * T, Hkv, D)
+        k_a.index_put_((page, off), kr[flat])
+        v_a.index_put_((page, off), v_rows)
+
+    def unfused_chain():
+        kr = apply_rope(k_new, rope_pos, theta)
+        unfused_kmod.paged_prefill_write(kr, v_new, positions, bt, k_a, v_a)
+
+    t_kernel = time_ms(lambda: kmod.fused_rope_prefill_write(
+        k_new, v_new, positions, bt, k_a, v_a, theta=theta), flush)
+    t_plain = time_ms(lambda: ref.fused_rope_prefill_write_ref(
+        k_new, v_new, positions, bt, k_a, v_a, theta=theta), flush)
+    t_put = time_ms(rope_index_put, flush)
+    t_chain = time_ms(unfused_chain, flush)
+    n_valid = int(valid.sum())
+    row = Hkv * D * k_new.element_size()
+    n_bytes = (2 * 2 * n_valid * row                # K and V rows in and out
+               + positions.numel() * 4 + n_valid * 4    # positions, pages
+               + D // 2 * 4)                            # inverse frequencies
+    n_flops = 3 * n_valid * Hkv * D                 # the rotation, float32
+    b_ms, b_by = bound(n_bytes, n_flops, F32_FLOP_PER_S)
+    log(f"fused_rope_prefill_write: kernel {t_kernel:.4f} ms, plain "
+        f"{t_plain:.4f} ms, torch RoPE + index_put_ {t_put:.4f} ms, "
+        f"torch RoPE + paged_prefill_write {t_chain:.4f} ms, bound "
+        f"{b_ms:.4f} ms")
+    return dict(name="fused_rope_prefill_write", route="cuda",
+                source="src/repro_torch/kernels/csrc/"
+                       "fused_rope_prefill_write.cu",
+                replaces="src/repro/kernels/fused_rope_prefill_write.py:117",
+                max_abs_err=err, max_ulps=ulps, ms=t_kernel,
+                kernel_ms=t_kernel, plain_ms=t_plain, bound_ms=b_ms,
+                bound_by=b_by, library_ms=None,
+                yardsticks_ms={
+                    "torch apply_rope + index_put_ at precomputed "
+                    "(page, offset) indices": t_put,
+                    "unfused chain: torch apply_rope + paged_prefill_write "
+                    "kernel": t_chain},
+                shape=dict(B=B, T=T, Hkv=Hkv, D=D, pg=pg, nb=nb,
+                           n_valid_tokens=n_valid, pool_pages=n_pages + 1))
+
+
+def check_fused_decode(cfg, n_pages: int, pg: int, gen: torch.Generator,
+                       flush: torch.Tensor) -> dict:
+    from repro_torch.core.request import bucket_len
+    from repro_torch.engine.static_engine import NB_BUCKET
+    from repro_torch.kernels import fused_rope_decode_append as kmod
+    from repro_torch.kernels import paged_decode_attention as unfused_kmod
+    from repro_torch.kernels import ref
+    from repro_torch.models.common import apply_rope
+    dev = torch.device("cuda")
+    B, Hq, Hkv, D = 8, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    theta = cfg.rope_theta
+    # live slots per row, the new token included (it lands in the last);
+    # the last row is a batch-bucket pad row on the null page whose one
+    # live slot is its own, as the engine's decode step builds it
+    n_live = [512, 497, 530, 505, 520, 489, 515, 1]
+    nb = bucket_len(max(-(-n // pg) for n in n_live), NB_BUCKET)
+    shape = (n_pages + 1, pg, Hkv, D)
+    k_pages = torch.randn(shape, generator=gen, device=dev).to(cfg.dtype)
+    v_pages = torch.randn(shape, generator=gen, device=dev).to(cfg.dtype)
+    perm = torch.randperm(n_pages, generator=gen, device=dev) + 1
+    bt = torch.zeros((B, nb), dtype=torch.int32, device=dev)
+    used = 0
+    for b, n in enumerate(n_live[:-1]):
+        k = -(-n // pg)
+        bt[b, :k] = perm[used:used + k]
+        used += k
+    slots = torch.arange(nb * pg, device=dev)[None]
+    lens = torch.tensor(n_live, device=dev)[:, None]
+    slot_pos = torch.where(slots < lens, slots, -1).to(torch.int32)
+    new_slot = (torch.tensor(n_live, device=dev) - 1).to(torch.int32)
+    q_pos = new_slot.clone()
+    q = torch.randn((B, Hq, D), generator=gen, device=dev).to(cfg.dtype)
+    k_new = torch.randn((B, Hkv, D), generator=gen, device=dev).to(cfg.dtype)
+    v_new = torch.randn((B, Hkv, D), generator=gen, device=dev).to(cfg.dtype)
+
+    k_a, v_a = k_pages.clone(), v_pages.clone()
+    out = kmod.fused_rope_decode_append(q, k_new, v_new, bt, slot_pos,
+                                        new_slot, q_pos, k_a, v_a,
+                                        theta=theta)
+    want = ref.fused_rope_decode_append_ref(q, k_new, v_new, bt, slot_pos,
+                                            new_slot, q_pos, k_pages,
+                                            v_pages, theta=theta)
+    torch.cuda.synchronize()
+    err = (out.float() - want.float()).abs().max().item()
+    v_exact = torch.equal(v_a, v_pages)
+    ulps = max_ulps(k_a, k_pages)
+    log(f"fused_rope_decode_append: max |kernel - plain| = {err:.3e} "
+        f"(tolerance {DECODE_TOL}); pool V bit-identical {v_exact}, K "
+        f"within {ulps} ulp (tolerance {MAX_ULPS})")
+    if not (err <= DECODE_TOL and v_exact and ulps <= MAX_ULPS):
+        raise SystemExit("fused_rope_decode_append disagrees with its plain "
+                         "version")
+    del k_a, v_a
+
+    # yardsticks: torch RoPE + index_put_ + SDPA over the window gathered
+    # beforehand; the unfused chain (torch RoPE + scatter + decode kernel)
+    G = Hq // Hkv
+    kw = k_pages[bt.long()].reshape(B, nb * pg, Hkv, D).transpose(1, 2)
+    vw = v_pages[bt.long()].reshape(B, nb * pg, Hkv, D).transpose(1, 2)
+    kw, vw = kw.contiguous(), vw.contiguous()
+    mask = (slot_pos >= 0)[:, None, None, :]
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    page = torch.gather(bt.long(), 1, (new_slot.long() // pg)[:, None])[:, 0]
+    off = new_slot.long() % pg
+    pos = q_pos[:, None]
+
+    def rope_put_sdpa():
+        qr = apply_rope(q[:, None], pos, theta)[:, 0]
+        kr = apply_rope(k_new[:, None], pos, theta)[:, 0]
+        k_pages.index_put_((page, off), kr)
+        v_pages.index_put_((page, off), v_new)
+        return sdpa(qr.reshape(B, Hkv, G, D), kw, vw, attn_mask=mask)
+
+    def unfused_chain():
+        qr = apply_rope(q[:, None], pos, theta)[:, 0]
+        kr = apply_rope(k_new[:, None], pos, theta)[:, 0]
+        k_pages[page, off] = kr
+        v_pages[page, off] = v_new
+        return unfused_kmod.paged_decode_attention(
+            qr.contiguous(), k_pages, v_pages, bt, slot_pos, q_pos)
+
+    t_kernel = time_ms(lambda: kmod.fused_rope_decode_append(
+        q, k_new, v_new, bt, slot_pos, new_slot, q_pos, k_pages, v_pages,
+        theta=theta), flush)
+    t_plain = time_ms(lambda: ref.fused_rope_decode_append_ref(
+        q, k_new, v_new, bt, slot_pos, new_slot, q_pos, k_pages, v_pages,
+        theta=theta), flush)
+    t_sdpa = time_ms(rope_put_sdpa, flush)
+    t_chain = time_ms(unfused_chain, flush)
+    n_valid = sum(n_live[:-1])      # live pool slots read (the pad row's
+    elt = k_pages.element_size()    # own slot is its appended token)
+    n_bytes = (2 * n_valid * Hkv * D * elt          # live K and V slots
+               + 2 * B * Hq * D * elt               # q in, out
+               + 2 * 2 * B * Hkv * D * elt          # new k/v in, appended
+               + bt.numel() * 4 + slot_pos.numel() * 4 + 2 * B * 4
+               + D // 2 * 4)
+    n_flops = 4 * n_valid * Hq * D                  # QK^T and PV
+    b_ms, b_by = bound(n_bytes, n_flops)
+    log(f"fused_rope_decode_append: kernel {t_kernel:.4f} ms, plain "
+        f"{t_plain:.4f} ms, torch RoPE + index_put_ + SDPA {t_sdpa:.4f} ms, "
+        f"unfused chain {t_chain:.4f} ms, bound {b_ms:.4f} ms")
+    return dict(name="fused_rope_decode_append", route="cuda",
+                source="src/repro_torch/kernels/csrc/"
+                       "fused_rope_decode_append.cu",
+                replaces="src/repro/kernels/fused_rope_decode_append.py:158",
+                max_abs_err=err, max_ulps=ulps, ms=t_kernel,
+                kernel_ms=t_kernel, plain_ms=t_plain, bound_ms=b_ms,
+                bound_by=b_by, library_ms=None,
+                yardsticks_ms={
+                    "torch apply_rope + index_put_ + "
+                    "scaled_dot_product_attention on the pre-gathered "
+                    "window": t_sdpa,
+                    "unfused chain: torch apply_rope + scatter + "
+                    "paged_decode_attention kernel": t_chain},
+                shape=dict(B=B, Hq=Hq, Hkv=Hkv, D=D, pg=pg, nb=nb,
+                           n_valid_tokens=n_valid, pool_pages=n_pages + 1))
+
+
 # ---------------------------------------------------------------------------
-# phase 4: paged kernels path against the dense plain path, small input
+# phase 4: paged kernel paths against the dense plain path, small input
 # ---------------------------------------------------------------------------
 def check_reference(model, params, pg: int) -> dict:
-    """Prefill 4 prompts and decode 4 steps through the paged path (the
-    kernels) and the dense path (plain PyTorch), feeding both the same
-    tokens; the logits must agree to ``REF_TOL`` of their largest
-    magnitude."""
+    """Prefill 4 prompts and decode 4 steps through the paged path with
+    each ``attn_impl`` (the kernels) and the dense path (plain PyTorch),
+    feeding all the same tokens; the logits must agree to ``REF_TOL`` of
+    their largest magnitude."""
     import numpy as np
     from repro_torch.kvcache import PagedKVCache, init_page_pools
     from repro_torch.models import transformer as tfm
@@ -276,132 +529,330 @@ def check_reference(model, params, pg: int) -> dict:
     tokens = torch.from_numpy(toks).to(dev)
     lengths = torch.tensor(lens, dtype=torch.int32, device=dev)
     nb = -(-(T + n_steps) // pg)
-    k_pages, v_pages = init_page_pools(cfg.n_layers, B * nb, pg,
-                                       cfg.n_kv_heads, cfg.head_dim,
-                                       cfg.dtype, dev)
     bt = (torch.arange(B * nb, dtype=torch.int32, device=dev)
           .reshape(B, nb) + 1)
     W = nb * pg
-    cache = PagedKVCache(k_pages, v_pages, bt,
-                         torch.full((B, W), -1, dtype=torch.int32,
-                                    device=dev), lengths)
+    caches = {}
+    for impl in ("unfused", "fused"):
+        k_pages, v_pages = init_page_pools(cfg.n_layers, B * nb, pg,
+                                           cfg.n_kv_heads, cfg.head_dim,
+                                           cfg.dtype, dev)
+        caches[impl] = PagedKVCache(
+            k_pages, v_pages, bt,
+            torch.full((B, W), -1, dtype=torch.int32, device=dev), lengths)
+
+    def rel(a, ref_logits):
+        return ((a.float() - ref_logits.float()).abs().max().item()
+                / ref_logits.float().abs().max().item())
+
+    worst = {"unfused": 0.0, "fused": 0.0, "fused_vs_unfused": 0.0}
     with torch.no_grad():
-        lp, cache = tfm.prefill_paged(params, cfg, tokens, lengths, cache)
         ld, dense = model.prefill(params, {"tokens": tokens,
                                            "lengths": lengths}, T + n_steps)
-        worst = (lp.float() - ld.float()).abs().max().item() \
-            / ld.float().abs().max().item()
-        cur = torch.argmax(ld, -1).to(torch.int32)
-        for step in range(n_steps):
-            q_pos = lengths + step
-            lp, cache = tfm.decode_step_paged(params, cfg, cache, cur, q_pos,
-                                              q_pos)
-            ld, dense = model.decode_step(params, dense, cur, step)
-            rel = (lp.float() - ld.float()).abs().max().item() \
-                / ld.float().abs().max().item()
-            worst = max(worst, rel)
+        lp = {}
+        for impl in caches:
+            lp[impl], caches[impl] = tfm.prefill_paged(
+                params, cfg, tokens, lengths, caches[impl], attn_impl=impl)
+        for step in range(n_steps + 1):
+            for impl in caches:
+                worst[impl] = max(worst[impl], rel(lp[impl], ld))
+            worst["fused_vs_unfused"] = max(
+                worst["fused_vs_unfused"], rel(lp["fused"], lp["unfused"]))
+            if step == n_steps:
+                break
             cur = torch.argmax(ld, -1).to(torch.int32)
+            q_pos = lengths + step
+            for impl in caches:
+                lp[impl], caches[impl] = tfm.decode_step_paged(
+                    params, cfg, caches[impl], cur, q_pos, q_pos,
+                    attn_impl=impl)
+            ld, dense = model.decode_step(params, dense, cur, step)
         torch.cuda.synchronize()
-    ok = bool(torch.isfinite(lp).all()) and lp.shape == (B, cfg.vocab_size)
+    ok = all(bool(torch.isfinite(x).all()) and x.shape == (B, cfg.vocab_size)
+             for x in lp.values())
     log(f"reference: paged (kernels) vs dense (plain) logits over prefill + "
-        f"{n_steps} decode steps: max relative difference {worst:.3e} "
-        f"(tolerance {REF_TOL}), finite and shaped: {ok}")
-    if not (ok and worst <= REF_TOL):
-        raise SystemExit("the paged kernel path disagrees with the dense "
+        f"{n_steps} decode steps, max relative difference: unfused "
+        f"{worst['unfused']:.3e}, fused {worst['fused']:.3e}, fused vs "
+        f"unfused {worst['fused_vs_unfused']:.3e} (tolerance {REF_TOL}); "
+        f"finite and shaped: {ok}")
+    if not (ok and max(worst.values()) <= REF_TOL):
+        raise SystemExit("a paged kernel path disagrees with the dense "
                          "reference path")
-    return dict(max_rel_logit_diff=worst)
+    return {f"max_rel_logit_diff_{k}": v for k, v in worst.items()}
 
 
 # ---------------------------------------------------------------------------
-# phase 5: the slice, through the launcher's build_core
+# phases 5-7: the slices, through the launcher's build_core
 # ---------------------------------------------------------------------------
 SLICE_ARGV = ["--backend", "real", "--arch", "llama3.2-1b",
               "--strategy", "scls", "--workers", "1", "--rate", "4",
               "--duration", "8", "--slice-len", "64", "--max-gen", "256",
               "--page-tokens", "16", "--m-available", "48e9",
               "--shared-prefix", "3", "--seed", "0"]
+PAGED_ARGV = SLICE_ARGV + ["--kv-layout", "paged", "--kv-retain", "request"]
+DENSE_ARGV = SLICE_ARGV + ["--kv-layout", "dense", "--kv-retain", "slice"]
+FUSED = ("fused_rope_prefill_write", "fused_rope_decode_append")
+UNFUSED = ("paged_prefill_write", "paged_decode_attention")
 
 
-def run_slice():
+def time_engine(engine) -> dict:
+    """Sum the wall seconds of every serve call (the engine's own clock),
+    of its prefill stages where the engine measures them, and of its
+    decode loops (each ends in a host transfer that waits for the device)
+    into the returned dict."""
+    acc = {"calls": 0, "wall_s": 0.0, "prefill_s": 0.0, "decode_s": 0.0}
+    name = ("serve_batch_paged" if engine.kv_layout == "paged"
+            else "serve_batch")
+    serve, loop = getattr(engine, name), engine._decode_loop
+
+    def timed_serve(*args, **kw):
+        res = serve(*args, **kw)
+        acc["calls"] += 1
+        acc["wall_s"] += res.wall_time
+        acc["prefill_s"] += res.prefill_time or 0.0
+        return res
+
+    def timed_loop(*args, **kw):
+        t0 = time.perf_counter()
+        out = loop(*args, **kw)
+        acc["decode_s"] += time.perf_counter() - t0
+        return out
+
+    setattr(engine, name, timed_serve)
+    engine._decode_loop = timed_loop
+    return acc
+
+
+def serve_trace(label: str, core, engines, trace, duration: float,
+                extra: dict) -> dict:
+    """Run ``trace`` through ``core`` with every kernel count set to 0
+    just before and read just after; check that every request completed
+    with well-formed output; print and return the slice's summary."""
     from repro_torch.kernels import ops
-    from repro_torch.launch import serve
-    args = serve.parse_args(SLICE_ARGV)
-    t0 = time.perf_counter()
-    core, engines, vocab = serve.build_core(args)
-    torch.cuda.synchronize()
-    t_build = time.perf_counter() - t0
-    trace = serve.make_trace(args, vocab)
-    model = engines[0].model
-    ref_stats = check_reference(model, engines[0].params, args.page_tokens)
-
-    split = [time_serve_calls(e) for e in engines]
+    vocab = engines[0].model.cfg.vocab_size
+    timers = [time_engine(e) for e in engines]
     for e in engines:
         e.n_prefill_stages = e.n_decode_steps = 0
-    ops.reset_counts()
     torch.cuda.reset_peak_memory_stats()
+    ops.reset_counts()
     t0 = time.perf_counter()
-    metrics = core.run(trace, args.duration)
+    metrics = core.run(trace, duration)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = ops.launches()
     plain = dict(ops.plain_calls)
-
-    n_layers = model.cfg.n_layers
     stages = sum(e.n_prefill_stages for e in engines)
     steps = sum(e.n_decode_steps for e in engines)
-    want = {"paged_prefill_write": n_layers * stages,
-            "paged_decode_attention": n_layers * steps}
+    decode_s = sum(a["decode_s"] for a in timers)
+    summary = dict(dataclasses.asdict(metrics), wall_s=wall,
+                   prefill_stages=stages, decode_steps=steps,
+                   decode_ms_per_step=decode_s / max(steps, 1) * 1e3,
+                   launches=launches, plain_calls=plain,
+                   n_layers=engines[0].model.cfg.n_layers,
+                   peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
+                   serve_calls=sum(a["calls"] for a in timers),
+                   engine_s=sum(a["wall_s"] for a in timers),
+                   engine_prefill_s=sum(a["prefill_s"] for a in timers),
+                   engine_decode_s=decode_s, **extra)
+    print(json.dumps({label: summary}), flush=True)
     bad = [r.rid for r in trace
            if not r.done or r.output_tokens is None
            or len(r.output_tokens) != min(r.gen_len, r.max_gen)
            or not all(0 <= t < vocab for t in r.output_tokens)]
-    summary = dict(dataclasses.asdict(metrics), wall_s=wall,
-                   build_s=t_build, prefill_stages=stages,
-                   decode_steps=steps, launches=launches,
-                   plain_calls=plain, n_layers=n_layers,
-                   peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
-                   pool_pages=engines[0].allocator.n_pages,
-                   serve_calls=sum(a["calls"] for a in split),
-                   engine_s=sum(a["wall_s"] for a in split),
-                   engine_prefill_s=sum(a["prefill_s"] for a in split),
-                   **ref_stats)
-    print(json.dumps({"slice": summary}), flush=True)
     if metrics.n_completed != metrics.n_requests or \
             metrics.n_requests != len(trace):
-        raise SystemExit(f"{metrics.n_completed} of {len(trace)} requests "
-                         f"completed")
+        raise SystemExit(f"{label}: {metrics.n_completed} of {len(trace)} "
+                         f"requests completed")
     if bad:
-        raise SystemExit(f"requests with missing or malformed output: {bad}")
-    if metrics.prefix_hit_tokens <= 0:
-        raise SystemExit("no prefix-sharing hit: the tail path never ran")
+        raise SystemExit(f"{label}: requests with missing or malformed "
+                         f"output: {bad}")
     if any(plain.values()):
-        raise SystemExit(f"plain versions ran on the card: {plain}")
-    if launches != want or min(launches.values()) <= 0:
-        raise SystemExit(f"kernel launches {launches} != {want} implied by "
-                         f"{stages} prefill stages and {steps} decode steps "
+        raise SystemExit(f"{label}: plain versions ran on the card: {plain}")
+    return summary
+
+
+def check_launches(label: str, summary: dict, used, unused) -> None:
+    """The kernels in ``used`` launched once per layer per prefill stage
+    (the writes) or decode step (the attentions); those in ``unused`` never
+    launched."""
+    n_layers = summary["n_layers"]
+    per = {"paged_prefill_write": summary["prefill_stages"],
+           "fused_rope_prefill_write": summary["prefill_stages"],
+           "paged_decode_attention": summary["decode_steps"],
+           "fused_rope_decode_append": summary["decode_steps"]}
+    launches = summary["launches"]
+    want = {k: n_layers * per[k] if k in used else 0 for k in launches}
+    if launches != want or min(launches[k] for k in used) <= 0:
+        raise SystemExit(f"{label}: kernel launches {launches} != {want} "
+                         f"implied by {summary['prefill_stages']} prefill "
+                         f"stages and {summary['decode_steps']} decode steps "
                          f"of {n_layers} layers")
-    log(f"slice: {metrics.n_completed}/{metrics.n_requests} requests, "
-        f"prefix hits {metrics.prefix_hit_tokens} tokens, launches "
+    log(f"{label}: {summary['n_completed']}/{summary['n_requests']} "
+        f"requests, prefix hits {summary['prefix_hit_tokens']} tokens, "
+        f"re-prefill {summary['reprefill_tokens']} tokens, launches "
         f"{launches} as implied")
+
+
+def run_unfused_slice():
+    """Phase 5 (and 4): returns (launches, what the fused slice reuses)."""
+    from repro_torch.launch import serve
+    args = serve.parse_args(PAGED_ARGV)
+    t0 = time.perf_counter()
+    core, engines, vocab = serve.build_core(args)
+    torch.cuda.synchronize()
+    t_build = time.perf_counter() - t0
+    model, params = engines[0].model, engines[0].params
+    ref_stats = check_reference(model, params, args.page_tokens)
+    summary = serve_trace("slice", core, engines, serve.make_trace(args, vocab),
+                          args.duration, dict(build_s=t_build,
+                                              pool_pages=engines[0].allocator
+                                              .n_pages, **ref_stats))
+    if summary["prefix_hit_tokens"] <= 0:
+        raise SystemExit("no prefix-sharing hit: the tail path never ran")
+    check_launches("unfused slice", summary, UNFUSED, FUSED)
     profile_window(engines[0], vocab)
-    return launches
+    reuse = dict(args=args, model=model, params=params, est=core.est,
+                 mem=core.mem, strategy=core.s,
+                 pool_tokens=engines[0].allocator.n_pages * args.page_tokens,
+                 vocab=vocab, max_rel_logit_diff=ref_stats[
+                     "max_rel_logit_diff_fused_vs_unfused"])
+    return summary["launches"], reuse
 
 
-def time_serve_calls(engine) -> dict:
-    """Sum each ``serve_batch_paged`` call's measured wall and prefill
-    seconds (the engine's own clocks) into the returned dict."""
-    acc = {"calls": 0, "wall_s": 0.0, "prefill_s": 0.0}
-    serve = engine.serve_batch_paged
+def check_fused_engines(model, params, pg: int, vocab: int) -> dict:
+    """Small fused and unfused engines on the launcher's model serve the
+    same batches: three slices with retention, then a prompt that joins
+    two of a resident's pages.  The streams must be equal, but for
+    near-ties: where they part, the dense plain path's top-2 logits for
+    that token lie within ``REF_TOL`` of its largest |logit| (the paths'
+    stated disagreement); each such tie is recorded and the rest of that
+    stream, now conditioned on other tokens, is not compared."""
+    import numpy as np
+    from repro_torch.engine.static_engine import StaticEngine
+    rng = np.random.default_rng(3)
+    engines = {impl: StaticEngine(model, params, eos_id=1, len_bucket=8,
+                                  kv_layout="paged", page_tokens=pg,
+                                  kv_pool_tokens=256 * pg, attn_impl=impl,
+                                  device="cuda")
+               for impl in ("unfused", "fused")}
+    ps = [rng.integers(2, vocab, size=n).astype(np.int32)
+          for n in (40, 33, 57, 21)]
+    totals = [40, 24, 32, 16]
+    outs = {impl: [[] for _ in ps] for impl in engines}
+    while any(len(o) < t for o, t in zip(outs["unfused"], totals)):
+        idx = [i for i in range(len(ps))
+               if len(outs["unfused"][i]) < totals[i]]
+        kw = dict(forced_gen_lens=[totals[i] - len(outs["unfused"][i])
+                                   for i in idx],
+                  already_generated=[list(outs["unfused"][i]) for i in idx])
+        for impl, eng in engines.items():
+            res = eng.serve_batch_paged([ps[i] for i in idx], 16, idx, **kw)
+            for s, i in enumerate(idx):
+                outs[impl][i].extend(res.results[s]["tokens"])
+    joiner = np.concatenate([ps[2][:2 * pg], ps[3][:9]])
+    for impl, eng in engines.items():
+        res = eng.serve_batch_paged([joiner], 16, [10], forced_gen_lens=[16])
+        if res.prefix_hit_tokens != 2 * pg:
+            raise SystemExit(f"fused engine check: the {impl} joiner hit "
+                             f"{res.prefix_hit_tokens} prefix tokens, not "
+                             f"{2 * pg}")
+        outs[impl].append(res.results[0]["tokens"])
+    ps.append(joiner)
+    ties, n_equal = [], 0
+    with torch.no_grad():
+        for p, want, got in zip(ps, outs["unfused"], outs["fused"]):
+            for j, (a, b) in enumerate(zip(want, got)):
+                if a == b:
+                    continue
+                ctx = np.concatenate([p, np.asarray(want[:j], np.int32)])
+                toks = torch.from_numpy(ctx[None]).cuda()
+                lens = torch.tensor([len(ctx)], dtype=torch.int32,
+                                    device="cuda")
+                logits, _ = model.prefill(params, {"tokens": toks,
+                                                   "lengths": lens},
+                                          len(ctx) + 1)
+                top2 = torch.topk(logits[0].float(), 2).values
+                gap = (top2[0] - top2[1]).item()
+                scale = logits[0].float().abs().max().item()
+                if gap > REF_TOL * scale:
+                    raise SystemExit(f"fused engine check: token {j} of a "
+                                     f"{len(p)}-token prompt: fused {b} != "
+                                     f"unfused {a} with a top-2 gap of "
+                                     f"{gap:.3e} (no near-tie)")
+                ties.append(dict(prompt=len(p), token=j, gap=gap))
+                break
+            else:
+                if len(want) != len(got):
+                    raise SystemExit("fused engine check: stream lengths "
+                                     "differ")
+                n_equal += 1
+    for eng in engines.values():
+        for rid in list(range(len(ps) - 1)) + [10]:
+            eng.release_request(rid)
+        if eng.allocator.free_blocks != eng.allocator.n_pages:
+            raise SystemExit("fused engine check: pages leaked")
+    log(f"fused engines: {n_equal} of {len(ps)} streams equal to the "
+        f"unfused engine's, near-ties {ties}")
+    return dict(streams=len(ps), streams_equal=n_equal, near_ties=ties)
 
-    def timed(*args, **kw):
-        res = serve(*args, **kw)
-        acc["calls"] += 1
-        acc["wall_s"] += res.wall_time
-        acc["prefill_s"] += res.prefill_time
-        return res
 
-    engine.serve_batch_paged = timed
-    return acc
+def run_fused_slice(reuse: dict):
+    """Phase 6: returns the fused kernels' launches."""
+    from repro_torch.engine.static_engine import StaticEngine
+    from repro_torch.launch import serve
+    from repro_torch.serving import RealBackend, SchedulerCore
+    args, model, params = reuse["args"], reuse["model"], reuse["params"]
+    parity = check_fused_engines(model, params, args.page_tokens,
+                                 reuse["vocab"])
+    engines = [StaticEngine(model, params, eos_id=1, len_bucket=8,
+                            kv_layout="paged", page_tokens=args.page_tokens,
+                            kv_pool_tokens=reuse["pool_tokens"],
+                            prefix_sharing=args.prefix_sharing,
+                            attn_impl="fused", device="cuda")
+               for _ in range(args.workers)]
+    mem, est = reuse["mem"], reuse["est"]
+    backend = RealBackend(engines, mem=mem, kv_layout="paged",
+                          sched_bucket=est.bucket, kv_retain="request")
+    core = SchedulerCore(reuse["strategy"], backend, args.workers, est, mem)
+    summary = serve_trace("fused_slice", core, engines,
+                          serve.make_trace(args, reuse["vocab"]),
+                          args.duration, dict(engine_parity=parity))
+    if summary["prefix_hit_tokens"] <= 0:
+        raise SystemExit("fused slice: no prefix-sharing hit")
+    if summary["reprefill_tokens"] != 0:
+        raise SystemExit(f"fused slice: {summary['reprefill_tokens']} "
+                         f"tokens re-prefilled")
+    check_launches("fused slice", summary, FUSED, UNFUSED)
+    profile_window(engines[0], reuse["vocab"])
+    return summary["launches"]
+
+
+def run_dense_slice() -> None:
+    """Phase 7: the launcher's dense SCLS path on the same trace."""
+    from repro_torch.launch import serve
+    args = serve.parse_args(DENSE_ARGV)
+    t0 = time.perf_counter()
+    core, engines, vocab = serve.build_core(args)
+    torch.cuda.synchronize()
+    t_build = time.perf_counter() - t0
+    summary = serve_trace("dense_slice", core, engines,
+                          serve.make_trace(args, vocab), args.duration,
+                          dict(build_s=t_build))
+    if summary["reprefill_tokens"] <= 0:
+        raise SystemExit("dense slice: nothing re-prefilled, but requests "
+                         "of up to 256 tokens outlive slices of 64")
+    if any(summary["launches"].values()):
+        raise SystemExit(f"dense slice: kernels launched: "
+                         f"{summary['launches']}")
+    log(f"dense slice: {summary['n_completed']}/{summary['n_requests']} "
+        f"requests, re-prefill {summary['reprefill_tokens']} tokens, no "
+        f"kernel launched")
+
+
+def release_cuda() -> None:
+    """Free the engines (and their page pools) that went out of scope."""
+    gc.collect()
+    torch.cuda.empty_cache()
 
 
 def profile_window(engine, vocab: int) -> None:
@@ -434,7 +885,8 @@ def profile_window(engine, vocab: int) -> None:
     busy = sum(dev_us(e) for e in events) / 1e6
     top = sorted(events, key=dev_us, reverse=True)[:8]
     print(json.dumps({"profile": dict(
-        rows=8, prompt_tokens=256, steps=res.steps, wall_s=wall,
+        attn_impl=engine.attn_impl, rows=8, prompt_tokens=256,
+        steps=res.steps, wall_s=wall,
         prefill_s=res.prefill_time, device_busy_s=busy,
         device_busy_share=busy / wall,
         top_kernels_ms={e.key[:80]: dev_us(e) / 1e3 for e in top})}),
@@ -471,12 +923,20 @@ def main() -> int:
     gen = torch.Generator(device="cuda")
     gen.manual_seed(0)
     flush = torch.empty(128 * 2 ** 20, dtype=torch.uint8, device="cuda")
-    rows = [check_decode(cfg, n_pages, pg, gen, flush),
-            check_write(cfg, n_pages, pg, gen, flush)]
+    rows = [check(cfg, n_pages, pg, gen, flush)
+            for check in (check_decode, check_write, check_fused_write,
+                          check_fused_decode)]
     del flush
-    torch.cuda.empty_cache()
+    release_cuda()
 
-    launches = run_slice()
+    launches, reuse = run_unfused_slice()
+    release_cuda()
+    launches.update({k: v for k, v in run_fused_slice(reuse).items()
+                     if k in FUSED})
+    del reuse
+    release_cuda()
+    run_dense_slice()
+    release_cuda()
     for row in rows:
         row["launches"] = launches[row["name"]]
     print(json.dumps({"kernels": rows}), flush=True)

@@ -1,9 +1,8 @@
-"""Static-batching inference engine with persistent paged KV storage.
+"""Static-batching inference engine, dense or with persistent paged KV
+storage.
 
-PyTorch counterpart of ``repro.engine.static_engine`` (the
-``kv_layout="paged"`` engine that the SCLS real backend drives with
-``kv_retain="request"``).  Semantics follow the paper's §2.4 and the JAX
-engine exactly:
+PyTorch counterpart of ``repro.engine.static_engine``.  Semantics follow
+the paper's §2.4 and the JAX engine exactly:
 
   * batched prompts are left-padded to the bucketed batch input length
     (``len_bucket``), batch sizes are bucketed to a power of two and
@@ -14,11 +13,23 @@ engine exactly:
   * ``forced_gen_lens`` emulates known EOS positions (``EOS_DRIVEN`` means
     the model's own EOS ends the row).
 
-Persistent storage: the engine owns a page pool and per-request page
+Dense layout (``serve_batch``, the default): each slice prefills prompt +
+``already_generated`` into a fresh dense cache of exactly ``L + S`` slots
+(Eq. 5) and decodes in it; a rescheduled request re-prefills everything
+(the paper's §3.3 overhead, counted in ``ServeResult.reprefill_tokens``).
+This path calls no kernel, as in the reference.
+
+Persistent paged storage (``kv_layout="paged"``, ``serve_batch_paged``):
+the engine owns a page pool and per-request page
 state that survives across ``serve_batch_paged`` calls.  A resumed
 request remaps its retained pages into the batch block table and decodes
 from its stored next token — the paper's §3.3 re-prefill becomes a
 page-table remap.  Layout: logical slot == absolute position.
+
+``attn_impl`` picks the paged path's attention: ``"unfused"`` (torch
+RoPE, then the ``paged_prefill_write`` / ``paged_decode_attention``
+kernels) or ``"fused"`` (the ``fused_rope_prefill_write`` /
+``fused_rope_decode_append`` kernels).
 
 The pools ``k_pages``/``v_pages`` are updated **in place**.  The JAX
 engine threads immutable pools through ``jit`` with buffer donation; in
@@ -76,30 +87,35 @@ class _Resident:
 
 
 class StaticEngine:
-    """Persistent paged static-batching engine on one device.
+    """Static-batching engine on one device: ``serve_batch`` over a dense
+    per-slice cache, or ``serve_batch_paged`` over an engine-owned page
+    pool (``kv_layout="paged"``).
 
     ``device`` defaults to the CUDA card (and raises without one); the
     model's parameters must already live there."""
 
     def __init__(self, model: Model, params, eos_id: int = 1,
                  pad_id: int = 0, len_bucket: int = 16,
-                 kv_layout: str = "paged", page_tokens: int = 16,
+                 extra_inputs: Optional[Dict[str, np.ndarray]] = None,
+                 kv_layout: str = "dense", page_tokens: int = 16,
                  kv_pool_tokens: Optional[int] = None,
                  prefix_sharing: bool = True, attn_impl: str = "unfused",
                  device: DeviceLike = None):
-        if kv_layout != "paged":
+        if extra_inputs:
             raise NotImplementedError(
-                f"kv_layout={kv_layout!r}: only the persistent paged engine "
-                f"is ported; the dense layout and serve_batch are next on "
-                f"the ROADMAP")
+                "extra_inputs (the frontend embeddings of the VLM family) "
+                "are not ported yet: ROADMAP A8")
         check_impl(attn_impl)
+        if kv_layout not in ("dense", "paged"):
+            raise ValueError(f"unknown kv_layout {kv_layout!r}")
         cfg = model.cfg
-        if kv_pool_tokens is None or kv_pool_tokens <= 0:
-            raise ValueError("kv_layout='paged' needs kv_pool_tokens "
-                             "(the engine-owned page pool size)")
-        if kv_pool_tokens % page_tokens:
-            raise ValueError(f"kv_pool_tokens {kv_pool_tokens} must be "
-                             f"a multiple of page_tokens {page_tokens}")
+        if kv_layout == "paged":
+            if kv_pool_tokens is None or kv_pool_tokens <= 0:
+                raise ValueError("kv_layout='paged' needs kv_pool_tokens "
+                                 "(the engine-owned page pool size)")
+            if kv_pool_tokens % page_tokens:
+                raise ValueError(f"kv_pool_tokens {kv_pool_tokens} must be "
+                                 f"a multiple of page_tokens {page_tokens}")
         self.device = resolve_device(device)
         if params.embed.table.device != self.device:
             raise ValueError(f"params live on {params.embed.table.device}, "
@@ -111,7 +127,16 @@ class StaticEngine:
         self.len_bucket = len_bucket
         self.kv_layout = kv_layout
         self.attn_impl = attn_impl
-        self.prefix_sharing = prefix_sharing
+        self.prefix_sharing = prefix_sharing and kv_layout == "paged"
+        self.allocator: Optional[PageAllocator] = None
+        #: device work counters: prefill model calls (a dense slice's
+        #: prefill, stages A and A' of a paged slice) and decode
+        #: iterations — on the paged path each runs one kernel launch per
+        #: layer
+        self.n_prefill_stages = 0
+        self.n_decode_steps = 0
+        if kv_layout == "dense":
+            return
         self.page_tokens = page_tokens
         self.allocator = PageAllocator(kv_pool_tokens // page_tokens,
                                        page_tokens)
@@ -122,10 +147,6 @@ class StaticEngine:
         self._prefix = PrefixIndex(page_tokens)
         self._stamp = 0
         self.n_evictions = 0
-        #: device work counters: prefill model calls (stage A and A') and
-        #: decode iterations — each runs one kernel launch per layer
-        self.n_prefill_stages = 0
-        self.n_decode_steps = 0
 
     # ------------------------------------------------------------------
     def _tensor(self, a: np.ndarray) -> torch.Tensor:
@@ -161,17 +182,12 @@ class StaticEngine:
         self.n_prefill_stages += 1
         return greedy(logits).cpu().numpy()  # host transfer: blocks
 
-    def _decode_slice(self, slice_len: int, block_table: np.ndarray,
-                      slot_pos: np.ndarray, row_len: np.ndarray,
-                      first_tok: np.ndarray, forced: np.ndarray):
-        """The JAX ``while_loop`` as a Python loop; returns
+    def _decode_loop(self, cur: torch.Tensor, forced: np.ndarray,
+                     slice_len: int, step_fn):
+        """The JAX ``while_loop`` as a Python loop: ``step_fn(cur, step)``
+        runs one decode iteration and returns its logits.  Returns
         (out (B, S), steps, done (B,), next tokens (B,)) on the host."""
-        cfg = self.model.cfg
-        cache = PagedKVCache(self._k_pages, self._v_pages,
-                             self._tensor(block_table),
-                             self._tensor(slot_pos), self._tensor(row_len))
         forced_t = self._tensor(forced)
-        cur = self._tensor(first_tok)
         B = cur.shape[0]
         out = torch.full((B, slice_len), -1, dtype=torch.int32,
                          device=self.device)
@@ -180,15 +196,51 @@ class StaticEngine:
         while step < slice_len and not bool(done.all()):
             out[:, step] = cur
             done |= (cur == self.eos_id) | (step + 1 >= forced_t)
-            q_pos = cache.lengths + step  # compact layout: slot == position
-            logits, cache = tfm.decode_step_paged(self.params, cfg, cache,
-                                                  cur, q_pos, q_pos,
-                                                  attn_impl=self.attn_impl)
-            cur = greedy(logits)
+            cur = greedy(step_fn(cur, step))
             step += 1
             self.n_decode_steps += 1
         return (out.cpu().numpy(), step, done.cpu().numpy(),
                 cur.cpu().numpy())
+
+    def _decode_slice(self, slice_len: int, block_table: np.ndarray,
+                      slot_pos: np.ndarray, row_len: np.ndarray,
+                      first_tok: np.ndarray, forced: np.ndarray):
+        """One paged decode slice through the per-row block tables."""
+        cfg = self.model.cfg
+        cache = PagedKVCache(self._k_pages, self._v_pages,
+                             self._tensor(block_table),
+                             self._tensor(slot_pos), self._tensor(row_len))
+
+        def step_fn(cur: torch.Tensor, step: int) -> torch.Tensor:
+            nonlocal cache
+            q_pos = cache.lengths + step  # compact layout: slot == position
+            logits, cache = tfm.decode_step_paged(self.params, cfg, cache,
+                                                  cur, q_pos, q_pos,
+                                                  attn_impl=self.attn_impl)
+            return logits
+
+        return self._decode_loop(self._tensor(first_tok), forced, slice_len,
+                                 step_fn)
+
+    def _serve_dense(self, tokens: np.ndarray, lengths: np.ndarray,
+                     forced: np.ndarray, slice_len: int):
+        """Prefill into a dense cache of ``L + slice_len`` slots, then the
+        decode loop (the JAX ``_serve_fn``); returns (out, steps, done)."""
+        batch = {"tokens": self._tensor(tokens),
+                 "lengths": self._tensor(lengths)}
+        logits, cache = self.model.prefill(self.params, batch,
+                                           tokens.shape[1] + slice_len)
+        self.n_prefill_stages += 1
+
+        def step_fn(cur: torch.Tensor, step: int) -> torch.Tensor:
+            nonlocal cache
+            logits, cache = self.model.decode_step(self.params, cache, cur,
+                                                   step)
+            return logits
+
+        out, steps, done, _ = self._decode_loop(greedy(logits), forced,
+                                                slice_len, step_fn)
+        return out, steps, done
 
     # ------------------------------------------------------------------
     def _evict(self, rid: int) -> None:
@@ -248,6 +300,9 @@ class StaticEngine:
         ``MemoryError`` with no parked victim means the batcher violated
         its own bound — the rows granted in this call are unwound first.
         """
+        if self.kv_layout != "paged":
+            raise ValueError("serve_batch_paged needs kv_layout='paged'; a "
+                             "dense engine serves through serve_batch")
         pg = self.page_tokens
         B_raw = len(prompts)
         if len(rids) != B_raw:
@@ -426,6 +481,46 @@ class StaticEngine:
                            prefill_time=t_prefill,
                            prefix_hit_tokens=prefix_hit,
                            shared_blocks=shared_blocks)
+
+    @torch.no_grad()
+    def serve_batch(self, prompts: Sequence[np.ndarray], slice_len: int,
+                    forced_gen_lens: Optional[Sequence[int]] = None,
+                    already_generated: Optional[Sequence[Sequence[int]]] = None,
+                    ) -> "ServeResult":
+        """Serve one static batch for at most ``slice_len`` iterations.
+
+        ``already_generated``: per-request previously generated tokens —
+        an SCLS reschedule re-prefills prompt + generated (paper §3.3
+        overhead, counted in ``reprefill_tokens``)."""
+        B_raw = len(prompts)
+        eff = []
+        reprefill = 0
+        for i, p in enumerate(prompts):
+            prev = list(already_generated[i]) if already_generated else []
+            if prev:  # §3.3: a reschedule re-prefills prompt + generated
+                reprefill += len(p) + len(prev)
+            eff.append(np.concatenate([np.asarray(p, np.int32),
+                                       np.asarray(prev, np.int32)])
+                       if prev else np.asarray(p, np.int32))
+        lengths = np.array([len(e) for e in eff], np.int32)
+        L = bucket_len(int(lengths.max()), self.len_bucket)
+        B = _pow2_bucket(B_raw)
+        tokens = np.full((B, L), self.pad_id, np.int32)
+        for i, e in enumerate(eff):
+            tokens[i, L - len(e):] = e  # left padding
+        lengths_p = np.concatenate([lengths, np.ones(B - B_raw, np.int32)])
+        forced = self._forced_array(forced_gen_lens, B, B_raw)
+        t0 = time.perf_counter()
+        out, steps, done = self._serve_dense(tokens, lengths_p, forced,
+                                             slice_len)
+        wall = time.perf_counter() - t0
+        results = self._assemble_results(
+            out, steps, done, forced_gen_lens,
+            [L - int(lengths[i]) for i in range(B_raw)])
+        return ServeResult(results=results, steps=steps, wall_time=wall,
+                           batch_input_len=L, batch_size=B_raw,
+                           early_return=steps < slice_len,
+                           reprefill_tokens=reprefill)
 
     def _forced_array(self, forced_gen_lens: Optional[Sequence[int]],
                       B: int, B_raw: int) -> np.ndarray:

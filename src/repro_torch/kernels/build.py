@@ -4,8 +4,8 @@ Each ``csrc/<name>.cu`` has a plain C interface and is compiled by
 ``nvcc`` into its own shared library for ``sm_90a``; no PyTorch header is
 included, so a build takes seconds.  Libraries go to
 ``build/repro_torch_kernels/`` at the repository root, named by a hash of
-the source and flags, so an edited source is rebuilt and an unchanged one
-is reused.  ``build_all`` starts one ``nvcc`` per source, all at once.
+the source, the shared headers (``csrc/*.cuh``) and the flags, so an
+edited source or header is rebuilt and an unchanged one is reused.  ``build_all`` starts one ``nvcc`` per source, all at once.
 A failed build raises; nothing falls back to the plain versions.
 """
 from __future__ import annotations
@@ -22,7 +22,8 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
-KERNELS = ("paged_prefill_write", "paged_decode_attention")
+KERNELS = ("paged_prefill_write", "paged_decode_attention",
+           "fused_rope_prefill_write", "fused_rope_decode_append")
 
 _loaded: Dict[str, ctypes.CDLL] = {}
 
@@ -39,9 +40,11 @@ def nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes()
-                            + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    digest = h.hexdigest()[:16]
     return BUILD_DIR / f"lib{name}-{digest}.so"
 
 

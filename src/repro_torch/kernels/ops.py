@@ -13,12 +13,19 @@ from typing import Dict, Optional
 import torch
 
 from repro_torch.kernels import ref
+from repro_torch.kernels import fused_rope_decode_append as _fdecode_kernel
+from repro_torch.kernels import fused_rope_prefill_write as _fwrite_kernel
 from repro_torch.kernels import paged_decode_attention as _decode_kernel
 from repro_torch.kernels import paged_prefill_write as _write_kernel
 
+#: each kernel's wrapper module, by kernel name
+_KERNELS = {"paged_prefill_write": _write_kernel,
+            "paged_decode_attention": _decode_kernel,
+            "fused_rope_prefill_write": _fwrite_kernel,
+            "fused_rope_decode_append": _fdecode_kernel}
+
 #: calls that took a kernel's plain version (CPU tensors), by kernel
-plain_calls: Dict[str, int] = {"paged_prefill_write": 0,
-                               "paged_decode_attention": 0}
+plain_calls: Dict[str, int] = {name: 0 for name in _KERNELS}
 
 
 def _on_cpu(t: torch.Tensor, name: str) -> bool:
@@ -32,13 +39,12 @@ def _on_cpu(t: torch.Tensor, name: str) -> bool:
 
 def launches() -> Dict[str, int]:
     """Kernel launches since the last ``reset_counts``."""
-    return {"paged_prefill_write": _write_kernel.launches,
-            "paged_decode_attention": _decode_kernel.launches}
+    return {name: mod.launches for name, mod in _KERNELS.items()}
 
 
 def reset_counts() -> None:
-    _write_kernel.reset_launches()
-    _decode_kernel.reset_launches()
+    for mod in _KERNELS.values():
+        mod.reset_launches()
     for k in plain_calls:
         plain_calls[k] = 0
 
@@ -74,3 +80,49 @@ def paged_decode_attention(q: torch.Tensor, k_pages: torch.Tensor,
     return _decode_kernel.paged_decode_attention(q, k_pages, v_pages,
                                                  block_table, slot_pos,
                                                  q_pos, window=window)
+
+
+def fused_rope_prefill_write(k_new: torch.Tensor, v_new: torch.Tensor,
+                             positions: torch.Tensor,
+                             block_table: torch.Tensor,
+                             k_pages: torch.Tensor, v_pages: torch.Tensor,
+                             theta: float = 10000.0) -> None:
+    """Rotate prefill K at its absolute positions and write K/V into the
+    paged pool in one pass, in place.
+
+    k/v_new (B,T,Hkv,D) left-padded *unrotated* projections; positions
+    (B,T) from ``models.transformer.make_positions`` (pads < 0, real
+    tokens at their absolute position == destination logical slot);
+    block_table (B,nb); k/v_pages (P,pg,Hkv,D).  V is written unrotated;
+    slots below a row's first real position (a shared-prefix tail) are
+    left as they were, whether or not that position is page-aligned."""
+    if _on_cpu(k_new, "fused_rope_prefill_write"):
+        ref.fused_rope_prefill_write_ref(k_new, v_new, positions,
+                                         block_table, k_pages, v_pages,
+                                         theta=theta)
+        return
+    _fwrite_kernel.fused_rope_prefill_write(k_new, v_new, positions,
+                                            block_table, k_pages, v_pages,
+                                            theta=theta)
+
+
+def fused_rope_decode_append(q: torch.Tensor, k_new: torch.Tensor,
+                             v_new: torch.Tensor, block_table: torch.Tensor,
+                             slot_pos: torch.Tensor, slots: torch.Tensor,
+                             q_pos: torch.Tensor, k_pages: torch.Tensor,
+                             v_pages: torch.Tensor, theta: float = 10000.0,
+                             window: Optional[int] = None) -> torch.Tensor:
+    """Rotate the new q/k token, append its K/V to its page slot in place,
+    and run paged decode attention over the pool after the append.
+
+    q (B,Hq,D) and k/v_new (B,Hkv,D) *unrotated*; block_table (B,nb);
+    slot_pos (B,nb·pg) already marking the new token's slot; slots (B,)
+    destination logical slot; q_pos (B,) absolute position.  Returns
+    (B,Hq,D)."""
+    if _on_cpu(q, "fused_rope_decode_append"):
+        return ref.fused_rope_decode_append_ref(
+            q, k_new, v_new, block_table, slot_pos, slots, q_pos, k_pages,
+            v_pages, theta=theta, window=window)
+    return _fdecode_kernel.fused_rope_decode_append(
+        q, k_new, v_new, block_table, slot_pos, slots, q_pos, k_pages,
+        v_pages, theta=theta, window=window)

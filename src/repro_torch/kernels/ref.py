@@ -41,6 +41,70 @@ def paged_prefill_write_ref(k_new: torch.Tensor, v_new: torch.Tensor,
     v_pages[page, off] = v_new[valid].to(v_pages.dtype)
 
 
+def _rope_ref(x: torch.Tensor, positions: torch.Tensor,
+              theta: float) -> torch.Tensor:
+    """Llama half-rotation RoPE, the arithmetic of
+    ``models.common.apply_rope`` kept local so this module imports no
+    model code.  x (..., T, H, D); positions (..., T)."""
+    D = x.shape[-1]
+    exps = torch.arange(0, D, 2, dtype=torch.float32, device=x.device) / D
+    freqs = 1.0 / (theta ** exps)
+    ang = positions[..., None].float() * freqs
+    cos = torch.cos(ang)[..., None, :]
+    sin = torch.sin(ang)[..., None, :]
+    x1, x2 = x.float().chunk(2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(x.dtype)
+
+
+def fused_rope_prefill_write_ref(k_new: torch.Tensor, v_new: torch.Tensor,
+                                 positions: torch.Tensor,
+                                 block_table: torch.Tensor,
+                                 k_pages: torch.Tensor, v_pages: torch.Tensor,
+                                 theta: float = 10000.0) -> None:
+    """Rotate prefill K at its absolute positions, then scatter K/V into
+    the paged pool, in place.
+
+    k/v_new (B,T,Hkv,D) *unrotated*; positions (B,T) (pads < 0, real
+    tokens at their absolute position == destination logical slot);
+    block_table (B,nb); k/v_pages (P,pg,Hkv,D).  V is written unrotated;
+    slots that no token names (a shared prefix below a tail) are left as
+    they were."""
+    kr = _rope_ref(k_new, positions.clamp(min=0), theta)
+    paged_prefill_write_ref(kr, v_new, positions, block_table, k_pages,
+                            v_pages)
+
+
+def fused_rope_decode_append_ref(q: torch.Tensor, k_new: torch.Tensor,
+                                 v_new: torch.Tensor,
+                                 block_table: torch.Tensor,
+                                 slot_pos: torch.Tensor, slots: torch.Tensor,
+                                 q_pos: torch.Tensor, k_pages: torch.Tensor,
+                                 v_pages: torch.Tensor,
+                                 theta: float = 10000.0,
+                                 window: Optional[int] = None,
+                                 scale: Optional[float] = None
+                                 ) -> torch.Tensor:
+    """Rotate the new q/k token at ``q_pos``, append its K/V to logical
+    slot ``slots`` of the pool in place, then run paged decode attention
+    over the pool after the append.
+
+    q (B,Hq,D) and k/v_new (B,Hkv,D) *unrotated*; slot_pos (B,nb·pg)
+    already marks the new token's slot (it attends to itself); slots (B,);
+    q_pos (B,).  Returns out (B,Hq,D)."""
+    qr = _rope_ref(q[:, None], q_pos[:, None], theta)[:, 0]
+    knr = _rope_ref(k_new[:, None], q_pos[:, None], theta)[:, 0]
+    pg = k_pages.shape[1]
+    slots = slots.long()
+    page = torch.gather(block_table.long(), 1, (slots // pg)[:, None])[:, 0]
+    off = slots % pg
+    k_pages[page, off] = knr.to(k_pages.dtype)
+    v_pages[page, off] = v_new.to(v_pages.dtype)
+    return paged_decode_attention_ref(qr, k_pages, v_pages, block_table,
+                                      slot_pos, q_pos, window=window,
+                                      scale=scale)
+
+
 def paged_decode_attention_ref(q: torch.Tensor, k_pages: torch.Tensor,
                                v_pages: torch.Tensor,
                                block_table: torch.Tensor,

@@ -1,11 +1,15 @@
 """Serving launcher: the SCLS scheduler over the port's engines.
 
-  # persistent paged engines on the card (every token really computed):
-  # prefix pages survive across slices, so a resumed slice re-prefills
-  # nothing, and prompts that share pages with a resident request
-  # prefill only their tail
+  # the paper's SCLS on the card: dense per-slice KV caches, every
+  # reschedule re-prefills prompt + generated tokens (§3.3)
   PYTHONPATH=src python -m repro_torch.launch.serve --backend real \\
       --arch llama3.2-1b --reduced --workers 1 --rate 2 --duration 8
+
+  # persistent paged engines: prefix pages survive across slices, so a
+  # resumed slice re-prefills nothing, and prompts that share pages with a
+  # resident request prefill only their tail
+  PYTHONPATH=src python -m repro_torch.launch.serve --backend real \\
+      --kv-layout paged --kv-retain request --reduced
 
   # the same on the CPU (plain versions of the kernels)
   PYTHONPATH=src python -m repro_torch.launch.serve --backend real \\
@@ -14,12 +18,17 @@
   # discrete-event sim backend (no model): the same scheduler code
   PYTHONPATH=src python -m repro_torch.launch.serve --backend sim
 
-The real backend profiles the engine, fits the Eq. 3/4 estimator, builds
-a ``PagedMemoryEstimator`` over ``--m-available`` bytes and one
-persistent paged ``StaticEngine`` per worker whose page pool is exactly
-that budget (``kv_retain="request"``, COW prefix sharing on unless
-``--no-prefix-sharing``), then replays a CodeFuse-shaped Poisson trace
-through ``SchedulerCore.run`` and prints the metrics as JSON.
+The real backend profiles the engine and fits the Eq. 3/4 estimator.
+Its memory model follows ``--kv-layout``: ``AnalyticMemoryEstimator``
+(Eq. 5-9) over ``--m-available`` bytes for ``dense``, a
+``PagedMemoryEstimator`` of the same bytes for ``paged``.  With
+``--kv-retain request`` each worker is a persistent paged
+``StaticEngine`` whose page pool is exactly that budget (COW prefix
+sharing on unless ``--no-prefix-sharing``); with ``slice`` (the default)
+each worker is a dense engine that prefills every slice afresh, and a
+paged layout keeps per-worker page envelopes in the backend.  A
+CodeFuse-shaped Poisson trace is replayed through ``SchedulerCore.run``
+and the metrics are printed as JSON.
 """
 from __future__ import annotations
 
@@ -34,7 +43,10 @@ from repro_torch.cluster.metrics import RunMetrics
 from repro_torch.cluster.trace import CODEFUSE, generate_trace
 from repro_torch.configs import ARCHS, get_config
 from repro_torch.core.estimator import a100_llama13b_profile
-from repro_torch.core.memory import PagedMemoryEstimator, RuleBasedMemoryEstimator
+from repro_torch.core.memory import (A100_80GB_AVAILABLE, LLAMA2_13B_DELTA,
+                                     AnalyticMemoryEstimator,
+                                     MemoryEstimator, PagedMemoryEstimator,
+                                     RuleBasedMemoryEstimator)
 from repro_torch.core.request import Request
 from repro_torch.core.schedulers import ALL_STRATEGIES, make_strategy
 from repro_torch.serving import (RealBackend, SchedulerCore, SimBackend,
@@ -63,9 +75,22 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
     ap.add_argument("--max-gen", type=int, default=256)
     ap.add_argument("--max-input", type=int, default=CODEFUSE.max_input,
                     help="prompt-length cap of the CodeFuse trace")
-    ap.add_argument("--page-tokens", type=int, default=16)
+    ap.add_argument("--kv-layout", default="dense",
+                    choices=["dense", "paged"],
+                    help="worker KV layout: paged reserves slice envelopes "
+                         "block by block")
+    ap.add_argument("--page-tokens", type=int, default=16,
+                    help="cache slots per KV block for --kv-layout paged")
+    ap.add_argument("--kv-retain", default="slice",
+                    choices=["slice", "request"],
+                    help="real backend: 'slice' re-prefills prompt + "
+                         "generated on every reschedule (§3.3); 'request' "
+                         "keeps prefix pages resident in persistent paged "
+                         "engines so resumed slices re-prefill nothing "
+                         "(needs --kv-layout paged)")
     ap.add_argument("--m-available", type=float, default=256e6,
-                    help="KV bytes per worker (the page pool, Eq. 5-9)")
+                    help="KV bytes per worker (Eq. 5-9; the page pool of "
+                         "--kv-layout paged)")
     ap.add_argument("--no-prefix-sharing", dest="prefix_sharing",
                     action="store_false",
                     help="disable COW prefix-page sharing")
@@ -73,7 +98,15 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
                     help="add this many pairs of requests in which the "
                          "second prompt repeats >= 2 pages of the first")
     ap.add_argument("--seed", type=int, default=0)
-    return ap.parse_args(argv)
+    args = ap.parse_args(argv)
+    if args.kv_retain == "request":
+        if args.kv_layout != "paged":
+            ap.error("--kv-retain request keeps prefix pages resident in "
+                     "the engines, which needs --kv-layout paged")
+        if args.backend != "real":
+            ap.error("--kv-retain request is an engine-storage policy; the "
+                     "sim backend has no engine storage")
+    return args
 
 
 def make_trace(args: argparse.Namespace, vocab: Optional[int]
@@ -114,21 +147,44 @@ def make_trace(args: argparse.Namespace, vocab: Optional[int]
     return trace
 
 
+def memory_estimator(args: argparse.Namespace,
+                     delta_bytes: float) -> MemoryEstimator:
+    """The memory model of ``--kv-layout`` over ``--m-available`` bytes:
+    Eq. 5-9 for dense, the block pool for paged."""
+    if args.kv_layout == "paged":
+        mem = PagedMemoryEstimator(delta_bytes=delta_bytes,
+                                   m_available=args.m_available, zeta=0.9,
+                                   page_tokens=args.page_tokens, bucket=8,
+                                   kv_retain=args.kv_retain)
+        if mem.total_blocks < 1:
+            raise SystemExit(f"--m-available {args.m_available:g} holds no "
+                             f"page of {args.page_tokens} tokens")
+        return mem
+    return AnalyticMemoryEstimator(delta_bytes=delta_bytes,
+                                   m_available=args.m_available, zeta=0.9,
+                                   bucket=8)
+
+
 def build_core(args: argparse.Namespace) -> Tuple[SchedulerCore, list,
                                                    Optional[int]]:
     """(core, engines, vocab size) for the configured backend; the sim
     backend has no engines and no vocabulary."""
     strategy = make_strategy(args.strategy, slice_len=args.slice_len,
                              max_gen=args.max_gen, gamma=GAMMA,
-                             kv_layout="paged" if args.backend == "real"
-                             else "dense")
+                             kv_layout=args.kv_layout)
     if args.backend == "sim":
-        # the paper's A100 / LLaMA2-13B testbed with DeepSpeed's memory rules
+        # the paper's A100 / LLaMA2-13B testbed with DeepSpeed's memory
+        # rules, or its block pool for a paged layout
         true_lat = a100_llama13b_profile()
         backend = SimBackend(true_lat, seed=args.seed)
+        sim_mem: MemoryEstimator = RuleBasedMemoryEstimator()
+        if args.kv_layout == "paged":
+            sim_mem = PagedMemoryEstimator(
+                delta_bytes=LLAMA2_13B_DELTA,
+                m_available=A100_80GB_AVAILABLE, zeta=0.9,
+                page_tokens=args.page_tokens)
         core = SchedulerCore(strategy, backend, args.workers,
-                             fitted_estimator(true_lat),
-                             RuleBasedMemoryEstimator())
+                             fitted_estimator(true_lat), sim_mem)
         return core, [], None
 
     from repro_torch import resolve_device
@@ -144,25 +200,30 @@ def build_core(args: argparse.Namespace) -> Tuple[SchedulerCore, list,
                                       input_lens=(16, 32, 64))
     print(f"[serve] estimator fitted: prefill rmse {prmse * 1e3:.2f} ms, "
           f"decode rmse {drmse * 1e3:.2f} ms")
-    mem = PagedMemoryEstimator(delta_bytes=model.kv_bytes_per_token(),
-                               m_available=args.m_available, zeta=0.9,
-                               page_tokens=args.page_tokens, bucket=8,
-                               kv_retain="request")
-    if mem.total_blocks < 1:
-        raise SystemExit(f"--m-available {args.m_available:g} holds no "
-                         f"page of {args.page_tokens} tokens")
-    engines = [StaticEngine(model, params, eos_id=1, len_bucket=8,
-                            kv_layout="paged", page_tokens=args.page_tokens,
-                            kv_pool_tokens=mem.total_blocks
-                            * args.page_tokens,
-                            prefix_sharing=args.prefix_sharing,
-                            device=device)
-               for _ in range(args.workers)]
-    print(f"[serve] {arch.name} on {device}: {mem.total_blocks} pages of "
-          f"{args.page_tokens} tokens per worker, kv_retain=request, "
-          f"prefix sharing {'on' if args.prefix_sharing else 'off'}")
-    backend = RealBackend(engines, mem=mem, kv_layout="paged",
-                          sched_bucket=est.bucket, kv_retain="request")
+    mem = memory_estimator(args, model.kv_bytes_per_token())
+    if args.kv_retain == "request":
+        # persistent paged storage: each engine owns the page pool the
+        # scheduler budgets, and prefix pages survive across slices
+        engines = [StaticEngine(model, params, eos_id=1, len_bucket=8,
+                                kv_layout="paged",
+                                page_tokens=args.page_tokens,
+                                kv_pool_tokens=mem.total_blocks
+                                * args.page_tokens,
+                                prefix_sharing=args.prefix_sharing,
+                                device=device)
+                   for _ in range(args.workers)]
+        kv = (f"{mem.total_blocks} pages of {args.page_tokens} tokens per "
+              f"worker, kv_retain=request, prefix sharing "
+              f"{'on' if args.prefix_sharing else 'off'}")
+    else:
+        engines = [StaticEngine(model, params, eos_id=1, len_bucket=8,
+                                device=device)
+                   for _ in range(args.workers)]
+        kv = (f"dense engines, kv_layout={args.kv_layout}, "
+              f"kv_retain=slice")
+    print(f"[serve] {arch.name} on {device}: {kv}")
+    backend = RealBackend(engines, mem=mem, kv_layout=args.kv_layout,
+                          sched_bucket=est.bucket, kv_retain=args.kv_retain)
     core = SchedulerCore(strategy, backend, args.workers, est, mem)
     return core, engines, arch.vocab_size
 

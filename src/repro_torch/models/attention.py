@@ -26,8 +26,11 @@ NEG_INF = -0.7 * float(torch.finfo(torch.float32).max)
 CHUNK_THRESHOLD = 2048
 _DEFAULT_BLOCK_Q = 512
 
-_FUSED_TODO = ("attn_impl='fused' (the fused RoPE + paged-KV kernels) is "
-               "not ported yet: ROADMAP queue B3/B4")
+#: the paged paths' attention implementations: "unfused" rotates K with
+#: torch and writes / attends through paged_prefill_write and
+#: paged_decode_attention; "fused" hands the unrotated K (and q at decode)
+#: to fused_rope_prefill_write and fused_rope_decode_append
+ATTN_IMPLS = ("unfused", "fused")
 
 
 class KVCache(NamedTuple):
@@ -153,11 +156,19 @@ def _qkv(p: Attention, x: torch.Tensor, cfg: ModelConfig):
 
 
 def check_impl(impl: str) -> None:
-    """Raise unless ``impl`` is the ported ``"unfused"`` path."""
-    if impl == "fused":
-        raise NotImplementedError(_FUSED_TODO)
-    if impl != "unfused":
-        raise ValueError(f"unknown attention impl {impl!r}")
+    """Raise ``ValueError`` unless ``impl`` is one of ``ATTN_IMPLS``."""
+    if impl not in ATTN_IMPLS:
+        raise ValueError(f"unknown attn_impl {impl!r} (expected one of "
+                         f"{ATTN_IMPLS})")
+
+
+def _gather_window(pages: torch.Tensor, block_table: torch.Tensor
+                   ) -> torch.Tensor:
+    """A row's logical window (B, nb·pg, Hkv, D) gathered from one layer's
+    pool through its block table."""
+    B, nb = block_table.shape
+    return pages[block_table.long()].reshape(
+        B, nb * pages.shape[1], pages.shape[2], pages.shape[3])
 
 
 def attention_prefill(p: Attention, x: torch.Tensor, positions: torch.Tensor,
@@ -200,14 +211,39 @@ def attention_prefill_paged(p: Attention, x: torch.Tensor,
     The attention maths is ``attention_prefill``'s; each valid token's
     K/V is then written to page ``block_table[b, pos // pg]`` at offset
     ``pos % pg`` by ``kernels.ops.paged_prefill_write``.  k/v_pages
-    (P,pg,Hkv,D) are one layer's pools.  Returns the layer output."""
+    (P,pg,Hkv,D) are one layer's pools.  Returns the layer output.
+
+    ``impl="fused"`` hands the unrotated K to
+    ``kernels.ops.fused_rope_prefill_write``, which rotates it while it
+    writes the pages, and the queries attend to the rotated K/V gathered
+    back from the pages.  Prompts of ``CHUNK_THRESHOLD`` tokens or more
+    take the unfused chunked path either way."""
     check_impl(impl)
     B, T, _ = x.shape
     q, k, v = _qkv(p, x, cfg)
     rp = positions.clamp(min=0)
     q = apply_rope(q, rp, cfg.rope_theta)
-    k = apply_rope(k, rp, cfg.rope_theta)
     scale = cfg.head_dim ** -0.5
+    if impl == "fused" and T < CHUNK_THRESHOLD:
+        kernel_ops.fused_rope_prefill_write(
+            k.contiguous(), v.contiguous(), positions, block_table, k_pages,
+            v_pages, theta=cfg.rope_theta)
+        kw = _gather_window(k_pages, block_table)
+        vw = _gather_window(v_pages, block_table)
+        W = kw.shape[1]
+        lengths = (positions >= 0).sum(dim=1)
+        slots = torch.arange(W, dtype=torch.int32, device=x.device)[None]
+        pk = torch.where(slots < lengths[:, None], slots, -1)[:, None, :]
+        pq = positions[:, :, None]
+        m = (pk >= 0) & (pk <= pq)
+        if window is not None:
+            m = m & (pq - pk < window)
+        # pad query rows would be fully masked -> attend slot 0 (output
+        # unused)
+        m = m | ((pq < 0) & (slots[:, None, :] == 0))
+        o = gqa_attend_blocked(q, kw, vw, m[:, None], scale)
+        return p.wo(o.reshape(B, T, -1))
+    k = apply_rope(k, rp, cfg.rope_theta)
     if T >= CHUNK_THRESHOLD:
         o = gqa_attend_chunked(q, k, v, scale, positions, window)
     else:
@@ -234,28 +270,33 @@ def attention_prefill_tail_paged(p: Attention, x: torch.Tensor,
     as the destination slots; ``slot_pos`` (B, nb·pg) covers the whole
     logical window including the tail.  The tail K/V is written into the
     pages first, then every tail query attends to the gathered window
-    under ``slot_pos <= q_pos``.  Shared prefix pages are only read."""
+    under ``slot_pos <= q_pos``.  Shared prefix pages are only read.
+    ``impl="fused"`` rotates the tail K inside the page write
+    (``kernels.ops.fused_rope_prefill_write``)."""
     check_impl(impl)
     B, T, _ = x.shape
-    pg = k_pages.shape[1]
-    nb = block_table.shape[1]
     q, k, v = _qkv(p, x, cfg)
     rp = positions.clamp(min=0)
     q = apply_rope(q, rp, cfg.rope_theta)
-    k = apply_rope(k, rp, cfg.rope_theta)
-    kernel_ops.paged_prefill_write(k.contiguous(), v.contiguous(), positions,
-                                   block_table, k_pages, v_pages)
-    Hkv = k_pages.shape[2]
-    bt = block_table.long()
-    kw = k_pages[bt].reshape(B, nb * pg, Hkv, k_pages.shape[-1])
-    vw = v_pages[bt].reshape(B, nb * pg, Hkv, v_pages.shape[-1])
+    if impl == "fused":
+        kernel_ops.fused_rope_prefill_write(
+            k.contiguous(), v.contiguous(), positions, block_table, k_pages,
+            v_pages, theta=cfg.rope_theta)
+    else:
+        k = apply_rope(k, rp, cfg.rope_theta)
+        kernel_ops.paged_prefill_write(k.contiguous(), v.contiguous(),
+                                       positions, block_table, k_pages,
+                                       v_pages)
+    kw = _gather_window(k_pages, block_table)
+    vw = _gather_window(v_pages, block_table)
+    W = kw.shape[1]
     pq = positions[:, :, None]
     pk = slot_pos[:, None, :]
     m = (pk >= 0) & (pk <= pq)
     if window is not None:
         m = m & (pq - pk < window)
     # pad query rows would be fully masked -> attend slot 0 (output unused)
-    first = torch.arange(nb * pg, device=x.device)[None, None, :] == 0
+    first = torch.arange(W, device=x.device)[None, None, :] == 0
     m = m | ((pq < 0) & first)
     o = gqa_attend_blocked(q, kw, vw, m[:, None], cfg.head_dim ** -0.5)
     return p.wo(o.reshape(B, T, -1))
@@ -291,11 +332,21 @@ def attention_decode_paged(p: Attention, x: torch.Tensor, q_pos: torch.Tensor,
     (B,nb); slot_pos (B,nb·pg) already marking the current token; slots
     (B,) logical write slots.  The new K/V is scattered into its page in
     place (rows of the null page write there harmlessly), then attention
-    runs through ``kernels.ops.paged_decode_attention``."""
+    runs through ``kernels.ops.paged_decode_attention``.
+
+    ``impl="fused"`` hands the unrotated q/k/v to
+    ``kernels.ops.fused_rope_decode_append``: one launch rotates the new
+    token, appends its K/V and attends over the pool after the append."""
     check_impl(impl)
     B = x.shape[0]
     pg = k_pages.shape[1]
     q, k, v = _qkv(p, x, cfg)
+    if impl == "fused":
+        o = kernel_ops.fused_rope_decode_append(
+            q[:, 0].contiguous(), k[:, 0].contiguous(), v[:, 0].contiguous(),
+            block_table, slot_pos, slots, q_pos, k_pages, v_pages,
+            theta=cfg.rope_theta, window=window)
+        return p.wo(o.reshape(B, 1, -1))
     q = apply_rope(q, q_pos[:, None], cfg.rope_theta)
     k = apply_rope(k, q_pos[:, None], cfg.rope_theta)
     slots = slots.long()

@@ -7,14 +7,13 @@ unit of work turns into a duration and token outcomes:
   * :class:`SimBackend` — durations from a calibrated ground-truth latency
     model (optionally noisy), token outcomes derived from each request's
     true generation length; copied verbatim.
-  * :class:`RealBackend` — batches run on persistent paged
+  * :class:`RealBackend` — batches run on
     :class:`~repro_torch.engine.static_engine.StaticEngine` workers (every
     FLOP real, on the card), durations are measured wall time, tokens come
-    from the model.  This slice ports the ``kv_layout="paged"`` +
-    ``kv_retain="request"`` path: each request's prefix pages stay
-    resident in its engine across slices and are released when the core
-    finalizes it, by evict-on-pressure, or on worker migration.  Every
-    other combination raises.
+    from the model.  ``kv_retain="slice"`` (dense or paged layout) runs
+    each slice from a fresh prefill, the paper's SCLS; ``"request"``
+    (paged only) keeps each request's prefix pages resident in its engine
+    across slices.  Sessions are not ported yet.
 """
 from __future__ import annotations
 
@@ -27,6 +26,7 @@ from repro_torch.core.estimator import ServingTimeEstimator
 from repro_torch.core.memory import MemoryEstimator, PagedMemoryEstimator
 from repro_torch.core.request import Batch, Request
 from repro_torch.engine.static_engine import EOS_DRIVEN, StaticEngine
+from repro_torch.kvcache import PageAllocator
 
 # Per-request outcome dict keys (shared with StaticEngine results):
 # tokens, n_valid, invalid, pad, finished.
@@ -159,30 +159,47 @@ class SimBackend:
 
 
 class RealBackend:
-    """Real-execution backend over persistent paged StaticEngine workers.
+    """Real-execution backend over StaticEngine workers.
 
     One host runs all engines, so each worker's timeline is virtual — the
     core advances it by the measured wall time of that worker's own
-    batches.  Every engine owns the page pool that the scheduler budgets
-    (its allocator is the slice envelope) and retains each in-flight
-    request's prefix pages across slices.  A request whose next slice
-    lands on a different worker releases its old worker's pages and
-    re-prefills there (counted in ``reprefill_tokens``).  Continuous modes
-    are not supported.
+    batches.  ``kv_retain`` decides how long a request's KV lives:
+
+      * ``"slice"`` (default): every slice re-prefills prompt + generated
+        (§3.3) through ``StaticEngine.serve_batch``.  With
+        ``kv_layout="paged"`` each worker keeps a ``PageAllocator`` of the
+        scheduler's block budget, every member reserves its batch envelope
+        ``L_i + S`` at dispatch and releases it at slice end, so a
+        ``MemoryError`` means the DP batcher violated its own bound;
+      * ``"request"`` (needs ``kv_layout="paged"`` and persistent paged
+        engines): dispatch goes through ``serve_batch_paged``, resumed
+        requests re-prefill nothing, and pages are released when the core
+        finalizes the request, by evict-on-pressure, or on worker
+        migration (the new worker re-prefills; counted in
+        ``reprefill_tokens``).
+
+    Continuous modes are not supported.
     """
 
     supports_continuous = False
 
     def __init__(self, engines: Sequence[StaticEngine],
                  mem: Optional[MemoryEstimator] = None,
-                 kv_layout: str = "paged", sched_bucket: int = 1,
-                 kv_retain: str = "request"):
-        if kv_layout != "paged" or kv_retain != "request":
-            raise NotImplementedError(
-                f"RealBackend(kv_layout={kv_layout!r}, kv_retain="
-                f"{kv_retain!r}): only the persistent paged path "
-                f"(kv_layout='paged', kv_retain='request') is ported; the "
-                f"others are on the ROADMAP")
+                 kv_layout: str = "dense", sched_bucket: int = 1,
+                 kv_retain: str = "slice"):
+        if kv_retain not in ("slice", "request"):
+            raise ValueError(f"unknown kv_retain {kv_retain!r} "
+                             f"(expected 'slice' or 'request')")
+        if kv_retain == "request" and kv_layout != "paged":
+            raise ValueError("kv_retain='request' needs kv_layout='paged'")
+        self.engines = list(engines)
+        self.kv_retain = kv_retain
+        self.mem = mem if isinstance(mem, PagedMemoryEstimator) else None
+        self.allocators: Optional[List[PageAllocator]] = None
+        #: kv_retain="request": worker whose engine retains each rid's pages
+        self._engine_of: Dict[int, int] = {}
+        if kv_layout != "paged":
+            return
         if not isinstance(mem, PagedMemoryEstimator):
             raise TypeError("kv_layout='paged' needs a PagedMemoryEstimator")
         if mem.bucket % sched_bucket:
@@ -191,9 +208,11 @@ class RealBackend:
             raise ValueError(
                 f"PagedMemoryEstimator.bucket ({mem.bucket}) must be a "
                 f"multiple of the estimator bucket ({sched_bucket})")
-        self.engines = list(engines)
-        self.kv_retain = kv_retain
-        self.mem = mem
+        if kv_retain == "slice":
+            self.allocators = [PageAllocator(mem.total_blocks,
+                                             mem.page_tokens)
+                               for _ in self.engines]
+            return
         for i, e in enumerate(self.engines):
             if getattr(e, "kv_layout", None) != "paged":
                 raise TypeError(f"kv_retain='request' needs persistent-paged "
@@ -209,8 +228,6 @@ class RealBackend:
                     f"the batcher would over-admit")
         # the engines' own allocators ARE the slice envelopes
         self.allocators = [e.allocator for e in self.engines]
-        #: worker whose engine retains each rid's pages
-        self._engine_of: Dict[int, int] = {}
 
     def run_batch(self, wid: int, batch: Batch,
                   prev_tokens: Sequence[Sequence[int]]) -> BatchExecution:
@@ -219,18 +236,30 @@ class RealBackend:
         # gen_len=None → EOS-driven: the engine detects the model's own EOS
         forced = [r.remaining_gen if r.gen_len is not None else EOS_DRIVEN
                   for r in batch.requests]
-        # worker migration: pages retained elsewhere are unreachable from
-        # this engine — release them there, re-prefill here
-        for r in batch.requests:
-            old = self._engine_of.get(r.rid)
-            if old is not None and old != wid:
-                self.engines[old].release_request(r.rid)
-            self._engine_of[r.rid] = wid
-        res = eng.serve_batch_paged(prompts, batch.slice_len,
-                                    [r.rid for r in batch.requests],
-                                    forced_gen_lens=forced,
-                                    already_generated=list(prev_tokens))
-        self._sync_retained_gauge()
+        if self.kv_retain == "request":
+            # worker migration: pages retained elsewhere are unreachable
+            # from this engine — release them there, re-prefill here
+            for r in batch.requests:
+                old = self._engine_of.get(r.rid)
+                if old is not None and old != wid:
+                    self.engines[old].release_request(r.rid)
+                self._engine_of[r.rid] = wid
+            res = eng.serve_batch_paged(prompts, batch.slice_len,
+                                        [r.rid for r in batch.requests],
+                                        forced_gen_lens=forced,
+                                        already_generated=list(prev_tokens))
+            self._sync_retained_gauge()
+        else:
+            if self.allocators is not None:
+                # slice start: every member holds the batch envelope
+                # L_i + S (rows are padded to the batch input length, as
+                # the engine's per-batch cache is); finish_batch releases
+                alloc = self.allocators[wid]
+                for r in batch.requests:
+                    alloc.reserve(r.rid, batch.input_len + batch.slice_len)
+            res = eng.serve_batch(prompts, batch.slice_len,
+                                  forced_gen_lens=forced,
+                                  already_generated=list(prev_tokens))
         return BatchExecution(duration=res.wall_time, steps=res.steps,
                               early_return=res.early_return,
                               per_request=list(res.results),
@@ -240,10 +269,17 @@ class RealBackend:
                               shared_blocks=res.shared_blocks)
 
     def finish_batch(self, wid: int, batch: Batch) -> None:
-        pass  # retention: the engine trimmed every row to its resident prefix
+        if self.kv_retain == "request":
+            return  # retention: the engine trimmed to the resident prefix
+        if self.allocators is not None:
+            alloc = self.allocators[wid]
+            for r in batch.requests:  # slice end: envelope freed
+                alloc.release(r.rid)
 
     def finish_request(self, req: Request) -> None:
         """Terminal (finished/cancelled): free the retained prefix pages."""
+        if self.kv_retain != "request":
+            return
         wid = self._engine_of.pop(req.rid, None)
         if wid is None:
             return
@@ -254,6 +290,8 @@ class RealBackend:
         """Retention-affinity hint for the offloader's ε-tiebreak: the
         worker whose resident prefix pages cover the most tokens of this
         batch's prompts (``None`` when none matches)."""
+        if self.kv_retain != "request":
+            return None
         streams = []
         for r in batch.requests:
             if r.prompt is None:
@@ -274,7 +312,9 @@ class RealBackend:
         return best_wid
 
     def _sync_retained_gauge(self) -> None:
-        self.mem.retained_blocks = sum(a.used_blocks for a in self.allocators)
+        if self.mem is not None:
+            self.mem.retained_blocks = sum(a.used_blocks
+                                           for a in self.allocators)
 
     def prefill_time(self, req: Request) -> float:
         raise NotImplementedError("RealBackend does not run continuous modes")

@@ -11,6 +11,8 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch.kernels import fused_rope_decode_append as fdecode_kernel
+from repro_torch.kernels import fused_rope_prefill_write as fwrite_kernel
 from repro_torch.kernels import paged_decode_attention as decode_kernel
 from repro_torch.kernels import paged_prefill_write as write_kernel
 from repro_torch.kernels import ref
@@ -108,3 +110,134 @@ def test_paged_prefill_write_matches_plain(cuda_device, dtype, shifted):
     ref.paged_prefill_write_ref(k_new, v_new, pos, bt, kb, vb)
     torch.cuda.synchronize()
     assert torch.equal(ka, kb) and torch.equal(va, vb)
+
+
+# ---------------------------------------------------------------------------
+# fused RoPE kernels
+# ---------------------------------------------------------------------------
+THETA = 5e5  # llama3.2-1b's: angles of hundreds of radians
+
+
+def _max_ulps(a: torch.Tensor, b: torch.Tensor) -> int:
+    """Largest distance in units in the last place between two tensors of
+    one float type (same-sign values; 0 where they are equal)."""
+    ints = {torch.float32: torch.int32, torch.bfloat16: torch.int16}
+    ia = a.view(ints[a.dtype]).long()
+    ib = b.view(ints[b.dtype]).long()
+    return int((ia - ib).abs().max().item()) if a.numel() else 0
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("D,pg", [(64, 16), (128, 8)])
+@pytest.mark.parametrize("start", [[0, 0, 0], [0, 32, 0], [0, 21, 5]])
+def test_fused_rope_prefill_write_matches_plain(cuda_device, dtype, D, pg,
+                                                start):
+    """V and every slot the kernel must not write are bit-identical to the
+    plain version (a page-aligned and a mid-page shared prefix included);
+    K is within one unit in the last place (both compute the angles with
+    the same inverse frequencies, cosf and sinf: in practice exact)."""
+    k_new, v_new, pos, bt, pool = _write_inputs(3, 40, pg, 8, D, start,
+                                                dtype, cuda_device)
+    ka, va, kb, vb = (pool.clone() for _ in range(4))
+    fwrite_kernel.fused_rope_prefill_write(k_new, v_new, pos, bt, ka, va,
+                                           theta=THETA)
+    ref.fused_rope_prefill_write_ref(k_new, v_new, pos, bt, kb, vb,
+                                     theta=THETA)
+    torch.cuda.synchronize()
+    assert torch.equal(va, vb)
+    written = torch.zeros(pool.shape[:2], dtype=torch.bool,
+                          device=cuda_device)
+    valid = pos >= 0
+    slot = pos.clamp(min=0).long()
+    page = torch.gather(bt.long(), 1, slot // pg)[valid]
+    written[page, (slot % pg)[valid]] = True
+    assert torch.equal(ka[~written], pool[~written])
+    assert _max_ulps(ka[written], kb[written]) <= 1
+
+
+def _fused_decode_inputs(B, nb, pg, Hq, Hkv, D, fills, dtype, device,
+                         seed=1):
+    """Row b holds ``fills[b]`` tokens and appends at slot ``fills[b]``
+    (slot_pos already marks it); a 0 in the last row makes it a pad row
+    on the null page, whose only live slot is its own."""
+    rng = np.random.default_rng(seed)
+    P = B * nb + 1
+    floats = [torch.from_numpy(rng.standard_normal(shape)).to(
+        device=device, dtype=dtype) for shape in
+        ((B, Hq, D), (B, Hkv, D), (B, Hkv, D), (P, pg, Hkv, D),
+         (P, pg, Hkv, D))]
+    bt = np.zeros((B, nb), np.int32)
+    slot_pos = np.full((B, nb * pg), -1, np.int32)
+    perm = rng.permutation(np.arange(1, P))
+    for b, fill in enumerate(fills):
+        if fill:
+            bt[b, :fill // pg + 1] = perm[b * nb:b * nb + fill // pg + 1]
+        slot_pos[b, :fill + 1] = np.arange(fill + 1)
+    slots = np.asarray(fills, np.int32)
+    ints = [torch.from_numpy(a).to(device)
+            for a in (bt, slot_pos, slots, slots.copy())]
+    q, kn, vn, kp, vp = floats
+    return [q, kn, vn] + ints + [kp, vp]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("window", [None, 6])
+@pytest.mark.parametrize("B,nb,pg,Hq,Hkv,D,fills", [
+    (4, 5, 16, 32, 8, 64, [16, 31, 47, 0]),     # a page's first / last slot
+    (3, 11, 8, 32, 8, 64, [80, 7, 0]),          # more pages than warps
+    (3, 4, 16, 16, 2, 128, [15, 32, 0]),    # widest group and head dim
+])
+def test_fused_rope_decode_append_matches_plain(cuda_device, dtype, window,
+                                                B, nb, pg, Hq, Hkv, D,
+                                                fills):
+    args = _fused_decode_inputs(B, nb, pg, Hq, Hkv, D, fills, dtype,
+                                cuda_device)
+    kp, vp = args[7], args[8]
+    plain = args[:7] + [kp.clone(), vp.clone()]
+    got = fdecode_kernel.fused_rope_decode_append(*args, theta=THETA,
+                                                  window=window)
+    want = ref.fused_rope_decode_append_ref(*plain, theta=THETA,
+                                            window=window)
+    torch.cuda.synchronize()
+    assert torch.isfinite(got).all()
+    assert (got.float() - want.float()).abs().max().item() <= ATOL[dtype]
+    assert torch.equal(vp, plain[8])
+    assert _max_ulps(kp, plain[7]) <= 1
+
+
+def test_fused_kernels_refuse_what_they_do_not_take(cuda_device):
+    """CPU tensors, mixed or unsupported types and misaligned pools raise
+    before any launch."""
+    args = _fused_decode_inputs(2, 2, 16, 8, 2, 64, [5, 0], torch.float32,
+                                cuda_device)
+    cpu = [t.cpu() for t in args]
+    with pytest.raises(ValueError, match="CUDA"):
+        fdecode_kernel.fused_rope_decode_append(*cpu)
+    half = [t.half() if t.is_floating_point() else t for t in args]
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        fdecode_kernel.fused_rope_decode_append(*half)
+    pool = args[7]
+    shifted = pool.reshape(-1)[1:1 + pool.numel() - pool[0].numel()]
+    bad = args[:7] + [shifted.reshape(pool.shape[0] - 1, *pool.shape[1:]),
+                      args[8][1:].contiguous()]
+    with pytest.raises(ValueError, match="aligned"):
+        fdecode_kernel.fused_rope_decode_append(*bad)
+
+    k_new, v_new, pos, bt, pool = _write_inputs(2, 16, 16, 8, 64, [0, 0],
+                                                torch.float32, cuda_device)
+    with pytest.raises(ValueError, match="CUDA"):
+        fwrite_kernel.fused_rope_prefill_write(
+            k_new.cpu(), v_new.cpu(), pos.cpu(), bt.cpu(), pool.cpu(),
+            pool.cpu())
+    with pytest.raises(TypeError, match="int32"):
+        fwrite_kernel.fused_rope_prefill_write(k_new, v_new, pos.long(), bt,
+                                               pool, pool.clone())
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        fwrite_kernel.fused_rope_prefill_write(k_new, v_new.bfloat16(), pos,
+                                               bt, pool, pool.clone())
+    pflat = pool.reshape(-1)
+    mis = pflat[1:1 + pool.numel() - pool[0].numel()].reshape(
+        pool.shape[0] - 1, *pool.shape[1:])
+    with pytest.raises(ValueError, match="aligned"):
+        fwrite_kernel.fused_rope_prefill_write(k_new, v_new, pos, bt, mis,
+                                               pool[1:].contiguous())

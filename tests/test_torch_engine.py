@@ -2,7 +2,9 @@
 against the JAX ``StaticEngine(kv_layout="paged")`` on shared weights, in
 the scenarios of ``tests/test_retain.py``: multi-slice retention with zero
 re-prefill, EOS-driven rows, evict-on-pressure falling back to re-prefill,
-and a prefix-sharing tail join.  Tokens, ``n_valid``, ``finished``,
+and a prefix-sharing tail join, with ``attn_impl="unfused"`` and (for the
+retention and tail-join scenarios) ``"fused"``, whose streams must also
+equal the port's unfused engine's.  Tokens, ``n_valid``, ``finished``,
 ``steps``, re-prefill and prefix-hit counts must agree, and the allocator
 must return to its baseline."""
 import numpy as np
@@ -16,12 +18,14 @@ def models():
     return shared_models()
 
 
-def _engines(models, pool_tokens=512, page_tokens=8, eos_id=1):
+def _engines(models, pool_tokens=512, page_tokens=8, eos_id=1,
+             attn_impl="unfused"):
     from repro.engine.static_engine import StaticEngine as JaxEngine
     from repro_torch.engine.static_engine import StaticEngine
     jm, jp, tm, tp = models
     kw = dict(eos_id=eos_id, len_bucket=8, kv_layout="paged",
-              page_tokens=page_tokens, kv_pool_tokens=pool_tokens)
+              page_tokens=page_tokens, kv_pool_tokens=pool_tokens,
+              attn_impl=attn_impl)
     return JaxEngine(jm, jp, **kw), StaticEngine(tm, tp, device="cpu", **kw)
 
 
@@ -127,4 +131,61 @@ def test_prefix_sharing_tail_join(models):
     assert got.reprefill_tokens == 0
     assert got.prefix_hit_tokens == 16 and got.shared_blocks == 2
     assert teng.allocator.shared_blocks == jeng.allocator.shared_blocks > 0
+    _release_all(jeng, teng, [1, 2, 3])
+
+
+# ---------------------------------------------------------------------------
+# attn_impl="fused": the fused kernels' plain versions on the CPU
+# ---------------------------------------------------------------------------
+def test_fused_engine_multi_slice_matches_jax_fused_and_port_unfused(models):
+    """The scenario of ``tests/test_retain.py``'s fused test (prompts of
+    7/12/4 tokens, totals 20/9/16, slices of 8, pages of 8): the port's
+    fused engine streams the JAX fused engine's tokens and the port's
+    unfused engine's, slice by slice."""
+    from repro_torch.engine.static_engine import StaticEngine
+    jm, jp, tm, tp = models
+    jeng, teng = _engines(models, attn_impl="fused")
+    ueng = StaticEngine(tm, tp, eos_id=1, len_bucket=8, kv_layout="paged",
+                        page_tokens=8, kv_pool_tokens=512, device="cpu")
+    ps = prompts(tm.cfg.vocab_size, [7, 12, 4], seed=0)
+    totals = [20, 9, 16]
+    outs = [[] for _ in ps]
+    n_slices = 0
+    while any(len(o) < t for o, t in zip(outs, totals)):
+        idx = [i for i in range(len(ps)) if len(outs[i]) < totals[i]]
+        batch = [ps[i] for i in idx]
+        kw = dict(forced_gen_lens=[totals[i] - len(outs[i]) for i in idx],
+                  already_generated=[outs[i] for i in idx])
+        rids = [100 + i for i in idx]
+        want, got = _serve_both(jeng, teng, batch, 8, rids, **kw)
+        unfused = ueng.serve_batch_paged(batch, 8, rids, **kw)
+        _assert_same_result(unfused, got, batch)
+        n_slices += 1
+        for s, i in enumerate(idx):
+            outs[i].extend(want.results[s]["tokens"])
+    assert n_slices >= 3 and [len(o) for o in outs] == totals
+    _release_all(jeng, teng, [100, 101, 102])
+
+
+def test_fused_engine_prefix_sharing_tail_join(models):
+    """The tail join through the fused prefill write: stage A (fresh),
+    stage A' (tail past two shared pages) and a resumed resident in one
+    call, against the JAX fused engine and the port's unfused engine."""
+    from repro_torch.engine.static_engine import StaticEngine
+    jm, jp, tm, tp = models
+    jeng, teng = _engines(models, attn_impl="fused")
+    ueng = StaticEngine(tm, tp, eos_id=1, len_bucket=8, kv_layout="paged",
+                        page_tokens=8, kv_pool_tokens=512, device="cpu")
+    src, tail, fresh = prompts(tm.cfg.vocab_size, [21, 7, 11], seed=9)
+    first, _ = _serve_both(jeng, teng, [src], 8, [1], forced_gen_lens=[24])
+    ueng.serve_batch_paged([src], 8, [1], forced_gen_lens=[24])
+    joiner = np.concatenate([src[:16], tail])
+    batch = [src, joiner, fresh]
+    kw = dict(forced_gen_lens=[16, 12, 12],
+              already_generated=[first.results[0]["tokens"], [], []])
+    want, got = _serve_both(jeng, teng, batch, 8, [1, 2, 3], **kw)
+    _assert_same_result(ueng.serve_batch_paged(batch, 8, [1, 2, 3], **kw),
+                        got, batch)
+    assert got.reprefill_tokens == 0
+    assert got.prefix_hit_tokens == 16 and got.shared_blocks == 2
     _release_all(jeng, teng, [1, 2, 3])

@@ -10,14 +10,21 @@ import pytest
 import torch
 
 from repro.kernels import ref as jref
+from repro.kernels.fused_rope_decode_append import \
+    fused_rope_decode_append as pallas_fused_decode
 from repro.kernels.paged_decode_attention import \
     paged_decode_attention as pallas_paged_decode
+from repro_torch.kernels import fused_rope_decode_append as fdecode_kernel
+from repro_torch.kernels import fused_rope_prefill_write as fwrite_kernel
 from repro_torch.kernels import ops, ref
 from repro_torch.kernels import paged_decode_attention as decode_kernel
 from repro_torch.kernels import paged_prefill_write as write_kernel
 
 #: float32 tolerance of the JAX kernel tests (tests/test_kernels.py)
 ATOL_F32 = 2e-5
+#: the JAX kernel tests' table, by dtype name (tests/test_kernels.py:35)
+ATOL = {"float32": 2e-5, "bfloat16": 2e-2}
+THETA = 5e5  # llama3.2-1b's rope theta: angles of hundreds of radians
 
 
 def _paged_inputs(B, nb, pg, Hq, Hkv, D, seed=0, pad_row=False):
@@ -139,10 +146,12 @@ def test_dispatch_counts_plain_calls_and_no_kernel_launch_on_cpu():
     ops.reset_counts()
     ops.paged_decode_attention(*_torch(q, kp, vp, bt, sp, qp))
     ops.paged_prefill_write(*_torch(k_new, v_new, pos, wbt, pool, pool))
+    ops.fused_rope_prefill_write(*_torch(k_new, v_new, pos, wbt, pool, pool))
     assert ops.plain_calls == {"paged_prefill_write": 1,
-                               "paged_decode_attention": 1}
-    assert ops.launches() == {"paged_prefill_write": 0,
-                              "paged_decode_attention": 0}
+                               "paged_decode_attention": 1,
+                               "fused_rope_prefill_write": 1,
+                               "fused_rope_decode_append": 0}
+    assert ops.launches() == dict.fromkeys(ops.plain_calls, 0)
     ops.reset_counts()
     assert not any(ops.plain_calls.values())
 
@@ -161,8 +170,169 @@ def test_kernel_wrappers_refuse_cpu_tensors():
     assert decode_kernel.launches == 0 and write_kernel.launches == 0
 
 
+def test_fused_kernel_wrappers_refuse_cpu_tensors():
+    k_new, v_new, pos, wbt, pool = _torch(
+        *_write_inputs(2, 8, 8, 2, 16, [0, 0]))
+    with pytest.raises(ValueError, match="CUDA"):
+        fwrite_kernel.fused_rope_prefill_write(k_new, v_new, pos, wbt, pool,
+                                               pool.clone())
+    args = _torch(*_fused_decode_inputs(2, 2, 8, 4, 2, 16, [3, 0]))
+    with pytest.raises(ValueError, match="CUDA"):
+        fdecode_kernel.fused_rope_decode_append(*args)
+    assert fwrite_kernel.launches == 0 and fdecode_kernel.launches == 0
+
+
 def test_dispatch_rejects_devices_without_a_kernel():
     q, kp, vp, bt, sp, qp = [t.to("meta") for t in _torch(
         *_paged_inputs(1, 2, 8, 2, 2, 8))]
     with pytest.raises(ValueError, match="no kernel for device meta"):
         ops.paged_decode_attention(q, kp, vp, bt, sp, qp)
+
+
+# ---------------------------------------------------------------------------
+# fused RoPE kernels: plain versions against the JAX oracles (and the
+# Pallas decode kernel; the Pallas prefill kernel does not trace on the
+# installed JAX, ROADMAP C0)
+# ---------------------------------------------------------------------------
+def _pair(a, dtype):
+    """The same numpy values as a torch and a jnp array of ``dtype``, the
+    torch one a copy of its own (the plain versions write in place)."""
+    return (torch.from_numpy(np.array(a)).to(getattr(torch, dtype)),
+            jnp.asarray(a, getattr(jnp, dtype)))
+
+
+def _f32(a):
+    if isinstance(a, torch.Tensor):
+        return a.float().numpy()
+    return np.asarray(jnp.asarray(a, jnp.float32))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("B,T,pg,Hkv,D,start", [
+    (2, 24, 8, 2, 16, [0, 0]),
+    (3, 12, 4, 2, 8, [0, 8, 0]),     # page-aligned shared-prefix tail
+    (2, 16, 8, 2, 32, [5, 13]),      # tails that start mid-page
+])
+def test_fused_rope_prefill_write_plain_matches_jax_oracle(dtype, B, T, pg,
+                                                           Hkv, D, start):
+    """Each written token: K within the JAX kernel tests' tolerance, V
+    exact; slots below a row's start and pages outside the rows' tables
+    untouched (exact)."""
+    k_new, v_new, pos, bt, pool = _write_inputs(B, T, pg, Hkv, D, start,
+                                                seed=4)
+    (tk, jk), (tv, jv) = _pair(k_new, dtype), _pair(v_new, dtype)
+    (tkp, jpool), (tvp, _) = _pair(pool, dtype), _pair(pool, dtype)
+    ops.fused_rope_prefill_write(tk, tv, torch.from_numpy(pos),
+                                 torch.from_numpy(bt), tkp, tvp, theta=THETA)
+    jkp, jvp = jref.fused_rope_prefill_write_ref(
+        jk, jv, jnp.asarray(pos), jnp.asarray(bt), jpool, jpool, theta=THETA)
+    got_k, got_v, want_k, want_v = _f32(tkp), _f32(tvp), _f32(jkp), _f32(jvp)
+    before = _f32(_pair(pool, dtype)[0])
+    for b in range(B):
+        for t in np.nonzero(pos[b] >= 0)[0]:
+            page, off = bt[b, pos[b, t] // pg], pos[b, t] % pg
+            np.testing.assert_allclose(got_k[page, off], want_k[page, off],
+                                       atol=ATOL[dtype])
+            np.testing.assert_array_equal(got_v[page, off], want_v[page, off])
+        for s in range(start[b]):
+            page, off = bt[b, s // pg], s % pg
+            np.testing.assert_array_equal(got_k[page, off], before[page, off])
+            np.testing.assert_array_equal(got_v[page, off], before[page, off])
+    outside = np.setdiff1d(np.arange(1, pool.shape[0]), bt)
+    np.testing.assert_array_equal(got_k[outside], before[outside])
+
+
+def test_fused_rope_prefill_write_plain_equals_rope_then_write():
+    """The fused plain version is the port's own unfused pair bit for bit:
+    ``apply_rope`` then ``paged_prefill_write``."""
+    from repro_torch.models.common import apply_rope
+    k_new, v_new, pos, bt, pool = _torch(*_write_inputs(3, 12, 4, 2, 8,
+                                                        [0, 8, 3], seed=6))
+    fk, fv, uk, uv = (pool.clone() for _ in range(4))
+    ref.fused_rope_prefill_write_ref(k_new, v_new, pos, bt, fk, fv,
+                                     theta=THETA)
+    ref.paged_prefill_write_ref(apply_rope(k_new, pos.clamp(min=0), THETA),
+                                v_new, pos, bt, uk, uv)
+    assert torch.equal(fk, uk) and torch.equal(fv, uv)
+
+
+def _fused_decode_inputs(B, nb, pg, Hq, Hkv, D, fills, seed=0):
+    """Pools mid-decode: row b holds ``fills[b]`` resident tokens and
+    appends its new token at slot ``fills[b]`` (slot_pos already marks it);
+    a fill of 0 in the last row makes it a batch-bucket pad row, whose
+    block table is the null page and whose one live slot is its own, as
+    the engine builds it."""
+    rng = np.random.default_rng(seed)
+    P = B * nb + 1
+    kp = rng.standard_normal((P, pg, Hkv, D)).astype(np.float32)
+    vp = rng.standard_normal((P, pg, Hkv, D)).astype(np.float32)
+    q = rng.standard_normal((B, Hq, D)).astype(np.float32)
+    k_new = rng.standard_normal((B, Hkv, D)).astype(np.float32)
+    v_new = rng.standard_normal((B, Hkv, D)).astype(np.float32)
+    bt = np.zeros((B, nb), np.int32)
+    slot_pos = np.full((B, nb * pg), -1, np.int32)
+    perm = rng.permutation(np.arange(1, P))
+    for b, fill in enumerate(fills):
+        if fill:
+            n_used = fill // pg + 1
+            bt[b, :n_used] = perm[b * nb:b * nb + n_used]
+        slot_pos[b, :fill + 1] = np.arange(fill + 1)
+    slots = np.asarray(fills, np.int32)
+    return q, k_new, v_new, bt, slot_pos, slots, slots.copy(), kp, vp
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("window", [None, 6])
+@pytest.mark.parametrize("B,nb,pg,Hq,Hkv,D,fills", [
+    (2, 3, 8, 4, 2, 16, [16, 0]),           # first offset of a page; pad row
+    (3, 3, 8, 6, 2, 16, [7, 23, 11]),       # last offsets of pages
+    (4, 2, 16, 8, 2, 32, [15, 16, 3, 0]),   # reduced llama heads; pad row
+])
+def test_fused_rope_decode_append_plain_matches_jax(dtype, window, B, nb, pg,
+                                                    Hq, Hkv, D, fills):
+    """Output and both pools after the append, against the jnp oracle
+    (f32 2e-5, bf16 2e-2; V exact) and, in float32, the Pallas kernel in
+    interpret mode.  Page 0 is left out of the Pallas comparison: its grid
+    writes the null page's tiles back once for every row that points
+    there."""
+    arrays = _fused_decode_inputs(B, nb, pg, Hq, Hkv, D, fills)
+    floats = {i: _pair(arrays[i], dtype) for i in (0, 1, 2, 7, 8)}
+    ints = {i: _pair(arrays[i], "int32") for i in (3, 4, 5, 6)}
+    args = [floats[i] if i in floats else ints[i] for i in range(9)]
+    tout = ops.fused_rope_decode_append(*[a[0] for a in args], theta=THETA,
+                                        window=window)
+    jargs = [a[1] for a in args]
+    jout, jk, jv = jref.fused_rope_decode_append_ref(*jargs, theta=THETA,
+                                                     window=window)
+    tk, tv = args[7][0], args[8][0]
+    tol = ATOL[dtype]
+    np.testing.assert_allclose(_f32(tout), _f32(jout), atol=tol)
+    np.testing.assert_allclose(_f32(tk), _f32(jk), atol=tol)
+    np.testing.assert_array_equal(_f32(tv), _f32(jv))
+    if dtype != "float32":
+        return
+    pout, pk, pv = pallas_fused_decode(*jargs, theta=THETA, window=window,
+                                       interpret=True)
+    np.testing.assert_allclose(_f32(tout), _f32(pout), atol=tol)
+    np.testing.assert_allclose(_f32(tk)[1:], _f32(pk)[1:], atol=tol)
+    np.testing.assert_array_equal(_f32(tv)[1:], _f32(pv)[1:])
+
+
+def test_fused_rope_decode_append_plain_equals_unfused_three_pass():
+    """The fused plain version is the port's unfused decode bit for bit:
+    ``apply_rope``, the scatter into the page slot, then
+    ``paged_decode_attention``."""
+    from repro_torch.models.common import apply_rope
+    q, kn, vn, bt, sp, slots, qp, kp, vp = _torch(*_fused_decode_inputs(
+        3, 3, 8, 6, 2, 16, [7, 23, 0], seed=2))
+    fk, fv, uk, uv = kp.clone(), vp.clone(), kp.clone(), vp.clone()
+    fo = ref.fused_rope_decode_append_ref(q, kn, vn, bt, sp, slots, qp, fk,
+                                          fv, theta=THETA)
+    qr = apply_rope(q[:, None], qp[:, None], THETA)[:, 0]
+    kr = apply_rope(kn[:, None], qp[:, None], THETA)[:, 0]
+    page = bt.long()[torch.arange(3), slots.long() // 8]
+    uk[page, slots.long() % 8] = kr
+    uv[page, slots.long() % 8] = vn
+    uo = ref.paged_decode_attention_ref(qr, uk, uv, bt, sp, qp)
+    assert torch.equal(fo, uo)
+    assert torch.equal(fk, uk) and torch.equal(fv, uv)

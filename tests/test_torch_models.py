@@ -139,7 +139,7 @@ def _assert_pages_match(jcache, tcache):
                                atol=BLOCK_TOL)
 
 
-def test_paged_prefill_and_decode_logits_match_jax(models):
+def _check_paged_prefill_and_decode(models, impl):
     jm, jp, tm, tp = models
     cfg, jcfg, pg = tm.cfg, jm.cfg, 8
     toks, lens = _left_pad(cfg.vocab_size, [16, 9, 13], 16, seed=5)
@@ -148,10 +148,12 @@ def test_paged_prefill_and_decode_logits_match_jax(models):
         .reshape(3, nb).astype(np.int32)
     jcache, tcache = _paged_pair(cfg, bt, pg, 3 * nb)
     jl, jcache = jtfm.prefill_paged(jp, jcfg, jnp.asarray(toks),
-                                    jnp.asarray(lens), jcache)
+                                    jnp.asarray(lens), jcache,
+                                    attn_impl=impl)
     with torch.no_grad():
         tl, tcache = ttfm.prefill_paged(tp, cfg, torch.from_numpy(toks),
-                                        torch.from_numpy(lens), tcache)
+                                        torch.from_numpy(lens), tcache,
+                                        attn_impl=impl)
     np.testing.assert_allclose(_np(tl), np.asarray(jl), atol=LOGIT_TOL)
     np.testing.assert_array_equal(_np(tcache.slot_pos),
                                   np.asarray(jcache.slot_pos))
@@ -162,42 +164,57 @@ def test_paged_prefill_and_decode_logits_match_jax(models):
         jl, jcache = jtfm.decode_step_paged(jp, jcfg, jcache,
                                             jnp.asarray(cur),
                                             jnp.asarray(q_pos),
-                                            jnp.asarray(q_pos))
+                                            jnp.asarray(q_pos),
+                                            attn_impl=impl)
         with torch.no_grad():
             tl, tcache = ttfm.decode_step_paged(tp, cfg, tcache,
                                                 torch.from_numpy(cur),
                                                 torch.from_numpy(q_pos),
-                                                torch.from_numpy(q_pos))
+                                                torch.from_numpy(q_pos),
+                                                attn_impl=impl)
         np.testing.assert_allclose(_np(tl), np.asarray(jl), atol=LOGIT_TOL)
         cur = np.asarray(jnp.argmax(jl, -1)).astype(np.int32)
     _assert_pages_match(jcache, tcache)
 
 
-def test_paged_tail_prefill_logits_match_jax(models):
-    """A row joins another's first two pages (16 shared tokens) and
-    prefills only its tail: logits agree, and the shared pages are read,
-    never written."""
+def test_paged_prefill_and_decode_logits_match_jax(models):
+    _check_paged_prefill_and_decode(models, "unfused")
+
+
+def test_fused_paged_prefill_and_decode_logits_match_jax(models):
+    """``attn_impl="fused"`` (RoPE inside the page write, one decode launch
+    that rotates, appends and attends) against the JAX fused path."""
+    _check_paged_prefill_and_decode(models, "fused")
+
+
+def _check_paged_tail_prefill(models, impl, start):
+    """A row joins another's first ``start`` tokens (page-aligned in the
+    engine; the fused write is exact for any start) and prefills only its
+    tail: logits agree, and the shared slots are read, never written."""
     jm, jp, tm, tp = models
     cfg, jcfg, pg = tm.cfg, jm.cfg, 8
     src = prompts(cfg.vocab_size, [21], seed=6)[0]
     tail = prompts(cfg.vocab_size, [7], seed=7)[0]
-    joiner = np.concatenate([src[:16], tail])
+    joiner = np.concatenate([src[:start], tail])
     # row 0 owns pages 1-3; row 1 shares pages 1-2 and owns 4-5
     bt = np.array([[1, 2, 3, 0], [1, 2, 4, 5]], np.int32)
     jcache, tcache = _paged_pair(cfg, bt, pg, 5)
     toks = np.zeros((2, 24), np.int32)
     toks[0, 3:] = src
-    toks[1, 24 - 16:] = joiner[:16]
-    lens = np.array([21, 16], np.int32)   # row 1 stands in for the donor
+    toks[1, 24 - start:] = joiner[:start]
+    lens = np.array([21, start], np.int32)  # row 1 stands in for the donor
     jl, jcache = jtfm.prefill_paged(jp, jcfg, jnp.asarray(toks),
-                                    jnp.asarray(lens), jcache)
+                                    jnp.asarray(lens), jcache,
+                                    attn_impl=impl)
     with torch.no_grad():
         tl, tcache = ttfm.prefill_paged(tp, cfg, torch.from_numpy(toks),
-                                        torch.from_numpy(lens), tcache)
-    shared = _np(tcache.k_pages)[:, 1:3].copy()
+                                        torch.from_numpy(lens), tcache,
+                                        attn_impl=impl)
+    shared = _np(tcache.k_pages)[:, 1:3].reshape(cfg.n_layers, 2 * pg, -1)
+    shared = shared[:, :start].copy()
     t_toks = np.zeros((1, 8), np.int32)
     t_toks[0, 1:] = tail
-    start, total = np.array([16], np.int32), np.array([23], np.int32)
+    st, total = np.array([start], np.int32), np.array([start + 7], np.int32)
     jcache = jcache._replace(block_table=jnp.asarray(bt[1:]),
                              slot_pos=jcache.slot_pos[1:],
                              lengths=jcache.lengths[1:])
@@ -205,16 +222,33 @@ def test_paged_tail_prefill_logits_match_jax(models):
                              slot_pos=tcache.slot_pos[1:],
                              lengths=tcache.lengths[1:])
     jl, jcache = jtfm.prefill_tail_paged(jp, jcfg, jnp.asarray(t_toks),
-                                         jnp.asarray(start),
-                                         jnp.asarray(total), jcache)
+                                         jnp.asarray(st),
+                                         jnp.asarray(total), jcache,
+                                         attn_impl=impl)
     with torch.no_grad():
         tl, tcache = ttfm.prefill_tail_paged(tp, cfg,
                                              torch.from_numpy(t_toks),
-                                             torch.from_numpy(start),
-                                             torch.from_numpy(total), tcache)
+                                             torch.from_numpy(st),
+                                             torch.from_numpy(total), tcache,
+                                             attn_impl=impl)
     np.testing.assert_allclose(_np(tl), np.asarray(jl), atol=LOGIT_TOL)
-    np.testing.assert_array_equal(_np(tcache.k_pages)[:, 1:3], shared)
+    after = _np(tcache.k_pages)[:, 1:3].reshape(cfg.n_layers, 2 * pg, -1)
+    np.testing.assert_array_equal(after[:, :start], shared)
     _assert_pages_match(jcache, tcache)
+
+
+def test_paged_tail_prefill_logits_match_jax(models):
+    """A row joins another's first two pages (16 shared tokens) and
+    prefills only its tail: logits agree, and the shared pages are read,
+    never written."""
+    _check_paged_tail_prefill(models, "unfused", 16)
+
+
+def test_fused_paged_tail_prefill_logits_match_jax(models):
+    """The fused tail prefill, at the engine's page-aligned start (two
+    pages) and at a start in the middle of the second page."""
+    for start in (16, 13):
+        _check_paged_tail_prefill(models, "fused", start)
 
 
 def test_large_prefill_blocks_queries_without_changing_the_maths(monkeypatch):
@@ -234,14 +268,19 @@ def test_large_prefill_blocks_queries_without_changing_the_maths(monkeypatch):
     np.testing.assert_allclose(_np(blocked), _np(whole), atol=1e-6)
 
 
-def test_fused_impl_is_not_ported_yet(models):
+def test_unknown_attn_impl_raises_value_error(models):
+    """Only "unfused" and "fused" exist: the engine and the model drivers
+    refuse anything else and name the argument, as the JAX engine does."""
+    from repro_torch.engine.static_engine import StaticEngine
     jm, jp, tm, tp = models
+    with pytest.raises(ValueError, match="attn_impl"):
+        StaticEngine(tm, tp, attn_impl="turbo", device="cpu")
     bt = np.array([[1, 2]], np.int32)
     _, tcache = _paged_pair(tm.cfg, bt, 8, 2)
-    with pytest.raises(NotImplementedError, match="B3/B4"):
+    with pytest.raises(ValueError, match="attn_impl"):
         ttfm.prefill_paged(tp, tm.cfg, torch.ones((1, 4), dtype=torch.int32),
                            torch.tensor([4], dtype=torch.int32), tcache,
-                           attn_impl="fused")
+                           attn_impl="turbo")
 
 
 # ---------------------------------------------------------------------------

@@ -1,8 +1,10 @@
 """The port's scheduling core and the slice as a whole: the golden
 dispatch logs bit-exact through ``repro_torch.serving.SchedulerCore`` +
 ``SimBackend`` (built from the port's own copies), the launcher serving
-a CodeFuse trace end to end on the CPU, and the port's ``RealBackend``
-giving every request of a fixed trace the JAX ``RealBackend``'s tokens."""
+a CodeFuse trace end to end on the CPU on each KV path, the port's
+``RealBackend`` giving every request of a fixed trace the JAX
+``RealBackend``'s tokens, and fused engines behind ``SchedulerCore``
+streaming the unfused engines' tokens."""
 import copy
 import json
 import os
@@ -65,23 +67,49 @@ def test_pred_mode_is_not_ported_yet():
                       RuleBasedMemoryEstimator())
 
 
+LAUNCH_CPU = ["--backend", "real", "--device", "cpu", "--reduced",
+              "--rate", "2", "--duration", "3", "--max-input", "48",
+              "--max-gen", "12", "--slice-len", "6", "--shared-prefix", "1",
+              "--m-available", "16e6"]
+
+
 def test_launcher_serves_a_codefuse_trace_on_cpu():
-    """``repro_torch.launch.serve --backend real --device cpu --reduced``:
-    every request completes, a shared-prefix request joins resident pages,
-    and both kernel wrappers took their plain (CPU) versions."""
+    """``repro_torch.launch.serve --backend real --device cpu --reduced
+    --kv-layout paged --kv-retain request``: every request completes, a
+    shared-prefix request joins resident pages, and both unfused kernel
+    wrappers took their plain (CPU) versions."""
     from repro_torch.kernels import ops
     from repro_torch.launch import serve
     ops.reset_counts()
-    m = serve.main(["--backend", "real", "--device", "cpu", "--reduced",
-                    "--rate", "2", "--duration", "3", "--max-input", "48",
-                    "--max-gen", "12", "--slice-len", "6",
-                    "--shared-prefix", "1", "--m-available", "16e6"])
+    m = serve.main(LAUNCH_CPU + ["--kv-layout", "paged",
+                                 "--kv-retain", "request"])
     assert m.n_requests >= 4 and m.n_completed == m.n_requests
     assert m.prefix_hit_tokens > 0 and m.reprefill_tokens == 0
     assert ops.plain_calls["paged_prefill_write"] > 0
     assert ops.plain_calls["paged_decode_attention"] > 0
-    assert ops.launches() == {"paged_prefill_write": 0,
-                              "paged_decode_attention": 0}
+    assert ops.launches() == dict.fromkeys(ops.plain_calls, 0)
+
+
+@pytest.mark.parametrize("kv_layout", ["dense", "paged"])
+def test_launcher_slice_retain_on_cpu(kv_layout):
+    """The launcher's default ``--kv-retain slice`` (the JAX launcher's
+    default serving path) with either memory model: every request
+    completes, requests that outlive a slice re-prefill (``max_gen`` 12 >
+    ``slice_len`` 6), and no kernel runs, plain or launched."""
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve
+    ops.reset_counts()
+    m = serve.main(LAUNCH_CPU + ["--kv-layout", kv_layout])
+    assert m.n_requests >= 4 and m.n_completed == m.n_requests
+    assert m.reprefill_tokens > 0 and m.prefix_hit_tokens == 0
+    assert not any(ops.plain_calls.values())
+    assert not any(ops.launches().values())
+
+
+def test_launcher_rejects_request_retain_without_paged_layout():
+    from repro_torch.launch import serve
+    with pytest.raises(SystemExit):
+        serve.parse_args(["--kv-retain", "request"])
 
 
 def test_launcher_sim_backend_runs_the_same_core():
@@ -143,7 +171,9 @@ def test_real_backend_tokens_match_jax_real_backend():
     eng = StaticEngine(tm, tp, kv_pool_tokens=mem.total_blocks * 8,
                        device="cpu", **eng_kw)
     core = SchedulerCore(make_strategy("scls", **strat_kw),
-                         RealBackend([eng], mem=mem, sched_bucket=est.bucket),
+                         RealBackend([eng], mem=mem, kv_layout="paged",
+                                     sched_bucket=est.bucket,
+                                     kv_retain="request"),
                          1, est, mem)
     trace = _fixed_trace(Request, tm.cfg.vocab_size)
     m = core.run(trace, 2.0)
@@ -156,3 +186,51 @@ def test_real_backend_tokens_match_jax_real_backend():
     assert eng.allocator.free_blocks == eng.allocator.n_pages
     assert jeng.allocator.free_blocks == jeng.allocator.n_pages
     assert mem.retained_blocks == 0
+
+
+def test_fused_engines_behind_the_core_stream_unfused_tokens():
+    """``tests/test_retain.py``'s server-level fused sweep without
+    ``SliceServer`` (not ported yet): ``SchedulerCore`` + ``RealBackend``
+    over fused persistent paged engines gives every request the tokens of
+    the same run over unfused engines, and only the fused plain versions
+    run."""
+    from repro_torch.core.estimator import a100_llama13b_profile
+    from repro_torch.core.memory import PagedMemoryEstimator
+    from repro_torch.core.request import Request
+    from repro_torch.core.schedulers import make_strategy
+    from repro_torch.engine.static_engine import StaticEngine
+    from repro_torch.kernels import ops
+    from repro_torch.serving import RealBackend, SchedulerCore, \
+        fitted_estimator
+    jm, jp, tm, tp = shared_models()
+    ps = prompts(tm.cfg.vocab_size, [12, 9, 5], seed=4)
+    gens = (14, 6, 10)
+    streams, calls = {}, {}
+    for impl in ("unfused", "fused"):
+        mem = PagedMemoryEstimator(delta_bytes=tm.kv_bytes_per_token(),
+                                   m_available=64e6, zeta=0.9, page_tokens=8,
+                                   bucket=8, kv_retain="request")
+        est = fitted_estimator(a100_llama13b_profile())
+        eng = StaticEngine(tm, tp, eos_id=1, len_bucket=8, kv_layout="paged",
+                           page_tokens=8, kv_pool_tokens=mem.total_blocks * 8,
+                           attn_impl=impl, device="cpu")
+        core = SchedulerCore(
+            make_strategy("scls", slice_len=8, max_gen=24, gamma=0.25,
+                          kv_layout="paged"),
+            RealBackend([eng], mem=mem, kv_layout="paged",
+                        sched_bucket=est.bucket, kv_retain="request"),
+            1, est, mem)
+        trace = [Request(rid=i, arrival=0.1 * i, input_len=len(p),
+                         gen_len=g, max_gen=24, prompt=p)
+                 for i, (p, g) in enumerate(zip(ps, gens))]
+        ops.reset_counts()
+        m = core.run(trace, 2.0)
+        assert m.n_completed == len(trace)
+        streams[impl] = [r.output_tokens for r in trace]
+        calls[impl] = dict(ops.plain_calls)
+    for p, want, got in zip(ps, streams["unfused"], streams["fused"]):
+        assert_same_stream(p, want, got)
+    assert calls["fused"]["paged_prefill_write"] == 0
+    assert calls["fused"]["paged_decode_attention"] == 0
+    assert calls["fused"]["fused_rope_prefill_write"] > 0
+    assert calls["fused"]["fused_rope_decode_append"] > 0
