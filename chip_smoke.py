@@ -12,13 +12,20 @@ fails (nothing is caught):
    ``src/repro_torch/kernels/csrc`` (one process per source, all at once);
 3. kernels: each kernel runs at the main path's full-width shapes
    (llama3.2-1b: 32 query heads, 8 KV heads, head_dim 64, 16-token pages,
-   bf16, 8 rows of about 512 tokens over a page pool of the slice's size)
-   and is held against its plain PyTorch version on the same inputs, then
-   timed beside that plain version, PyTorch yardsticks computing the same
-   function, and the least time the card could take;
+   bf16, 8 rows of about 512 tokens over a page pool of the slice's size;
+   flash_prefill also at one row of 1280 and with a window,
+   decode_attention over 768-slot rows, one of them empty) and is held
+   against its plain PyTorch version on the same inputs, then timed beside
+   that plain version, PyTorch yardsticks computing the same function, and
+   the least time the card could take;
 4. reference: on a small input, the paged serving path with either
-   ``attn_impl`` (through the kernels) is held against the dense
-   plain-PyTorch path of the same model;
+   ``attn_impl`` (through the kernels) is held against the dense path of
+   the same model (through flash_prefill and decode_attention);
+4b. ILS parity: the reduced float32 llama3.2-1b, one set of weights on the
+   card and on the CPU; small dense and paged ``ContinuousEngine``s and
+   the dense ``StaticEngine`` give the same token streams on both (near
+   ties recorded), the kernels launch once per layer per prefill / decode
+   step, and dense == paged on the card;
 5. unfused slice: full-width llama3.2-1b in bf16 with random weights,
    built by ``repro_torch.launch.serve`` (SCLS, one worker, persistent
    paged KV with ``kv_retain="request"`` and prefix sharing), serves a
@@ -37,11 +44,19 @@ fails (nothing is caught):
 7. dense slice: the launcher with ``--kv-layout dense --kv-retain slice``
    (the paper's SCLS, which re-prefills prompt + generated tokens at every
    reschedule) serves the same trace: every request completes, re-prefill
-   is above zero and no kernel runs.
+   is above zero, and only flash_prefill and decode_attention launch, once
+   per layer per prefill stage / decode step;
+8. ILS: the paper's baseline, ``ContinuousEngine.serve`` at full width on
+   the trace's 40 prompts with their output lengths forced, dense (16
+   slots of 1280) and paged (64 rows, the same token budget): every
+   request completes, the paged engine runs more rows at once, its pages
+   all return, and only flash_prefill and the layout's decode kernel
+   launch, once per layer per join / decode iteration.
 
 The last line of standard output is ``{"ok": true, "device": {...}}``; the
 line before it is the ``nvidia-smi`` reading and the one before that the
-per-kernel JSON (launches from phases 5 and 6, times from phase 3).
+per-kernel JSON (launches from each kernel's slice, phases 5 to 7, with
+every path's beside them; times from phase 3).
 """
 from __future__ import annotations
 
@@ -507,14 +522,163 @@ def check_fused_decode(cfg, n_pages: int, pg: int, gen: torch.Generator,
                            n_valid_tokens=n_valid, pool_pages=n_pages + 1))
 
 
+def prefill_inputs(cfg, lengths, T: int, gen: torch.Generator):
+    """Left-padded rows of the given lengths: bf16 q, k, v and positions
+    (pads -1), as ``models.transformer.make_positions`` builds them."""
+    from repro_torch.models.transformer import make_positions
+    dev = torch.device("cuda")
+    B = len(lengths)
+    positions = make_positions(torch.zeros((B, T), dtype=torch.int32,
+                                           device=dev),
+                               torch.tensor(lengths, device=dev))
+    shapes = ((B, T, cfg.n_heads, cfg.head_dim),
+              (B, T, cfg.n_kv_heads, cfg.head_dim),
+              (B, T, cfg.n_kv_heads, cfg.head_dim))
+    q, k, v = (torch.randn(s, generator=gen, device=dev).to(cfg.dtype)
+               for s in shapes)
+    return q, k, v, positions
+
+
+def check_flash_prefill(cfg, gen: torch.Generator,
+                        flush: torch.Tensor) -> dict:
+    """B5 at the dense prefill's shapes: 8 left-padded rows of 512 (300 to
+    512 valid), with and without a window, and one row of 1280 (the
+    longest dense re-prefill of the smoke trace: a 1024-token prompt and
+    256 generated tokens); timed at 8 x 512 without a window."""
+    from repro_torch.kernels import flash_prefill as kmod
+    from repro_torch.kernels import ref
+    lengths = [512, 497, 300, 505, 460, 489, 333, 512]
+    cases = [("8x512", lengths, 512, None), ("8x512 window 128", lengths,
+                                             512, 128),
+             ("1x1280", [1280], 1280, None)]
+    err = 0.0
+    for label, lens, T, window in cases:
+        q, k, v, pos = prefill_inputs(cfg, lens, T, gen)
+        out = kmod.flash_prefill(q, k, v, pos, window=window)
+        want = ref.flash_prefill_ref(q, k, v, pos, window=window)
+        torch.cuda.synchronize()
+        e = (out.float() - want.float()).abs().max().item()
+        finite = bool(torch.isfinite(out).all())
+        log(f"flash_prefill {label}: max |kernel - plain| = {e:.3e} "
+            f"(tolerance {DECODE_TOL}), finite {finite}")
+        if not (finite and e <= DECODE_TOL):
+            raise SystemExit(f"flash_prefill {label} disagrees with its "
+                             f"plain version")
+        err = max(err, e)
+        del out, want
+
+    q, k, v, pos = prefill_inputs(cfg, lengths, 512, gen)
+    B, T, Hq, D = q.shape
+    Hkv = k.shape[2]
+    G = Hq // Hkv
+    # library yardstick: SDPA with the boolean mask (diagonal rule
+    # included) over K/V expanded to the query heads beforehand
+    pq, pk = pos[:, :, None], pos[:, None, :]
+    mask = ((pk >= 0) & (pk <= pq)) | torch.eye(T, dtype=torch.bool,
+                                                device=q.device)
+    qt = q.transpose(1, 2).contiguous()
+    kt = k.transpose(1, 2).repeat_interleave(G, dim=1).contiguous()
+    vt = v.transpose(1, 2).repeat_interleave(G, dim=1).contiguous()
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    t_kernel = time_ms(lambda: kmod.flash_prefill(q, k, v, pos), flush)
+    t_plain = time_ms(lambda: ref.flash_prefill_ref(q, k, v, pos), flush,
+                      iters=10)
+    t_lib = time_ms(lambda: sdpa(qt, kt, vt, attn_mask=mask[:, None]), flush)
+    n_pairs = int(mask.sum())                       # (query, key) pairs
+    elt = q.element_size()
+    n_bytes = (2 * q.numel() * elt                  # q in, out
+               + 2 * k.numel() * elt                # k, v
+               + pos.numel() * 4)
+    n_flops = 4 * n_pairs * Hq * D                  # QK^T and PV
+    b_ms, b_by = bound(n_bytes, n_flops)
+    log(f"flash_prefill: kernel {t_kernel:.4f} ms, plain {t_plain:.4f} ms, "
+        f"SDPA {t_lib:.4f} ms, bound {b_ms:.4f} ms ({b_by}; "
+        f"{n_bytes / 1e6:.1f} MB, {n_flops / 1e9:.2f} GFLOP)")
+    return dict(name="flash_prefill", route="cuda",
+                source="src/repro_torch/kernels/csrc/flash_prefill.cu",
+                replaces="src/repro/kernels/flash_prefill.py:96",
+                max_abs_err=err, ms=t_kernel, kernel_ms=t_kernel,
+                plain_ms=t_plain, bound_ms=b_ms, bound_by=b_by,
+                library_ms=t_lib, library="scaled_dot_product_attention "
+                "with the boolean mask, K/V expanded to the query heads "
+                "beforehand", shape=dict(B=B, T=T, Hq=Hq, Hkv=Hkv, D=D,
+                           valid_tokens=int((pos >= 0).sum()),
+                           attended_pairs=n_pairs, gflop=n_flops / 1e9))
+
+
+def check_dense_decode(cfg, gen: torch.Generator,
+                       flush: torch.Tensor) -> dict:
+    """B6 at the dense decode's shapes: 8 rows over a 768-slot cache, rows
+    at different positions behind left pads, one row fully masked."""
+    from repro_torch.kernels import decode_attention as kmod
+    from repro_torch.kernels import ref
+    dev = torch.device("cuda")
+    B, W, Hq, Hkv, D = 8, 768, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    # (left pads, live tokens) per row; the last row is empty
+    rows = [(0, 768), (16, 700), (64, 600), (5, 512), (100, 400),
+            (0, 333), (200, 520), (0, 0)]
+    slot_pos = torch.full((B, W), -1, dtype=torch.int32, device=dev)
+    q_pos = torch.zeros((B,), dtype=torch.int32, device=dev)
+    for b, (pad, n) in enumerate(rows):
+        slot_pos[b, pad:pad + n] = torch.arange(n, dtype=torch.int32,
+                                                device=dev)
+        q_pos[b] = max(n - 1, 0)
+    q = torch.randn((B, Hq, D), generator=gen, device=dev).to(cfg.dtype)
+    k_cache = torch.randn((B, W, Hkv, D), generator=gen,
+                          device=dev).to(cfg.dtype)
+    v_cache = torch.randn((B, W, Hkv, D), generator=gen,
+                          device=dev).to(cfg.dtype)
+    args = (q, k_cache, v_cache, slot_pos, q_pos)
+    out = kmod.decode_attention(*args)
+    want = ref.decode_attention_ref(*args)
+    torch.cuda.synchronize()
+    err = (out.float() - want.float()).abs().max().item()
+    G = Hq // Hkv
+    mean_v = v_cache[-1].float().mean(dim=0).repeat_interleave(G, dim=0)
+    err_mean = (out[-1].float() - mean_v).abs().max().item()
+    log(f"decode_attention: max |kernel - plain| = {err:.3e}, empty row vs "
+        f"the mean of its V {err_mean:.3e} (tolerance {DECODE_TOL})")
+    if not (err <= DECODE_TOL and err_mean <= DECODE_TOL):
+        raise SystemExit("decode_attention disagrees with its plain version")
+
+    kt = k_cache.transpose(1, 2).contiguous()
+    vt = v_cache.transpose(1, 2).contiguous()
+    qg = q.reshape(B, Hkv, G, D)
+    mask = ((slot_pos >= 0) & (slot_pos <= q_pos[:, None]))[:, None, None]
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    t_kernel = time_ms(lambda: kmod.decode_attention(*args), flush)
+    t_plain = time_ms(lambda: ref.decode_attention_ref(*args), flush)
+    t_lib = time_ms(lambda: sdpa(qg, kt, vt, attn_mask=mask), flush)
+    n_live = sum(n for _, n in rows)
+    elt = q.element_size()
+    row_bytes = Hkv * D * elt
+    n_bytes = (2 * n_live * row_bytes               # live K and V slots
+               + W * row_bytes                      # V of the empty row
+               + 2 * q.numel() * elt                # q in, out
+               + slot_pos.numel() * 4 + B * 4)
+    n_flops = 4 * n_live * Hq * D + 2 * W * Hq * D  # QK^T and PV; the mean
+    b_ms, b_by = bound(n_bytes, n_flops)
+    log(f"decode_attention: kernel {t_kernel:.4f} ms, plain {t_plain:.4f} "
+        f"ms, SDPA {t_lib:.4f} ms, bound {b_ms:.4f} ms")
+    return dict(name="decode_attention", route="cuda",
+                source="src/repro_torch/kernels/csrc/decode_attention.cu",
+                replaces="src/repro/kernels/decode_attention.py:81",
+                max_abs_err=err, ms=t_kernel, kernel_ms=t_kernel,
+                plain_ms=t_plain, bound_ms=b_ms, bound_by=b_by,
+                library_ms=t_lib, library="scaled_dot_product_attention "
+                "with the boolean slot mask, caches transposed beforehand",
+                shape=dict(B=B, W=W, Hq=Hq, Hkv=Hkv, D=D,
+                           n_live_tokens=n_live, empty_rows=1))
+
+
 # ---------------------------------------------------------------------------
 # phase 4: paged kernel paths against the dense plain path, small input
 # ---------------------------------------------------------------------------
 def check_reference(model, params, pg: int) -> dict:
     """Prefill 4 prompts and decode 4 steps through the paged path with
-    each ``attn_impl`` (the kernels) and the dense path (plain PyTorch),
-    feeding all the same tokens; the logits must agree to ``REF_TOL`` of
-    their largest magnitude."""
+    each ``attn_impl`` and the dense path (flash_prefill and
+    decode_attention), feeding all the same tokens; the logits must agree
+    to ``REF_TOL`` of their largest magnitude."""
     import numpy as np
     from repro_torch.kvcache import PagedKVCache, init_page_pools
     from repro_torch.models import transformer as tfm
@@ -570,7 +734,7 @@ def check_reference(model, params, pg: int) -> dict:
         torch.cuda.synchronize()
     ok = all(bool(torch.isfinite(x).all()) and x.shape == (B, cfg.vocab_size)
              for x in lp.values())
-    log(f"reference: paged (kernels) vs dense (plain) logits over prefill + "
+    log(f"reference: paged vs dense logits over prefill + "
         f"{n_steps} decode steps, max relative difference: unfused "
         f"{worst['unfused']:.3e}, fused {worst['fused']:.3e}, fused vs "
         f"unfused {worst['fused_vs_unfused']:.3e} (tolerance {REF_TOL}); "
@@ -579,6 +743,119 @@ def check_reference(model, params, pg: int) -> dict:
         raise SystemExit("a paged kernel path disagrees with the dense "
                          "reference path")
     return {f"max_rel_logit_diff_{k}": v for k, v in worst.items()}
+
+
+# ---------------------------------------------------------------------------
+# phase 4b: the dense attention kernels' engines, card against CPU
+# ---------------------------------------------------------------------------
+NEAR_TIE = 1e-4  # float32 top-2 logit gap below which two streams may part
+
+
+def stream_tie(model, params, prompt, want, got):
+    """None when ``got`` equals ``want``; else the gap of the CPU model's
+    top-2 logits where they part (prefill of prompt + want[:j]), which
+    must be a near-tie (the rest, conditioned on another token, is not
+    compared)."""
+    import numpy as np
+    for j, (a, b) in enumerate(zip(want, got)):
+        if a == b:
+            continue
+        ctx = np.concatenate([prompt, np.asarray(want[:j], np.int32)])
+        with torch.no_grad():
+            logits, _ = model.prefill(
+                params, {"tokens": torch.from_numpy(ctx[None]),
+                         "lengths": torch.tensor([len(ctx)],
+                                                 dtype=torch.int32)},
+                len(ctx) + 1)
+        top2 = torch.topk(logits[0], 2).values
+        gap = float(top2[0] - top2[1])
+        if not gap < NEAR_TIE:
+            raise SystemExit(f"token {j} of a {len(prompt)}-token prompt: "
+                             f"card {b} != CPU {a}, top-2 gap {gap:.3e} is "
+                             f"no near-tie")
+        return gap
+    if len(want) != len(got):
+        raise SystemExit("stream lengths differ")
+    return None
+
+
+def check_ils_parity() -> None:
+    """The reduced float32 llama3.2-1b with one set of weights on the card
+    and on the CPU: small dense and paged ``ContinuousEngine``s and the
+    dense ``StaticEngine`` serve the same prompts on each.  On the card
+    they run flash_prefill, decode_attention and paged_decode_attention
+    (each once per layer per prefill / decode step), on the CPU the plain
+    maths; the streams must be equal but for recorded near-ties, and the
+    dense and paged ILS engines must agree on the card."""
+    import numpy as np
+    from repro_torch.configs import get_config
+    from repro_torch.engine.continuous_engine import ContinuousEngine
+    from repro_torch.engine.static_engine import StaticEngine
+    from repro_torch.kernels import ops
+    from repro_torch.models.registry import get_model
+    model = get_model(get_config("llama3.2-1b", reduced=True))
+    cpu = model.init(0, device="cpu")
+    card = model.init(0, device="cuda")
+    card.load_state_dict(cpu.state_dict())
+    rng = np.random.default_rng(4)
+    ps = [rng.integers(2, model.cfg.vocab_size, size=n).astype(np.int32)
+          for n in (5, 9, 4, 12, 3, 20, 33, 17)]
+    forced = [4, 6, 3, 5, 7, 8, 12, 10]
+    L = model.cfg.n_layers
+    kw = dict(max_slots=3, max_context=64, eos_id=1, len_bucket=8)
+    ties, card_outs = [], {}
+    for layout, extra, decode in (
+            ("dense", {}, "decode_attention"),
+            ("paged", dict(page_tokens=8), "paged_decode_attention")):
+        want = ContinuousEngine(model, cpu, kv_layout=layout, device="cpu",
+                                **kw, **extra).serve(ps,
+                                                     forced_gen_lens=forced)
+        eng = ContinuousEngine(model, card, kv_layout=layout, device="cuda",
+                               **kw, **extra)
+        ops.reset_counts()
+        got = eng.serve(ps, forced_gen_lens=forced)
+        torch.cuda.synchronize()
+        launches = ops.launches()
+        expect = {k: 0 for k in launches}
+        expect["flash_prefill"] = L * eng.n_prefill_stages
+        expect[decode] = L * eng.n_decode_steps
+        if launches != expect or any(ops.plain_calls.values()):
+            raise SystemExit(f"ILS {layout} on the card: launches "
+                             f"{launches} != {expect}, plain calls "
+                             f"{ops.plain_calls}")
+        if eng.alloc is not None and \
+                eng.alloc.free_blocks != eng.alloc.n_pages:
+            raise SystemExit("ILS paged on the card: pages leaked")
+        for i, (p, a, b) in enumerate(zip(ps, want.outputs, got.outputs)):
+            gap = stream_tie(model, cpu, p, a, b)
+            if gap is not None:
+                ties.append(dict(engine=f"ils_{layout}", request=i, gap=gap))
+        card_outs[layout] = got.outputs
+    if card_outs["dense"] != card_outs["paged"]:
+        raise SystemExit("ILS dense and paged engines disagree on the card")
+    want = StaticEngine(model, cpu, eos_id=1, len_bucket=8,
+                        device="cpu").serve_batch(ps, slice_len=16,
+                                                  forced_gen_lens=forced)
+    se = StaticEngine(model, card, eos_id=1, len_bucket=8, device="cuda")
+    ops.reset_counts()
+    got = se.serve_batch(ps, slice_len=16, forced_gen_lens=forced)
+    launches = ops.launches()
+    if (launches["flash_prefill"] != L * se.n_prefill_stages
+            or launches["decode_attention"] != L * se.n_decode_steps
+            or sum(launches.values()) != L * (se.n_prefill_stages
+                                              + se.n_decode_steps)):
+        raise SystemExit(f"dense static engine on the card: launches "
+                         f"{launches}")
+    for i, (p, a, b) in enumerate(zip(ps, want.results, got.results)):
+        gap = stream_tie(model, cpu, p, a["tokens"], b["tokens"])
+        if gap is not None:
+            ties.append(dict(engine="static_dense", request=i, gap=gap))
+    log(f"ILS parity (reduced float32 llama3.2-1b): dense and paged "
+        f"ContinuousEngine and the dense StaticEngine on the card match the "
+        f"CPU over {len(ps)} requests each; dense == paged on the card; "
+        f"near-ties {ties}")
+    print(json.dumps({"ils_parity": dict(requests=len(ps), near_ties=ties)}),
+          flush=True)
 
 
 # ---------------------------------------------------------------------------
@@ -593,6 +870,7 @@ PAGED_ARGV = SLICE_ARGV + ["--kv-layout", "paged", "--kv-retain", "request"]
 DENSE_ARGV = SLICE_ARGV + ["--kv-layout", "dense", "--kv-retain", "slice"]
 FUSED = ("fused_rope_prefill_write", "fused_rope_decode_append")
 UNFUSED = ("paged_prefill_write", "paged_decode_attention")
+DENSE = ("flash_prefill", "decode_attention")
 
 
 def time_engine(engine) -> dict:
@@ -673,13 +951,15 @@ def serve_trace(label: str, core, engines, trace, duration: float,
 
 def check_launches(label: str, summary: dict, used, unused) -> None:
     """The kernels in ``used`` launched once per layer per prefill stage
-    (the writes) or decode step (the attentions); those in ``unused`` never
-    launched."""
+    (the writes, flash_prefill) or decode step (the decode attentions);
+    those in ``unused`` never launched."""
     n_layers = summary["n_layers"]
     per = {"paged_prefill_write": summary["prefill_stages"],
            "fused_rope_prefill_write": summary["prefill_stages"],
+           "flash_prefill": summary["prefill_stages"],
            "paged_decode_attention": summary["decode_steps"],
-           "fused_rope_decode_append": summary["decode_steps"]}
+           "fused_rope_decode_append": summary["decode_steps"],
+           "decode_attention": summary["decode_steps"]}
     launches = summary["launches"]
     want = {k: n_layers * per[k] if k in used else 0 for k in launches}
     if launches != want or min(launches[k] for k in used) <= 0:
@@ -694,7 +974,7 @@ def check_launches(label: str, summary: dict, used, unused) -> None:
 
 
 def run_unfused_slice():
-    """Phase 5 (and 4): returns (launches, what the fused slice reuses)."""
+    """Phase 5 (and 4): returns (summary, what the fused slice reuses)."""
     from repro_torch.launch import serve
     args = serve.parse_args(PAGED_ARGV)
     t0 = time.perf_counter()
@@ -716,7 +996,7 @@ def run_unfused_slice():
                  pool_tokens=engines[0].allocator.n_pages * args.page_tokens,
                  vocab=vocab, max_rel_logit_diff=ref_stats[
                      "max_rel_logit_diff_fused_vs_unfused"])
-    return summary["launches"], reuse
+    return summary, reuse
 
 
 def check_fused_engines(model, params, pg: int, vocab: int) -> dict:
@@ -796,8 +1076,8 @@ def check_fused_engines(model, params, pg: int, vocab: int) -> dict:
     return dict(streams=len(ps), streams_equal=n_equal, near_ties=ties)
 
 
-def run_fused_slice(reuse: dict):
-    """Phase 6: returns the fused kernels' launches."""
+def run_fused_slice(reuse: dict) -> dict:
+    """Phase 6: returns the fused slice's summary."""
     from repro_torch.engine.static_engine import StaticEngine
     from repro_torch.launch import serve
     from repro_torch.serving import RealBackend, SchedulerCore
@@ -824,11 +1104,12 @@ def run_fused_slice(reuse: dict):
                          f"tokens re-prefilled")
     check_launches("fused slice", summary, FUSED, UNFUSED)
     profile_window(engines[0], reuse["vocab"])
-    return summary["launches"]
+    return summary
 
 
-def run_dense_slice() -> None:
-    """Phase 7: the launcher's dense SCLS path on the same trace."""
+def run_dense_slice() -> dict:
+    """Phase 7: the launcher's dense SCLS path on the same trace; returns
+    its summary."""
     from repro_torch.launch import serve
     args = serve.parse_args(DENSE_ARGV)
     t0 = time.perf_counter()
@@ -841,12 +1122,96 @@ def run_dense_slice() -> None:
     if summary["reprefill_tokens"] <= 0:
         raise SystemExit("dense slice: nothing re-prefilled, but requests "
                          "of up to 256 tokens outlive slices of 64")
-    if any(summary["launches"].values()):
-        raise SystemExit(f"dense slice: kernels launched: "
-                         f"{summary['launches']}")
-    log(f"dense slice: {summary['n_completed']}/{summary['n_requests']} "
-        f"requests, re-prefill {summary['reprefill_tokens']} tokens, no "
-        f"kernel launched")
+    check_launches("dense slice", summary, DENSE, UNFUSED + FUSED)
+    return summary
+
+
+def run_ils(scls: dict) -> dict:
+    """Phase 8: the paper's ILS baseline at full width.  llama3.2-1b with
+    the launcher's seeded weights; the smoke trace's 40 prompts go to
+    ``ContinuousEngine.serve`` with their output lengths forced and
+    ``max_gen`` 256, on a dense engine (16 slots of 1280) and a paged one
+    (64 rows over the same 16 x 1280 token budget in 16-token pages).
+    Every request must complete, the paged engine must run more rows at
+    once, its allocator must end where it began, and only flash_prefill
+    (once per layer per join) and the layout's decode kernel (once per
+    layer per decode iteration) may launch.  Returns the launches of the
+    dense run."""
+    from repro_torch.configs import get_config
+    from repro_torch.engine.continuous_engine import ContinuousEngine
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve
+    from repro_torch.models.registry import get_model
+    args = serve.parse_args(DENSE_ARGV)
+    model = get_model(get_config("llama3.2-1b"))
+    params = model.init(args.seed, device="cuda")
+    trace = serve.make_trace(args, model.cfg.vocab_size)
+    prompts = [r.prompt for r in trace]
+    forced = [r.gen_len for r in trace]
+    max_gen, W, L = 256, 1280, model.cfg.n_layers
+    runs, launches_by_run = {}, {}
+    for layout, kw, decode in (
+            ("dense", dict(max_slots=16), "decode_attention"),
+            ("paged", dict(max_slots=64, kv_layout="paged", page_tokens=16,
+                           total_kv_tokens=16 * W),
+             "paged_decode_attention")):
+        eng = ContinuousEngine(model, params, max_context=W, eos_id=1,
+                               len_bucket=16, device="cuda", **kw)
+        free0 = eng.alloc.free_blocks if eng.alloc is not None else None
+        torch.cuda.synchronize()
+        ops.reset_counts()
+        t0 = time.perf_counter()
+        res = eng.serve(prompts, forced_gen_lens=forced, max_gen=max_gen)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = ops.launches()
+        n_tokens = sum(len(o) for o in res.outputs)
+        bad = [i for i, o in enumerate(res.outputs)
+               if len(o) != min(forced[i], max_gen)
+               and not (o and o[-1] == eng.eos_id)]
+        runs[layout] = dict(
+            wall_s=wall, iterations=res.iterations,
+            joins=eng.n_prefill_stages, decode_steps=eng.n_decode_steps,
+            mean_parallel=res.mean_parallel, peak_parallel=res.peak_parallel,
+            tokens=n_tokens, tokens_per_s=n_tokens / wall,
+            ms_per_iteration=wall / max(res.iterations, 1) * 1e3,
+            launches=launches, plain_calls=dict(ops.plain_calls),
+            free_pages_before_after=(None if free0 is None
+                                     else [free0, eng.alloc.free_blocks]))
+        if bad or len(res.outputs) != len(trace):
+            raise SystemExit(f"ILS {layout}: requests {bad} ended short of "
+                             f"their length without EOS")
+        if any(ops.plain_calls.values()):
+            raise SystemExit(f"ILS {layout}: plain versions ran on the card")
+        expect = {k: 0 for k in launches}
+        expect["flash_prefill"] = L * eng.n_prefill_stages
+        expect[decode] = L * eng.n_decode_steps
+        if launches != expect or eng.n_prefill_stages != len(trace):
+            raise SystemExit(f"ILS {layout}: launches {launches} != {expect} "
+                             f"implied by {eng.n_prefill_stages} joins and "
+                             f"{eng.n_decode_steps} decode iterations")
+        if eng.alloc is not None and eng.alloc.free_blocks != free0:
+            raise SystemExit(f"ILS paged: {eng.alloc.free_blocks} pages free "
+                             f"after serving, {free0} before")
+        launches_by_run[layout] = launches
+        log(f"ILS {layout}: {len(trace)}/{len(trace)} requests, "
+            f"{res.iterations} iterations, parallel mean "
+            f"{res.mean_parallel:.3f} peak {res.peak_parallel}, "
+            f"{n_tokens} tokens in {wall:.3f} s, launches as implied")
+        del eng
+        release_cuda()
+    if not runs["paged"]["peak_parallel"] > runs["dense"]["peak_parallel"]:
+        raise SystemExit("ILS: the paged engine ran no more rows at once "
+                         "than the dense one")
+    n_tokens = runs["dense"]["tokens"]
+    beside = {label: dict(wall_s=sm["wall_s"], tokens_per_s=n_tokens
+                          / sm["wall_s"], avg_batch=sm.get("avg_batch_size"),
+                          throughput=sm["throughput"])
+              for label, sm in scls.items()}
+    print(json.dumps({"ils": dict(requests=len(trace), max_gen=max_gen,
+                                  runs=runs, scls_beside=beside)}),
+          flush=True)
+    return launches_by_run
 
 
 def release_cuda() -> None:
@@ -926,19 +1291,33 @@ def main() -> int:
     rows = [check(cfg, n_pages, pg, gen, flush)
             for check in (check_decode, check_write, check_fused_write,
                           check_fused_decode)]
+    rows += [check(cfg, gen, flush)
+             for check in (check_flash_prefill, check_dense_decode)]
     del flush
     release_cuda()
-
-    launches, reuse = run_unfused_slice()
+    check_ils_parity()
     release_cuda()
-    launches.update({k: v for k, v in run_fused_slice(reuse).items()
-                     if k in FUSED})
+
+    scls = {}
+    scls["slice"], reuse = run_unfused_slice()
+    release_cuda()
+    scls["fused_slice"] = run_fused_slice(reuse)
     del reuse
     release_cuda()
-    run_dense_slice()
+    scls["dense_slice"] = run_dense_slice()
     release_cuda()
+    ils = run_ils(scls)
+    release_cuda()
+    # each kernel's launches on its own slice's main path, all paths beside
+    by_path = {label: sm["launches"] for label, sm in scls.items()}
+    by_path.update({f"ils_{k}": v for k, v in ils.items()})
+    main_path = {**dict.fromkeys(UNFUSED, "slice"),
+                 **dict.fromkeys(FUSED, "fused_slice"),
+                 **dict.fromkeys(DENSE, "dense_slice")}
     for row in rows:
-        row["launches"] = launches[row["name"]]
+        row["launches"] = by_path[main_path[row["name"]]][row["name"]]
+        row["launches_by_path"] = {k: v[row["name"]]
+                                   for k, v in by_path.items()}
     print(json.dumps({"kernels": rows}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

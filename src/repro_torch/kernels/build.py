@@ -23,7 +23,8 @@ BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 KERNELS = ("paged_prefill_write", "paged_decode_attention",
-           "fused_rope_prefill_write", "fused_rope_decode_append")
+           "fused_rope_prefill_write", "fused_rope_decode_append",
+           "flash_prefill", "decode_attention")
 
 _loaded: Dict[str, ctypes.CDLL] = {}
 

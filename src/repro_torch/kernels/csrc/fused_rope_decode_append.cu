@@ -71,8 +71,9 @@ __global__ void __launch_bounds__(kThreads) fused_rope_decode_append_kernel(
 
   // barrier: q_s and the appended token are visible block-wide after it
   const int row_live = row_any_live(sp_row, nb * PG, qp, window);
-  attend_pages<T, D, PG>(smem, k_pages, v_pages, bt_row, sp_row, qp, nb, G,
-                         Hkv, h, window, scale, row_live,
+  attend_pages<T, D, PG>(smem, k_pages, v_pages, PagedRows<PG>{bt_row},
+                         sp_row, qp, nb * PG, G, Hkv, h, window, scale,
+                         row_live,
                          out + ((int64_t)b * Hq + (int64_t)h * G) * D);
 }
 
@@ -103,7 +104,7 @@ struct Launch {
 // q (B,Hq,D), k_new/v_new (B,Hkv,D); k_pages/v_pages (P,pg,Hkv,D), updated
 // in place; block_table (B,nb), slot_pos (B,nb*pg), slots (B,) and q_pos
 // (B,) int32; inv_freq (D/2,) float32; out (B,Hq,D).  dtype 0 is float32,
-// 1 is bfloat16; D in {64, 128}, pg in {8, 16}, Hq / Hkv <= 8, pools
+// 1 is bfloat16; D in {32, 64, 128}, pg in {8, 16}, Hq / Hkv <= 8, pools
 // 16-byte aligned; window <= 0 means none.  Launches on `stream` and
 // returns cudaGetLastError(), or cudaErrorInvalidValue for a shape the
 // kernel does not take.

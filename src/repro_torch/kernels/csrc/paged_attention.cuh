@@ -1,5 +1,8 @@
-// Paged GQA decode attention for one (row, kv head), shared by
-// paged_decode_attention.cu and fused_rope_decode_append.cu.
+// GQA decode attention for one (row, kv head) over the row's cache slots
+// taken PG at a time as "pages", shared by paged_decode_attention.cu and
+// fused_rope_decode_append.cu (pages found through the block table) and by
+// decode_attention.cu (a dense row: its W contiguous slots, the last page
+// possibly ragged).
 //
 // The block's 8 warps split the row's pages (warp w takes pages w, w + 8,
 // ...), each keeping its own running max, sum and (G, D) accumulator in
@@ -12,11 +15,12 @@
 // with coalesced vector loads, once.  A page whose slots are all masked is
 // skipped, unless the whole row is masked: then, as with the finite NEG_INF
 // of the oracle, every slot weighs the same.  Head dim D and page size PG
-// are template parameters (D in {64, 128}, PG in {8, 16}), so every loop
-// over them unrolls into registers.
+// are template parameters (D in {32, 64, 128}, PG in {8, 16}), so every
+// loop over them unrolls into registers.
 #pragma once
 
 #include <cstdint>
+#include <limits>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
@@ -27,6 +31,8 @@ constexpr int kThreads = kWarps * 32;
 constexpr int kMaxG = 8;  // query heads per kv head
 constexpr unsigned kFull = 0xffffffffu;
 constexpr float kNegInf = -0.7f * 3.402823466e+38f;  // ref.NEG_INF
+// the score of a slot past the row's end: weight exactly 0
+constexpr float kMinusInf = -std::numeric_limits<float>::infinity();
 
 __device__ __forceinline__ float to_float(float x) { return x; }
 __device__ __forceinline__ float to_float(__nv_bfloat16 x) {
@@ -58,12 +64,15 @@ __device__ __forceinline__ void unpack<__nv_bfloat16>(uint32_t w,
 }
 
 // N contiguous values of T at p, as floats; p is aligned to the load size
+// (whole 32-bit words, or one value where N values are less than a word)
 template <typename T, int N>
 __device__ __forceinline__ void load_floats(const T* p, float* out) {
   constexpr int kWords = N * static_cast<int>(sizeof(T)) / 4;
   constexpr int kPer = 4 / static_cast<int>(sizeof(T));  // values per word
-  static_assert(N * sizeof(T) % 4 == 0, "loads are whole 32-bit words");
-  if constexpr (kWords % 4 == 0) {
+  if constexpr (N * sizeof(T) % 4 != 0) {
+    static_assert(N == 1, "sub-word loads are single values");
+    out[0] = to_float(p[0]);
+  } else if constexpr (kWords % 4 == 0) {
 #pragma unroll
     for (int i = 0; i < kWords / 4; ++i) {
       const uint4 u = reinterpret_cast<const uint4*>(p)[i];
@@ -143,20 +152,40 @@ __device__ __forceinline__ int row_any_live(const int32_t* sp_row, int n,
   return __syncthreads_or(any);
 }
 
-// Softmax(q . K * scale) V over the row's pages for the G query heads of kv
-// head h, written to o_row (G, D).  q_s (G, D) floats at the start of smem,
-// already published to the block; the pools' rows are (page, slot, head).
-template <typename T, int D, int PG>
+// Where a row's page j starts, as a slot row of the (slot, head, D) pools:
+// through the block table (paged), or contiguously from the row's first
+// slot (dense cache (B, W, Hkv, D)).
+template <int PG>
+struct PagedRows {
+  const int32_t* bt_row;
+  __device__ __forceinline__ int64_t operator()(int j) const {
+    return static_cast<int64_t>(bt_row[j]) * PG;
+  }
+};
+template <int PG>
+struct DenseRows {
+  int64_t first;  // b * W
+  __device__ __forceinline__ int64_t operator()(int j) const {
+    return first + static_cast<int64_t>(j) * PG;
+  }
+};
+
+// Softmax(q . K * scale) V over the row's n_slots slots for the G query
+// heads of kv head h, written to o_row (G, D).  q_s (G, D) floats at the
+// start of smem, already published to the block; rows(j) gives page j's
+// first slot row.  With kTail, n_slots need not be a multiple of PG: the
+// last page's slots past n_slots are neither loaded nor weighed (score
+// -inf, so weight exactly 0, also in a fully masked row).
+template <typename T, int D, int PG, bool kTail = false, typename Rows>
 __device__ __forceinline__ void attend_pages(
-    float* smem, const T* k_pages, const T* v_pages, const int32_t* bt_row,
-    const int32_t* sp_row, int qp, int nb, int G, int Hkv, int h, int window,
-    float scale, int row_live, T* o_row) {
+    float* smem, const T* k_pages, const T* v_pages, Rows rows,
+    const int32_t* sp_row, int qp, int n_slots, int G, int Hkv, int h,
+    int window, float scale, int row_live, T* o_row) {
   constexpr int kLanesPerSlot = 32 / PG;
   constexpr int kChunk = D / kLanesPerSlot;  // K values per lane per slot
   constexpr int kVec = 16 / static_cast<int>(sizeof(T));
   constexpr int kDims = D / 32;  // output dims per lane
   static_assert(kChunk % kVec == 0, "K parts are whole 16-byte loads");
-  static_assert(kDims * sizeof(T) % 4 == 0, "V parts are whole words");
 
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
@@ -176,20 +205,33 @@ __device__ __forceinline__ void attend_pages(
     for (int i = 0; i < kDims; ++i) acc[g][i] = 0.f;
   }
 
+  const int nb = (n_slots + PG - 1) / PG;
   for (int j = warp; j < nb; j += kWarps) {
-    const bool live = slot_live(sp_row[j * PG + s], qp, window);
+    const bool in = !kTail || j * PG + s < n_slots;
+    const bool live = in && slot_live(sp_row[j * PG + s], qp, window);
     if (row_live && !__any_sync(kFull, live)) continue;  // adds exactly 0
-    const int64_t page = bt_row[j];
+    const int64_t first = rows(j);
     // this lane's dims of every V row, issued first so that they are in
     // flight while the K part is loaded and scored
     float v[PG][kDims];
 #pragma unroll
-    for (int t = 0; t < PG; ++t)
+    for (int t = 0; t < PG; ++t) {
+      if (kTail && j * PG + t >= n_slots) {
+#pragma unroll
+        for (int i = 0; i < kDims; ++i) v[t][i] = 0.f;
+        continue;
+      }
       load_floats<T, kDims>(
-          v_pages + ((page * PG + t) * Hkv + h) * D + lane * kDims, v[t]);
+          v_pages + ((first + t) * Hkv + h) * D + lane * kDims, v[t]);
+    }
     float kf[kChunk];
-    load_floats<T, kChunk>(
-        k_pages + ((page * PG + s) * Hkv + h) * D + part * kChunk, kf);
+    if (in) {
+      load_floats<T, kChunk>(
+          k_pages + ((first + s) * Hkv + h) * D + part * kChunk, kf);
+    } else {
+#pragma unroll
+      for (int e = 0; e < kChunk; ++e) kf[e] = 0.f;
+    }
 
     float p[kMaxG];
 #pragma unroll
@@ -202,7 +244,7 @@ __device__ __forceinline__ void attend_pages(
 #pragma unroll
       for (int o = PG; o < 32; o <<= 1)
         dot += __shfl_xor_sync(kFull, dot, o);  // sum the slot's parts
-      const float sc = live ? dot * scale : kNegInf;
+      const float sc = live ? dot * scale : (in ? kNegInf : kMinusInf);
       float mx = sc;
 #pragma unroll
       for (int o = 1; o < PG; o <<= 1)
@@ -258,10 +300,12 @@ __device__ __forceinline__ void attend_pages(
 }
 
 // Dispatch a launcher template over the compiled (D, PG) instances:
-// launch<T, D, PG>() for D in {64, 128}, PG in {8, 16}, else
+// launch<T, D, PG>() for D in {32, 64, 128}, PG in {8, 16}, else
 // cudaErrorInvalidValue.
 template <typename T, template <typename, int, int> class L, typename... A>
 int dispatch(int D, int pg, A... args) {
+  if (D == 32 && pg == 8) return L<T, 32, 8>::run(args...);
+  if (D == 32 && pg == 16) return L<T, 32, 16>::run(args...);
   if (D == 64 && pg == 8) return L<T, 64, 8>::run(args...);
   if (D == 64 && pg == 16) return L<T, 64, 16>::run(args...);
   if (D == 128 && pg == 8) return L<T, 128, 8>::run(args...);

@@ -44,9 +44,9 @@ __global__ void __launch_bounds__(kThreads) paged_decode_attention_kernel(
   for (int i = threadIdx.x; i < G * D; i += kThreads)
     q_s[i] = to_float(q_row[i]);
   const int row_live = row_any_live(sp_row, nb * PG, qp, window);
-  attend_pages<T, D, PG>(smem, k_pages, v_pages,
-                         block_table + (int64_t)b * nb, sp_row, qp, nb, G,
-                         Hkv, h, window, scale, row_live,
+  const PagedRows<PG> rows{block_table + (int64_t)b * nb};
+  attend_pages<T, D, PG>(smem, k_pages, v_pages, rows, sp_row, qp, nb * PG,
+                         G, Hkv, h, window, scale, row_live,
                          out + ((int64_t)b * Hq + (int64_t)h * G) * D);
 }
 
@@ -73,7 +73,7 @@ struct Launch {
 
 // q (B,Hq,D); k_pages/v_pages (P,pg,Hkv,D); block_table (B,nb) int32;
 // slot_pos (B,nb*pg) int32; q_pos (B,) int32; out (B,Hq,D).  dtype 0 is
-// float32, 1 is bfloat16; D in {64, 128}, pg in {8, 16}, Hq / Hkv <= 8,
+// float32, 1 is bfloat16; D in {32, 64, 128}, pg in {8, 16}, Hq / Hkv <= 8,
 // pools 16-byte aligned; window <= 0 means none.  Launches on `stream` and
 // returns cudaGetLastError(), or cudaErrorInvalidValue for a shape the
 // kernel does not take.

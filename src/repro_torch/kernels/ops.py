@@ -13,6 +13,8 @@ from typing import Dict, Optional
 import torch
 
 from repro_torch.kernels import ref
+from repro_torch.kernels import decode_attention as _dense_decode_kernel
+from repro_torch.kernels import flash_prefill as _prefill_kernel
 from repro_torch.kernels import fused_rope_decode_append as _fdecode_kernel
 from repro_torch.kernels import fused_rope_prefill_write as _fwrite_kernel
 from repro_torch.kernels import paged_decode_attention as _decode_kernel
@@ -22,7 +24,9 @@ from repro_torch.kernels import paged_prefill_write as _write_kernel
 _KERNELS = {"paged_prefill_write": _write_kernel,
             "paged_decode_attention": _decode_kernel,
             "fused_rope_prefill_write": _fwrite_kernel,
-            "fused_rope_decode_append": _fdecode_kernel}
+            "fused_rope_decode_append": _fdecode_kernel,
+            "flash_prefill": _prefill_kernel,
+            "decode_attention": _dense_decode_kernel}
 
 #: calls that took a kernel's plain version (CPU tensors), by kernel
 plain_calls: Dict[str, int] = {name: 0 for name in _KERNELS}
@@ -126,3 +130,27 @@ def fused_rope_decode_append(q: torch.Tensor, k_new: torch.Tensor,
     return _fdecode_kernel.fused_rope_decode_append(
         q, k_new, v_new, block_table, slot_pos, slots, q_pos, k_pages,
         v_pages, theta=theta, window=window)
+
+
+def flash_prefill(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                  positions: torch.Tensor,
+                  window: Optional[int] = None) -> torch.Tensor:
+    """Causal, left-pad-masked GQA prefill attention. q (B,T,Hq,D), k/v
+    (B,T,Hkv,D), positions (B,T) int32 with pads < 0 -> (B,T,Hq,D)."""
+    if _on_cpu(q, "flash_prefill"):
+        return ref.flash_prefill_ref(q, k, v, positions, window=window)
+    return _prefill_kernel.flash_prefill(q, k, v, positions, window=window)
+
+
+def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
+                     v_cache: torch.Tensor, slot_pos: torch.Tensor,
+                     q_pos: torch.Tensor,
+                     window: Optional[int] = None) -> torch.Tensor:
+    """Single-token GQA decode over a dense KV cache. q (B,Hq,D), k/v_cache
+    (B,W,Hkv,D), slot_pos (B,W) and q_pos (B,) int32 -> (B,Hq,D)."""
+    if _on_cpu(q, "decode_attention"):
+        return ref.decode_attention_ref(q, k_cache, v_cache, slot_pos, q_pos,
+                                        window=window)
+    return _dense_decode_kernel.decode_attention(q, k_cache, v_cache,
+                                                 slot_pos, q_pos,
+                                                 window=window)

@@ -19,7 +19,7 @@ from repro_torch.kernels import build
 launches = 0
 
 #: shapes the kernel is compiled for (template instances in the source)
-HEAD_DIMS = (64, 128)
+HEAD_DIMS = (32, 64, 128)
 PAGE_TOKENS = (8, 16)
 MAX_GROUP = 8
 

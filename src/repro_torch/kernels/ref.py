@@ -16,6 +16,36 @@ import torch
 NEG_INF = -0.7 * float(torch.finfo(torch.float32).max)
 
 
+def flash_prefill_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                      positions: torch.Tensor, window: Optional[int] = None,
+                      scale: Optional[float] = None) -> torch.Tensor:
+    """Causal + left-pad-masked GQA attention.
+
+    q (B,T,Hq,D); k/v (B,T,Hkv,D); positions (B,T) with pads < 0.  Query
+    token i attends to key token j where the positions allow it, and always
+    to itself (the diagonal by index keeps the pad rows finite).  Scores
+    and the softmax are float32; the probabilities are rounded to V's type
+    before the PV product, as in the JAX oracle.  Returns (B,T,Hq,D) in q's
+    type.
+    """
+    B, T, Hq, D = q.shape
+    Hkv = k.shape[2]
+    G = Hq // Hkv
+    scale = scale if scale is not None else D ** -0.5
+    pq = positions[:, :, None]
+    pk = positions[:, None, :]
+    mask = (pk >= 0) & (pk <= pq)
+    if window is not None:
+        mask = mask & (pq - pk < window)
+    mask = mask | torch.eye(T, dtype=torch.bool, device=q.device)[None]
+    qr = q.reshape(B, T, Hkv, G, D).float()
+    s = torch.einsum("bthgd,bshd->bhgts", qr, k.float()) * scale
+    s = torch.where(mask[:, None, None], s, NEG_INF)
+    p = torch.softmax(s, dim=-1)
+    o = torch.einsum("bhgts,bshd->bthgd", p.to(v.dtype).float(), v.float())
+    return o.reshape(B, T, Hq, v.shape[-1]).to(q.dtype)
+
+
 def paged_prefill_write_ref(k_new: torch.Tensor, v_new: torch.Tensor,
                             dest_slot: torch.Tensor,
                             block_table: torch.Tensor,

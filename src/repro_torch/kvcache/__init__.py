@@ -5,7 +5,9 @@
 """
 from repro_torch.kvcache.allocator import PageAllocator
 from repro_torch.kvcache.paged import (PagedKVCache, batch_block_table,
-                                       batch_slot_pos, init_page_pools)
+                                       batch_slot_pos, clear_row,
+                                       init_page_pools, init_paged_kv_cache,
+                                       write_prefill_pages)
 from repro_torch.kvcache.prefix import PrefixIndex
 
 __all__ = [
@@ -14,5 +16,8 @@ __all__ = [
     "PrefixIndex",
     "batch_block_table",
     "batch_slot_pos",
+    "clear_row",
     "init_page_pools",
+    "init_paged_kv_cache",
+    "write_prefill_pages",
 ]

@@ -9,6 +9,12 @@ the paged layout addresses logical slot ``s`` of row ``b`` as page
 Caches and page pools are updated **in place**: the JAX functions return
 new arrays (with buffer donation under ``jit``), the port writes into the
 tensors it is given and returns only the layer output.
+
+Dense attention goes through ``kernels.ops``: ``flash_prefill`` for every
+prefill (the JAX package's ``prefill_attention`` switch, whose Pallas
+kernel is meant to carry this path on a chip) and ``decode_attention`` for
+every dense decode step.  ``ops`` launches the kernel for CUDA tensors and
+runs its plain version for CPU tensors.
 """
 from __future__ import annotations
 
@@ -101,15 +107,6 @@ def prefill_mask(positions: torch.Tensor,
     return m[:, None]
 
 
-def decode_mask(q_pos: torch.Tensor, slot_pos: torch.Tensor,
-                window: Optional[int]) -> torch.Tensor:
-    """q_pos (B,), slot_pos (B,W) -> (B,1,1,W)."""
-    m = (slot_pos >= 0) & (slot_pos <= q_pos[:, None])
-    if window is not None:
-        m = m & (q_pos[:, None] - slot_pos < window)
-    return m[:, None, None]
-
-
 def gqa_attend_chunked(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                        scale: float, positions: torch.Tensor,
                        window: Optional[int],
@@ -171,24 +168,59 @@ def _gather_window(pages: torch.Tensor, block_table: torch.Tensor
         B, nb * pages.shape[1], pages.shape[2], pages.shape[3])
 
 
+def prefill_attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                   positions: torch.Tensor, window: Optional[int],
+                   scale: float,
+                   mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Causal, left-pad-masked prefill attention. q (B,T,Hq,D), k/v
+    (B,T,Hkv,D), positions (B,T) int32 with pads < 0 -> (B,T,Hq,D).
+
+    Goes through ``kernels.ops.flash_prefill`` (the kernel on the card, its
+    plain version on the CPU) for every T, with one CPU exception: from
+    ``CHUNK_THRESHOLD`` tokens the CPU takes the chunked path, so that it
+    never builds (B,Hq,T,T) scores.  That path's pad-row rule (pads attend
+    pads) differs from the kernel's diagonal only on pad query rows, which
+    no real token reads.  A caller-supplied ``mask`` (prefix-LM) has no
+    kernel: the CPU attends under it, the card raises."""
+    T = q.shape[1]
+    if mask is None and (q.is_cuda or T < CHUNK_THRESHOLD):
+        return kernel_ops.flash_prefill(q.contiguous(), k.contiguous(),
+                                        v.contiguous(), positions,
+                                        window=window)
+    if q.is_cuda:
+        raise ValueError("prefill attention on the card: a caller-"
+                         "supplied mask has no kernel (flash_prefill "
+                         "takes positions and a window only)")
+    if T >= CHUNK_THRESHOLD:
+        return gqa_attend_chunked(q, k, v, scale, positions, window)
+    return gqa_attend_blocked(q, k, v, mask, scale)
+
+
+def dense_decode_attend(q: torch.Tensor, k_cache: torch.Tensor,
+                        v_cache: torch.Tensor, slot_pos: torch.Tensor,
+                        q_pos: torch.Tensor,
+                        window: Optional[int]) -> torch.Tensor:
+    """One query token per row over a dense cache. q (B,1,Hq,D), k/v_cache
+    (B,W,Hkv,D) -> (B,1,Hq,D), through ``kernels.ops.decode_attention``."""
+    return kernel_ops.decode_attention(
+        q[:, 0].contiguous(), k_cache, v_cache, slot_pos,
+        q_pos.to(torch.int32), window=window)[:, None]
+
+
 def attention_prefill(p: Attention, x: torch.Tensor, positions: torch.Tensor,
                       cfg: ModelConfig, window: Optional[int],
                       cache_window: int,
                       mask: Optional[torch.Tensor] = None
                       ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Prefill that also returns the layer's (k_cache, v_cache) of width W."""
+    """Prefill that also returns the layer's (k_cache, v_cache) of width W.
+    The attention is ``prefill_attend``'s."""
     B, T, _ = x.shape
     q, k, v = _qkv(p, x, cfg)
     rp = positions.clamp(min=0)
     q = apply_rope(q, rp, cfg.rope_theta)
     k = apply_rope(k, rp, cfg.rope_theta)
-    scale = cfg.head_dim ** -0.5
-    if T >= CHUNK_THRESHOLD:
-        o = gqa_attend_chunked(q, k, v, scale, positions, window)
-    else:
-        if mask is None:
-            mask = prefill_mask(positions, window)
-        o = gqa_attend_blocked(q, k, v, mask, scale)
+    o = prefill_attend(q, k, v, positions, window, cfg.head_dim ** -0.5,
+                       mask=mask)
     out = p.wo(o.reshape(B, T, -1))
     W = cache_window
     if W >= T:
@@ -308,15 +340,36 @@ def attention_decode(p: Attention, x: torch.Tensor, q_pos: torch.Tensor,
                      window: Optional[int]) -> torch.Tensor:
     """One-token decode over a dense cache. x (B,1,d); k/v_cache
     (B,W,Hkv,D) of one layer, written in place at ``slot``; ``slot_pos``
-    already includes the current token's position."""
+    already includes the current token's position.  The attention is
+    ``dense_decode_attend``'s."""
     B = x.shape[0]
     q, k, v = _qkv(p, x, cfg)
     q = apply_rope(q, q_pos[:, None], cfg.rope_theta)
     k = apply_rope(k, q_pos[:, None], cfg.rope_theta)
     k_cache[:, slot] = k[:, 0]
     v_cache[:, slot] = v[:, 0]
-    mask = decode_mask(q_pos, slot_pos, window)
-    o = gqa_attend(q, k_cache, v_cache, mask, cfg.head_dim ** -0.5)
+    o = dense_decode_attend(q, k_cache, v_cache, slot_pos, q_pos, window)
+    return p.wo(o.reshape(B, 1, -1))
+
+
+def attention_decode_rowslots(p: Attention, x: torch.Tensor,
+                              q_pos: torch.Tensor, k_cache: torch.Tensor,
+                              v_cache: torch.Tensor, slot_pos: torch.Tensor,
+                              slots: torch.Tensor, cfg: ModelConfig,
+                              window: Optional[int]) -> torch.Tensor:
+    """Decode with *per-row* write slots (continuous batching: each row of
+    the engine is at its own position).  x (B,1,d); k/v_cache (B,W,Hkv,D)
+    of one layer, row b written in place at ``slots[b]`` (the values of the
+    JAX one-hot blend); ``slot_pos`` already marks the current tokens."""
+    B = x.shape[0]
+    q, k, v = _qkv(p, x, cfg)
+    q = apply_rope(q, q_pos[:, None], cfg.rope_theta)
+    k = apply_rope(k, q_pos[:, None], cfg.rope_theta)
+    rows = torch.arange(B, device=x.device)
+    slots = slots.long()
+    k_cache[rows, slots] = k[:, 0]
+    v_cache[rows, slots] = v[:, 0]
+    o = dense_decode_attend(q, k_cache, v_cache, slot_pos, q_pos, window)
     return p.wo(o.reshape(B, 1, -1))
 
 

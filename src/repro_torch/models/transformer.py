@@ -7,6 +7,7 @@ serving functions keep the JAX signatures:
 
   prefill(params, cfg, tokens, lengths, cache_window)      -> (logits, KVCache)
   decode_step(params, cfg, cache, tokens, step)            -> (logits, KVCache)
+  decode_step_rowslots(params, cfg, cache, tokens, q_pos, slots)
   prefill_paged(params, cfg, tokens, lengths, cache)       -> (logits, PagedKVCache)
   prefill_tail_paged(params, cfg, tokens, start, lengths, cache)
   decode_step_paged(params, cfg, cache, tokens, q_pos, slots)
@@ -112,13 +113,11 @@ def prefill(params: Transformer, cfg: ModelConfig, tokens: torch.Tensor,
     positions = make_positions(tokens, lengths)
     h = embed_apply(params.embed, tokens)
     T = positions.shape[1]
-    mask = (None if T >= attn.CHUNK_THRESHOLD
-            else attn.prefill_mask(positions, window))
     ks, vs = [], []
     for layer in params.layers:
         x = rms_norm(h, layer.ln_attn, cfg.norm_eps)
         a, kc, vc = attn.attention_prefill(layer.attn, x, positions, cfg,
-                                           window, cache_window, mask=mask)
+                                           window, cache_window)
         h = _mlp_residual(layer, h + a, cfg)
         ks.append(kc)
         vs.append(vc)
@@ -148,6 +147,30 @@ def decode_step(params: Transformer, cfg: ModelConfig, cache: KVCache,
     logits = _logits(params, cfg, h)[:, 0]
     return logits, cache._replace(slot_pos=slot_pos,
                                   write_idx=cache.write_idx + 1)
+
+
+def decode_step_rowslots(params: Transformer, cfg: ModelConfig,
+                         cache: KVCache, tokens: torch.Tensor,
+                         q_pos: torch.Tensor, slots: torch.Tensor,
+                         window: Optional[int] = None
+                         ) -> Tuple[torch.Tensor, KVCache]:
+    """Continuous-batching decode over a dense cache: per-row positions
+    ``q_pos`` and write ``slots`` (B,) int32, tracked by the caller
+    (``ContinuousEngine``).  ``slot_pos`` is updated at the rows' slots
+    once, shared across layers."""
+    window = window if window is not None else cfg.sliding_window
+    slot_pos = cache.slot_pos.clone()
+    slot_pos.scatter_(1, slots.long()[:, None],
+                      q_pos.to(torch.int32)[:, None])
+    h = embed_apply(params.embed, tokens[:, None])
+    for l, layer in enumerate(params.layers):
+        x = rms_norm(h, layer.ln_attn, cfg.norm_eps)
+        a = attn.attention_decode_rowslots(layer.attn, x, q_pos, cache.k[l],
+                                           cache.v[l], slot_pos, slots, cfg,
+                                           window)
+        h = _mlp_residual(layer, h + a, cfg)
+    logits = _logits(params, cfg, h)[:, 0]
+    return logits, cache._replace(slot_pos=slot_pos)
 
 
 # ---------------------------------------------------------------------------

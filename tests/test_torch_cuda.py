@@ -11,6 +11,8 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch.kernels import decode_attention as dense_decode_kernel
+from repro_torch.kernels import flash_prefill as prefill_kernel
 from repro_torch.kernels import fused_rope_decode_append as fdecode_kernel
 from repro_torch.kernels import fused_rope_prefill_write as fwrite_kernel
 from repro_torch.kernels import paged_decode_attention as decode_kernel
@@ -60,6 +62,7 @@ def _decode_inputs(B, nb, pg, Hq, Hkv, D, dtype, device, seed=0):
     (4, 5, 16, 8, 2, 64),
     (3, 11, 8, 32, 8, 64),     # more pages than warps per block
     (2, 3, 16, 16, 2, 128),    # the widest group and head dim compiled
+    (3, 4, 8, 8, 2, 32),       # the reduced llama3.2-1b heads
 ])
 def test_paged_decode_attention_matches_plain(cuda_device, dtype, window,
                                               B, nb, pg, Hq, Hkv, D):
@@ -186,6 +189,7 @@ def _fused_decode_inputs(B, nb, pg, Hq, Hkv, D, fills, dtype, device,
     (4, 5, 16, 32, 8, 64, [16, 31, 47, 0]),     # a page's first / last slot
     (3, 11, 8, 32, 8, 64, [80, 7, 0]),          # more pages than warps
     (3, 4, 16, 16, 2, 128, [15, 32, 0]),    # widest group and head dim
+    (3, 4, 8, 8, 2, 32, [7, 20, 0]),        # the reduced llama3.2-1b heads
 ])
 def test_fused_rope_decode_append_matches_plain(cuda_device, dtype, window,
                                                 B, nb, pg, Hq, Hkv, D,
@@ -241,3 +245,176 @@ def test_fused_kernels_refuse_what_they_do_not_take(cuda_device):
     with pytest.raises(ValueError, match="aligned"):
         fwrite_kernel.fused_rope_prefill_write(k_new, v_new, pos, bt, mis,
                                                pool[1:].contiguous())
+
+
+# ---------------------------------------------------------------------------
+# dense attention kernels: flash_prefill and decode_attention
+# ---------------------------------------------------------------------------
+def _prefill_inputs(B, T, Hq, Hkv, D, dtype, device, seed=3):
+    """Left-padded rows of random lengths: the first row full, the last
+    all pads (every query row takes only its diagonal)."""
+    rng = np.random.default_rng(seed)
+    lens = rng.integers(1, T + 1, size=B)
+    lens[0] = T
+    if B > 1:
+        lens[-1] = 0
+    idx = np.arange(T)[None]
+    pad = T - lens[:, None]
+    positions = np.where(idx < pad, -1, idx - pad).astype(np.int32)
+    floats = [torch.from_numpy(rng.standard_normal(shape)).to(
+        device=device, dtype=dtype)
+        for shape in ((B, T, Hq, D), (B, T, Hkv, D), (B, T, Hkv, D))]
+    return floats + [torch.from_numpy(positions).to(device)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("window", [None, 7])
+@pytest.mark.parametrize("B,T,Hq,Hkv,D", [
+    (3, 40, 32, 8, 64),      # llama3.2-1b heads; T not a tile multiple
+    (2, 100, 16, 2, 128),    # the widest group at head_dim 128
+    (2, 77, 24, 8, 64),      # 3 heads per KV head: idle threads
+    (1, 130, 8, 8, 64),      # no grouping: 128 tokens per block
+    (2, 16, 32, 8, 64),      # one bucket of 16, a pad row
+    (3, 40, 8, 2, 32),       # the reduced llama3.2-1b heads
+])
+def test_flash_prefill_matches_plain(cuda_device, dtype, window, B, T, Hq,
+                                     Hkv, D):
+    args = _prefill_inputs(B, T, Hq, Hkv, D, dtype, cuda_device)
+    got = prefill_kernel.flash_prefill(*args, window=window)
+    want = ref.flash_prefill_ref(*args, window=window)
+    torch.cuda.synchronize()
+    assert torch.isfinite(got).all()
+    assert (got.float() - want.float()).abs().max().item() <= ATOL[dtype]
+
+
+def _dense_decode_inputs(B, W, Hq, Hkv, D, dtype, device, seed=4):
+    """Rows at different positions: row b holds positions 0..fill-1 in its
+    first slots (fill random, the first row full), one row also holds a
+    slot past its q_pos, and the last row is empty (every slot masked)."""
+    rng = np.random.default_rng(seed)
+    slot_pos = np.full((B, W), -1, np.int32)
+    q_pos = np.zeros((B,), np.int32)
+    for b in range(B - 1):
+        fill = W if b == 0 else int(rng.integers(1, W + 1))
+        slot_pos[b, :fill] = np.arange(fill)
+        q_pos[b] = fill - 1
+    if B > 2 and W > 1:
+        q_pos[1] = max(0, q_pos[1] - 1)  # its last slot lies in the future
+    floats = [torch.from_numpy(rng.standard_normal(shape)).to(
+        device=device, dtype=dtype)
+        for shape in ((B, Hq, D), (B, W, Hkv, D), (B, W, Hkv, D))]
+    return floats + [torch.from_numpy(a).to(device)
+                     for a in (slot_pos, q_pos)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("window", [None, 6])
+@pytest.mark.parametrize("B,W,Hq,Hkv,D", [
+    (4, 37, 32, 8, 64),      # W not a multiple of the 16-slot page
+    (3, 1, 8, 2, 64),        # a single slot
+    (3, 200, 16, 2, 128),    # the widest group at head_dim 128
+    (5, 768, 32, 8, 64),     # more pages than warps
+    (3, 50, 8, 2, 32),       # the reduced llama3.2-1b heads
+])
+def test_decode_attention_matches_plain(cuda_device, dtype, window, B, W,
+                                        Hq, Hkv, D):
+    args = _dense_decode_inputs(B, W, Hq, Hkv, D, dtype, cuda_device)
+    got = dense_decode_kernel.decode_attention(*args, window=window)
+    want = ref.decode_attention_ref(*args, window=window)
+    torch.cuda.synchronize()
+    assert torch.isfinite(got).all()
+    assert (got.float() - want.float()).abs().max().item() <= ATOL[dtype]
+    # the empty last row weighs every slot alike: the mean of V
+    mean_v = args[2][-1].float().mean(dim=0).repeat_interleave(Hq // Hkv, 0)
+    assert (got[-1].float() - mean_v).abs().max().item() <= ATOL[dtype]
+
+
+def test_dense_attention_kernels_refuse_what_they_do_not_take(cuda_device):
+    """CPU tensors, unsupported types, non-contiguous inputs and a query
+    head count that is not a multiple of the KV heads raise before any
+    launch; nothing falls back to the plain versions."""
+    q, k, v, pos = _prefill_inputs(2, 24, 8, 2, 64, torch.float32,
+                                   cuda_device)
+    with pytest.raises(ValueError, match="CUDA"):
+        prefill_kernel.flash_prefill(q.cpu(), k.cpu(), v.cpu(), pos.cpu())
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        prefill_kernel.flash_prefill(q.half(), k.half(), v.half(), pos)
+    with pytest.raises(TypeError, match="int32"):
+        prefill_kernel.flash_prefill(q, k, v, pos.long())
+    with pytest.raises(ValueError, match="contiguous"):
+        prefill_kernel.flash_prefill(q.transpose(1, 2).contiguous()
+                                     .transpose(1, 2), k, v, pos)
+    with pytest.raises(ValueError, match="shapes"):
+        prefill_kernel.flash_prefill(q[:, :, :6].contiguous(),
+                                     k[:, :, :1].repeat(1, 1, 4, 1), v[:, :, :1]
+                                     .repeat(1, 1, 4, 1), pos)
+    before = prefill_kernel.launches
+    with pytest.raises(ValueError, match="head_dim"):
+        prefill_kernel.flash_prefill(q[..., :16].contiguous(),
+                                     k[..., :16].contiguous(),
+                                     v[..., :16].contiguous(), pos)
+    assert prefill_kernel.launches == before
+
+    q, kc, vc, sp, qp = _dense_decode_inputs(3, 20, 8, 2, 64, torch.float32,
+                                             cuda_device)
+    with pytest.raises(ValueError, match="CUDA"):
+        dense_decode_kernel.decode_attention(q.cpu(), kc.cpu(), vc.cpu(),
+                                             sp.cpu(), qp.cpu())
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        dense_decode_kernel.decode_attention(q, kc.bfloat16(), vc, sp, qp)
+    with pytest.raises(TypeError, match="int32"):
+        dense_decode_kernel.decode_attention(q, kc, vc, sp.long(), qp)
+    with pytest.raises(ValueError, match="contiguous"):
+        dense_decode_kernel.decode_attention(
+            q, kc.transpose(0, 1).contiguous().transpose(0, 1), vc, sp, qp)
+    with pytest.raises(ValueError, match="shapes"):
+        dense_decode_kernel.decode_attention(q[:, :6].contiguous(),
+                                             kc[:, :, :1].repeat(1, 1, 4, 1),
+                                             vc[:, :, :1].repeat(1, 1, 4, 1),
+                                             sp, qp)
+
+
+def test_ops_dispatch_dense_attention_to_the_kernels(cuda_device):
+    """On CUDA tensors ``kernels.ops`` launches the kernels (counted) and
+    takes no plain version."""
+    from repro_torch.kernels import ops
+    ops.reset_counts()
+    args = _prefill_inputs(2, 24, 8, 2, 64, torch.bfloat16, cuda_device)
+    ops.flash_prefill(*args)
+    dargs = _dense_decode_inputs(3, 20, 8, 2, 64, torch.bfloat16,
+                                 cuda_device)
+    ops.decode_attention(*dargs)
+    torch.cuda.synchronize()
+    assert ops.launches()["flash_prefill"] == 1
+    assert ops.launches()["decode_attention"] == 1
+    assert not any(ops.plain_calls.values())
+
+
+def test_prefill_attention_refuses_a_mask_on_the_card(cuda_device):
+    """A caller-supplied mask (prefix-LM) has no kernel: on the card it
+    raises instead of falling back to the plain maths."""
+    from repro_torch.models import attention as tattn
+    q, k, v, pos = _prefill_inputs(2, 16, 8, 2, 64, torch.bfloat16,
+                                   cuda_device)
+    mask = tattn.prefill_mask(pos, None)
+    with pytest.raises(ValueError, match="mask"):
+        tattn.prefill_attend(q, k, v, pos, None, 64 ** -0.5, mask=mask)
+
+
+# ---------------------------------------------------------------------------
+# the ILS engines and the dense static engine: card against CPU
+# ---------------------------------------------------------------------------
+def test_reduced_model_engines_on_the_card_match_the_cpu(cuda_device):
+    """chip_smoke.py's phase 4b: the reduced float32 llama3.2-1b's dense
+    and paged ILS engines and dense static engine on the card (flash_prefill,
+    decode_attention, paged_decode_attention, each once per layer per
+    prefill / decode step) give the CPU's token streams but for near-ties,
+    and dense == paged on the card.  The phase raises SystemExit when it
+    fails."""
+    import importlib.util
+    import pathlib
+    path = pathlib.Path(__file__).resolve().parents[1] / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    smoke.check_ils_parity()

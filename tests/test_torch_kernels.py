@@ -10,6 +10,9 @@ import pytest
 import torch
 
 from repro.kernels import ref as jref
+from repro.kernels.decode_attention import \
+    decode_attention as pallas_dense_decode
+from repro.kernels.flash_prefill import flash_prefill as pallas_prefill
 from repro.kernels.fused_rope_decode_append import \
     fused_rope_decode_append as pallas_fused_decode
 from repro.kernels.paged_decode_attention import \
@@ -150,7 +153,9 @@ def test_dispatch_counts_plain_calls_and_no_kernel_launch_on_cpu():
     assert ops.plain_calls == {"paged_prefill_write": 1,
                                "paged_decode_attention": 1,
                                "fused_rope_prefill_write": 1,
-                               "fused_rope_decode_append": 0}
+                               "fused_rope_decode_append": 0,
+                               "flash_prefill": 0,
+                               "decode_attention": 0}
     assert ops.launches() == dict.fromkeys(ops.plain_calls, 0)
     ops.reset_counts()
     assert not any(ops.plain_calls.values())
@@ -336,3 +341,142 @@ def test_fused_rope_decode_append_plain_equals_unfused_three_pass():
     uo = ref.paged_decode_attention_ref(qr, uk, uv, bt, sp, qp)
     assert torch.equal(fo, uo)
     assert torch.equal(fk, uk) and torch.equal(fv, uv)
+
+
+# ---------------------------------------------------------------------------
+# dense attention: flash_prefill and decode_attention
+# ---------------------------------------------------------------------------
+def _pow2_block(n: int, cap: int = 8) -> int:
+    """The JAX dispatch's block rule: the largest power of two up to
+    ``cap`` that divides ``n``."""
+    b = min(cap, n)
+    while n % b:
+        b //= 2
+    return b
+
+
+def _cast(x, dtype):
+    """One numpy array as a JAX and a torch array of ``dtype`` with the
+    same bits (both round float32 to nearest even)."""
+    t = torch.from_numpy(x)
+    if dtype == "bfloat16":
+        return jnp.asarray(x, jnp.bfloat16), t.to(torch.bfloat16)
+    return jnp.asarray(x), t
+
+
+def _prefill_np(B, T, Hq, Hkv, D, lens, seed=5):
+    rng = np.random.default_rng(seed)
+    idx = np.arange(T)[None]
+    pad = T - np.asarray(lens)[:, None]
+    positions = np.where(idx < pad, -1, idx - pad).astype(np.int32)
+    q = rng.standard_normal((B, T, Hq, D)).astype(np.float32)
+    k = rng.standard_normal((B, T, Hkv, D)).astype(np.float32)
+    v = rng.standard_normal((B, T, Hkv, D)).astype(np.float32)
+    return q, k, v, positions
+
+
+@pytest.mark.parametrize("B,T,Hq,Hkv,D,lens", [
+    (2, 16, 4, 2, 16, [16, 9]),
+    (3, 12, 8, 2, 32, [12, 5, 0]),    # T not a multiple of 8; an all-pad row
+    (2, 24, 4, 1, 16, [24, 1]),       # MQA, a one-token row
+    (1, 13, 4, 4, 8, [13]),           # MHA, odd T
+])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("window", [None, 5])
+def test_flash_prefill_plain_matches_jax(B, T, Hq, Hkv, D, lens, dtype,
+                                         window):
+    """Whole outputs, pad rows included, against the oracle; the valid
+    rows against the Pallas kernel in interpret mode, as
+    ``tests/test_kernels.py`` compares them."""
+    q, k, v, pos = _prefill_np(B, T, Hq, Hkv, D, lens)
+    (jq, tq), (jk, tk), (jv, tv) = (_cast(a, dtype) for a in (q, k, v))
+    got = ops.flash_prefill(tq, tk, tv, torch.from_numpy(pos),
+                            window=window).float().numpy()
+    jpos = jnp.asarray(pos)
+    oracle = jref.flash_prefill_ref(jq, jk, jv, jpos, window=window)
+    np.testing.assert_allclose(got, np.asarray(oracle.astype(jnp.float32)),
+                               atol=ATOL[dtype])
+    blk = _pow2_block(T)
+    pallas = pallas_prefill(jq, jk, jv, jpos, window=window, block_q=blk,
+                            block_k=blk, interpret=True)
+    valid = (pos >= 0)[..., None, None]
+    np.testing.assert_allclose(
+        got * valid, np.asarray(pallas.astype(jnp.float32)) * valid,
+        atol=ATOL[dtype])
+
+
+def test_flash_prefill_pad_rows_take_their_own_value():
+    """The diagonal rule: a pad query row attends only to itself, so its
+    output is its own V (of its KV head), finite."""
+    q, k, v, pos = _prefill_np(2, 12, 4, 2, 8, [12, 5])
+    got = ref.flash_prefill_ref(*_torch(q, k, v, pos))
+    want = np.repeat(v[1, :7], 2, axis=1)  # 2 query heads per KV head
+    np.testing.assert_allclose(got[1, :7].numpy(), want, atol=1e-6)
+
+
+def _dense_decode_np(B, W, Hq, Hkv, D, seed=6):
+    """Rows at different positions; the last row is empty (every slot
+    masked); the first row's last slot lies past its q_pos."""
+    rng = np.random.default_rng(seed)
+    slot_pos = np.full((B, W), -1, np.int32)
+    q_pos = np.zeros((B,), np.int32)
+    for b in range(B - 1):
+        fill = int(rng.integers(1, W + 1))
+        slot_pos[b, :fill] = np.arange(fill)
+        q_pos[b] = fill - 1
+    slot_pos[0, :] = np.arange(W)
+    q_pos[0] = W - 2
+    q = rng.standard_normal((B, Hq, D)).astype(np.float32)
+    kc = rng.standard_normal((B, W, Hkv, D)).astype(np.float32)
+    vc = rng.standard_normal((B, W, Hkv, D)).astype(np.float32)
+    return q, kc, vc, slot_pos, q_pos
+
+
+@pytest.mark.parametrize("B,W,Hq,Hkv,D", [
+    (3, 8, 4, 2, 16),
+    (4, 37, 8, 2, 32),     # W not a multiple of 8
+    (3, 24, 4, 1, 16),     # MQA
+    (2, 16, 4, 4, 8),      # MHA
+])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("window", [None, 6])
+def test_decode_attention_plain_matches_jax(B, W, Hq, Hkv, D, dtype,
+                                           window):
+    q, kc, vc, sp, qp = _dense_decode_np(B, W, Hq, Hkv, D)
+    (jq, tq), (jk, tk), (jv, tv) = (_cast(a, dtype) for a in (q, kc, vc))
+    got = ops.decode_attention(tq, tk, tv, torch.from_numpy(sp),
+                               torch.from_numpy(qp),
+                               window=window).float().numpy()
+    jsp, jqp = jnp.asarray(sp), jnp.asarray(qp)
+    oracle = jref.decode_attention_ref(jq, jk, jv, jsp, jqp, window=window)
+    pallas = pallas_dense_decode(jq, jk, jv, jsp, jqp, window=window,
+                                 block_w=_pow2_block(W), interpret=True)
+    for want in (oracle, pallas):
+        np.testing.assert_allclose(got, np.asarray(want.astype(jnp.float32)),
+                                   atol=ATOL[dtype])
+    # the empty last row: the mean of its V, as with the finite NEG_INF
+    mean_v = np.repeat(tv[-1].float().mean(dim=0).numpy(), Hq // Hkv, 0)
+    np.testing.assert_allclose(got[-1], mean_v, atol=ATOL[dtype])
+
+
+def test_dense_attention_dispatch_takes_the_plain_versions_on_cpu():
+    ops.reset_counts()
+    q, k, v, pos = _prefill_np(2, 8, 4, 2, 16, [8, 3])
+    ops.flash_prefill(*_torch(q, k, v, pos))
+    ops.decode_attention(*_torch(*_dense_decode_np(2, 8, 4, 2, 16)))
+    assert ops.plain_calls["flash_prefill"] == 1
+    assert ops.plain_calls["decode_attention"] == 1
+    assert not any(ops.launches().values())
+    ops.reset_counts()
+
+
+def test_dense_attention_kernel_wrappers_refuse_cpu_tensors():
+    from repro_torch.kernels import decode_attention as dense_decode_kernel
+    from repro_torch.kernels import flash_prefill as prefill_kernel
+    with pytest.raises(ValueError, match="CUDA"):
+        prefill_kernel.flash_prefill(
+            *_torch(*_prefill_np(2, 8, 4, 2, 16, [8, 3])))
+    with pytest.raises(ValueError, match="CUDA"):
+        dense_decode_kernel.decode_attention(
+            *_torch(*_dense_decode_np(2, 8, 4, 2, 16)))
+    assert prefill_kernel.launches == 0 and dense_decode_kernel.launches == 0

@@ -113,6 +113,80 @@ def test_dense_prefill_and_decode_match_jax(models):
         cur = np.asarray(jnp.argmax(jl, -1)).astype(np.int32)
 
 
+def _rel(got, want):
+    """Largest absolute difference relative to the largest |want|."""
+    want = np.asarray(want)
+    return float(np.abs(got - want).max() / np.abs(want).max())
+
+
+def test_attention_decode_rowslots_matches_jax(models):
+    """Per-row write slots (rows at their own positions, one idle row at
+    slot 0): the layer output at 1e-5 relative, the caches written at the
+    rows' slots as the JAX one-hot blend writes them."""
+    from repro.models import attention as jattn
+    from repro_torch.models import attention as tattn
+    jm, jp, tm, tp = models
+    cfg = tm.cfg
+    B, W, Hkv, D = 4, 24, cfg.n_kv_heads, cfg.head_dim
+    rng = np.random.default_rng(9)
+    x = rng.standard_normal((B, 1, cfg.d_model)).astype(np.float32)
+    kc = rng.standard_normal((B, W, Hkv, D)).astype(np.float32)
+    vc = rng.standard_normal((B, W, Hkv, D)).astype(np.float32)
+    fills = [5, 17, 11, 0]
+    slot_pos = np.full((B, W), -1, np.int32)
+    for b, f in enumerate(fills):
+        slot_pos[b, :f + 1] = np.arange(f + 1)
+    q_pos = np.asarray(fills, np.int32)
+    slots = np.asarray(fills, np.int32)
+    for window in (None, 6):
+        layer = jax.tree.map(lambda a: a[0], jp["layers"])["attn"]
+        want, jk, jv = jattn.attention_decode_rowslots(
+            layer, jnp.asarray(x), jnp.asarray(q_pos), jnp.asarray(kc),
+            jnp.asarray(vc), jnp.asarray(slot_pos), jnp.asarray(slots),
+            jm.cfg, window)
+        tk, tv = torch.from_numpy(kc.copy()), torch.from_numpy(vc.copy())
+        with torch.no_grad():
+            got = tattn.attention_decode_rowslots(
+                tp.layers[0].attn, torch.from_numpy(x),
+                torch.from_numpy(q_pos), tk, tv, torch.from_numpy(slot_pos),
+                torch.from_numpy(slots), cfg, window)
+        assert _rel(_np(got), want) <= BLOCK_TOL
+        np.testing.assert_allclose(_np(tk), np.asarray(jk), atol=BLOCK_TOL)
+        np.testing.assert_array_equal(_np(tv), np.asarray(jv))
+
+
+def test_decode_step_rowslots_matches_jax(models):
+    """Continuous-batching decode over a dense cache, rows at different
+    positions writing different slots: logits at 1e-5 relative and the
+    shared slot_pos exactly, step after step."""
+    jm, jp, tm, tp = models
+    cfg = tm.cfg
+    T, W = 12, 40
+    toks, lens = _left_pad(cfg.vocab_size, [12, 7, 3], T, seed=10)
+    _, jc = jm.prefill(jp, {"tokens": jnp.asarray(toks),
+                            "lengths": jnp.asarray(lens)}, W)
+    with torch.no_grad():
+        _, tc = tm.prefill(tp, {"tokens": torch.from_numpy(toks),
+                                "lengths": torch.from_numpy(lens)}, W)
+    cur = np.asarray([5, 9, 13], np.int32)
+    for step in range(4):
+        q_pos = (lens + step).astype(np.int32)
+        slots = (T + step + 3 * np.arange(3)).astype(np.int32)
+        jl, jc = jtfm.decode_step_rowslots(jp, jm.cfg, jc, jnp.asarray(cur),
+                                           jnp.asarray(q_pos),
+                                           jnp.asarray(slots))
+        with torch.no_grad():
+            tl, tc = ttfm.decode_step_rowslots(tp, cfg, tc,
+                                               torch.from_numpy(cur),
+                                               torch.from_numpy(q_pos),
+                                               torch.from_numpy(slots))
+        assert _rel(_np(tl), jl) <= BLOCK_TOL
+        np.testing.assert_array_equal(_np(tc.slot_pos),
+                                      np.asarray(jc.slot_pos))
+        cur = np.asarray(jnp.argmax(jl, -1)).astype(np.int32)
+    np.testing.assert_allclose(_np(tc.k), np.asarray(jc.k), atol=BLOCK_TOL)
+
+
 def _paged_pair(cfg, bt, pg, n_pages):
     """Empty page pools on both sides for block table ``bt``."""
     B, nb = bt.shape
