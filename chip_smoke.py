@@ -14,10 +14,12 @@ fails (nothing is caught):
    (llama3.2-1b: 32 query heads, 8 KV heads, head_dim 64, 16-token pages,
    bf16, 8 rows of about 512 tokens over a page pool of the slice's size;
    flash_prefill also at one row of 1280 and with a window,
-   decode_attention over 768-slot rows, one of them empty) and is held
-   against its plain PyTorch version on the same inputs, then timed beside
-   that plain version, PyTorch yardsticks computing the same function, and
-   the least time the card could take;
+   decode_attention over 768-slot rows, one of them empty; ssd_scan at
+   mamba2-130m's prefill: 8 left-padded rows of 512 tokens, 24 heads of
+   P 64, N 128, chunks of 128, float32) and is held against its plain
+   PyTorch version on the same inputs, then timed beside that plain
+   version, PyTorch yardsticks computing the same function, and the least
+   time the card could take;
 4. reference: on a small input, the paged serving path with either
    ``attn_impl`` (through the kernels) is held against the dense path of
    the same model (through flash_prefill and decode_attention);
@@ -26,14 +28,21 @@ fails (nothing is caught):
    the dense ``StaticEngine`` give the same token streams on both (near
    ties recorded), the kernels launch once per layer per prefill / decode
    step, and dense == paged on the card;
+4c. Mamba-2 parity: the reduced float32 mamba2-130m, one set of weights
+   (per-head parameters drawn apart) on the card and on the CPU; the dense
+   ``StaticEngine`` gives the same token streams on both over two slices
+   (the second re-prefills), ssd_scan launches once per layer per prefill
+   and no attention kernel launches;
 5. unfused slice: full-width llama3.2-1b in bf16 with random weights,
    built by ``repro_torch.launch.serve`` (SCLS, one worker, persistent
    paged KV with ``kv_retain="request"`` and prefix sharing), serves a
    CodeFuse trace plus requests that repeat an earlier prompt's leading
    pages.  Every request must complete, prefix sharing must hit, and each
    unfused kernel must have launched exactly once per layer per prefill
-   stage / decode step; then one more slice (8 fresh 256-token requests,
-   32 decode steps) under ``torch.profiler``, for the device's busy share;
+   stage / decode step (flash_prefill once per layer per stage-A prefill,
+   the tail prefills attend over gathered pages); then one more slice (8
+   fresh 256-token requests, 32 decode steps) under ``torch.profiler``,
+   for the device's busy share;
 6. fused slice: small fused and unfused engines serve the same batches
    (token streams equal but for recorded near-ties), then
    ``StaticEngine(attn_impl="fused")`` workers on the launcher's model,
@@ -51,12 +60,19 @@ fails (nothing is caught):
    slots of 1280) and paged (64 rows, the same token budget): every
    request completes, the paged engine runs more rows at once, its pages
    all return, and only flash_prefill and the layout's decode kernel
-   launch, once per layer per join / decode iteration.
+   launch, once per layer per join / decode iteration;
+9. Mamba-2 slice: the launcher with ``--arch mamba2-130m --kv-layout dense
+   --kv-retain slice`` at full width and depth (24 layers, bf16, random
+   weights from a seeded ``torch.Generator``) serves the same trace: every
+   request completes, re-prefill is above zero, ssd_scan launches exactly
+   24 times per prefill stage and no other kernel launches; then a
+   full-width prefill of a 300-token prompt (two full 128-token chunks,
+   where the JAX oracle overflows to NaN: ROADMAP C2) gives finite logits.
 
 The last line of standard output is ``{"ok": true, "device": {...}}``; the
 line before it is the ``nvidia-smi`` reading and the one before that the
-per-kernel JSON (launches from each kernel's slice, phases 5 to 7, with
-every path's beside them; times from phase 3).
+per-kernel JSON (launches from each kernel's slice, phases 5 to 7 and 9,
+with every path's beside them; times from phase 3).
 """
 from __future__ import annotations
 
@@ -78,6 +94,10 @@ DECODE_TOL = 2e-2            # bf16 decode attention vs its plain version
 REF_TOL = 5e-2               # logits, paged kernels vs dense plain path,
                              # relative to the largest |logit| (bf16, 16 layers)
 MAX_ULPS = 1                 # rotated K, fused kernel vs its plain version
+SSD_TOL = 1e-4               # ssd_scan vs its plain version, relative to the
+                             # largest |value|: float32 sums of <= 128 terms
+                             # in another order, through 4 chunk states, stay
+                             # near 1e-6; an indexing fault moves O(1) of it
 ITERS = 50
 SLEEP_CYCLES = 2_000_000     # ~1 ms of device sleep at the H100's clocks
 
@@ -671,6 +691,93 @@ def check_dense_decode(cfg, gen: torch.Generator,
                            n_live_tokens=n_live, empty_rows=1))
 
 
+def ssd_inputs(cfg, lengths, T: int, gen: torch.Generator, G=None):
+    """The scan's float32 inputs for left-padded rows of the given lengths,
+    as ``models.mamba2.mixer_forward`` hands them over: x, B, C normal,
+    dt = softplus(normal) on real tokens and 0 on pads, A = -exp(0.5 z)
+    per head (so that heads differ)."""
+    dev = torch.device("cuda")
+    B, H, P, N = len(lengths), cfg.ssm_n_heads, cfg.ssm_head_dim, cfg.ssm_state
+    G = G or cfg.ssm_n_groups
+    valid = (torch.arange(T, device=dev)[None]
+             >= T - torch.tensor(lengths, device=dev)[:, None])
+    x = torch.randn((B, T, H, P), generator=gen, device=dev)
+    dt = torch.nn.functional.softplus(
+        torch.randn((B, T, H), generator=gen, device=dev)) * valid[..., None]
+    A = -torch.exp(0.5 * torch.randn((H,), generator=gen, device=dev))
+    Bm = torch.randn((B, T, G, N), generator=gen, device=dev)
+    Cm = torch.randn((B, T, G, N), generator=gen, device=dev)
+    return x, dt, A, Bm, Cm
+
+
+def scan_error(kmod, ref, args, chunk: int):
+    """(max |kernel - plain|, the same relative to the plain version's
+    largest |value|), the larger of y's and the state's; inf where the
+    kernel is not finite."""
+    y, st = kmod.ssd_scan(*args, chunk)
+    y_ref, st_ref = ref.ssd_scan_ref(*args, chunk)
+    torch.cuda.synchronize()
+    if not (bool(torch.isfinite(y).all()) and bool(torch.isfinite(st).all())):
+        return float("inf"), float("inf")
+    errs = [(a - b).abs().max().item() for a, b in ((y, y_ref), (st, st_ref))]
+    scales = [b.abs().max().item() for b in (y_ref, st_ref)]
+    return max(errs), max(e / m for e, m in zip(errs, scales))
+
+
+def check_ssd_scan(gen: torch.Generator, flush: torch.Tensor) -> dict:
+    """B7 at the Mamba-2 prefill's shapes: 8 left-padded rows of 512 tokens
+    (4 chunks of 128; 300 to 512 valid), mamba2-130m's 24 heads of P 64,
+    N 128, one group, float32; also with two groups.  Most of these chunks
+    sum dt·|A| past ln(float32 max), where the JAX oracle gives NaN (C2)."""
+    import math
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import ssd_scan as kmod
+    cfg = get_config("mamba2-130m")
+    Q = cfg.ssm_chunk
+    lengths, T = [512, 497, 300, 505, 460, 489, 333, 512], 512
+    err = rel = 0.0
+    for G in (2, cfg.ssm_n_groups):  # the timed case last
+        args = ssd_inputs(cfg, lengths, T, gen, G=G)
+        e, r = scan_error(kmod, ref, args, Q)
+        log(f"ssd_scan G={G}: max |kernel - plain| = {e:.3e}, relative to "
+            f"max |plain| {r:.3e} (tolerance {SSD_TOL})")
+        if not r <= SSD_TOL:
+            raise SystemExit(f"ssd_scan (G={G}) disagrees with its plain "
+                             f"version")
+        err, rel = max(err, e), max(rel, r)
+    x, dt, A, Bm, Cm = args
+    B, T, H, P = x.shape
+    G, N = Bm.shape[2], Bm.shape[3]
+    nc = T // Q
+    overflow = int(((dt * -A).reshape(B, nc, Q, H).sum(2)
+                    > math.log(torch.finfo(torch.float32).max)).sum())
+    t_kernel = time_ms(lambda: kmod.ssd_scan(*args, Q), flush)
+    t_plain = time_ms(lambda: ref.ssd_scan_ref(*args, Q), flush, iters=10)
+    n_bytes = 4 * (2 * x.numel() + dt.numel() + A.numel() + Bm.numel()
+                   + Cm.numel() + B * H * P * N)   # x, y, dt, A, B, C, state
+    tri = Q * (Q + 1) // 2                          # causal (t, s) pairs
+    macs = (B * nc * (G * tri * N                   # C.B per group
+                      + H * (tri * P                # scores . x
+                             + Q * N * P))          # state update
+            + B * (nc - 1) * H * Q * N * P)         # C.state, zero at chunk 0
+    b_ms, b_by = bound(n_bytes, 2 * macs, F32_FLOP_PER_S)
+    log(f"ssd_scan: kernel {t_kernel:.4f} ms, plain {t_plain:.4f} ms, bound "
+        f"{b_ms:.4f} ms ({b_by}; {n_bytes / 1e6:.1f} MB, "
+        f"{2 * macs / 1e9:.2f} GFLOP); {overflow} of {B * nc * H} "
+        f"(row, chunk, head) sums of dt*|A| pass ln(float32 max)")
+    return dict(name="ssd_scan", route="cuda",
+                source="src/repro_torch/kernels/csrc/ssd_scan.cu",
+                replaces="src/repro/kernels/ssd_scan.py:89",
+                max_abs_err=err, max_rel_err=rel, ms=t_kernel,
+                kernel_ms=t_kernel, plain_ms=t_plain, bound_ms=b_ms,
+                bound_by=b_by, library_ms=None,
+                library="none: no single PyTorch call computes the SSD scan",
+                shape=dict(B=B, T=T, H=H, P=P, N=N, G=G, Q=Q,
+                           valid_tokens=sum(lengths), gflop=2 * macs / 1e9,
+                           oracle_overflow_chunks=overflow))
+
+
 # ---------------------------------------------------------------------------
 # phase 4: paged kernel paths against the dense plain path, small input
 # ---------------------------------------------------------------------------
@@ -748,37 +855,6 @@ def check_reference(model, params, pg: int) -> dict:
 # ---------------------------------------------------------------------------
 # phase 4b: the dense attention kernels' engines, card against CPU
 # ---------------------------------------------------------------------------
-NEAR_TIE = 1e-4  # float32 top-2 logit gap below which two streams may part
-
-
-def stream_tie(model, params, prompt, want, got):
-    """None when ``got`` equals ``want``; else the gap of the CPU model's
-    top-2 logits where they part (prefill of prompt + want[:j]), which
-    must be a near-tie (the rest, conditioned on another token, is not
-    compared)."""
-    import numpy as np
-    for j, (a, b) in enumerate(zip(want, got)):
-        if a == b:
-            continue
-        ctx = np.concatenate([prompt, np.asarray(want[:j], np.int32)])
-        with torch.no_grad():
-            logits, _ = model.prefill(
-                params, {"tokens": torch.from_numpy(ctx[None]),
-                         "lengths": torch.tensor([len(ctx)],
-                                                 dtype=torch.int32)},
-                len(ctx) + 1)
-        top2 = torch.topk(logits[0], 2).values
-        gap = float(top2[0] - top2[1])
-        if not gap < NEAR_TIE:
-            raise SystemExit(f"token {j} of a {len(prompt)}-token prompt: "
-                             f"card {b} != CPU {a}, top-2 gap {gap:.3e} is "
-                             f"no near-tie")
-        return gap
-    if len(want) != len(got):
-        raise SystemExit("stream lengths differ")
-    return None
-
-
 def check_ils_parity() -> None:
     """The reduced float32 llama3.2-1b with one set of weights on the card
     and on the CPU: small dense and paged ``ContinuousEngine``s and the
@@ -793,10 +869,12 @@ def check_ils_parity() -> None:
     from repro_torch.engine.static_engine import StaticEngine
     from repro_torch.kernels import ops
     from repro_torch.models.registry import get_model
+    from repro_torch.testing import prefill_logits, stream_tie
     model = get_model(get_config("llama3.2-1b", reduced=True))
     cpu = model.init(0, device="cpu")
     card = model.init(0, device="cuda")
     card.load_state_dict(cpu.state_dict())
+    ref_logits = prefill_logits(model, cpu)
     rng = np.random.default_rng(4)
     ps = [rng.integers(2, model.cfg.vocab_size, size=n).astype(np.int32)
           for n in (5, 9, 4, 12, 3, 20, 33, 17)]
@@ -827,7 +905,7 @@ def check_ils_parity() -> None:
                 eng.alloc.free_blocks != eng.alloc.n_pages:
             raise SystemExit("ILS paged on the card: pages leaked")
         for i, (p, a, b) in enumerate(zip(ps, want.outputs, got.outputs)):
-            gap = stream_tie(model, cpu, p, a, b)
+            gap = stream_tie(ref_logits, p, a, b)
             if gap is not None:
                 ties.append(dict(engine=f"ils_{layout}", request=i, gap=gap))
         card_outs[layout] = got.outputs
@@ -847,7 +925,7 @@ def check_ils_parity() -> None:
         raise SystemExit(f"dense static engine on the card: launches "
                          f"{launches}")
     for i, (p, a, b) in enumerate(zip(ps, want.results, got.results)):
-        gap = stream_tie(model, cpu, p, a["tokens"], b["tokens"])
+        gap = stream_tie(ref_logits, p, a["tokens"], b["tokens"])
         if gap is not None:
             ties.append(dict(engine="static_dense", request=i, gap=gap))
     log(f"ILS parity (reduced float32 llama3.2-1b): dense and paged "
@@ -859,7 +937,78 @@ def check_ils_parity() -> None:
 
 
 # ---------------------------------------------------------------------------
-# phases 5-7: the slices, through the launcher's build_core
+# phase 4c: the Mamba-2 engine, card against CPU
+# ---------------------------------------------------------------------------
+def check_mamba_parity() -> None:
+    """The reduced float32 mamba2-130m with one set of weights on the card
+    and on the CPU (A_log, dt_bias, D and conv_b drawn per head and channel,
+    which JAX's init makes alike): the dense ``StaticEngine`` serves two
+    slices of the same prompts on each, the second re-prefilling prompt +
+    generated tokens.  On the card every prefill runs ssd_scan once per
+    layer and nothing else launches; the streams must be equal but for
+    recorded near-ties."""
+    import numpy as np
+    from repro_torch.configs import get_config
+    from repro_torch.engine.static_engine import StaticEngine
+    from repro_torch.kernels import ops
+    from repro_torch.models.registry import get_model
+    from repro_torch.testing import prefill_logits, stream_tie
+    model = get_model(get_config("mamba2-130m", reduced=True))
+    cpu = model.init(0, device="cpu")
+    g = torch.Generator().manual_seed(5)
+    with torch.no_grad():
+        for layer in cpu.layers:
+            m = layer.mixer
+            for p, loc, scale in ((m.A_log, 0.0, 0.5), (m.dt_bias, 0.0, 0.5),
+                                  (m.D, 1.0, 0.5), (m.conv_b, 0.0, 0.2)):
+                p.copy_(loc + scale * torch.randn(p.shape, generator=g))
+    card = model.init(0, device="cuda")
+    card.load_state_dict(cpu.state_dict())
+    ref_logits = prefill_logits(model, cpu)
+    rng = np.random.default_rng(6)
+    ps = [rng.integers(2, model.cfg.vocab_size, size=n).astype(np.int32)
+          for n in (5, 13, 9, 40, 3, 21)]
+    forced = [12, 3, 12, 9, 12, 5]
+    L = model.cfg.n_layers
+    kw = dict(eos_id=1, len_bucket=8)
+    engines = {"cpu": StaticEngine(model, cpu, device="cpu", **kw),
+               "card": StaticEngine(model, card, device="cuda", **kw)}
+    outs = {dev: [[] for _ in ps] for dev in engines}
+    ties = []
+    ops.reset_counts()
+    for _ in range(2):
+        idx = [i for i in range(len(ps)) if len(outs["cpu"][i]) < forced[i]]
+        kw = dict(forced_gen_lens=[forced[i] - len(outs["cpu"][i])
+                                   for i in idx],
+                  already_generated=[outs["cpu"][i] for i in idx])
+        for dev, eng in engines.items():
+            res = eng.serve_batch([ps[i] for i in idx], 8, **kw)
+            for s, i in enumerate(idx):
+                outs[dev][i] = outs[dev][i] + res.results[s]["tokens"]
+    torch.cuda.synchronize()
+    launches, se = ops.launches(), engines["card"]
+    expect = dict.fromkeys(launches, 0)
+    expect["ssd_scan"] = L * se.n_prefill_stages
+    if launches != expect or se.n_prefill_stages != 2 or \
+            ops.plain_calls["ssd_scan"] != L * 2 or \
+            any(n for k, n in ops.plain_calls.items() if k != "ssd_scan"):
+        raise SystemExit(f"Mamba-2 engine on the card: launches {launches} "
+                         f"!= {expect}, plain calls {ops.plain_calls} (the "
+                         f"CPU engine's only)")
+    for i, (p, a, b) in enumerate(zip(ps, outs["cpu"], outs["card"])):
+        gap = stream_tie(ref_logits, p, a, b)
+        if gap is not None:
+            ties.append(dict(request=i, gap=gap))
+    log(f"Mamba-2 parity (reduced float32 mamba2-130m): the dense "
+        f"StaticEngine on the card matches the CPU over {len(ps)} requests "
+        f"and 2 slices; ssd_scan launches {launches['ssd_scan']} = {L} x "
+        f"{se.n_prefill_stages} prefills, nothing else; near-ties {ties}")
+    print(json.dumps({"mamba_parity": dict(requests=len(ps), near_ties=ties,
+                                           launches=launches)}), flush=True)
+
+
+# ---------------------------------------------------------------------------
+# phases 5-7 and 9: the slices, through the launcher's build_core
 # ---------------------------------------------------------------------------
 SLICE_ARGV = ["--backend", "real", "--arch", "llama3.2-1b",
               "--strategy", "scls", "--workers", "1", "--rate", "4",
@@ -868,9 +1017,12 @@ SLICE_ARGV = ["--backend", "real", "--arch", "llama3.2-1b",
               "--shared-prefix", "3", "--seed", "0"]
 PAGED_ARGV = SLICE_ARGV + ["--kv-layout", "paged", "--kv-retain", "request"]
 DENSE_ARGV = SLICE_ARGV + ["--kv-layout", "dense", "--kv-retain", "slice"]
+MAMBA_ARGV = [("mamba2-130m" if a == "llama3.2-1b" else a)
+              for a in DENSE_ARGV]
 FUSED = ("fused_rope_prefill_write", "fused_rope_decode_append")
 UNFUSED = ("paged_prefill_write", "paged_decode_attention")
 DENSE = ("flash_prefill", "decode_attention")
+SSM = ("ssd_scan",)
 
 
 def time_engine(engine) -> dict:
@@ -910,7 +1062,7 @@ def serve_trace(label: str, core, engines, trace, duration: float,
     vocab = engines[0].model.cfg.vocab_size
     timers = [time_engine(e) for e in engines]
     for e in engines:
-        e.n_prefill_stages = e.n_decode_steps = 0
+        e.n_prefill_stages = e.n_tail_prefill_stages = e.n_decode_steps = 0
     torch.cuda.reset_peak_memory_stats()
     ops.reset_counts()
     t0 = time.perf_counter()
@@ -920,10 +1072,12 @@ def serve_trace(label: str, core, engines, trace, duration: float,
     launches = ops.launches()
     plain = dict(ops.plain_calls)
     stages = sum(e.n_prefill_stages for e in engines)
+    tail_stages = sum(e.n_tail_prefill_stages for e in engines)
     steps = sum(e.n_decode_steps for e in engines)
     decode_s = sum(a["decode_s"] for a in timers)
     summary = dict(dataclasses.asdict(metrics), wall_s=wall,
-                   prefill_stages=stages, decode_steps=steps,
+                   prefill_stages=stages, tail_prefill_stages=tail_stages,
+                   decode_steps=steps,
                    decode_ms_per_step=decode_s / max(steps, 1) * 1e3,
                    launches=launches, plain_calls=plain,
                    n_layers=engines[0].model.cfg.n_layers,
@@ -949,14 +1103,17 @@ def serve_trace(label: str, core, engines, trace, duration: float,
     return summary
 
 
-def check_launches(label: str, summary: dict, used, unused) -> None:
+def check_launches(label: str, summary: dict, used) -> None:
     """The kernels in ``used`` launched once per layer per prefill stage
-    (the writes, flash_prefill) or decode step (the decode attentions);
-    those in ``unused`` never launched."""
+    (the writes, ssd_scan), stage-A prefill (flash_prefill: the tail
+    prefills attend over gathered pages) or decode step (the decode
+    attentions); every other kernel never launched."""
     n_layers = summary["n_layers"]
-    per = {"paged_prefill_write": summary["prefill_stages"],
-           "fused_rope_prefill_write": summary["prefill_stages"],
-           "flash_prefill": summary["prefill_stages"],
+    stages = summary["prefill_stages"]
+    per = {"paged_prefill_write": stages,
+           "fused_rope_prefill_write": stages,
+           "flash_prefill": stages - summary["tail_prefill_stages"],
+           "ssd_scan": stages,
            "paged_decode_attention": summary["decode_steps"],
            "fused_rope_decode_append": summary["decode_steps"],
            "decode_attention": summary["decode_steps"]}
@@ -989,7 +1146,7 @@ def run_unfused_slice():
                                               .n_pages, **ref_stats))
     if summary["prefix_hit_tokens"] <= 0:
         raise SystemExit("no prefix-sharing hit: the tail path never ran")
-    check_launches("unfused slice", summary, UNFUSED, FUSED)
+    check_launches("unfused slice", summary, UNFUSED + ("flash_prefill",))
     profile_window(engines[0], vocab)
     reuse = dict(args=args, model=model, params=params, est=core.est,
                  mem=core.mem, strategy=core.s,
@@ -1009,6 +1166,7 @@ def check_fused_engines(model, params, pg: int, vocab: int) -> dict:
     stream, now conditioned on other tokens, is not compared."""
     import numpy as np
     from repro_torch.engine.static_engine import StaticEngine
+    from repro_torch.testing import prefill_logits, stream_tie
     rng = np.random.default_rng(3)
     engines = {impl: StaticEngine(model, params, eos_id=1, len_bucket=8,
                                   kv_layout="paged", page_tokens=pg,
@@ -1039,33 +1197,13 @@ def check_fused_engines(model, params, pg: int, vocab: int) -> dict:
         outs[impl].append(res.results[0]["tokens"])
     ps.append(joiner)
     ties, n_equal = [], 0
-    with torch.no_grad():
-        for p, want, got in zip(ps, outs["unfused"], outs["fused"]):
-            for j, (a, b) in enumerate(zip(want, got)):
-                if a == b:
-                    continue
-                ctx = np.concatenate([p, np.asarray(want[:j], np.int32)])
-                toks = torch.from_numpy(ctx[None]).cuda()
-                lens = torch.tensor([len(ctx)], dtype=torch.int32,
-                                    device="cuda")
-                logits, _ = model.prefill(params, {"tokens": toks,
-                                                   "lengths": lens},
-                                          len(ctx) + 1)
-                top2 = torch.topk(logits[0].float(), 2).values
-                gap = (top2[0] - top2[1]).item()
-                scale = logits[0].float().abs().max().item()
-                if gap > REF_TOL * scale:
-                    raise SystemExit(f"fused engine check: token {j} of a "
-                                     f"{len(p)}-token prompt: fused {b} != "
-                                     f"unfused {a} with a top-2 gap of "
-                                     f"{gap:.3e} (no near-tie)")
-                ties.append(dict(prompt=len(p), token=j, gap=gap))
-                break
-            else:
-                if len(want) != len(got):
-                    raise SystemExit("fused engine check: stream lengths "
-                                     "differ")
-                n_equal += 1
+    ref_logits = prefill_logits(model, params)
+    for p, want, got in zip(ps, outs["unfused"], outs["fused"]):
+        gap = stream_tie(ref_logits, p, want, got, rel_tol=REF_TOL)
+        if gap is None:
+            n_equal += 1
+        else:
+            ties.append(dict(prompt=len(p), gap=gap))
     for eng in engines.values():
         for rid in list(range(len(ps) - 1)) + [10]:
             eng.release_request(rid)
@@ -1102,7 +1240,7 @@ def run_fused_slice(reuse: dict) -> dict:
     if summary["reprefill_tokens"] != 0:
         raise SystemExit(f"fused slice: {summary['reprefill_tokens']} "
                          f"tokens re-prefilled")
-    check_launches("fused slice", summary, FUSED, UNFUSED)
+    check_launches("fused slice", summary, FUSED)
     profile_window(engines[0], reuse["vocab"])
     return summary
 
@@ -1122,7 +1260,7 @@ def run_dense_slice() -> dict:
     if summary["reprefill_tokens"] <= 0:
         raise SystemExit("dense slice: nothing re-prefilled, but requests "
                          "of up to 256 tokens outlive slices of 64")
-    check_launches("dense slice", summary, DENSE, UNFUSED + FUSED)
+    check_launches("dense slice", summary, DENSE)
     return summary
 
 
@@ -1214,6 +1352,68 @@ def run_ils(scls: dict) -> dict:
     return launches_by_run
 
 
+def run_mamba_slice() -> dict:
+    """Phase 9: the launcher's dense SCLS path serving full-width
+    mamba2-130m (24 layers, bf16, seeded random weights) on the same trace;
+    then a full-width prefill of a 300-token prompt, whose two full chunks
+    sum dt·|A| past ln(float32 max) in layer 0 (where the JAX oracle gives
+    NaN, ROADMAP C2), must give finite logits.  Returns the summary."""
+    import math
+    import numpy as np
+    from repro_torch.launch import serve
+    from repro_torch.models import mamba2
+    from repro_torch.models.common import embed_apply, rms_norm
+    args = serve.parse_args(MAMBA_ARGV)
+    t0 = time.perf_counter()
+    core, engines, vocab = serve.build_core(args)
+    torch.cuda.synchronize()
+    t_build = time.perf_counter() - t0
+    model, params = engines[0].model, engines[0].params
+    cfg = model.cfg
+    summary = serve_trace("mamba_slice", core, engines,
+                          serve.make_trace(args, vocab), args.duration,
+                          dict(build_s=t_build))
+    if summary["reprefill_tokens"] <= 0:
+        raise SystemExit("mamba slice: nothing re-prefilled, but requests "
+                         "of up to 256 tokens outlive slices of 64")
+    check_launches("mamba slice", summary, SSM)
+
+    rng = np.random.default_rng(7)
+    T = 300
+    toks = torch.from_numpy(rng.integers(2, vocab, size=(1, T))
+                            .astype(np.int32)).cuda()
+    lens = torch.tensor([T], dtype=torch.int32, device="cuda")
+    with torch.no_grad():
+        logits, cache = model.prefill(params, {"tokens": toks,
+                                               "lengths": lens}, 0)
+        # layer 0's per-chunk sums of dt·|A| over the chunk-padded prompt
+        mixer = params.layers[0].mixer
+        h = embed_apply(params.embed, toks)
+        h, valid, lead = mamba2._pad_to_chunk(
+            h, torch.ones((1, T), dtype=torch.bool, device="cuda"),
+            cfg.ssm_chunk)
+        _, _, dt = mamba2._split_zxbcdt(
+            mixer, rms_norm(h, params.layers[0].ln, cfg.norm_eps), cfg)
+        dt = mamba2._softplus(dt.float() + mixer.dt_bias) * valid[..., None]
+        sums = (dt * torch.exp(mixer.A_log)).reshape(
+            -1, cfg.ssm_chunk, cfg.ssm_n_heads).sum(1)
+    torch.cuda.synchronize()
+    finite = bool(torch.isfinite(logits).all()) and \
+        bool(torch.isfinite(cache.state).all())
+    over = int((sums > math.log(torch.finfo(torch.float32).max)).sum())
+    log(f"mamba slice: a {T}-token prefill ({lead} lead pads, "
+        f"{(T + lead) // cfg.ssm_chunk} chunks) gives finite logits and "
+        f"states: {finite}; layer 0's largest chunk sum of dt*|A| "
+        f"{sums.max().item():.1f}, {over} of {sums.numel()} (chunk, head) "
+        f"sums past ln(float32 max) = 88.72")
+    if not (finite and logits.shape == (1, cfg.vocab_size)):
+        raise SystemExit("mamba slice: the full-width prefill past two "
+                         "chunks is not finite")
+    summary.update(c2_prompt_tokens=T, c2_layer0_max_chunk_sum=
+                   sums.max().item(), c2_layer0_overflow_chunk_heads=over)
+    return summary
+
+
 def release_cuda() -> None:
     """Free the engines (and their page pools) that went out of scope."""
     gc.collect()
@@ -1293,9 +1493,12 @@ def main() -> int:
                           check_fused_decode)]
     rows += [check(cfg, gen, flush)
              for check in (check_flash_prefill, check_dense_decode)]
+    rows.append(check_ssd_scan(gen, flush))
     del flush
     release_cuda()
     check_ils_parity()
+    release_cuda()
+    check_mamba_parity()
     release_cuda()
 
     scls = {}
@@ -1308,12 +1511,15 @@ def main() -> int:
     release_cuda()
     ils = run_ils(scls)
     release_cuda()
+    scls["mamba_slice"] = run_mamba_slice()
+    release_cuda()
     # each kernel's launches on its own slice's main path, all paths beside
     by_path = {label: sm["launches"] for label, sm in scls.items()}
     by_path.update({f"ils_{k}": v for k, v in ils.items()})
     main_path = {**dict.fromkeys(UNFUSED, "slice"),
                  **dict.fromkeys(FUSED, "fused_slice"),
-                 **dict.fromkeys(DENSE, "dense_slice")}
+                 **dict.fromkeys(DENSE, "dense_slice"),
+                 **dict.fromkeys(SSM, "mamba_slice")}
     for row in rows:
         row["launches"] = by_path[main_path[row["name"]]][row["name"]]
         row["launches_by_path"] = {k: v[row["name"]]

@@ -1,15 +1,16 @@
 """Architecture config registry: ``--arch <id>`` resolution.
 
-This slice of the port serves the one dense model on the main path;
+The port serves the dense llama3.2-1b and the Mamba-2 SSM mamba2-130m;
 the other families of ``repro.configs`` come with their model code.
 """
 from __future__ import annotations
 
-from repro_torch.configs import llama3_2_1b
+from repro_torch.configs import llama3_2_1b, mamba2_130m
 from repro_torch.models.common import ModelConfig
 
 _MODULES = {
     "llama3.2-1b": llama3_2_1b,
+    "mamba2-130m": mamba2_130m,
 }
 
 ARCHS = tuple(_MODULES)

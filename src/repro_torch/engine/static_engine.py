@@ -17,7 +17,10 @@ Dense layout (``serve_batch``, the default): each slice prefills prompt +
 ``already_generated`` into a fresh dense cache of exactly ``L + S`` slots
 (Eq. 5) and decodes in it; a rescheduled request re-prefills everything
 (the paper's §3.3 overhead, counted in ``ServeResult.reprefill_tokens``).
-This path calls no kernel, as in the reference.
+It takes the model as it is: the dense transformer's prefill and decode
+go through the ``flash_prefill`` / ``decode_attention`` kernels, the
+Mamba-2 model's prefill through ``ssd_scan``.  Only the dense family has
+a paged layout.
 
 Persistent paged storage (``kv_layout="paged"``, ``serve_batch_paged``):
 the engine owns a page pool and per-request page
@@ -110,6 +113,9 @@ class StaticEngine:
             raise ValueError(f"unknown kv_layout {kv_layout!r}")
         cfg = model.cfg
         if kv_layout == "paged":
+            if cfg.family != "dense":
+                raise ValueError("persistent paged StaticEngine: dense "
+                                 f"family only, got {cfg.family!r}")
             if kv_pool_tokens is None or kv_pool_tokens <= 0:
                 raise ValueError("kv_layout='paged' needs kv_pool_tokens "
                                  "(the engine-owned page pool size)")
@@ -130,10 +136,11 @@ class StaticEngine:
         self.prefix_sharing = prefix_sharing and kv_layout == "paged"
         self.allocator: Optional[PageAllocator] = None
         #: device work counters: prefill model calls (a dense slice's
-        #: prefill, stages A and A' of a paged slice) and decode
-        #: iterations — on the paged path each runs one kernel launch per
-        #: layer
+        #: prefill, stages A and A' of a paged slice), the stage-A' (tail)
+        #: calls among them, and decode iterations — each runs one launch
+        #: per layer of each kernel on its path
         self.n_prefill_stages = 0
+        self.n_tail_prefill_stages = 0
         self.n_decode_steps = 0
         if kv_layout == "dense":
             return
@@ -180,6 +187,7 @@ class StaticEngine:
                                            self._tensor(lengths), cache,
                                            attn_impl=self.attn_impl)
         self.n_prefill_stages += 1
+        self.n_tail_prefill_stages += 1
         return greedy(logits).cpu().numpy()  # host transfer: blocks
 
     def _decode_loop(self, cur: torch.Tensor, forced: np.ndarray,

@@ -19,6 +19,7 @@ from repro_torch.kernels import fused_rope_decode_append as _fdecode_kernel
 from repro_torch.kernels import fused_rope_prefill_write as _fwrite_kernel
 from repro_torch.kernels import paged_decode_attention as _decode_kernel
 from repro_torch.kernels import paged_prefill_write as _write_kernel
+from repro_torch.kernels import ssd_scan as _ssd_kernel
 
 #: each kernel's wrapper module, by kernel name
 _KERNELS = {"paged_prefill_write": _write_kernel,
@@ -26,7 +27,8 @@ _KERNELS = {"paged_prefill_write": _write_kernel,
             "fused_rope_prefill_write": _fwrite_kernel,
             "fused_rope_decode_append": _fdecode_kernel,
             "flash_prefill": _prefill_kernel,
-            "decode_attention": _dense_decode_kernel}
+            "decode_attention": _dense_decode_kernel,
+            "ssd_scan": _ssd_kernel}
 
 #: calls that took a kernel's plain version (CPU tensors), by kernel
 plain_calls: Dict[str, int] = {name: 0 for name in _KERNELS}
@@ -154,3 +156,16 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
     return _dense_decode_kernel.decode_attention(q, k_cache, v_cache,
                                                  slot_pos, q_pos,
                                                  window=window)
+
+
+def ssd_chunked_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
+                     B: torch.Tensor, C: torch.Tensor, chunk: int = 128):
+    """Mamba-2 SSD chunked scan. x (B,T,H,P) float32; dt (B,T,H); A (H,);
+    B/C (B,T,G,N), groups read per head (no broadcast) -> (y (B,T,H,P),
+    final_state (B,H,P,N)).  T must be a multiple of ``chunk``."""
+    if x.shape[1] % chunk:
+        raise ValueError(f"ssd_chunked_scan: T {x.shape[1]} is not a "
+                         f"multiple of the chunk {chunk}")
+    if _on_cpu(x, "ssd_scan"):
+        return ref.ssd_scan_ref(x, dt, A, B, C, chunk)
+    return _ssd_kernel.ssd_scan(x, dt, A, B, C, chunk)

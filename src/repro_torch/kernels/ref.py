@@ -184,3 +184,66 @@ def decode_attention_ref(q: torch.Tensor, k_cache: torch.Tensor,
     o = torch.einsum("bhgw,bwhd->bhgd", p.to(v_cache.dtype).float(),
                      v_cache.float())
     return o.reshape(B, Hq, v_cache.shape[-1]).to(q.dtype)
+
+
+def ssd_scan_ref(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
+                 B: torch.Tensor, C: torch.Tensor, Q: int,
+                 init_state: Optional[torch.Tensor] = None):
+    """Chunked SSD scan (Mamba-2, arXiv:2405.21060): the plain version of
+    the ``ssd_scan`` kernel.
+
+    x (B,T,H,P); dt (B,T,H) >= 0 (0 at pads); A (H,) negative; B,C
+    (B,T,G,N), group g serving heads g·H/G .. (g+1)·H/G - 1.  Returns
+    (y (B,T,H,P), final_state (B,H,P,N)).  T % Q must be 0.
+
+    Line for line the JAX oracle ``ssd_scan_ref``, but for one change: the
+    decay exponent ``cum_t - cum_s`` is masked to -inf above the diagonal
+    *before* ``exp``.  The oracle exponentiates every (t, s) and masks
+    afterwards by multiplying; where one chunk's sum of dt·|A| passes
+    ln(float32 max) ≈ 88.7, ``exp`` of the upper triangle overflows to inf
+    and ``inf · 0`` gives NaN (ROADMAP C2; the full-width mamba2-130m hits
+    it at its first 128-token chunk).  The Pallas kernel masks with
+    ``where`` and stays finite; this version computes its function, which
+    equals the oracle's wherever the oracle is finite.
+    """
+    Bsz, T, H, P = x.shape
+    G, N = B.shape[2], B.shape[3]
+    nc = T // Q
+    rep = H // G
+    xc = x.reshape(Bsz, nc, Q, H, P)
+    dtc = dt.reshape(Bsz, nc, Q, H)
+    Bc = B.reshape(Bsz, nc, Q, G, N)
+    Cc = C.reshape(Bsz, nc, Q, G, N)
+
+    log_a = dtc * A  # (B,nc,Q,H), <= 0
+    cum = torch.cumsum(log_a, dim=2)  # inclusive cumsum within chunk
+    # intra-chunk: y[t] += sum_{s<=t} (C_t.B_s) e^{cum_t-cum_s} dt_s x_s
+    CB = torch.einsum("bcqgn,bckgn->bcgqk", Cc, Bc)  # (B,nc,G,Q,Q)
+    CB = CB.repeat_interleave(rep, dim=2)  # (B,nc,H,Q,Q)
+    causal = torch.tril(torch.ones((Q, Q), dtype=torch.bool,
+                                   device=x.device))
+    diff = cum[:, :, :, None, :] - cum[:, :, None, :, :]  # (B,nc,Q,Q,H) t,s
+    decay = torch.exp(torch.where(causal[None, None, :, :, None], diff,
+                                  float("-inf")))
+    w = CB * decay.permute(0, 1, 4, 2, 3) * causal[None, None, None]
+    w = w * dtc.permute(0, 1, 3, 2)[:, :, :, None, :]  # dt_s
+    y_intra = torch.einsum("bchqk,bckhp->bcqhp", w, xc)
+    # chunk states: S_c = sum_s e^{cum_end - cum_s} dt_s B_s (x) x_s
+    seg = torch.exp(cum[:, :, -1:, :] - cum) * dtc  # (B,nc,Q,H)
+    Bh = Bc.repeat_interleave(rep, dim=3)  # (B,nc,Q,H,N)
+    S = torch.einsum("bcqh,bcqhn,bcqhp->bchpn", seg, Bh, xc)
+    # inter-chunk recurrence, emitting the state *entering* each chunk
+    chunk_decay = torch.exp(cum[:, :, -1, :])  # (B,nc,H)
+    h = (init_state if init_state is not None
+         else torch.zeros((Bsz, H, P, N), dtype=S.dtype, device=x.device))
+    h_in = []
+    for c in range(nc):
+        h_in.append(h)
+        h = h * chunk_decay[:, c, :, None, None] + S[:, c]
+    h_in = torch.stack(h_in, dim=1)  # (B,nc,H,P,N)
+    # inter-chunk contribution: y[t] += C_t . (e^{cum_t} * h_in)
+    Ch = Cc.repeat_interleave(rep, dim=3)  # (B,nc,Q,H,N)
+    y_inter = torch.einsum("bcqhn,bchpn->bcqhp", Ch, h_in) \
+        * torch.exp(cum)[..., None]
+    y = (y_intra + y_inter).reshape(Bsz, T, H, P)
+    return y, h

@@ -15,6 +15,13 @@
   PYTHONPATH=src python -m repro_torch.launch.serve --backend real \\
       --device cpu --reduced --max-input 64 --max-gen 16 --slice-len 8
 
+  # Mamba-2 through dense SCLS (its prefill on the ssd_scan kernel); the
+  # SSM's decode state has a constant size, so Δ = 0 and the dense memory
+  # model admits MAX_BATCH_SIZE_CAP rows, as in JAX
+  PYTHONPATH=src python -m repro_torch.launch.serve --backend real \\
+      --arch mamba2-130m --device cpu --reduced --max-input 64 \\
+      --max-gen 16 --slice-len 8
+
   # discrete-event sim backend (no model): the same scheduler code
   PYTHONPATH=src python -m repro_torch.launch.serve --backend sim
 
@@ -194,6 +201,10 @@ def build_core(args: argparse.Namespace) -> Tuple[SchedulerCore, list,
 
     device = resolve_device(args.device)
     arch = get_config(args.arch, reduced=args.reduced)
+    if args.kv_retain == "request" and arch.family != "dense":
+        raise SystemExit(f"--kv-retain request drives the persistent paged "
+                         f"StaticEngine (dense family only); {args.arch} is "
+                         f"{arch.family}")
     model = get_model(arch)
     params = model.init(args.seed, device=device)
     est, prmse, drmse = fit_estimator(model, params, batch_sizes=(1, 2, 4),

@@ -1,1 +1,2 @@
-"""Model code: the dense transformer, its attention and registry."""
+"""Model code: the dense transformer and its attention, the Mamba-2 SSM,
+and the registry."""

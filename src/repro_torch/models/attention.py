@@ -236,20 +236,21 @@ def attention_prefill_paged(p: Attention, x: torch.Tensor,
                             positions: torch.Tensor, cfg: ModelConfig,
                             window: Optional[int], k_pages: torch.Tensor,
                             v_pages: torch.Tensor, block_table: torch.Tensor,
-                            mask: Optional[torch.Tensor] = None,
                             impl: str = "unfused") -> torch.Tensor:
     """Prefill that lands K/V in the paged pool, in place.
 
-    The attention maths is ``attention_prefill``'s; each valid token's
-    K/V is then written to page ``block_table[b, pos // pg]`` at offset
-    ``pos % pg`` by ``kernels.ops.paged_prefill_write``.  k/v_pages
-    (P,pg,Hkv,D) are one layer's pools.  Returns the layer output.
+    The attention is ``attention_prefill``'s (``prefill_attend``: the
+    ``flash_prefill`` kernel on the card); each valid token's K/V is then
+    written to page ``block_table[b, pos // pg]`` at offset ``pos % pg``
+    by ``kernels.ops.paged_prefill_write``.  k/v_pages (P,pg,Hkv,D) are
+    one layer's pools.  Returns the layer output.
 
     ``impl="fused"`` hands the unrotated K to
     ``kernels.ops.fused_rope_prefill_write``, which rotates it while it
     writes the pages, and the queries attend to the rotated K/V gathered
-    back from the pages.  Prompts of ``CHUNK_THRESHOLD`` tokens or more
-    take the unfused chunked path either way."""
+    back from the pages (a window whose length is not the queries', so not
+    ``flash_prefill``'s function).  Prompts of ``CHUNK_THRESHOLD`` tokens
+    or more take the unfused path either way."""
     check_impl(impl)
     B, T, _ = x.shape
     q, k, v = _qkv(p, x, cfg)
@@ -276,12 +277,7 @@ def attention_prefill_paged(p: Attention, x: torch.Tensor,
         o = gqa_attend_blocked(q, kw, vw, m[:, None], scale)
         return p.wo(o.reshape(B, T, -1))
     k = apply_rope(k, rp, cfg.rope_theta)
-    if T >= CHUNK_THRESHOLD:
-        o = gqa_attend_chunked(q, k, v, scale, positions, window)
-    else:
-        if mask is None:
-            mask = prefill_mask(positions, window)
-        o = gqa_attend_blocked(q, k, v, mask, scale)
+    o = prefill_attend(q, k, v, positions, window, scale)
     out = p.wo(o.reshape(B, T, -1))
     kernel_ops.paged_prefill_write(k.contiguous(), v.contiguous(), positions,
                                    block_table, k_pages, v_pages)

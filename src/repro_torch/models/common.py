@@ -12,8 +12,9 @@ conventions kept exactly:
 * RoPE is the Llama half rotation; the MLP is SwiGLU;
 * embeddings are tied (``unembed = h @ table.T``).
 
-The config carries the fields of the one family this slice serves (dense
-llama: no QKV bias, no embedding scale, tied embeddings, SiLU).
+The config carries the fields of the families the port serves: dense
+llama (no QKV bias, no embedding scale, tied embeddings, SiLU) and the
+Mamba-2 SSM (``ssm_*``, used by ``models.mamba2``).
 """
 from __future__ import annotations
 
@@ -27,7 +28,8 @@ from torch import nn
 
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
-    """Config of a dense decoder-only model (the fields this slice uses)."""
+    """Config of a decoder-only model (the fields the port's families
+    use)."""
 
     name: str = "model"
     family: str = "dense"
@@ -41,7 +43,22 @@ class ModelConfig:
     rope_theta: float = 10000.0
     norm_eps: float = 1e-6
     sliding_window: Optional[int] = None
+    # --- SSM (mamba2 / SSD) ---
+    ssm_state: int = 128
+    ssm_expand: int = 2
+    ssm_head_dim: int = 64
+    ssm_conv_width: int = 4
+    ssm_chunk: int = 128
+    ssm_n_groups: int = 1
     dtype: torch.dtype = torch.float32
+
+    @property
+    def ssm_d_inner(self) -> int:
+        return self.ssm_expand * self.d_model
+
+    @property
+    def ssm_n_heads(self) -> int:
+        return self.ssm_d_inner // self.ssm_head_dim
 
     def replace(self, **kw) -> "ModelConfig":
         return dataclasses.replace(self, **kw)

@@ -1,10 +1,10 @@
 """Model interface: ``get_model(cfg)`` returns a ``Model`` of functions
 sharing one calling convention (counterpart of ``repro.models.registry``,
-dense family only in this slice):
+for the dense and ssm families):
 
   init(seed_or_generator, device=None)        -> params (nn.Module)
-  prefill(params, batch, cache_window)        -> (last_logits, KVCache)
-  decode_step(params, cache, tokens, step)    -> (logits, KVCache)
+  prefill(params, batch, cache_window)        -> (last_logits, cache)
+  decode_step(params, cache, tokens, step)    -> (logits, cache)
   kv_bytes_per_token(n_model_shards)          -> float  (Δ in Eq. 5)
 
 ``batch`` is a dict with tokens (B,T) and lengths (B,) tensors.
@@ -16,7 +16,7 @@ from typing import Callable, NamedTuple, Union
 import torch
 
 from repro_torch import DeviceLike, resolve_device
-from repro_torch.models import transformer
+from repro_torch.models import mamba2, transformer
 from repro_torch.models.common import ModelConfig
 
 
@@ -28,9 +28,9 @@ class Model(NamedTuple):
     kv_bytes_per_token: Callable
 
 
-def _dense(cfg: ModelConfig) -> Model:
+def _initialiser(module, cfg: ModelConfig) -> Callable:
     def init(seed: Union[int, torch.Generator] = 0,
-             device: DeviceLike = None) -> transformer.Transformer:
+             device: DeviceLike = None):
         """Random weights on ``device`` (default: the CUDA card) from a
         seed or a ``torch.Generator`` living on that device."""
         dev = resolve_device(device)
@@ -39,8 +39,11 @@ def _dense(cfg: ModelConfig) -> Model:
         else:
             gen = torch.Generator(device=dev)
             gen.manual_seed(int(seed))
-        return transformer.init(gen, cfg, dev)
+        return module.init(gen, cfg, dev)
+    return init
 
+
+def _dense(cfg: ModelConfig) -> Model:
     def prefill(params, batch, cache_window, window=None):
         return transformer.prefill(params, cfg, batch["tokens"],
                                    batch["lengths"], cache_window,
@@ -55,10 +58,27 @@ def _dense(cfg: ModelConfig) -> Model:
         per_tok = 2 * cfg.n_layers * cfg.n_kv_heads * cfg.head_dim * itemsize
         return per_tok / min(n_shards, cfg.n_kv_heads)
 
-    return Model(cfg, init, prefill, decode_step, kv_bytes)
+    return Model(cfg, _initialiser(transformer, cfg), prefill, decode_step,
+                 kv_bytes)
 
 
-_FAMILIES = {"dense": _dense}
+def _ssm(cfg: ModelConfig) -> Model:
+    def prefill(params, batch, cache_window, window=None):
+        return mamba2.prefill(params, cfg, batch["tokens"], batch["lengths"])
+
+    def decode_step(params, cache, tokens, step, window=None):
+        return mamba2.decode_step(params, cfg, cache, tokens, step)
+
+    def kv_bytes(n_shards: int = 1) -> float:
+        # constant-size state, amortised over the slice: the marginal
+        # per-token cost is 0
+        return 0.0
+
+    return Model(cfg, _initialiser(mamba2, cfg), prefill, decode_step,
+                 kv_bytes)
+
+
+_FAMILIES = {"dense": _dense, "ssm": _ssm}
 
 
 def get_model(cfg: ModelConfig) -> Model:

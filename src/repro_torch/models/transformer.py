@@ -183,22 +183,20 @@ def prefill_paged(params: Transformer, cfg: ModelConfig,
                   ) -> Tuple[torch.Tensor, PagedKVCache]:
     """Prefill that writes K/V straight into the paged pool.
 
-    Same left-padded attention maths as ``prefill``; each layer's K/V
-    lands in ``cache.k_pages[l]``/``v_pages[l]`` through the block table
+    Same left-padded attention maths as ``prefill`` (unfused: through
+    ``kernels.ops.flash_prefill``); each layer's K/V lands in
+    ``cache.k_pages[l]``/``v_pages[l]`` through the block table
     (``kernels.ops.paged_prefill_write``).  Layout: logical slot ==
     absolute position.  Returns the last token's logits and the cache
     with ``slot_pos``/``lengths`` of the prefilled rows."""
     window = window if window is not None else cfg.sliding_window
     positions = make_positions(tokens, lengths)
     h = embed_apply(params.embed, tokens)
-    T = positions.shape[1]
-    mask = (None if T >= attn.CHUNK_THRESHOLD
-            else attn.prefill_mask(positions, window))
     for l, layer in enumerate(params.layers):
         x = rms_norm(h, layer.ln_attn, cfg.norm_eps)
         a = attn.attention_prefill_paged(
             layer.attn, x, positions, cfg, window, cache.k_pages[l],
-            cache.v_pages[l], cache.block_table, mask=mask, impl=attn_impl)
+            cache.v_pages[l], cache.block_table, impl=attn_impl)
         h = _mlp_residual(layer, h + a, cfg)
     logits = _logits(params, cfg, h[:, -1:, :])
     lengths = lengths.to(torch.int32)

@@ -1,10 +1,15 @@
 """Weights across frameworks: the JAX parameter tree as a PyTorch
-``state_dict`` of ``models.transformer.Transformer``.
+``state_dict`` of the port's model modules (``models.transformer.
+Transformer``, ``models.mamba2.Mamba2``).
 
 The JAX tree stacks every per-layer leaf along a leading ``n_layers``
 axis (``layers/attn/wq/w`` is ``(n_layers, d_in, d_out)``); the port has
 one module per layer (``layers.<i>.attn.wq.w``).  Both keep dense weights
-as ``(d_in, d_out)``, so a leaf maps over unchanged.
+as ``(d_in, d_out)``, so a leaf maps over unchanged.  The mapping is by
+name only: the Mamba-2 tree (``layers/mixer/in_proj/w``, ``…/conv_w``,
+``…/A_log``, ``layers/ln``, ``ln_f``) carries over the same way, because
+the port's module names are the JAX keys; its float32 leaves (``A_log``,
+``D``, ``dt_bias``) stay float32 because the port declares them so.
 """
 from __future__ import annotations
 
@@ -32,7 +37,7 @@ def _flatten(tree: Mapping[str, Any], prefix: str = ""):
 
 
 def params_from_jax(tree: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
-    """A ``state_dict`` for ``Transformer.load_state_dict`` from the JAX
+    """A ``state_dict`` for the model's ``load_state_dict`` from the JAX
     parameter tree (nested dicts of numpy arrays, e.g.
     ``jax.tree.map(np.asarray, params)``).  Tensors are on the CPU;
     ``load_state_dict`` copies them onto the module's device and type."""

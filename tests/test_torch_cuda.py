@@ -18,6 +18,7 @@ from repro_torch.kernels import fused_rope_prefill_write as fwrite_kernel
 from repro_torch.kernels import paged_decode_attention as decode_kernel
 from repro_torch.kernels import paged_prefill_write as write_kernel
 from repro_torch.kernels import ref
+from repro_torch.kernels import ssd_scan as ssd_kernel
 
 pytestmark = pytest.mark.cuda
 
@@ -404,6 +405,16 @@ def test_prefill_attention_refuses_a_mask_on_the_card(cuda_device):
 # ---------------------------------------------------------------------------
 # the ILS engines and the dense static engine: card against CPU
 # ---------------------------------------------------------------------------
+def _smoke():
+    import importlib.util
+    import pathlib
+    path = pathlib.Path(__file__).resolve().parents[1] / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    return smoke
+
+
 def test_reduced_model_engines_on_the_card_match_the_cpu(cuda_device):
     """chip_smoke.py's phase 4b: the reduced float32 llama3.2-1b's dense
     and paged ILS engines and dense static engine on the card (flash_prefill,
@@ -411,10 +422,98 @@ def test_reduced_model_engines_on_the_card_match_the_cpu(cuda_device):
     prefill / decode step) give the CPU's token streams but for near-ties,
     and dense == paged on the card.  The phase raises SystemExit when it
     fails."""
-    import importlib.util
-    import pathlib
-    path = pathlib.Path(__file__).resolve().parents[1] / "chip_smoke.py"
-    spec = importlib.util.spec_from_file_location("chip_smoke", path)
-    smoke = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(smoke)
-    smoke.check_ils_parity()
+    _smoke().check_ils_parity()
+
+
+# ---------------------------------------------------------------------------
+# ssd_scan (B7) and the Mamba-2 engine
+# ---------------------------------------------------------------------------
+#: kernel vs plain, relative to the plain version's largest |value|
+#: (float32 sums of <= 128 terms in another order, through the chunk
+#: states, stay near 1e-6 of it)
+SSD_TOL = 1e-4
+
+
+def _ssd_inputs(B, T, H, P, N, G, device, seed=5, dt_value=None,
+                lengths=None):
+    """float32 x, dt, A, B, C; rows left-padded to ``lengths`` (dt 0 at
+    pads); dt softplus(normal) or a constant; A = -exp(0.5 z) per head."""
+    rng = np.random.default_rng(seed)
+    lengths = lengths or [T] * B
+    valid = np.arange(T)[None] >= T - np.asarray(lengths)[:, None]
+    x = rng.standard_normal((B, T, H, P))
+    dt = (np.log1p(np.exp(rng.standard_normal((B, T, H))))
+          if dt_value is None else np.full((B, T, H), dt_value))
+    dt = dt * valid[..., None]
+    A = -np.exp(0.5 * rng.standard_normal(H))
+    Bm = rng.standard_normal((B, T, G, N))
+    Cm = rng.standard_normal((B, T, G, N))
+    return [torch.from_numpy(a.astype(np.float32)).to(device)
+            for a in (x, dt, A, Bm, Cm)]
+
+
+@pytest.mark.parametrize("B,T,H,P,N,G,Q,lengths,dt_value", [
+    (3, 48, 8, 32, 16, 1, 16, [48, 30, 7], None),       # reduced mamba2
+    (8, 512, 24, 64, 128, 1, 128,
+     [512, 497, 300, 505, 460, 489, 333, 512], None),   # smoke shapes
+    (2, 256, 24, 64, 128, 2, 128, [256, 200], None),    # two groups
+    (1, 128, 2, 8, 8, 1, 64, None, 1.5),                # C2: oracle NaN
+    (2, 24, 3, 8, 4, 1, 8, None, None),                 # small, odd heads
+])
+def test_ssd_scan_matches_plain(cuda_device, B, T, H, P, N, G, Q, lengths,
+                                dt_value):
+    args = _ssd_inputs(B, T, H, P, N, G, cuda_device, dt_value=dt_value,
+                       lengths=lengths)
+    if dt_value is not None:
+        args[2] = -torch.ones_like(args[2])
+    y, st = ssd_kernel.ssd_scan(*args, Q)
+    y_ref, st_ref = ref.ssd_scan_ref(*args, Q)
+    torch.cuda.synchronize()
+    assert torch.isfinite(y).all() and torch.isfinite(st).all()
+    for got, want in ((y, y_ref), (st, st_ref)):
+        err = (got - want).abs().max().item() / want.abs().max().item()
+        assert err <= SSD_TOL, err
+
+
+def test_ssd_scan_refuses_what_it_does_not_take(cuda_device):
+    args = _ssd_inputs(1, 32, 4, 8, 8, 2, cuda_device)
+    with pytest.raises(TypeError, match="float32"):
+        ssd_kernel.ssd_scan(*[a.double() for a in args], 8)
+    with pytest.raises(ValueError, match="multiple of the chunk"):
+        ssd_kernel.ssd_scan(*args, 12)
+    bad_g = _ssd_inputs(1, 32, 4, 8, 8, 3, cuda_device)
+    with pytest.raises(ValueError, match="of G"):
+        ssd_kernel.ssd_scan(*bad_g, 8)
+    x_t = args[0].transpose(2, 3).contiguous().transpose(2, 3)
+    with pytest.raises(ValueError, match="contiguous"):
+        ssd_kernel.ssd_scan(x_t, *args[1:], 8)
+    with pytest.raises(ValueError, match="CUDA"):
+        ssd_kernel.ssd_scan(*[a.cpu() for a in args], 8)
+
+
+def test_ssd_scan_launches_nothing_for_an_empty_batch(cuda_device):
+    """No row, no launch: the count means a kernel ran."""
+    args = _ssd_inputs(1, 32, 4, 8, 8, 1, cuda_device)
+    empty = [a[:0] for a in args[:2]] + [args[2]] + [a[:0] for a in args[3:]]
+    ssd_kernel.reset_launches()
+    y, st = ssd_kernel.ssd_scan(*empty, 8)
+    assert ssd_kernel.launches == 0
+    assert y.shape == (0, 32, 4, 8) and st.shape == (0, 4, 8, 8)
+
+
+def test_ops_dispatch_ssd_scan_to_the_kernel(cuda_device):
+    from repro_torch.kernels import ops
+    ops.reset_counts()
+    ops.ssd_chunked_scan(*_ssd_inputs(2, 32, 4, 8, 8, 1, cuda_device),
+                         chunk=16)
+    torch.cuda.synchronize()
+    assert ops.launches()["ssd_scan"] == 1
+    assert not any(ops.plain_calls.values())
+
+
+def test_reduced_mamba_engine_on_the_card_matches_the_cpu(cuda_device):
+    """chip_smoke.py's phase 4c: the reduced float32 mamba2-130m's dense
+    static engine on the card (ssd_scan once per layer per prefill, no
+    other kernel) gives the CPU's token streams over two slices but for
+    near-ties.  The phase raises when it fails."""
+    _smoke().check_mamba_parity()

@@ -118,16 +118,25 @@ def test_evict_on_pressure_falls_back_to_reprefill(models):
 def test_prefix_sharing_tail_join(models):
     """A prompt repeating a resident request's first two pages joins them
     and prefills only its tail (stage A'), in the same call as a fresh
-    stage-A prefill and a resumed resident."""
+    stage-A prefill and a resumed resident.  The engine counts the two
+    stages apart: stage A attends through ``ops.flash_prefill`` (once per
+    layer), the tail over its gathered pages."""
+    from repro_torch.kernels import ops
     jm, jp, tm, tp = models
     jeng, teng = _engines(models)
     src, tail, fresh = prompts(tm.cfg.vocab_size, [21, 7, 11], seed=9)
     first, _ = _serve_both(jeng, teng, [src], 8, [1], forced_gen_lens=[24])
     joiner = np.concatenate([src[:16], tail])
+    teng.n_prefill_stages = teng.n_tail_prefill_stages = 0
+    ops.reset_counts()
     want, got = _serve_both(jeng, teng, [src, joiner, fresh], 8, [1, 2, 3],
                             forced_gen_lens=[16, 12, 12],
                             already_generated=[first.results[0]["tokens"],
                                                [], []])
+    assert (teng.n_prefill_stages, teng.n_tail_prefill_stages) == (2, 1)
+    L = tm.cfg.n_layers
+    assert ops.plain_calls["flash_prefill"] == L
+    assert ops.plain_calls["paged_prefill_write"] == 2 * L
     assert got.reprefill_tokens == 0
     assert got.prefix_hit_tokens == 16 and got.shared_blocks == 2
     assert teng.allocator.shared_blocks == jeng.allocator.shared_blocks > 0

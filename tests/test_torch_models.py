@@ -261,6 +261,43 @@ def test_fused_paged_prefill_and_decode_logits_match_jax(models):
     _check_paged_prefill_and_decode(models, "fused")
 
 
+def test_unfused_paged_prefill_attends_through_flash_prefill(models,
+                                                            monkeypatch):
+    """Stage A of the unfused paged path takes its attention from
+    ``prefill_attend``, i.e. ``ops.flash_prefill`` (the B5 kernel on the
+    card): on the CPU its plain version runs once per layer, beside the
+    page write, and the logits and pages are bit for bit those of the
+    earlier maths (``prefill_mask`` + ``gqa_attend_blocked``)."""
+    from repro_torch.kernels import ops
+    from repro_torch.models import attention as tattn
+    jm, jp, tm, tp = models
+    cfg, pg = tm.cfg, 8
+    toks, lens = _left_pad(cfg.vocab_size, [16, 9, 13], 16, seed=5)
+    bt = np.arange(1, 13, dtype=np.int32).reshape(3, 4)
+
+    def run():
+        _, tcache = _paged_pair(cfg, bt, pg, 12)
+        with torch.no_grad():
+            return ttfm.prefill_paged(tp, cfg, torch.from_numpy(toks),
+                                      torch.from_numpy(lens), tcache)
+
+    ops.reset_counts()
+    logits, cache = run()
+    assert ops.plain_calls["flash_prefill"] == cfg.n_layers
+    assert ops.plain_calls["paged_prefill_write"] == cfg.n_layers
+
+    def earlier(q, k, v, positions, window, scale, mask=None):
+        return tattn.gqa_attend_blocked(
+            q, k, v, tattn.prefill_mask(positions, window), scale)
+
+    monkeypatch.setattr(tattn, "prefill_attend", earlier)
+    ops.reset_counts()
+    want, want_cache = run()
+    assert ops.plain_calls["flash_prefill"] == 0
+    np.testing.assert_array_equal(_np(logits), _np(want))
+    np.testing.assert_array_equal(_np(cache.k_pages), _np(want_cache.k_pages))
+
+
 def _check_paged_tail_prefill(models, impl, start):
     """A row joins another's first ``start`` tokens (page-aligned in the
     engine; the fused write is exact for any start) and prefills only its
