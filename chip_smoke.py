@@ -14,12 +14,14 @@ fails (nothing is caught):
    (llama3.2-1b: 32 query heads, 8 KV heads, head_dim 64, 16-token pages,
    bf16, 8 rows of about 512 tokens over a page pool of the slice's size;
    flash_prefill also at one row of 1280 and with a window,
-   decode_attention over 768-slot rows, one of them empty; ssd_scan at
+   decode_attention over 768-slot rows, one of them empty, and at the
+   dense slices' 2 x 1344 and 16 x 1280; ssd_scan at
    mamba2-130m's prefill: 8 left-padded rows of 512 tokens, 24 heads of
    P 64, N 128, chunks of 128, float32) and is held against its plain
    PyTorch version on the same inputs, then timed beside that plain
    version, PyTorch yardsticks computing the same function, and the least
-   time the card could take;
+   time the card could take (flash_prefill and decode_attention also at
+   the shapes the slices run: ``shapes`` in their rows);
 4. reference: on a small input, the paged serving path with either
    ``attn_impl`` (through the kernels) is held against the dense path of
    the same model (through flash_prefill and decode_attention);
@@ -100,6 +102,8 @@ SSD_TOL = 1e-4               # ssd_scan vs its plain version, relative to the
                              # near 1e-6; an indexing fault moves O(1) of it
 ITERS = 50
 SLEEP_CYCLES = 2_000_000     # ~1 ms of device sleep at the H100's clocks
+SLEEP_MARGIN = 3             # device sleep / the host's enqueue time, least
+MAX_SLEEP_MS = 200.0         # a longer enqueue is a fault, not a timing
 
 
 def log(msg: str) -> None:
@@ -113,19 +117,52 @@ def card_reading() -> str:
     return out.strip().splitlines()[0]
 
 
-def time_ms(fn, flush: torch.Tensor, iters: int = ITERS) -> float:
+_sleep_rate = []  # device sleep cycles per ms, measured once
+
+
+def sleep_cycles_per_ms() -> float:
+    if not _sleep_rate:
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        torch.cuda._sleep(SLEEP_CYCLES)
+        end.record()
+        end.synchronize()
+        _sleep_rate.append(SLEEP_CYCLES / start.elapsed_time(end))
+    return _sleep_rate[0]
+
+
+def time_ms(fn, flush: torch.Tensor, iters: int = ITERS,
+            label: str = "") -> float:
     """Mean device time of ``fn`` over ``iters`` launches, each timed by
     CUDA events with the L2 cache flushed before it (the main path reads
     16 layers' distinct pools, so the kernels find it cold).  A device-side
     sleep before the start event keeps the card busy while the host
     enqueues ``fn``, so the events time the device's work and not the
-    wrapper's Python; a host synchronisation inside ``fn`` (the plain
-    write's boolean indexing) still counts, as it does on the main path."""
+    wrapper's Python: the host's enqueue time of ``fn`` is measured during
+    warm-up and the sleep sized to ``SLEEP_MARGIN`` times it (at least
+    ``SLEEP_CYCLES``); the run raises where that would pass ``MAX_SLEEP_MS``.
+    A host synchronisation inside ``fn`` (the plain write's boolean
+    indexing) still counts, as it does on the main path."""
     fn()  # warm-up
+    enqueue = 0.0
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        enqueue = max(enqueue, (time.perf_counter() - t0) * 1e3)
+    torch.cuda.synchronize()
+    rate = sleep_cycles_per_ms()
+    cycles = max(SLEEP_CYCLES, int(SLEEP_MARGIN * enqueue * rate))
+    if cycles > MAX_SLEEP_MS * rate:
+        raise SystemExit(f"timing {label}: the host's enqueue takes "
+                         f"{enqueue:.3f} ms, beyond a device sleep of "
+                         f"{MAX_SLEEP_MS} ms")
     total = 0.0
     for _ in range(iters):
         flush.zero_()
-        torch.cuda._sleep(SLEEP_CYCLES)
+        torch.cuda._sleep(cycles)
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
@@ -133,6 +170,8 @@ def time_ms(fn, flush: torch.Tensor, iters: int = ITERS) -> float:
         end.record()
         end.synchronize()
         total += start.elapsed_time(end)
+    log(f"  timed {label}: host enqueue {enqueue:.4f} ms, device sleep "
+        f"{cycles / rate:.3f} ms before each of {iters} launches")
     return total / iters
 
 
@@ -217,10 +256,13 @@ def check_decode(cfg, n_pages: int, pg: int, gen: torch.Generator,
     mask = (slot_pos >= 0)[:, None, None, :]
     sdpa = torch.nn.functional.scaled_dot_product_attention
     t_kernel = time_ms(lambda: kmod.paged_decode_attention(
-        q, k_pages, v_pages, bt, slot_pos, q_pos), flush)
+        q, k_pages, v_pages, bt, slot_pos, q_pos), flush,
+                       label="paged_decode_attention kernel")
     t_plain = time_ms(lambda: ref.paged_decode_attention_ref(
-        q, k_pages, v_pages, bt, slot_pos, q_pos), flush)
-    t_lib = time_ms(lambda: sdpa(qg, kw, vw, attn_mask=mask), flush)
+        q, k_pages, v_pages, bt, slot_pos, q_pos), flush,
+                      label="paged_decode_attention plain")
+    t_lib = time_ms(lambda: sdpa(qg, kw, vw, attn_mask=mask), flush,
+                    label="paged_decode_attention SDPA")
     n_valid = sum(n_live)
     elt = k_pages.element_size()
     n_bytes = (2 * n_valid * Hkv * D * elt          # live K and V slots
@@ -293,10 +335,13 @@ def check_write(cfg, n_pages: int, pg: int, gen: torch.Generator,
         v_a.index_put_((page, off), v_valid)
 
     t_kernel = time_ms(lambda: kmod.paged_prefill_write(
-        k_new, v_new, positions, bt, k_a, v_a), flush)
+        k_new, v_new, positions, bt, k_a, v_a), flush,
+                       label="paged_prefill_write kernel")
     t_plain = time_ms(lambda: ref.paged_prefill_write_ref(
-        k_new, v_new, positions, bt, k_a, v_a), flush)
-    t_lib = time_ms(library, flush)
+        k_new, v_new, positions, bt, k_a, v_a), flush,
+                      label="paged_prefill_write plain")
+    t_lib = time_ms(library, flush,
+                    label="paged_prefill_write index_put_")
     n_valid = int(valid.sum())
     row = Hkv * D * k_new.element_size()
     n_bytes = (2 * 2 * n_valid * row                # K and V rows in and out
@@ -392,11 +437,15 @@ def check_fused_write(cfg, n_pages: int, pg: int, gen: torch.Generator,
         unfused_kmod.paged_prefill_write(kr, v_new, positions, bt, k_a, v_a)
 
     t_kernel = time_ms(lambda: kmod.fused_rope_prefill_write(
-        k_new, v_new, positions, bt, k_a, v_a, theta=theta), flush)
+        k_new, v_new, positions, bt, k_a, v_a, theta=theta), flush,
+                       label="fused_rope_prefill_write kernel")
     t_plain = time_ms(lambda: ref.fused_rope_prefill_write_ref(
-        k_new, v_new, positions, bt, k_a, v_a, theta=theta), flush)
-    t_put = time_ms(rope_index_put, flush)
-    t_chain = time_ms(unfused_chain, flush)
+        k_new, v_new, positions, bt, k_a, v_a, theta=theta), flush,
+                      label="fused_rope_prefill_write plain")
+    t_put = time_ms(rope_index_put, flush,
+                    label="fused_rope_prefill_write yardstick (a)")
+    t_chain = time_ms(unfused_chain, flush,
+                      label="fused_rope_prefill_write yardstick (b)")
     n_valid = int(valid.sum())
     row = Hkv * D * k_new.element_size()
     n_bytes = (2 * 2 * n_valid * row                # K and V rows in and out
@@ -507,12 +556,16 @@ def check_fused_decode(cfg, n_pages: int, pg: int, gen: torch.Generator,
 
     t_kernel = time_ms(lambda: kmod.fused_rope_decode_append(
         q, k_new, v_new, bt, slot_pos, new_slot, q_pos, k_pages, v_pages,
-        theta=theta), flush)
+        theta=theta), flush,
+                       label="fused_rope_decode_append kernel")
     t_plain = time_ms(lambda: ref.fused_rope_decode_append_ref(
         q, k_new, v_new, bt, slot_pos, new_slot, q_pos, k_pages, v_pages,
-        theta=theta), flush)
-    t_sdpa = time_ms(rope_put_sdpa, flush)
-    t_chain = time_ms(unfused_chain, flush)
+        theta=theta), flush,
+                      label="fused_rope_decode_append plain")
+    t_sdpa = time_ms(rope_put_sdpa, flush,
+                     label="fused_rope_decode_append yardstick (a)")
+    t_chain = time_ms(unfused_chain, flush,
+                      label="fused_rope_decode_append yardstick (b)")
     n_valid = sum(n_live[:-1])      # live pool slots read (the pad row's
     elt = k_pages.element_size()    # own slot is its appended token)
     n_bytes = (2 * n_valid * Hkv * D * elt          # live K and V slots
@@ -542,6 +595,27 @@ def check_fused_decode(cfg, n_pages: int, pg: int, gen: torch.Generator,
                            n_valid_tokens=n_valid, pool_pages=n_pages + 1))
 
 
+#: flash_prefill's smoke rows: left-padded lengths of 8 rows of 512
+PREFILL_LENGTHS = (512, 497, 300, 505, 460, 489, 333, 512)
+#: (label, row lengths, T) of flash_prefill's timed shapes, the row's own
+#: last: one row of 1280 (an ILS join, and the longest dense re-prefill of
+#: the smoke trace: a 1024-token prompt and 256 generated tokens, which
+#: the dense slice's ~1.4 rows often prefill alone), then 8 x 512
+PREFILL_TIMED = (("1x1280", (1280,), 1280), ("8x512", PREFILL_LENGTHS, 512))
+#: (label, (left pads, live tokens) per row, W) of decode_attention's
+#: checked and timed shapes, each with an empty last row, the row's own
+#: last: the dense SCLS slice (~1.4 rows bucketed to 2, L + 64 slots; the
+#: second row a batch pad), the dense ILS engine's 16 slots of 1280 (one
+#: free), then 8 rows over 768 slots
+DECODE_TIMED = (
+    ("2x1344", ((44, 1300), (0, 0)), 1344),
+    ("16x1280", tuple((0, n) for n in (1280, 1100, 960, 850, 700, 640, 512,
+                                       480, 400, 350, 300, 256, 200, 150,
+                                       100, 0)), 1280),
+    ("8x768", ((0, 768), (16, 700), (64, 600), (5, 512), (100, 400),
+               (0, 333), (200, 520), (0, 0)), 768))
+
+
 def prefill_inputs(cfg, lengths, T: int, gen: torch.Generator):
     """Left-padded rows of the given lengths: bf16 q, k, v and positions
     (pads -1), as ``models.transformer.make_positions`` builds them."""
@@ -559,15 +633,50 @@ def prefill_inputs(cfg, lengths, T: int, gen: torch.Generator):
     return q, k, v, positions
 
 
+def time_prefill(kmod, q, k, v, pos, flush: torch.Tensor, label: str):
+    """(kernel ms, SDPA ms, bound ms, bound_by, shape) of flash_prefill on
+    these inputs, without a window.  The library yardstick is SDPA with
+    the boolean mask (diagonal rule included) over K/V expanded to the
+    query heads beforehand."""
+    B, T, Hq, D = q.shape
+    Hkv = k.shape[2]
+    G = Hq // Hkv
+    pq, pk = pos[:, :, None], pos[:, None, :]
+    mask = ((pk >= 0) & (pk <= pq)) | torch.eye(T, dtype=torch.bool,
+                                                device=q.device)
+    qt = q.transpose(1, 2).contiguous()
+    kt = k.transpose(1, 2).repeat_interleave(G, dim=1).contiguous()
+    vt = v.transpose(1, 2).repeat_interleave(G, dim=1).contiguous()
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    t_kernel = time_ms(lambda: kmod.flash_prefill(q, k, v, pos), flush,
+                       label=f"flash_prefill {label} kernel")
+    t_lib = time_ms(lambda: sdpa(qt, kt, vt, attn_mask=mask[:, None]), flush,
+                    label=f"flash_prefill {label} SDPA")
+    n_pairs = int(mask.sum())                       # (query, key) pairs
+    elt = q.element_size()
+    n_bytes = (2 * q.numel() * elt                  # q in, out
+               + 2 * k.numel() * elt                # k, v
+               + pos.numel() * 4)
+    n_flops = 4 * n_pairs * Hq * D                  # QK^T and PV
+    b_ms, b_by = bound(n_bytes, n_flops)
+    log(f"flash_prefill {label}: kernel {t_kernel:.4f} ms, SDPA "
+        f"{t_lib:.4f} ms, bound {b_ms:.4f} ms ({b_by}; "
+        f"{n_bytes / 1e6:.1f} MB, {n_flops / 1e9:.2f} GFLOP)")
+    shape = dict(B=B, T=T, Hq=Hq, Hkv=Hkv, D=D,
+                 valid_tokens=int((pos >= 0).sum()), attended_pairs=n_pairs,
+                 gflop=n_flops / 1e9)
+    return t_kernel, t_lib, b_ms, b_by, shape
+
+
 def check_flash_prefill(cfg, gen: torch.Generator,
                         flush: torch.Tensor) -> dict:
     """B5 at the dense prefill's shapes: 8 left-padded rows of 512 (300 to
-    512 valid), with and without a window, and one row of 1280 (the
-    longest dense re-prefill of the smoke trace: a 1024-token prompt and
-    256 generated tokens); timed at 8 x 512 without a window."""
+    512 valid), with and without a window, and one row of 1280; timed at
+    ``PREFILL_TIMED`` without a window (8 x 512 gives the row's keys, each
+    shape an entry of ``shapes``)."""
     from repro_torch.kernels import flash_prefill as kmod
     from repro_torch.kernels import ref
-    lengths = [512, 497, 300, 505, 460, 489, 333, 512]
+    lengths = PREFILL_LENGTHS
     cases = [("8x512", lengths, 512, None), ("8x512 window 128", lengths,
                                              512, 128),
              ("1x1280", [1280], 1280, None)]
@@ -587,33 +696,17 @@ def check_flash_prefill(cfg, gen: torch.Generator,
         err = max(err, e)
         del out, want
 
-    q, k, v, pos = prefill_inputs(cfg, lengths, 512, gen)
-    B, T, Hq, D = q.shape
-    Hkv = k.shape[2]
-    G = Hq // Hkv
-    # library yardstick: SDPA with the boolean mask (diagonal rule
-    # included) over K/V expanded to the query heads beforehand
-    pq, pk = pos[:, :, None], pos[:, None, :]
-    mask = ((pk >= 0) & (pk <= pq)) | torch.eye(T, dtype=torch.bool,
-                                                device=q.device)
-    qt = q.transpose(1, 2).contiguous()
-    kt = k.transpose(1, 2).repeat_interleave(G, dim=1).contiguous()
-    vt = v.transpose(1, 2).repeat_interleave(G, dim=1).contiguous()
-    sdpa = torch.nn.functional.scaled_dot_product_attention
-    t_kernel = time_ms(lambda: kmod.flash_prefill(q, k, v, pos), flush)
+    shapes = []
+    for label, lens, T in PREFILL_TIMED:
+        q, k, v, pos = prefill_inputs(cfg, lens, T, gen)
+        t_kernel, t_lib, b_ms, b_by, shape = time_prefill(
+            kmod, q, k, v, pos, flush, label)
+        shapes.append(dict(shape=label, ms=t_kernel, library_ms=t_lib,
+                           bound_ms=b_ms, bound_by=b_by, **shape))
+    # the 8 x 512 inputs are the row's own
     t_plain = time_ms(lambda: ref.flash_prefill_ref(q, k, v, pos), flush,
-                      iters=10)
-    t_lib = time_ms(lambda: sdpa(qt, kt, vt, attn_mask=mask[:, None]), flush)
-    n_pairs = int(mask.sum())                       # (query, key) pairs
-    elt = q.element_size()
-    n_bytes = (2 * q.numel() * elt                  # q in, out
-               + 2 * k.numel() * elt                # k, v
-               + pos.numel() * 4)
-    n_flops = 4 * n_pairs * Hq * D                  # QK^T and PV
-    b_ms, b_by = bound(n_bytes, n_flops)
-    log(f"flash_prefill: kernel {t_kernel:.4f} ms, plain {t_plain:.4f} ms, "
-        f"SDPA {t_lib:.4f} ms, bound {b_ms:.4f} ms ({b_by}; "
-        f"{n_bytes / 1e6:.1f} MB, {n_flops / 1e9:.2f} GFLOP)")
+                      iters=10, label="flash_prefill 8x512 plain")
+    log(f"flash_prefill 8x512: plain {t_plain:.4f} ms")
     return dict(name="flash_prefill", route="cuda",
                 source="src/repro_torch/kernels/csrc/flash_prefill.cu",
                 replaces="src/repro/kernels/flash_prefill.py:96",
@@ -621,22 +714,15 @@ def check_flash_prefill(cfg, gen: torch.Generator,
                 plain_ms=t_plain, bound_ms=b_ms, bound_by=b_by,
                 library_ms=t_lib, library="scaled_dot_product_attention "
                 "with the boolean mask, K/V expanded to the query heads "
-                "beforehand", shape=dict(B=B, T=T, Hq=Hq, Hkv=Hkv, D=D,
-                           valid_tokens=int((pos >= 0).sum()),
-                           attended_pairs=n_pairs, gflop=n_flops / 1e9))
+                "beforehand", shape=shape, shapes=shapes)
 
 
-def check_dense_decode(cfg, gen: torch.Generator,
-                       flush: torch.Tensor) -> dict:
-    """B6 at the dense decode's shapes: 8 rows over a 768-slot cache, rows
-    at different positions behind left pads, one row fully masked."""
-    from repro_torch.kernels import decode_attention as kmod
-    from repro_torch.kernels import ref
+def dense_decode_inputs(cfg, rows, W: int, gen: torch.Generator):
+    """q, k_cache, v_cache, slot_pos, q_pos of a dense decode step: row b
+    holds positions 0..n-1 behind ``rows[b] = (left pads, n)``; a row with
+    n = 0 is empty (every slot masked)."""
     dev = torch.device("cuda")
-    B, W, Hq, Hkv, D = 8, 768, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
-    # (left pads, live tokens) per row; the last row is empty
-    rows = [(0, 768), (16, 700), (64, 600), (5, 512), (100, 400),
-            (0, 333), (200, 520), (0, 0)]
+    B, Hq, Hkv, D = len(rows), cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     slot_pos = torch.full((B, W), -1, dtype=torch.int32, device=dev)
     q_pos = torch.zeros((B,), dtype=torch.int32, device=dev)
     for b, (pad, n) in enumerate(rows):
@@ -648,38 +734,78 @@ def check_dense_decode(cfg, gen: torch.Generator,
                           device=dev).to(cfg.dtype)
     v_cache = torch.randn((B, W, Hkv, D), generator=gen,
                           device=dev).to(cfg.dtype)
-    args = (q, k_cache, v_cache, slot_pos, q_pos)
-    out = kmod.decode_attention(*args)
-    want = ref.decode_attention_ref(*args)
-    torch.cuda.synchronize()
-    err = (out.float() - want.float()).abs().max().item()
-    G = Hq // Hkv
-    mean_v = v_cache[-1].float().mean(dim=0).repeat_interleave(G, dim=0)
-    err_mean = (out[-1].float() - mean_v).abs().max().item()
-    log(f"decode_attention: max |kernel - plain| = {err:.3e}, empty row vs "
-        f"the mean of its V {err_mean:.3e} (tolerance {DECODE_TOL})")
-    if not (err <= DECODE_TOL and err_mean <= DECODE_TOL):
-        raise SystemExit("decode_attention disagrees with its plain version")
+    return q, k_cache, v_cache, slot_pos, q_pos
 
+
+def time_dense_decode(kmod, rows, args, flush: torch.Tensor, label: str):
+    """(kernel ms, SDPA ms, bound ms, bound_by, shape) of decode_attention
+    on these inputs.  The library yardstick is SDPA with the boolean slot
+    mask over caches transposed beforehand."""
+    q, k_cache, v_cache, slot_pos, q_pos = args
+    B, Hq, D = q.shape
+    W, Hkv = k_cache.shape[1], k_cache.shape[2]
+    G = Hq // Hkv
     kt = k_cache.transpose(1, 2).contiguous()
     vt = v_cache.transpose(1, 2).contiguous()
     qg = q.reshape(B, Hkv, G, D)
     mask = ((slot_pos >= 0) & (slot_pos <= q_pos[:, None]))[:, None, None]
     sdpa = torch.nn.functional.scaled_dot_product_attention
-    t_kernel = time_ms(lambda: kmod.decode_attention(*args), flush)
-    t_plain = time_ms(lambda: ref.decode_attention_ref(*args), flush)
-    t_lib = time_ms(lambda: sdpa(qg, kt, vt, attn_mask=mask), flush)
+    t_kernel = time_ms(lambda: kmod.decode_attention(*args), flush,
+                       label=f"decode_attention {label} kernel")
+    t_lib = time_ms(lambda: sdpa(qg, kt, vt, attn_mask=mask), flush,
+                    label=f"decode_attention {label} SDPA")
     n_live = sum(n for _, n in rows)
+    n_empty = sum(1 for _, n in rows if n == 0)
     elt = q.element_size()
     row_bytes = Hkv * D * elt
     n_bytes = (2 * n_live * row_bytes               # live K and V slots
-               + W * row_bytes                      # V of the empty row
+               + n_empty * W * row_bytes            # V of the empty rows
                + 2 * q.numel() * elt                # q in, out
                + slot_pos.numel() * 4 + B * 4)
-    n_flops = 4 * n_live * Hq * D + 2 * W * Hq * D  # QK^T and PV; the mean
+    n_flops = (4 * n_live * Hq * D                  # QK^T and PV; the mean
+               + 2 * n_empty * W * Hq * D)
     b_ms, b_by = bound(n_bytes, n_flops)
-    log(f"decode_attention: kernel {t_kernel:.4f} ms, plain {t_plain:.4f} "
-        f"ms, SDPA {t_lib:.4f} ms, bound {b_ms:.4f} ms")
+    log(f"decode_attention {label}: kernel {t_kernel:.4f} ms, SDPA "
+        f"{t_lib:.4f} ms, bound {b_ms:.4f} ms")
+    shape = dict(B=B, W=W, Hq=Hq, Hkv=Hkv, D=D, n_live_tokens=n_live,
+                 empty_rows=n_empty)
+    return t_kernel, t_lib, b_ms, b_by, shape
+
+
+def check_dense_decode(cfg, gen: torch.Generator,
+                       flush: torch.Tensor) -> dict:
+    """B6 at the dense decode's shapes ``DECODE_TIMED``: rows at different
+    positions behind left pads, one row fully masked, each shape held
+    against the plain version and timed against SDPA (``shapes``; 8 x 768
+    gives the row's own numbers)."""
+    from repro_torch.kernels import decode_attention as kmod
+    from repro_torch.kernels import ref
+    G = cfg.n_heads // cfg.n_kv_heads
+    err = 0.0
+    shapes = []
+    for label, rows, W in DECODE_TIMED:
+        args = dense_decode_inputs(cfg, rows, W, gen)
+        out = kmod.decode_attention(*args)
+        want = ref.decode_attention_ref(*args)
+        torch.cuda.synchronize()
+        e = (out.float() - want.float()).abs().max().item()
+        v_cache = args[2]
+        mean_v = v_cache[-1].float().mean(dim=0).repeat_interleave(G, dim=0)
+        e_mean = (out[-1].float() - mean_v).abs().max().item()
+        log(f"decode_attention {label}: max |kernel - plain| = {e:.3e}, "
+            f"empty row vs the mean of its V {e_mean:.3e} (tolerance "
+            f"{DECODE_TOL})")
+        if not (e <= DECODE_TOL and e_mean <= DECODE_TOL):
+            raise SystemExit(f"decode_attention {label} disagrees with its "
+                             f"plain version")
+        err = max(err, e)
+        t_kernel, t_lib, b_ms, b_by, shape = time_dense_decode(
+            kmod, rows, args, flush, label)
+        shapes.append(dict(shape=label, ms=t_kernel, library_ms=t_lib,
+                           bound_ms=b_ms, bound_by=b_by, **shape))
+    t_plain = time_ms(lambda: ref.decode_attention_ref(*args), flush,
+                      label="decode_attention 8x768 plain")
+    log(f"decode_attention 8x768: plain {t_plain:.4f} ms")
     return dict(name="decode_attention", route="cuda",
                 source="src/repro_torch/kernels/csrc/decode_attention.cu",
                 replaces="src/repro/kernels/decode_attention.py:81",
@@ -687,8 +813,7 @@ def check_dense_decode(cfg, gen: torch.Generator,
                 plain_ms=t_plain, bound_ms=b_ms, bound_by=b_by,
                 library_ms=t_lib, library="scaled_dot_product_attention "
                 "with the boolean slot mask, caches transposed beforehand",
-                shape=dict(B=B, W=W, Hq=Hq, Hkv=Hkv, D=D,
-                           n_live_tokens=n_live, empty_rows=1))
+                shape=shape, shapes=shapes)
 
 
 def ssd_inputs(cfg, lengths, T: int, gen: torch.Generator, G=None):
@@ -752,8 +877,10 @@ def check_ssd_scan(gen: torch.Generator, flush: torch.Tensor) -> dict:
     nc = T // Q
     overflow = int(((dt * -A).reshape(B, nc, Q, H).sum(2)
                     > math.log(torch.finfo(torch.float32).max)).sum())
-    t_kernel = time_ms(lambda: kmod.ssd_scan(*args, Q), flush)
-    t_plain = time_ms(lambda: ref.ssd_scan_ref(*args, Q), flush, iters=10)
+    t_kernel = time_ms(lambda: kmod.ssd_scan(*args, Q), flush,
+                       label="ssd_scan kernel")
+    t_plain = time_ms(lambda: ref.ssd_scan_ref(*args, Q), flush, iters=10,
+                      label="ssd_scan plain")
     n_bytes = 4 * (2 * x.numel() + dt.numel() + A.numel() + Bm.numel()
                    + Cm.numel() + B * H * P * N)   # x, y, dt, A, B, C, state
     tri = Q * (Q + 1) // 2                          # causal (t, s) pairs
@@ -1477,9 +1604,10 @@ def main() -> int:
     logs = build.build_all()
     log(f"build: {len(build.KERNELS)} kernels in "
         f"{time.perf_counter() - t0:.1f} s")
-    for name, text in logs.items():
+    for name, text in logs.items():  # registers, shared memory, spills
         for line in text.splitlines():
-            if "registers" in line or "spill" in line:
+            if any(w in line for w in ("entry function", "registers",
+                                       "spill")):
                 log(f"  {name}: {line.strip()}")
 
     cfg = get_config("llama3.2-1b")

@@ -15,39 +15,61 @@
 // of 512, 32/8 heads, D 64) the causal products are ~7 GFLOP against
 // ~42 MB of q, K, V and output: ~170 flop/byte, below the card's bf16
 // balance point, so memory bounds it (~12.5 us) with the tensor cores
-// close behind (~7 us).
+// close behind (~7 us).  Reaching either needs the tensor cores fed
+// without stalls: hence wgmma, TMA and a tile ring below.
 //
-// Design: one thread block per (row, kv head, q-tile).  The tile holds
-// BQ = R / G query tokens times the G = Hq / Hkv query heads of the kv
-// head, so each K/V tile brought into shared memory serves every query
-// head of its kv head (R query rows: R = 64 for bf16, 8192 / D for
-// float32).  The Pallas grid's sequential kv axis becomes a loop over K/V
-// tiles of 64 keys (32 at D 128 in float32).
-//  - bfloat16: 4 warps of 16 query rows each multiply on the tensor cores
-//    (mma.sync m16n8k16, float32 accumulators): S = Q K^T from q held in
-//    registers and K in shared memory, the online softmax on the score
-//    fragments (row max and sum over the 4 threads of a quad), then
-//    O += P V with each weight split into two bf16 (high and low part, two
-//    products) and V stored transposed in shared memory.  Rows are padded
-//    by 8 values so that fragment loads do not collide.
-//  - float32 (exact to 2e-5 of the oracle): the CUDA cores, D / 32
-//    neighbouring threads per query row (one at D 32), each holding 32 of
-//    its dims in interleaved 4-dim chunks; the parts of a score are summed
-//    by shuffles.  Bound by one shared-memory operand per multiply-add.
-//  wgmma with TMA-fed tiles is the next step for the bf16 path.
+// Design: the work is cut into q tiles of one row and kv head: BQ = R / G
+// query tokens times the G = Hq / Hkv query heads of the kv head, so each
+// K/V tile brought into shared memory serves every query head of its kv
+// head (R query rows: R = 128 for bf16, 8192 / D for float32).  The
+// Pallas grid's sequential kv axis becomes a loop over K/V tiles of 64
+// keys (32 at D 128 in float32).
+//  - bfloat16, FlashAttention-3's shape on Hopper: one persistent block
+//    per SM walks the q tiles, those with the most keys first, in snake
+//    order over the blocks.  It has
+//    three warpgroups.  One warp of the third (the producer, its registers
+//    cut by setmaxnreg to give them to the others) loads each q tile's Q
+//    by TMA into a double buffer, walks its K/V tiles, classifies each
+//    and feeds the needed ones by TMA into a 3-stage ring on mbarriers:
+//    4-D tensor maps (D, H, T, B) select the heads and write each tile
+//    with the 128-byte swizzle (64-byte at D 32) that the wgmma
+//    descriptors name.  So the next q tile's Q and first K/V tiles load
+//    while the consumers finish the current one.  Two consumer
+//    warpgroups of 64 query rows each run wgmma m64nNk16: S = Q K^T with
+//    Q and K in shared memory, the online softmax in exp2 with
+//    scale * log2(e) folded into one FMA, then O += P V with P taken from
+//    the S accumulators straight into the A-operand registers and V read
+//    as it lies through wgmma's transpose bit.  Each weight is a bf16
+//    pair (high and low part, two products): one bf16 alone was measured
+//    a bf16 ulp off the plain version at |o| >= 4, past the 2e-2
+//    tolerance.
+//  - float32 (exact to 2e-5 of the oracle): a block per q tile on the
+//    CUDA cores, D / 32 neighbouring threads per query row (one at D 32),
+//    each holding 32 of its dims in interleaved 4-dim chunks; the parts
+//    of a score are summed by shuffles.  Bound by one shared-memory
+//    operand per multiply-add.
 //
-// Where the trouble lies, and what both kernels do:
+// Where the trouble lies, and what the kernels do:
 //  - Tile skipping: a K/V tile is skipped only when no key in it can be
 //    unmasked for any query of the block by position (pk >= 0, pk <= max pq,
 //    pk > min valid pq - window) AND the tile does not overlap the block's
 //    diagonal (by index): the pad rows' diagonal tile is always computed.
-//  - Fully masked tiles: masked scores are the finite NEG_INF, so a tile
-//    met while the running max is still NEG_INF adds weights that the first
-//    live key scales by exp(NEG_INF - m) = 0; every query row has a live
-//    key (its diagonal), so nothing of them survives, as in the oracle.
-//  - T need not divide the tiles: key slots past T score -inf (weight
-//    exactly 0) and are not loaded; query rows past T are not stored.
+//  - Masking only where needed (bf16): a tile whose keys all lie at
+//    positions >= 0, <= the block's smallest query position and inside the
+//    window of its largest, in a block without pad queries, is unmasked
+//    for every pair and takes no per-element mask; the others (the
+//    diagonal, pads, window edges) are masked pair by pair as the oracle.
+//  - Fully masked tiles: masked scores are the finite NEG_INF.  In float32
+//    a tile met while the running max is still NEG_INF adds weights that
+//    the first live key scales by exp(NEG_INF - m) = 0; in bf16 such keys
+//    weigh 0 at once.  Every query row has a live key (its diagonal), so
+//    nothing of them survives, as in the oracle.
+//  - T need not divide the tiles: key slots past T are not loaded (TMA
+//    fills them with zeros) and weigh exactly 0; query rows past T are not
+//    stored.
 #include <climits>
+
+#include <cuda.h>
 
 #include "paged_attention.cuh"
 
@@ -266,238 +288,653 @@ int launch(const void* q, const void* k, const void* v, const void* positions,
 }  // namespace simt
 
 // ---------------------------------------------------------------------------
-// bfloat16: the tensor cores (mma.sync m16n8k16)
+// bfloat16: warpgroup tensor cores (wgmma) fed by TMA
 // ---------------------------------------------------------------------------
 namespace tc {
 
-constexpr int kWarps = 4;
-constexpr int kThreads = kWarps * 32;
-constexpr int kRows = kWarps * 16;  // query rows per block
-constexpr int kBK = 64;             // keys per K/V tile
-constexpr int kPad = 8;             // bf16 of padding per shared-memory row
+constexpr int kConsumers = 2;                      // warpgroups of 64 rows
+constexpr int kThreads = (kConsumers + 1) * 128;   // + the producer's
+constexpr int kRows = kConsumers * 64;             // query rows per block
+constexpr int kBK = 64;                            // keys per K/V tile
+constexpr int kStages = 3;                         // K/V tiles in flight
+constexpr int kProducerRegs = 56, kConsumerRegs = 224;
+constexpr float kLog2e = 1.4426950408889634f;
 
-// c (16x8 f32) += a (16x16 bf16, row-major) * b (16x8 bf16, col-major)
-__device__ __forceinline__ void mma(float* c, const uint32_t* a, uint32_t b0,
-                                    uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ uint32_t word(const __nv_bfloat16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
+// Shared-memory tiles of head dim D: Q (kRows query rows), K and V
+// (kBK keys) tiles as they lie in memory, cut along D into boxes one
+// swizzle row wide (64 values; 32 at D 32 with the 64-byte swizzle), each
+// box written by TMA with the swizzle the wgmma descriptors name.  Two Q
+// tiles (the next q tile's loads while this one is computed), then the
+// K/V ring, each stage's key positions and header (tile index, mask-free),
+// and the barriers.
 template <int D>
-__global__ void __launch_bounds__(kThreads) flash_prefill_kernel(
-    const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
-    const __nv_bfloat16* __restrict__ v,
+struct Cfg {
+  static constexpr int kSwizzle = D == 32 ? 64 : 128;  // bytes per row
+  static constexpr int kBoxCols = kSwizzle / 2;        // bf16 per box row
+  static constexpr int kBoxes = D / kBoxCols;          // boxes across D
+  static constexpr int kQBox = kRows * kSwizzle;       // bytes per Q box
+  static constexpr int kQTile = kBoxes * kQBox;
+  static constexpr int kBox = kBK * kSwizzle;          // bytes per K/V box
+  static constexpr int kTile = kBoxes * kBox;          // a K or a V tile
+  static constexpr int kStage = 2 * kTile;             // K then V
+  static constexpr int kRingOff = 2 * kQTile;
+  static constexpr int kPosOff = kRingOff + kStages * kStage;  // kBK ints
+  static constexpr int kHdrOff = kPosOff + kStages * kBK * 4;  // 2 ints
+  static constexpr int kBarOff = kHdrOff + kStages * 8;
+  // full[kStages], empty[kStages], q_full[2], q_empty[2]
+  static constexpr int kBytes = kBarOff + (2 * kStages + 4) * 8 + 1024;
+};
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
+               "r"(count)
+               : "memory");
+}
+// Waits for the phase of the given parity to complete.  A ring that never
+// fills (a fault) traps after ~2^26 polls instead of hanging the card.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done = 0;
+  for (uint32_t polls = 0; !done; ++polls) {
+    if (polls == (1u << 26)) __trap();
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+  }
+}
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar)
+               : "memory");
+}
+__device__ __forceinline__ void mbar_arrive_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::
+                   "r"(bar),
+               "r"(bytes)
+               : "memory");
+}
+// box (c0, c1, c2, c3) of a 4-D tensor map into shared memory at dst,
+// completing bytes on the barrier
+__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
+                                         uint32_t bar, int c0, int c1, int c2,
+                                         int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%2, %3, %4, %5}], [%6];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2),
+      "r"(c3), "r"(bar)
+      : "memory");
+}
+
+// 2^x by the SFU's approximation (relative error ~2^-22, below what the
+// bf16 pair of a weight keeps; results below 2^-126 flush to 0)
+__device__ __forceinline__ float exp2_approx(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+// keeps the compiler from touching accumulators before wgmma_wait
+template <int N>
+__device__ __forceinline__ void fence_regs(float* d) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// wgmma shared-memory descriptor of a tile written by TMA with a
+// kSwizzle-byte swizzle (1024-byte aligned rows groups): start address,
+// leading byte offset (K-major: unused, 16; MN-major: the stride between
+// boxes along N), stride byte offset (8 rows), swizzle mode.
+template <int kSwizzle>
+__device__ __forceinline__ uint64_t smem_desc(uint32_t addr, uint32_t lbo) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
+         (static_cast<uint64_t>(lbo >> 4) << 16) |
+         (static_cast<uint64_t>(8 * kSwizzle >> 4) << 32) |
+         (static_cast<uint64_t>(kSwizzle == 128 ? 1 : 2) << 62);
+}
+
+// O (64 rows x N, float32) += P (64 x 16 bf16, registers as mma.sync's A
+// fragments, one 16-row slice per warp) x V (16 x N, shared memory, read
+// N-major: V as it lies, through the transpose bit).
+__device__ __forceinline__ void wgmma_pv_n32(float* d, const uint32_t* a,
+                                           uint64_t desc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15"
+      "}, {%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1));
+}
+
+__device__ __forceinline__ void wgmma_pv_n64(float* d, const uint32_t* a,
+                                           uint64_t desc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1));
+}
+
+__device__ __forceinline__ void wgmma_pv_n128(float* d, const uint32_t* a,
+                                           uint64_t desc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63"
+      "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1));
+}
+
+// D (64 x 64, float32) (+)= A (64 x 16 bf16) x B (16 x 64 bf16), both
+// K-major in shared memory
+__device__ __forceinline__ void wgmma_ss_n64(float* d, uint64_t desc_a,
+                                             uint64_t desc_b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(desc_a), "l"(desc_b), "r"(scale_d));
+}
+
+template <int N>
+__device__ __forceinline__ void wgmma_pv(float* d, const uint32_t* a,
+                                         uint64_t desc) {
+  if constexpr (N == 32) wgmma_pv_n32(d, a, desc);
+  if constexpr (N == 64) wgmma_pv_n64(d, a, desc);
+  if constexpr (N == 128) wgmma_pv_n128(d, a, desc);
+}
+
+// Work item i (a q tile of one row and kv head): the q tiles with the
+// most keys (the last of each row) first.
+struct Item {
+  int qt, h, b;
+  __device__ __forceinline__ Item(int i, int B, int Hkv, int n_qt)
+      : qt(n_qt - 1 - i / (B * Hkv)), h(i % Hkv), b((i / Hkv) % B) {}
+};
+
+// The it-th work item of this block: round it of the items, taken in
+// snake order (forward in even rounds, backward in odd ones), so that the
+// blocks' sums of the descending item costs stay close.
+__device__ __forceinline__ int item_of(int it) {
+  const int k = it % 2 ? gridDim.x - 1 - blockIdx.x : blockIdx.x;
+  return it * gridDim.x + k;
+}
+
+// Persistent: gridDim.x blocks (one per SM) take the work items in turn
+// (item_of); producer and consumers walk the same list, so the producer
+// loads the next item's Q and first K/V tiles while the consumers finish
+// the current one.
+template <int D>
+__global__ void __launch_bounds__(kThreads, 1) flash_prefill_kernel(
+    const __grid_constant__ CUtensorMap q_map,
+    const __grid_constant__ CUtensorMap k_map,
+    const __grid_constant__ CUtensorMap v_map,
     const int32_t* __restrict__ positions, __nv_bfloat16* __restrict__ out,
-    int T_len, int Hq, int Hkv, int bq, int n_qt, int window, float scale) {
-  constexpr int kKS = D / 16;        // k-steps of Q K^T
-  constexpr int kND = D / 8;         // n-tiles of the output
-  constexpr int kNK = kBK / 8;       // n-tiles of the scores
-  constexpr int kChunks = D / 8;     // 16-byte chunks of a K/V row
-  constexpr int kStrideK = D + kPad;    // k_s: (key, dim)
-  constexpr int kStrideV = kBK + kPad;  // vt_s: (dim, key), V transposed
-  __shared__ __align__(16) __nv_bfloat16 k_s[kBK * kStrideK];
-  __shared__ __align__(16) __nv_bfloat16 vt_s[D * kStrideV];
-  __shared__ int pos_s[kBK];
-  __shared__ int q_stat[2];
+    int B, int T_len, int Hq, int Hkv, int bq, int n_qt, int window,
+    float scale) {
+  using C = Cfg<D>;
+  extern __shared__ __align__(1024) uint8_t smem_raw[];
+  // tiles at a 1024-byte boundary: the swizzle repeats every 8 rows
+  uint8_t* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  const uint32_t q_tiles = smem_u32(smem);
+  const uint32_t tiles = q_tiles + C::kRingOff;
+  int* pos_s = reinterpret_cast<int*>(smem + C::kPosOff);
+  int* hdr = reinterpret_cast<int*>(smem + C::kHdrOff);
+  const uint32_t full_bar = q_tiles + C::kBarOff;
+  const uint32_t empty_bar = full_bar + kStages * 8;
+  const uint32_t q_full = empty_bar + kStages * 8;  // two Q tiles
+  const uint32_t q_empty = q_full + 16;
 
   const int G = Hq / Hkv;
-  const int qt = blockIdx.x % n_qt;
-  const int h = (blockIdx.x / n_qt) % Hkv;
-  const int b = blockIdx.x / (n_qt * Hkv);
-  const int tid = threadIdx.x;
-  const int lane = tid & 31, warp = tid >> 5;
-  const int grp = lane >> 2, tig = lane & 3;  // fragment row, column pair
-  const int q0 = qt * bq;
-  const int q_end = min(q0 + bq, T_len);
-  const int64_t row0 = (int64_t)b * T_len;
-  const int32_t* pos_row = positions + row0;
-  query_span(pos_row, q0, q_end, q_stat);
-
-  // this thread's two query rows of the warp's 16: grp and grp + 8
-  int pq[2], qi[2];
-  bool valid[2];
-  int64_t q_off[2];
-#pragma unroll
-  for (int hh = 0; hh < 2; ++hh) {
-    const int r = 16 * warp + grp + 8 * hh;
-    const int t = q0 + r / G;
-    valid[hh] = r < bq * G && t < T_len;
-    pq[hh] = valid[hh] ? pos_row[t] : -1;
-    qi[hh] = valid[hh] ? t : -1;
-    q_off[hh] = ((row0 + t) * Hq + (int64_t)h * G + r % G) * D;
+  const int n_items = B * Hkv * n_qt;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(full_bar + 8 * s, 32);        // the producer warp's lanes
+      mbar_init(empty_bar + 8 * s, 4 * kConsumers);  // consumer warps
+    }
+    for (int s = 0; s < 2; ++s) {
+      mbar_init(q_full + 8 * s, 1);           // the producer's TMA
+      mbar_init(q_empty + 8 * s, 4 * kConsumers);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
-  // A fragments of Q: a[0] (row grp, cols 2 tig..), a[1] (row grp + 8),
-  // a[2] and a[3] the same rows 8 columns on
-  uint32_t qa[kKS][4];
-#pragma unroll
-  for (int kk = 0; kk < kKS; ++kk)
-#pragma unroll
-    for (int half = 0; half < 2; ++half)
-#pragma unroll
-      for (int hh = 0; hh < 2; ++hh)
-        qa[kk][hh + 2 * half] =
-            valid[hh] ? word(q + q_off[hh] + 16 * kk + 8 * half + 2 * tig)
-                      : 0u;
-  float o[kND][4];
-#pragma unroll
-  for (int nd = 0; nd < kND; ++nd)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) o[nd][e] = 0.f;
-  float m[2] = {kNegInf, kNegInf};
-  float l[2] = {0.f, 0.f};  // this thread's part of the row sums
-  __syncthreads();  // q_stat
-  const int q_max = q_stat[0], q_min = q_stat[1];
+  __syncthreads();
+  const int wg = threadIdx.x / 128;
 
-  const int n_kt = (T_len + kBK - 1) / kBK;
-  for (int kt = 0; kt < n_kt; ++kt) {
-    const int k0 = kt * kBK;
-    if (!tile_needed(pos_row, k0, kBK, T_len, q0, q_end, q_max, q_min,
-                     window, pos_s))
-      continue;  // uniform
-
-    // K as it lies, (key, dim); V transposed to (dim, key), the key the
-    // fastest index over a warp so that its stores fill whole words
-    for (int i = tid; i < kBK * kChunks; i += kThreads) {
-      const int kk = i / kChunks, c = i % kChunks;
-      uint4 val = make_uint4(0u, 0u, 0u, 0u);
-      if (k0 + kk < T_len)
-        val = *reinterpret_cast<const uint4*>(
-            k + ((row0 + k0 + kk) * Hkv + h) * D + 8 * c);
-      *reinterpret_cast<uint4*>(k_s + kk * kStrideK + 8 * c) = val;
-    }
-    for (int i = tid; i < kBK * kChunks; i += kThreads) {
-      const int kk = i % kBK, c = i / kBK;
-      uint4 val = make_uint4(0u, 0u, 0u, 0u);
-      if (k0 + kk < T_len)
-        val = *reinterpret_cast<const uint4*>(
-            v + ((row0 + k0 + kk) * Hkv + h) * D + 8 * c);
-      const uint32_t w[4] = {val.x, val.y, val.z, val.w};
-      uint16_t* vt = reinterpret_cast<uint16_t*>(vt_s) + 8 * c * kStrideV + kk;
-#pragma unroll
-      for (int x = 0; x < 4; ++x) {  // the lower half is the first value
-        vt[2 * x * kStrideV] = static_cast<uint16_t>(w[x] & 0xffffu);
-        vt[(2 * x + 1) * kStrideV] = static_cast<uint16_t>(w[x] >> 16);
+  if (wg == kConsumers) {
+    // producer: one warp walks the items' Q and K/V tiles, classifies each
+    // K/V tile and feeds the needed ones through the ring, an item's last
+    // followed by an end marker
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(kProducerRegs));
+    if (threadIdx.x % 128 >= 32) return;
+    const int lane = threadIdx.x & 31;
+    int stage = 0;
+    uint32_t phase = 0;
+    for (int it = 0; it * gridDim.x < n_items; ++it) {
+      const int i = item_of(it);
+      if (i >= n_items) break;
+      const Item w(i, B, Hkv, n_qt);
+      const int q0 = w.qt * bq, q_end = min(q0 + bq, T_len);
+      const int32_t* pos_row = positions + (int64_t)w.b * T_len;
+      // the q tile's largest and smallest valid position, and any pad
+      int q_max = -1, q_min = INT_MAX, has_pad = 0;
+      for (int t = q0 + lane; t < q_end; t += 32) {
+        const int p = pos_row[t];
+        q_max = max(q_max, p);
+        if (p >= 0)
+          q_min = min(q_min, p);
+        else
+          has_pad = 1;
       }
-    }
-    __syncthreads();
-
-    // S = Q K^T: B fragments of K^T are (dims 2 tig.., key grp) of k_s
-    float s[kNK][4];
 #pragma unroll
-    for (int j = 0; j < kNK; ++j) {
+      for (int o = 16; o > 0; o >>= 1) {
+        q_max = max(q_max, __shfl_xor_sync(kFull, q_max, o));
+        q_min = min(q_min, __shfl_xor_sync(kFull, q_min, o));
+        has_pad |= __shfl_xor_sync(kFull, has_pad, o);
+      }
+      // Q: (D, G heads, bq tokens) boxes; past T zero-filled
+      const uint32_t qb = it & 1;
+      mbar_wait(q_empty + 8 * qb, ((it >> 1) & 1) ^ 1);
+      if (lane == 0) {
+        mbar_arrive_tx(q_full + 8 * qb, 2 * D * G * bq);
 #pragma unroll
-      for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
-      const __nv_bfloat16* kr = k_s + (8 * j + grp) * kStrideK + 2 * tig;
+        for (int c = 0; c < C::kBoxes; ++c)
+          tma_load(q_tiles + qb * C::kQTile + c * C::kQBox, &q_map,
+                   q_full + 8 * qb, c * C::kBoxCols, w.h * G, q0, w.b);
+      }
+      const int n_kt = (T_len + kBK - 1) / kBK;
+      for (int kt = 0; kt < n_kt; ++kt) {
+        const int k0 = kt * kBK;
+        int pk[kBK / 32];
+        int maybe = 0, live = 1;
 #pragma unroll
-      for (int kk = 0; kk < kKS; ++kk)
-        mma(s[j], qa[kk], word(kr + 16 * kk), word(kr + 16 * kk + 8));
-    }
-    // mask and scale; s[j][2 hh + e] is row hh, key 8 j + 2 tig + e
-    float mt[2] = {kNegInf, kNegInf};
+        for (int j = 0; j < kBK / 32; ++j) {
+          const int ki = k0 + 32 * j + lane;
+          pk[j] = ki < T_len ? pos_row[ki] : -1;
+          maybe |= pk[j] >= 0 && pk[j] <= q_max &&
+                   (window <= 0 || pk[j] > q_min - window);
+          live &= ki < T_len && pk[j] >= 0 && pk[j] <= q_min &&
+                  (window <= 0 || pk[j] > q_max - window);
+        }
+        // skipped: no key can be unmasked for a query of the tile, and
+        // the K/V tile misses the tile's diagonal (by index)
+        if (!__any_sync(kFull, maybe) && !(k0 < q_end && q0 < k0 + kBK))
+          continue;
+        // mask-free: every (query, key) pair is unmasked by position
+        const int all_live = __all_sync(kFull, live);
+        const int mask_free = !has_pad && all_live;
+        mbar_wait(empty_bar + 8 * stage, phase ^ 1);
 #pragma unroll
-    for (int j = 0; j < kNK; ++j)
+        for (int j = 0; j < kBK / 32; ++j)
+          pos_s[stage * kBK + 32 * j + lane] = pk[j];
+        const uint32_t fb = full_bar + 8 * stage;
+        if (lane == 0) {
+          hdr[2 * stage] = kt;
+          hdr[2 * stage + 1] = mask_free;
+          mbar_arrive_tx(fb, C::kStage);
+          const uint32_t kb = tiles + stage * C::kStage;
 #pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        const int kc = 8 * j + 2 * tig + e;
-        const int ki = k0 + kc;
-        const int pk = pos_s[kc];
-#pragma unroll
-        for (int hh = 0; hh < 2; ++hh) {
-          float& x = s[j][2 * hh + e];
-          x = ki >= T_len ? kMinusInf
-              : (pair_live(pk, pq[hh], ki, qi[hh], window) ? x * scale
-                                                           : kNegInf);
-          mt[hh] = fmaxf(mt[hh], x);
+          for (int c = 0; c < C::kBoxes; ++c) {
+            tma_load(kb + c * C::kBox, &k_map, fb, c * C::kBoxCols, w.h, k0,
+                     w.b);
+            tma_load(kb + C::kTile + c * C::kBox, &v_map, fb,
+                     c * C::kBoxCols, w.h, k0, w.b);
+          }
+        } else {
+          mbar_arrive(fb);
+        }
+        if (++stage == kStages) {
+          stage = 0;
+          phase ^= 1;
         }
       }
-    float alpha[2];
-#pragma unroll
-    for (int hh = 0; hh < 2; ++hh) {
-      mt[hh] = fmaxf(mt[hh], __shfl_xor_sync(kFull, mt[hh], 1));
-      mt[hh] = fmaxf(mt[hh], __shfl_xor_sync(kFull, mt[hh], 2));
-      const float m_new = fmaxf(m[hh], mt[hh]);
-      alpha[hh] = expf(m[hh] - m_new);
-      m[hh] = m_new;
-      l[hh] *= alpha[hh];
-    }
-#pragma unroll
-    for (int nd = 0; nd < kND; ++nd) {
-      o[nd][0] *= alpha[0];
-      o[nd][1] *= alpha[0];
-      o[nd][2] *= alpha[1];
-      o[nd][3] *= alpha[1];
-    }
-    // P = exp(S - m) as A fragments (score n-tiles 2 jj and 2 jj + 1 make
-    // the k-step jj of P V), each weight a bf16 pair hi + lo that carries
-    // ~16 bits: one bf16 alone would move outputs by a bf16 ulp against
-    // the oracle, whose weights are float32 up to their normalisation
-    uint32_t pa[kNK / 2][4], pa_lo[kNK / 2][4];
-#pragma unroll
-    for (int j = 0; j < kNK; ++j)
-#pragma unroll
-      for (int hh = 0; hh < 2; ++hh) {
-        const float p0 = expf(s[j][2 * hh] - m[hh]);
-        const float p1 = expf(s[j][2 * hh + 1] - m[hh]);
-        l[hh] += p0 + p1;
-        const __nv_bfloat162 hi = __floats2bfloat162_rn(p0, p1);
-        const __nv_bfloat162 lo = __floats2bfloat162_rn(
-            p0 - __low2float(hi), p1 - __high2float(hi));
-        pa[j / 2][hh + 2 * (j % 2)] = *reinterpret_cast<const uint32_t*>(&hi);
-        pa_lo[j / 2][hh + 2 * (j % 2)] =
-            *reinterpret_cast<const uint32_t*>(&lo);
-      }
-    // O += P V: B fragments of V are (keys 2 tig.., dim grp) of vt_s
-#pragma unroll
-    for (int nd = 0; nd < kND; ++nd) {
-      const __nv_bfloat16* vr = vt_s + (8 * nd + grp) * kStrideV + 2 * tig;
-#pragma unroll
-      for (int jj = 0; jj < kNK / 2; ++jj) {
-        const uint32_t b0 = word(vr + 16 * jj), b1 = word(vr + 16 * jj + 8);
-        mma(o[nd], pa[jj], b0, b1);
-        mma(o[nd], pa_lo[jj], b0, b1);
+      mbar_wait(empty_bar + 8 * stage, phase ^ 1);
+      if (lane == 0) hdr[2 * stage] = -1;  // the item's end
+      mbar_arrive(full_bar + 8 * stage);
+      if (++stage == kStages) {
+        stage = 0;
+        phase ^= 1;
       }
     }
-    __syncthreads();  // the tile is read before the next one overwrites it
+    return;
   }
 
+  // consumers: warpgroup wg holds query rows [64 wg, 64 wg + 64) of a q
+  // tile, warp w of it rows 16 w .. 16 w + 15 of those
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(kConsumerRegs));
+  const int lane = threadIdx.x & 31, warp = (threadIdx.x >> 5) & 3;
+  const int grp = lane >> 2, tig = lane & 3;  // fragment row, column pair
+  const float c = scale * kLog2e;   // exp(x * scale) = exp2(x * c)
+  int stage = 0;
+  uint32_t phase = 0;
+  for (int it = 0; it * gridDim.x < n_items; ++it) {
+    const int i = item_of(it);
+    if (i >= n_items) break;
+    const Item w(i, B, Hkv, n_qt);
+    const int q0 = w.qt * bq;
+    const int64_t row0 = (int64_t)w.b * T_len;
+    int pq[2], qi[2];
+    bool valid[2];
+    int64_t q_off[2];
 #pragma unroll
-  for (int hh = 0; hh < 2; ++hh) {
-    l[hh] += __shfl_xor_sync(kFull, l[hh], 1);
-    l[hh] += __shfl_xor_sync(kFull, l[hh], 2);
-    if (!valid[hh]) continue;
-    const float inv = 1.f / l[hh];
+    for (int hh = 0; hh < 2; ++hh) {
+      const int r = 64 * wg + 16 * warp + grp + 8 * hh;
+      const int t = q0 + r / G;
+      valid[hh] = r < bq * G && t < T_len;
+      pq[hh] = valid[hh] ? positions[row0 + t] : -1;
+      qi[hh] = valid[hh] ? t : -1;
+      q_off[hh] = ((row0 + t) * Hq + (int64_t)w.h * G + r % G) * D;
+    }
+    // o[4 nd + e]: row grp (e < 2) or grp + 8, column 8 nd + 2 tig + e % 2
+    float o[D / 2];
 #pragma unroll
-    for (int nd = 0; nd < kND; ++nd) {
-      const __nv_bfloat162 w = __floats2bfloat162_rn(
-          o[nd][2 * hh] * inv, o[nd][2 * hh + 1] * inv);
-      *reinterpret_cast<__nv_bfloat162*>(out + q_off[hh] + 8 * nd + 2 * tig) =
-          w;
+    for (int e = 0; e < D / 2; ++e) o[e] = 0.f;
+    float m[2] = {kNegInf, kNegInf};  // running max of the raw scores
+    float l[2] = {0.f, 0.f};          // this thread's part of the row sums
+    const uint32_t qb = it & 1;
+    const uint32_t qa = q_tiles + qb * C::kQTile + 64 * wg * C::kSwizzle;
+    mbar_wait(q_full + 8 * qb, (it >> 1) & 1);
+
+    for (;;) {
+      mbar_wait(full_bar + 8 * stage, phase);
+      const int kt = hdr[2 * stage];
+      if (kt < 0) {  // the item's end: hand the stage back
+        __syncwarp();
+        if (lane == 0) mbar_arrive(empty_bar + 8 * stage);
+        if (++stage == kStages) {
+          stage = 0;
+          phase ^= 1;
+        }
+        break;
+      }
+      const int mask_free = hdr[2 * stage + 1];
+      const uint32_t kb = tiles + stage * C::kStage;
+
+      // S = Q K^T: k-step kk reads dims [16 kk, 16 kk + 16) of Q and K,
+      // 32 bytes into box (32 kk) / kSwizzle
+      float s[kBK / 2];
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk) {
+        const uint32_t off = (32 * kk / C::kSwizzle) * C::kBox +
+                             (32 * kk) % C::kSwizzle;
+        const uint32_t qoff = (32 * kk / C::kSwizzle) * C::kQBox +
+                              (32 * kk) % C::kSwizzle;
+        wgmma_ss_n64(s, smem_desc<C::kSwizzle>(qa + qoff, 16),
+                     smem_desc<C::kSwizzle>(kb + off, 16), kk > 0);
+      }
+      wgmma_commit();
+      wgmma_wait();
+      fence_regs<kBK / 2>(s);
+
+      // s[4 j + 2 hh + e] is row hh, key 8 j + 2 tig + e of the tile
+      if (!mask_free) {
+        const int k0 = kt * kBK;
+        const int* pos_t = pos_s + stage * kBK;
+#pragma unroll
+        for (int j = 0; j < kBK / 8; ++j)
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int kc = 8 * j + 2 * tig + e;
+            const int ki = k0 + kc;
+            const int pk = pos_t[kc];
+#pragma unroll
+            for (int hh = 0; hh < 2; ++hh) {
+              float& x = s[4 * j + 2 * hh + e];
+              x = ki < T_len && pair_live(pk, pq[hh], ki, qi[hh], window)
+                      ? x
+                      : kNegInf;
+            }
+          }
+      }
+      float mt[2] = {kNegInf, kNegInf};
+#pragma unroll
+      for (int j = 0; j < kBK / 8; ++j)
+#pragma unroll
+        for (int hh = 0; hh < 2; ++hh)
+          mt[hh] = fmaxf(mt[hh],
+                         fmaxf(s[4 * j + 2 * hh], s[4 * j + 2 * hh + 1]));
+      float alpha[2], msc[2];
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh) {
+        mt[hh] = fmaxf(mt[hh], __shfl_xor_sync(kFull, mt[hh], 1));
+        mt[hh] = fmaxf(mt[hh], __shfl_xor_sync(kFull, mt[hh], 2));
+        const float m_new = fmaxf(m[hh], mt[hh]);
+        alpha[hh] = exp2_approx((m[hh] - m_new) * c);
+        m[hh] = m_new;
+        // while a row has met only masked keys they weigh 0 (every row
+        // has a live key, its diagonal, which the oracle's weights come to)
+        msc[hh] = m_new == kNegInf ? 0.f : m_new * c;
+        l[hh] *= alpha[hh];
+      }
+#pragma unroll
+      for (int nd = 0; nd < D / 8; ++nd) {
+        o[4 * nd] *= alpha[0];
+        o[4 * nd + 1] *= alpha[0];
+        o[4 * nd + 2] *= alpha[1];
+        o[4 * nd + 3] *= alpha[1];
+      }
+      // P = exp2(S c - m c) as A fragments: score n-tiles 2 jj and 2 jj + 1
+      // are the k-step jj of P V.  Each weight is a bf16 pair hi + lo that
+      // carries ~16 bits: one bf16 alone moved outputs by a bf16 ulp
+      // against the plain version (0.031 at |o| in [4, 8), past the 2e-2
+      // tolerance)
+      uint32_t pa[kBK / 16][4], pa_lo[kBK / 16][4];
+#pragma unroll
+      for (int j = 0; j < kBK / 8; ++j)
+#pragma unroll
+        for (int hh = 0; hh < 2; ++hh) {
+          const float p0 = exp2_approx(fmaf(s[4 * j + 2 * hh], c, -msc[hh]));
+          const float p1 =
+              exp2_approx(fmaf(s[4 * j + 2 * hh + 1], c, -msc[hh]));
+          l[hh] += p0 + p1;
+          const __nv_bfloat162 hi = __floats2bfloat162_rn(p0, p1);
+          const __nv_bfloat162 lo = __floats2bfloat162_rn(
+              p0 - __low2float(hi), p1 - __high2float(hi));
+          pa[j / 2][hh + 2 * (j % 2)] =
+              *reinterpret_cast<const uint32_t*>(&hi);
+          pa_lo[j / 2][hh + 2 * (j % 2)] =
+              *reinterpret_cast<const uint32_t*>(&lo);
+        }
+      // O += P V: k-step jj reads keys [16 jj, 16 jj + 16), V N-major
+      wgmma_fence();
+#pragma unroll
+      for (int jj = 0; jj < kBK / 16; ++jj) {
+        const uint64_t vd = smem_desc<C::kSwizzle>(
+            kb + C::kTile + 16 * jj * C::kSwizzle, C::kBox);
+        wgmma_pv<D>(o, pa[jj], vd);
+        wgmma_pv<D>(o, pa_lo[jj], vd);
+      }
+      wgmma_commit();
+      wgmma_wait();
+      fence_regs<D / 2>(o);
+
+      __syncwarp();
+      if (lane == 0) mbar_arrive(empty_bar + 8 * stage);  // the tile is read
+      if (++stage == kStages) {
+        stage = 0;
+        phase ^= 1;
+      }
+    }
+    __syncwarp();
+    if (lane == 0) mbar_arrive(q_empty + 8 * qb);  // Q is read
+
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      l[hh] += __shfl_xor_sync(kFull, l[hh], 1);
+      l[hh] += __shfl_xor_sync(kFull, l[hh], 2);
+      if (!valid[hh]) continue;
+      const float inv = 1.f / l[hh];
+#pragma unroll
+      for (int nd = 0; nd < D / 8; ++nd) {
+        const __nv_bfloat162 x = __floats2bfloat162_rn(
+            o[4 * nd + 2 * hh] * inv, o[4 * nd + 2 * hh + 1] * inv);
+        *reinterpret_cast<__nv_bfloat162*>(out + q_off[hh] + 8 * nd +
+                                           2 * tig) = x;
+      }
     }
   }
+}
+
+// cuTensorMapEncodeTiled from the driver, found through the runtime so
+// that the library needs no -lcuda
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType,
+                                 cuuint32_t, void*, const cuuint64_t*,
+                                 const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave,
+                                 CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                 CUtensorMapFloatOOBfill);
+
+EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t e = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
+#else
+    const cudaError_t e = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    if (e == cudaSuccess && found == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  return fn;
+}
+
+// The 4-D map (D, H, T, B) of a (B, T, H, D) bf16 tensor whose box is one
+// swizzle row of dims, `heads` heads and `tokens` tokens of one row: boxes
+// past T are filled with zeros and not read.
+template <int D>
+bool tensor_map(CUtensorMap* map, const void* base, int B, int T_len, int H,
+                int heads, int tokens) {
+  using C = Cfg<D>;
+  const EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return false;
+  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(D),
+                              static_cast<cuuint64_t>(H),
+                              static_cast<cuuint64_t>(T_len),
+                              static_cast<cuuint64_t>(B)};
+  const cuuint64_t strides[3] = {2ull * D, 2ull * D * H, 2ull * D * H * T_len};
+  const cuuint32_t box[4] = {C::kBoxCols, static_cast<cuuint32_t>(heads),
+                             static_cast<cuuint32_t>(tokens), 1};
+  const cuuint32_t steps[4] = {1, 1, 1, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
+                const_cast<void*>(base), dims, strides, box, steps,
+                CU_TENSOR_MAP_INTERLEAVE_NONE,
+                C::kSwizzle == 128 ? CU_TENSOR_MAP_SWIZZLE_128B
+                                   : CU_TENSOR_MAP_SWIZZLE_64B,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+int sm_count() {
+  static int n = 0;
+  if (n == 0) {
+    int dev = 0;
+    if (cudaGetDevice(&dev) != cudaSuccess ||
+        cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev) !=
+            cudaSuccess)
+      n = 0;
+  }
+  return n;
 }
 
 template <int D>
 int launch(const void* q, const void* k, const void* v, const void* positions,
            void* out, int B, int T_len, int Hq, int Hkv, int window,
            float scale, cudaStream_t stream) {
-  const int bq = kRows / (Hq / Hkv);  // query tokens per block
+  const int G = Hq / Hkv;
+  const int bq = kRows / G;  // query tokens per q tile
   const int n_qt = (T_len + bq - 1) / bq;
-  const int64_t blocks = (int64_t)B * Hkv * n_qt;
-  if (bq < 1 || blocks > INT_MAX)
+  const int64_t items = (int64_t)B * Hkv * n_qt;
+  const int n_sm = sm_count();
+  if (bq < 1 || items > INT_MAX || n_sm == 0)
     return static_cast<int>(cudaErrorInvalidValue);
-  flash_prefill_kernel<D><<<static_cast<int>(blocks), kThreads, 0, stream>>>(
-      static_cast<const __nv_bfloat16*>(q),
-      static_cast<const __nv_bfloat16*>(k),
-      static_cast<const __nv_bfloat16*>(v),
-      static_cast<const int32_t*>(positions),
-      static_cast<__nv_bfloat16*>(out), T_len, Hq, Hkv, bq, n_qt, window,
+  CUtensorMap q_map, k_map, v_map;
+  if (!tensor_map<D>(&q_map, q, B, T_len, Hq, G, bq) ||
+      !tensor_map<D>(&k_map, k, B, T_len, Hkv, 1, kBK) ||
+      !tensor_map<D>(&v_map, v, B, T_len, Hkv, 1, kBK))
+    return static_cast<int>(cudaErrorInvalidValue);
+  static bool opted_in = false;  // per instance: dynamic smem above 48 KB
+  if (!opted_in) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        flash_prefill_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        Cfg<D>::kBytes);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    opted_in = true;
+  }
+  const int grid = static_cast<int>(items < n_sm ? items : n_sm);
+  flash_prefill_kernel<D><<<grid, kThreads, Cfg<D>::kBytes, stream>>>(
+      q_map, k_map, v_map, static_cast<const int32_t*>(positions),
+      static_cast<__nv_bfloat16*>(out), B, T_len, Hq, Hkv, bq, n_qt, window,
       scale);
   return static_cast<int>(cudaGetLastError());
 }

@@ -2,8 +2,10 @@
 Python wrapper.
 
 Port of the Pallas kernel ``repro.kernels.decode_attention``.  Source:
-``csrc/decode_attention.cu`` (the page loop of ``csrc/paged_attention.cuh``
-over the row's contiguous slots).  The plain version is
+``csrc/decode_attention.cu``: each row's slots are split over several
+blocks (pass 1 writes float32 partial softmaxes to a workspace that this
+wrapper allocates, pass 2 merges them); one call launches both passes and
+counts one launch.  The plain version is
 ``kernels.ref.decode_attention_ref``; ``kernels.ops`` dispatches between
 the two by device.
 """
@@ -22,8 +24,14 @@ launches = 0
 #: shapes the kernel is compiled for (template instances in the source)
 HEAD_DIMS = (32, 64, 128)
 MAX_GROUP = 8
+#: slots per page of the kernel's loop; a split covers whole pages
+PAGE = 16
+#: fewest and most slots a split takes (the kernel stages a split's
+#: slot_pos in shared memory)
+MIN_SPLIT, MAX_SPLIT = 64, 2048
 
 _fn = None
+_sm_count = {}
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 
@@ -31,8 +39,8 @@ def _launcher():
     global _fn
     if _fn is None:
         fn = build.load("decode_attention").decode_attention_launch
-        fn.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 6 \
-            + [ctypes.c_int] * 6 + [ctypes.c_float, ctypes.c_void_p]
+        fn.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 7 \
+            + [ctypes.c_int] * 7 + [ctypes.c_float, ctypes.c_void_p]
         fn.restype = ctypes.c_int
         _fn = fn
     return _fn
@@ -41,6 +49,23 @@ def _launcher():
 def reset_launches() -> None:
     global launches
     launches = 0
+
+
+def split_slots(B: int, W: int, Hkv: int, n_sm: int) -> int:
+    """Slots per split: a multiple of ``PAGE`` in [``MIN_SPLIT``,
+    ``MAX_SPLIT``], small enough that the (split, kv head, row) grid holds
+    two blocks per SM where W allows it.  A function of shapes only, never
+    of slot_pos, so that a captured launch stays valid."""
+    want = -(-2 * n_sm // max(1, B * Hkv))    # splits per (row, kv head)
+    chunk = min(MAX_SPLIT, max(MIN_SPLIT, -(-W // want)))
+    return -(-chunk // PAGE) * PAGE
+
+
+def _n_sm(dev: torch.device) -> int:
+    if dev.index not in _sm_count:
+        _sm_count[dev.index] = torch.cuda.get_device_properties(
+            dev).multi_processor_count
+    return _sm_count[dev.index]
 
 
 def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
@@ -88,13 +113,17 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
         raise ValueError("decode_attention kernel: the caches must be "
                          "16-byte aligned")
     out = torch.empty_like(q)
+    chunk = split_slots(B, W, Hkv, _n_sm(dev))
+    n_split = -(-W // chunk)       # a partial per split
+    ws = torch.empty(B * Hkv * n_split * (Hq // Hkv) * (D + 2),
+                     dtype=torch.float32, device=dev)
     fn = _launcher()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = fn(_DTYPES[q.dtype], q.data_ptr(), k_cache.data_ptr(),
                  v_cache.data_ptr(), slot_pos.data_ptr(), q_pos.data_ptr(),
-                 out.data_ptr(), B, Hq, Hkv, D, W, window or 0, D ** -0.5,
-                 stream)
+                 out.data_ptr(), ws.data_ptr(), B, Hq, Hkv, D, W, chunk,
+                 window or 0, D ** -0.5, stream)
         launches += 1
     if err:
         raise RuntimeError(f"decode_attention kernel launch failed: CUDA "

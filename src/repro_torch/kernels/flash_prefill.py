@@ -20,7 +20,7 @@ launches = 0
 
 #: head dims the kernel is compiled for (template instances in the source)
 HEAD_DIMS = (32, 64, 128)
-#: most query heads per KV head (a block holds 64 query rows in bf16)
+#: most query heads per KV head (a block holds 128 query rows in bf16)
 MAX_GROUP = 64
 
 _fn = None

@@ -269,7 +269,7 @@ def _prefill_inputs(B, T, Hq, Hkv, D, dtype, device, seed=3):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("window", [None, 7])
+@pytest.mark.parametrize("window", [None, 7, 100])
 @pytest.mark.parametrize("B,T,Hq,Hkv,D", [
     (3, 40, 32, 8, 64),      # llama3.2-1b heads; T not a tile multiple
     (2, 100, 16, 2, 128),    # the widest group at head_dim 128
@@ -277,9 +277,15 @@ def _prefill_inputs(B, T, Hq, Hkv, D, dtype, device, seed=3):
     (1, 130, 8, 8, 64),      # no grouping: 128 tokens per block
     (2, 16, 32, 8, 64),      # one bucket of 16, a pad row
     (3, 40, 8, 2, 32),       # the reduced llama3.2-1b heads
+    (1, 1280, 32, 8, 64),    # an ILS join / a long dense re-prefill
+    (2, 300, 32, 8, 64),     # T not a multiple of the 128-row tile
+    (2, 300, 24, 8, 64),     # 3 heads per KV head over several q tiles
+    (8, 512, 32, 8, 64),     # the smoke shape: the most outputs
 ])
 def test_flash_prefill_matches_plain(cuda_device, dtype, window, B, T, Hq,
                                      Hkv, D):
+    """Windows of 7 (below a 64-key tile: edges masked) and 100 (fully
+    live interior tiles beside masked edges), and none."""
     args = _prefill_inputs(B, T, Hq, Hkv, D, dtype, cuda_device)
     got = prefill_kernel.flash_prefill(*args, window=window)
     want = ref.flash_prefill_ref(*args, window=window)
@@ -288,18 +294,36 @@ def test_flash_prefill_matches_plain(cuda_device, dtype, window, B, T, Hq,
     assert (got.float() - want.float()).abs().max().item() <= ATOL[dtype]
 
 
-def _dense_decode_inputs(B, W, Hq, Hkv, D, dtype, device, seed=4):
-    """Rows at different positions: row b holds positions 0..fill-1 in its
-    first slots (fill random, the first row full), one row also holds a
-    slot past its q_pos, and the last row is empty (every slot masked)."""
+def _dense_decode_inputs(B, W, Hq, Hkv, D, dtype, device, seed=4,
+                         layout="compact"):
+    """Rows at different positions, the last row empty (every slot
+    masked) when B > 1.  ``compact``: row b holds positions 0..fill-1 in
+    its first slots (fill random, the first row full) and one row also
+    holds a slot past its q_pos.  ``left``: live runs behind left pads, as
+    the dense slices' re-prefilled caches, the first row's first 64 slots
+    (one split or more) dead and its last 16 slots empty.  ``ring``: a
+    windowed model's ring cache, each row's positions rotated by a random
+    offset (slot_pos out of index order)."""
     rng = np.random.default_rng(seed)
     slot_pos = np.full((B, W), -1, np.int32)
     q_pos = np.zeros((B,), np.int32)
-    for b in range(B - 1):
-        fill = W if b == 0 else int(rng.integers(1, W + 1))
-        slot_pos[b, :fill] = np.arange(fill)
-        q_pos[b] = fill - 1
-    if B > 2 and W > 1:
+    for b in range(B - 1 if B > 1 else 1):
+        if layout == "left":
+            pad = 64 if b == 0 else int(rng.integers(0, W))
+            end = W - 16 if b == 0 else W
+            slot_pos[b, pad:end] = np.arange(end - pad)
+            q_pos[b] = end - pad - 1
+        elif layout == "ring":
+            fill = W if b % 2 == 0 else int(rng.integers(1, W + 1))
+            start = int(rng.integers(0, 3 * W))   # first position kept
+            order = (np.arange(fill) + int(rng.integers(0, W))) % fill
+            slot_pos[b, :fill] = start + order
+            q_pos[b] = start + fill - 1
+        else:
+            fill = W if b == 0 else int(rng.integers(1, W + 1))
+            slot_pos[b, :fill] = np.arange(fill)
+            q_pos[b] = fill - 1
+    if layout == "compact" and B > 2 and W > 1:
         q_pos[1] = max(0, q_pos[1] - 1)  # its last slot lies in the future
     floats = [torch.from_numpy(rng.standard_normal(shape)).to(
         device=device, dtype=dtype)
@@ -310,24 +334,35 @@ def _dense_decode_inputs(B, W, Hq, Hkv, D, dtype, device, seed=4):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("window", [None, 6])
-@pytest.mark.parametrize("B,W,Hq,Hkv,D", [
-    (4, 37, 32, 8, 64),      # W not a multiple of the 16-slot page
-    (3, 1, 8, 2, 64),        # a single slot
-    (3, 200, 16, 2, 128),    # the widest group at head_dim 128
-    (5, 768, 32, 8, 64),     # more pages than warps
-    (3, 50, 8, 2, 32),       # the reduced llama3.2-1b heads
+@pytest.mark.parametrize("B,W,Hq,Hkv,D,layout", [
+    (4, 37, 32, 8, 64, "compact"),    # W not a multiple of the 16-slot page
+    (3, 1, 8, 2, 64, "compact"),      # a single slot
+    (3, 200, 16, 2, 128, "compact"),  # the widest group at head_dim 128
+    (5, 768, 32, 8, 64, "compact"),   # more pages than warps
+    (3, 50, 8, 2, 32, "compact"),     # the reduced llama3.2-1b heads
+    (2, 1000, 32, 8, 64, "left"),     # splits of 64 do not divide W; a live
+                                      # row's dead first split; a dead row
+                                      # over 16 splits
+    (3, 1344, 32, 8, 64, "left"),     # ragged last split of 128
+    (1, 1344, 32, 8, 64, "left"),     # the dense SCLS slice's one row
+    (16, 1280, 32, 8, 64, "left"),    # the dense ILS engine's 16 slots
+    (4, 300, 32, 8, 64, "ring"),      # a ring cache: slot_pos unsorted
+    (3, 130, 16, 2, 128, "ring"),
 ])
 def test_decode_attention_matches_plain(cuda_device, dtype, window, B, W,
-                                        Hq, Hkv, D):
-    args = _dense_decode_inputs(B, W, Hq, Hkv, D, dtype, cuda_device)
+                                        Hq, Hkv, D, layout):
+    args = _dense_decode_inputs(B, W, Hq, Hkv, D, dtype, cuda_device,
+                                layout=layout)
     got = dense_decode_kernel.decode_attention(*args, window=window)
     want = ref.decode_attention_ref(*args, window=window)
     torch.cuda.synchronize()
     assert torch.isfinite(got).all()
     assert (got.float() - want.float()).abs().max().item() <= ATOL[dtype]
-    # the empty last row weighs every slot alike: the mean of V
-    mean_v = args[2][-1].float().mean(dim=0).repeat_interleave(Hq // Hkv, 0)
-    assert (got[-1].float() - mean_v).abs().max().item() <= ATOL[dtype]
+    if B > 1:
+        # the empty last row weighs every slot alike: the mean of V
+        mean_v = args[2][-1].float().mean(dim=0).repeat_interleave(
+            Hq // Hkv, 0)
+        assert (got[-1].float() - mean_v).abs().max().item() <= ATOL[dtype]
 
 
 def test_dense_attention_kernels_refuse_what_they_do_not_take(cuda_device):

@@ -5,10 +5,15 @@ token accounting and the §3.3 re-prefill count) in the scenarios of
 ``tests/test_engine.py``, and ``RealBackend(kv_retain="slice")`` over
 dense engines with a dense and a paged memory model, streaming the JAX
 ``RealBackend``'s tokens with the same re-prefill count."""
+import jax.numpy as jnp
 import numpy as np
 import pytest
+import torch
 
 from torch_port import assert_same_stream, prompts, shared_models
+
+#: float32 logits of the reduced model, port vs JAX (as test_torch_models)
+LOGIT_TOL = 1e-4
 
 
 @pytest.fixture(scope="module")
@@ -93,6 +98,49 @@ def test_dense_eos_without_forced_lens_matches_jax(engines):
     assert 1 <= r["n_valid"] <= 8
     if r["n_valid"] < 8:
         assert r["tokens"][-1] == 1
+
+
+def test_windowed_ring_cache_matches_jax():
+    """A sliding window of 5 over a ring cache narrower than the prompt (8
+    slots, 12-token prompts, one left-padded): the ring keeps the last 8
+    entries and decode overwrites the oldest, so slot_pos leaves index
+    order after the first step.  The port's dense prefill and decode
+    (flash_prefill and decode_attention's plain versions) give the JAX
+    model's logits at every step."""
+    from repro_torch.kernels import ops
+    jm, jp, tm, tp = shared_models()
+    T, W, window = 12, 8, 5
+    ops.reset_counts()
+    toks = np.zeros((2, T), np.int32)
+    for b, p in enumerate(prompts(tm.cfg.vocab_size, [12, 9], seed=5)):
+        toks[b, T - len(p):] = p
+    lens = np.array([12, 9], np.int32)
+    jl, jc = jm.prefill(jp, {"tokens": jnp.asarray(toks),
+                             "lengths": jnp.asarray(lens)}, W,
+                        window=window)
+    with torch.no_grad():
+        tl, tc = tm.prefill(tp, {"tokens": torch.from_numpy(toks),
+                                 "lengths": torch.from_numpy(lens)}, W,
+                            window=window)
+    np.testing.assert_allclose(tl.numpy(), np.asarray(jl), atol=LOGIT_TOL)
+    cur = np.asarray(jnp.argmax(jl, -1)).astype(np.int32)
+    for step in range(10):
+        jl, jc = jm.decode_step(jp, jc, jnp.asarray(cur),
+                                jnp.asarray(step, jnp.int32), window=window)
+        with torch.no_grad():
+            tl, tc = tm.decode_step(tp, tc, torch.from_numpy(cur), step,
+                                    window=window)
+        np.testing.assert_allclose(tl.numpy(), np.asarray(jl),
+                                   atol=LOGIT_TOL)
+        np.testing.assert_array_equal(tc.slot_pos.numpy(),
+                                      np.asarray(jc.slot_pos))
+        cur = np.asarray(jnp.argmax(jl, -1)).astype(np.int32)
+    sp = tc.slot_pos.numpy()
+    assert (np.diff(sp, axis=1) < 0).any()  # ring order, not index order
+    n_layers = tm.cfg.n_layers
+    assert ops.plain_calls["flash_prefill"] == n_layers
+    assert ops.plain_calls["decode_attention"] == 10 * n_layers
+    ops.reset_counts()
 
 
 def _fixed_trace(request_cls, vocab):

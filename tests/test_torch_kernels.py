@@ -460,6 +460,47 @@ def test_decode_attention_plain_matches_jax(B, W, Hq, Hkv, D, dtype,
     np.testing.assert_allclose(got[-1], mean_v, atol=ATOL[dtype])
 
 
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("window", [None, 5])
+def test_decode_attention_plain_matches_jax_on_a_ring(dtype, window):
+    """A ring cache (a windowed model keeps the last W entries and decode
+    overwrites the oldest): slot_pos rotated out of index order, a row
+    that has not wrapped yet (empty slots at the end) and an empty row."""
+    B, W, Hq, Hkv, D = 3, 12, 8, 2, 16
+    q, kc, vc, _, _ = _dense_decode_np(B, W, Hq, Hkv, D, seed=8)
+    sp = np.full((B, W), -1, np.int32)
+    sp[0] = (np.arange(W) - 5) % W + 17      # positions 17..28, wrapped
+    sp[1, :7] = np.arange(7)                 # 7 of 12 slots used
+    qp = np.array([28, 6, 0], np.int32)
+    (jq, tq), (jk, tk), (jv, tv) = (_cast(a, dtype) for a in (q, kc, vc))
+    got = ops.decode_attention(tq, tk, tv, torch.from_numpy(sp),
+                               torch.from_numpy(qp),
+                               window=window).float().numpy()
+    oracle = jref.decode_attention_ref(jq, jk, jv, jnp.asarray(sp),
+                                       jnp.asarray(qp), window=window)
+    np.testing.assert_allclose(got, np.asarray(oracle.astype(jnp.float32)),
+                               atol=ATOL[dtype])
+    mean_v = np.repeat(tv[-1].float().mean(dim=0).numpy(), Hq // Hkv, 0)
+    np.testing.assert_allclose(got[-1], mean_v, atol=ATOL[dtype])
+
+
+@pytest.mark.parametrize("B,W", [(1, 1), (2, 1344), (8, 768), (16, 1280),
+                                 (64, 100_000)])
+def test_decode_attention_split_depends_on_shapes_only(B, W):
+    """The kernel's slots per split: whole pages, within the bounds the
+    kernel stages in shared memory, at most 1024 splits, and at least two
+    blocks per SM of a 132-SM card wherever W holds that many splits."""
+    from repro_torch.kernels import decode_attention as dense_decode_kernel
+    k = dense_decode_kernel
+    Hkv, n_sm = 8, 132
+    chunk = k.split_slots(B, W, Hkv, n_sm)
+    n_split = -(-W // chunk)
+    assert chunk % k.PAGE == 0 and k.MIN_SPLIT <= chunk <= k.MAX_SPLIT
+    assert n_split <= 1024
+    if W >= 2 * n_sm // (B * Hkv) * k.MIN_SPLIT:
+        assert n_split * B * Hkv >= 2 * n_sm - B * Hkv
+
+
 def test_dense_attention_dispatch_takes_the_plain_versions_on_cpu():
     ops.reset_counts()
     q, k, v, pos = _prefill_np(2, 8, 4, 2, 16, [8, 3])
