@@ -1,7 +1,10 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (``src/repro_torch``) on one card.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--save-steps PATH]
+
+``--save-steps`` also writes the decode steps that phase 10 recorded to
+PATH (``torch.save``), for ``scripts/compare_attention.py --steps PATH``.
 
 Phases, each of which ends the script with a non-zero exit code when it
 fails (nothing is caught):
@@ -20,7 +23,7 @@ fails (nothing is caught):
    P 64, N 128, chunks of 128, float32) and is held against its plain
    PyTorch version on the same inputs, then timed beside that plain
    version, PyTorch yardsticks computing the same function, and the least
-   time the card could take (flash_prefill and decode_attention also at
+   time the card could take (the decode kernels and flash_prefill also at
    the shapes the slices run: ``shapes`` in their rows);
 4. reference: on a small input, the paged serving path with either
    ``attn_impl`` (through the kernels) is held against the dense path of
@@ -69,7 +72,15 @@ fails (nothing is caught):
    request completes, re-prefill is above zero, ssd_scan launches exactly
    24 times per prefill stage and no other kernel launches; then a
    full-width prefill of a 300-token prompt (two full 128-token chunks,
-   where the JAX oracle overflows to NaN: ROADMAP C2) gives finite logits.
+   where the JAX oracle overflows to NaN: ROADMAP C2) gives finite logits;
+10. engine steps (run after phase 8): while phases 5, 6 and 8 served,
+   the index inputs of each paged decode step (block table, slot_pos,
+   write slots, q_pos) were recorded; paged_decode_attention at the
+   unfused slice's and the paged ILS run's typical step, and
+   fused_rope_decode_append at the fused slice's and the ILS run's (the
+   step whose live slots are the run's median), each over random pools of
+   the engine's size, are held against their plain versions and timed as
+   in phase 3 (``shapes`` entries with the run's statistics).
 
 The last line of standard output is ``{"ok": true, "device": {...}}``; the
 line before it is the ``nvidia-smi`` reading and the one before that the
@@ -207,80 +218,192 @@ def pool_pages(cfg, m_available: float, page_tokens: int) -> int:
     return mem.total_blocks
 
 
-def check_decode(cfg, n_pages: int, pg: int, gen: torch.Generator,
-                 flush: torch.Tensor) -> dict:
+#: (label, rows, nb) of the paged decode kernels' synthetic shape, the
+#: row's own: 8 rows of ~512 tokens, a batch pad last.  A row is (live
+#: tokens, on the null page): its own pages drawn from the pool, or a pad
+#: row whose block table is all null page 0 (0 live tokens: every slot
+#: masked).  nb None is the static engine's bucket of the rows' pages.
+#: fused_rope_decode_append takes the same rows, the pad row's one live
+#: slot its own append.  Both kernels are also timed at a decode step that
+#: the engines themselves ran (``StepRecorder``, phase 10).
+PAGED_SMOKE = ("8x576", tuple((n, False) for n in (512, 497, 530, 505, 520,
+                                                   489, 515)) + ((0, True),),
+               None)
+
+
+def paged_pools(cfg, n_pages: int, pg: int, gen: torch.Generator):
+    """Random K and V pools of the slice's size (page 0 the null page)."""
+    shape = (n_pages + 1, pg, cfg.n_kv_heads, cfg.head_dim)
+    return tuple(torch.randn(shape, generator=gen,
+                             device="cuda").to(cfg.dtype) for _ in range(2))
+
+
+def paged_decode_inputs(cfg, n_pages: int, pg: int, rows, nb,
+                        gen: torch.Generator, fused: bool = False):
+    """(q, block_table, slot_pos, q_pos) of one paged decode step over
+    ``rows`` (``PAGED_SMOKE``): row b holds positions 0..n-1 in pages drawn
+    at random from the pool, or on the null page; q_pos = n - 1.  With
+    ``fused`` a null row holds at least its own slot, and k_new, v_new
+    and the new slots (n - 1) follow."""
     from repro_torch.core.request import bucket_len
     from repro_torch.engine.static_engine import NB_BUCKET
-    from repro_torch.kernels import paged_decode_attention as kmod
-    from repro_torch.kernels import ref
     dev = torch.device("cuda")
-    B, Hq, Hkv, D = 8, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
-    # live slots per row (the current token included); the last row is a
-    # batch-bucket pad row: null pages only, every slot masked
-    n_live = [512, 497, 530, 505, 520, 489, 515, 0]
-    nb = bucket_len(max(-(-n // pg) for n in n_live), NB_BUCKET)
-    shape = (n_pages + 1, pg, Hkv, D)
-    k_pages = torch.randn(shape, generator=gen, device=dev).to(cfg.dtype)
-    v_pages = torch.randn(shape, generator=gen, device=dev).to(cfg.dtype)
+    B, Hq, Hkv, D = len(rows), cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    n_live = [max(n, 1) if fused and null else n for n, null in rows]
+    if nb is None:
+        nb = bucket_len(max(-(-n // pg) for n in n_live), NB_BUCKET)
     perm = torch.randperm(n_pages, generator=gen, device=dev) + 1
     bt = torch.zeros((B, nb), dtype=torch.int32, device=dev)
     used = 0
-    for b, n in enumerate(n_live):
-        k = -(-n // pg)
-        bt[b, :k] = perm[used:used + k]
-        used += k
+    for b, (n, null) in enumerate(rows):
+        if not null:
+            k = -(-n // pg)
+            bt[b, :k] = perm[used:used + k]
+            used += k
     slots = torch.arange(nb * pg, device=dev)[None]
     lens = torch.tensor(n_live, device=dev)[:, None]
     slot_pos = torch.where(slots < lens, slots, -1).to(torch.int32)
     q_pos = (torch.tensor(n_live, device=dev) - 1).clamp(min=0).to(torch.int32)
     q = torch.randn((B, Hq, D), generator=gen, device=dev).to(cfg.dtype)
+    if not fused:
+        return q, bt, slot_pos, q_pos
+    k_new = torch.randn((B, Hkv, D), generator=gen, device=dev).to(cfg.dtype)
+    v_new = torch.randn((B, Hkv, D), generator=gen, device=dev).to(cfg.dtype)
+    return q, k_new, v_new, bt, slot_pos, q_pos.clone(), q_pos
 
-    out = kmod.paged_decode_attention(q, k_pages, v_pages, bt, slot_pos, q_pos)
-    want = ref.paged_decode_attention_ref(q, k_pages, v_pages, bt, slot_pos,
-                                          q_pos)
-    torch.cuda.synchronize()
-    err = (out.float() - want.float()).abs().max().item()
-    log(f"paged_decode_attention: max |kernel - plain| = {err:.3e} "
-        f"(tolerance {DECODE_TOL})")
-    if not err <= DECODE_TOL:
-        raise SystemExit("paged_decode_attention disagrees with its plain "
-                         "version")
 
-    # library yardstick: one SDPA call over the gathered window, the G
-    # query heads of a KV head taken as G queries of that head
-    G = Hq // Hkv
+def appended_rows(bt, slots, pg: int) -> torch.Tensor:
+    """Pool rows (page * pg + offset) of each row's appended slot."""
+    slots = slots.long()
+    return (torch.gather(bt.long(), 1, (slots // pg)[:, None])[:, 0] * pg
+            + slots % pg)
+
+
+def paged_shape(q, k_pages, bt, slot_pos, slots=None) -> dict:
+    """The call's shape and the live pool slots it must read: the distinct
+    pool rows its live slots name (the null page's slot 0 once, however
+    many rows attend it), less, for the fused call (``slots`` given), the
+    rows it appends, whose K/V it takes from k/v_new."""
+    P, pg, Hkv, D = k_pages.shape
+    B, nb = bt.shape
+    s = torch.arange(nb * pg, device=bt.device)
+    rows = bt.long()[:, s // pg] * pg + s % pg
+    live = torch.unique(rows[slot_pos >= 0])
+    if slots is not None:
+        live = live[~torch.isin(live, appended_rows(bt, slots, pg))]
+    return dict(B=B, Hq=q.shape[1], Hkv=Hkv, D=D, pg=pg, nb=nb,
+                n_valid_tokens=int(live.numel()),
+                null_rows=int((bt == 0).all(dim=1).sum()), pool_pages=P)
+
+
+def sdpa_window(q, k_pages, v_pages, bt, slot_pos):
+    """SDPA over the window gathered beforehand, the G query heads of a KV
+    head taken as G queries of that head: a closure and the gathered
+    window's inputs."""
+    B, Hq, D = q.shape
+    pg, Hkv = k_pages.shape[1], k_pages.shape[2]
+    nb = bt.shape[1]
     kw = k_pages[bt.long()].reshape(B, nb * pg, Hkv, D).transpose(1, 2)
     vw = v_pages[bt.long()].reshape(B, nb * pg, Hkv, D).transpose(1, 2)
     kw, vw = kw.contiguous(), vw.contiguous()
-    qg = q.reshape(B, Hkv, G, D)
     mask = (slot_pos >= 0)[:, None, None, :]
     sdpa = torch.nn.functional.scaled_dot_product_attention
-    t_kernel = time_ms(lambda: kmod.paged_decode_attention(
-        q, k_pages, v_pages, bt, slot_pos, q_pos), flush,
-                       label="paged_decode_attention kernel")
-    t_plain = time_ms(lambda: ref.paged_decode_attention_ref(
-        q, k_pages, v_pages, bt, slot_pos, q_pos), flush,
-                      label="paged_decode_attention plain")
-    t_lib = time_ms(lambda: sdpa(qg, kw, vw, attn_mask=mask), flush,
-                    label="paged_decode_attention SDPA")
-    n_valid = sum(n_live)
-    elt = k_pages.element_size()
+    return lambda qq: sdpa(qq.reshape(B, Hkv, Hq // Hkv, D), kw, vw,
+                           attn_mask=mask)
+
+
+def paged_bound(shape: dict, elt: int, fused: bool):
+    """(bound_ms, bound_by) of one paged decode call: live K/V slots, q in
+    and out, the int32 tables (and for the fused call the new k/v read and
+    appended, the slots and the inverse frequencies)."""
+    B, Hq, Hkv, D = shape["B"], shape["Hq"], shape["Hkv"], shape["D"]
+    n_valid, nb, pg = shape["n_valid_tokens"], shape["nb"], shape["pg"]
     n_bytes = (2 * n_valid * Hkv * D * elt          # live K and V slots
                + 2 * B * Hq * D * elt               # q in, out
-               + bt.numel() * 4 + slot_pos.numel() * 4 + B * 4)
+               + B * nb * 4 + B * nb * pg * 4 + B * 4)
+    if fused:
+        n_bytes += 2 * 2 * B * Hkv * D * elt + B * 4 + D // 2 * 4
     n_flops = 4 * n_valid * Hq * D                  # QK^T and PV
-    b_ms, b_by = bound(n_bytes, n_flops)
-    log(f"paged_decode_attention: kernel {t_kernel:.4f} ms, plain "
-        f"{t_plain:.4f} ms, library {t_lib:.4f} ms, bound {b_ms:.4f} ms")
+    return bound(n_bytes, n_flops)
+
+
+def time_paged_decode(kmod, k_pages, v_pages, args, flush: torch.Tensor,
+                      label: str):
+    """(kernel ms, SDPA ms, bound ms, bound_by, shape) of
+    paged_decode_attention on these inputs; the library yardstick is SDPA
+    over the window gathered beforehand."""
+    q, bt, slot_pos, q_pos = args
+    sdpa = sdpa_window(q, k_pages, v_pages, bt, slot_pos)
+    t_kernel = time_ms(lambda: kmod.paged_decode_attention(
+        q, k_pages, v_pages, bt, slot_pos, q_pos), flush,
+                       label=f"paged_decode_attention {label} kernel")
+    t_lib = time_ms(lambda: sdpa(q), flush,
+                    label=f"paged_decode_attention {label} SDPA")
+    shape = paged_shape(q, k_pages, bt, slot_pos)
+    b_ms, b_by = paged_bound(shape, q.element_size(), fused=False)
+    log(f"paged_decode_attention {label}: kernel {t_kernel:.4f} ms, SDPA "
+        f"{t_lib:.4f} ms, bound {b_ms:.4f} ms")
+    return t_kernel, t_lib, b_ms, b_by, shape
+
+
+def hold_paged_decode(kmod, k_pages, v_pages, args, flush: torch.Tensor,
+                      label: str) -> dict:
+    """B1 on ``args`` held against its plain version (rows without a live
+    slot also against the mean of their V), then timed beside SDPA: the
+    entry of ``shapes``, and the largest error."""
+    from repro_torch.kernels import ref
+    q, bt, slot_pos, q_pos = args
+    G = q.shape[1] // k_pages.shape[2]
+    out = kmod.paged_decode_attention(q, k_pages, v_pages, bt, slot_pos,
+                                      q_pos)
+    want = ref.paged_decode_attention_ref(q, k_pages, v_pages, bt, slot_pos,
+                                          q_pos)
+    torch.cuda.synchronize()
+    e = (out.float() - want.float()).abs().max().item()
+    dead = (slot_pos < 0).all(dim=1).nonzero()[:, 0].tolist()
+    e_mean = max((out[b].float() - v_pages[bt[b].long()].float().mean(
+        dim=(0, 1)).repeat_interleave(G, dim=0)).abs().max().item()
+                  for b in dead) if dead else 0.0
+    log(f"paged_decode_attention {label}: max |kernel - plain| = {e:.3e}, "
+        f"rows without a live slot vs the mean of their V {e_mean:.3e} "
+        f"(tolerance {DECODE_TOL})")
+    if not (e <= DECODE_TOL and e_mean <= DECODE_TOL):
+        raise SystemExit(f"paged_decode_attention {label} disagrees with its "
+                         f"plain version")
+    del out, want
+    t_kernel, t_lib, b_ms, b_by, shape = time_paged_decode(
+        kmod, k_pages, v_pages, args, flush, label)
+    return dict(shape=label, ms=t_kernel, library_ms=t_lib, bound_ms=b_ms,
+                bound_by=b_by, max_abs_err=e, **shape)
+
+
+def check_decode(cfg, n_pages: int, pg: int, gen: torch.Generator,
+                 flush: torch.Tensor) -> dict:
+    """B1 at ``PAGED_SMOKE`` held against the plain version (the pad row
+    against the mean of its V) and timed beside SDPA and the plain
+    version; phase 10 adds the engines' own steps to ``shapes``."""
+    from repro_torch.kernels import paged_decode_attention as kmod
+    from repro_torch.kernels import ref
+    k_pages, v_pages = paged_pools(cfg, n_pages, pg, gen)
+    label, rows, nb = PAGED_SMOKE
+    args = paged_decode_inputs(cfg, n_pages, pg, rows, nb, gen)
+    own = hold_paged_decode(kmod, k_pages, v_pages, args, flush, label)
+    t_plain = time_ms(lambda: ref.paged_decode_attention_ref(
+        *args[:1], k_pages, v_pages, *args[1:]), flush,
+                      label=f"paged_decode_attention {label} plain")
+    log(f"paged_decode_attention {label}: plain {t_plain:.4f} ms")
+    shape = {k: v for k, v in own.items()
+             if k not in ("shape", "ms", "library_ms", "bound_ms",
+                          "bound_by", "max_abs_err")}
     return dict(name="paged_decode_attention", route="cuda",
                 source="src/repro_torch/kernels/csrc/paged_decode_attention.cu",
                 replaces="src/repro/kernels/paged_decode_attention.py:107",
-                max_abs_err=err, ms=t_kernel, kernel_ms=t_kernel,
-                plain_ms=t_plain, bound_ms=b_ms, bound_by=b_by,
-                library_ms=t_lib, library="scaled_dot_product_attention "
-                "on the pre-gathered window",
-                shape=dict(B=B, Hq=Hq, Hkv=Hkv, D=D, pg=pg, nb=nb,
-                           n_valid_tokens=n_valid, pool_pages=n_pages + 1))
+                max_abs_err=own["max_abs_err"], ms=own["ms"],
+                kernel_ms=own["ms"], plain_ms=t_plain,
+                bound_ms=own["bound_ms"], bound_by=own["bound_by"],
+                library_ms=own["library_ms"],
+                library="scaled_dot_product_attention on the pre-gathered "
+                "window", shape=shape, shapes=[own])
 
 
 def check_write(cfg, n_pages: int, pg: int, gen: torch.Generator,
@@ -473,68 +596,18 @@ def check_fused_write(cfg, n_pages: int, pg: int, gen: torch.Generator,
                            n_valid_tokens=n_valid, pool_pages=n_pages + 1))
 
 
-def check_fused_decode(cfg, n_pages: int, pg: int, gen: torch.Generator,
-                       flush: torch.Tensor) -> dict:
-    from repro_torch.core.request import bucket_len
-    from repro_torch.engine.static_engine import NB_BUCKET
-    from repro_torch.kernels import fused_rope_decode_append as kmod
-    from repro_torch.kernels import paged_decode_attention as unfused_kmod
-    from repro_torch.kernels import ref
+def time_fused_decode(kmod, unfused_kmod, k_pages, v_pages, args,
+                      theta: float, flush: torch.Tensor, label: str):
+    """(kernel ms, yardstick (a) ms, yardstick (b) ms, bound ms, bound_by,
+    shape) of fused_rope_decode_append on these inputs (appending into the
+    pools).  No single PyTorch call computes it: (a) torch RoPE +
+    ``index_put_`` + SDPA over the window gathered beforehand; (b) the
+    unfused chain, torch RoPE + scatter + ``unfused_kmod``'s
+    paged_decode_attention."""
     from repro_torch.models.common import apply_rope
-    dev = torch.device("cuda")
-    B, Hq, Hkv, D = 8, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
-    theta = cfg.rope_theta
-    # live slots per row, the new token included (it lands in the last);
-    # the last row is a batch-bucket pad row on the null page whose one
-    # live slot is its own, as the engine's decode step builds it
-    n_live = [512, 497, 530, 505, 520, 489, 515, 1]
-    nb = bucket_len(max(-(-n // pg) for n in n_live), NB_BUCKET)
-    shape = (n_pages + 1, pg, Hkv, D)
-    k_pages = torch.randn(shape, generator=gen, device=dev).to(cfg.dtype)
-    v_pages = torch.randn(shape, generator=gen, device=dev).to(cfg.dtype)
-    perm = torch.randperm(n_pages, generator=gen, device=dev) + 1
-    bt = torch.zeros((B, nb), dtype=torch.int32, device=dev)
-    used = 0
-    for b, n in enumerate(n_live[:-1]):
-        k = -(-n // pg)
-        bt[b, :k] = perm[used:used + k]
-        used += k
-    slots = torch.arange(nb * pg, device=dev)[None]
-    lens = torch.tensor(n_live, device=dev)[:, None]
-    slot_pos = torch.where(slots < lens, slots, -1).to(torch.int32)
-    new_slot = (torch.tensor(n_live, device=dev) - 1).to(torch.int32)
-    q_pos = new_slot.clone()
-    q = torch.randn((B, Hq, D), generator=gen, device=dev).to(cfg.dtype)
-    k_new = torch.randn((B, Hkv, D), generator=gen, device=dev).to(cfg.dtype)
-    v_new = torch.randn((B, Hkv, D), generator=gen, device=dev).to(cfg.dtype)
-
-    k_a, v_a = k_pages.clone(), v_pages.clone()
-    out = kmod.fused_rope_decode_append(q, k_new, v_new, bt, slot_pos,
-                                        new_slot, q_pos, k_a, v_a,
-                                        theta=theta)
-    want = ref.fused_rope_decode_append_ref(q, k_new, v_new, bt, slot_pos,
-                                            new_slot, q_pos, k_pages,
-                                            v_pages, theta=theta)
-    torch.cuda.synchronize()
-    err = (out.float() - want.float()).abs().max().item()
-    v_exact = torch.equal(v_a, v_pages)
-    ulps = max_ulps(k_a, k_pages)
-    log(f"fused_rope_decode_append: max |kernel - plain| = {err:.3e} "
-        f"(tolerance {DECODE_TOL}); pool V bit-identical {v_exact}, K "
-        f"within {ulps} ulp (tolerance {MAX_ULPS})")
-    if not (err <= DECODE_TOL and v_exact and ulps <= MAX_ULPS):
-        raise SystemExit("fused_rope_decode_append disagrees with its plain "
-                         "version")
-    del k_a, v_a
-
-    # yardsticks: torch RoPE + index_put_ + SDPA over the window gathered
-    # beforehand; the unfused chain (torch RoPE + scatter + decode kernel)
-    G = Hq // Hkv
-    kw = k_pages[bt.long()].reshape(B, nb * pg, Hkv, D).transpose(1, 2)
-    vw = v_pages[bt.long()].reshape(B, nb * pg, Hkv, D).transpose(1, 2)
-    kw, vw = kw.contiguous(), vw.contiguous()
-    mask = (slot_pos >= 0)[:, None, None, :]
-    sdpa = torch.nn.functional.scaled_dot_product_attention
+    q, k_new, v_new, bt, slot_pos, new_slot, q_pos = args
+    pg = k_pages.shape[1]
+    sdpa = sdpa_window(q, k_pages, v_pages, bt, slot_pos)
     page = torch.gather(bt.long(), 1, (new_slot.long() // pg)[:, None])[:, 0]
     off = new_slot.long() % pg
     pos = q_pos[:, None]
@@ -544,7 +617,7 @@ def check_fused_decode(cfg, n_pages: int, pg: int, gen: torch.Generator,
         kr = apply_rope(k_new[:, None], pos, theta)[:, 0]
         k_pages.index_put_((page, off), kr)
         v_pages.index_put_((page, off), v_new)
-        return sdpa(qr.reshape(B, Hkv, G, D), kw, vw, attn_mask=mask)
+        return sdpa(qr)
 
     def unfused_chain():
         qr = apply_rope(q[:, None], pos, theta)[:, 0]
@@ -557,42 +630,93 @@ def check_fused_decode(cfg, n_pages: int, pg: int, gen: torch.Generator,
     t_kernel = time_ms(lambda: kmod.fused_rope_decode_append(
         q, k_new, v_new, bt, slot_pos, new_slot, q_pos, k_pages, v_pages,
         theta=theta), flush,
-                       label="fused_rope_decode_append kernel")
-    t_plain = time_ms(lambda: ref.fused_rope_decode_append_ref(
-        q, k_new, v_new, bt, slot_pos, new_slot, q_pos, k_pages, v_pages,
-        theta=theta), flush,
-                      label="fused_rope_decode_append plain")
+                       label=f"fused_rope_decode_append {label} kernel")
     t_sdpa = time_ms(rope_put_sdpa, flush,
-                     label="fused_rope_decode_append yardstick (a)")
+                     label=f"fused_rope_decode_append {label} yardstick (a)")
     t_chain = time_ms(unfused_chain, flush,
-                      label="fused_rope_decode_append yardstick (b)")
-    n_valid = sum(n_live[:-1])      # live pool slots read (the pad row's
-    elt = k_pages.element_size()    # own slot is its appended token)
-    n_bytes = (2 * n_valid * Hkv * D * elt          # live K and V slots
-               + 2 * B * Hq * D * elt               # q in, out
-               + 2 * 2 * B * Hkv * D * elt          # new k/v in, appended
-               + bt.numel() * 4 + slot_pos.numel() * 4 + 2 * B * 4
-               + D // 2 * 4)
-    n_flops = 4 * n_valid * Hq * D                  # QK^T and PV
-    b_ms, b_by = bound(n_bytes, n_flops)
-    log(f"fused_rope_decode_append: kernel {t_kernel:.4f} ms, plain "
-        f"{t_plain:.4f} ms, torch RoPE + index_put_ + SDPA {t_sdpa:.4f} ms, "
-        f"unfused chain {t_chain:.4f} ms, bound {b_ms:.4f} ms")
+                      label=f"fused_rope_decode_append {label} yardstick (b)")
+    shape = paged_shape(q, k_pages, bt, slot_pos, slots=new_slot)
+    b_ms, b_by = paged_bound(shape, q.element_size(), fused=True)
+    log(f"fused_rope_decode_append {label}: kernel {t_kernel:.4f} ms, torch "
+        f"RoPE + index_put_ + SDPA {t_sdpa:.4f} ms, unfused chain "
+        f"{t_chain:.4f} ms, bound {b_ms:.4f} ms")
+    return t_kernel, t_sdpa, t_chain, b_ms, b_by, shape
+
+
+def hold_fused_decode(kmod, unfused_kmod, k_pages, v_pages, args,
+                      theta: float, flush: torch.Tensor, label: str) -> dict:
+    """B4 on ``args``: outputs and pools held against the plain version
+    (V bit-identical, K within ``MAX_ULPS``), then timed beside the two
+    yardsticks: the entry of ``shapes``, with the largest error and ulps.
+    Where several rows append at the null page, which append lands there
+    is unspecified: their outputs and page 0 are left out of the
+    comparison."""
+    from repro_torch.kernels import ref
+    q, k_new, v_new, bt, slot_pos, slots, q_pos = args
+    pg = k_pages.shape[1]
+    k_a, v_a = k_pages.clone(), v_pages.clone()
+    out = kmod.fused_rope_decode_append(*args, k_a, v_a, theta=theta)
+    want = ref.fused_rope_decode_append_ref(*args, k_pages, v_pages,
+                                            theta=theta)
+    torch.cuda.synchronize()
+    on_null = appended_rows(bt, slots, pg) < pg
+    n_null = int(on_null.sum())
+    keep = ~on_null if n_null > 1 else torch.ones_like(on_null)
+    first = 1 if n_null > 1 else 0   # page 0 where its appends race
+    e = (out[keep].float() - want[keep].float()).abs().max().item()
+    v_exact = torch.equal(v_a[first:], v_pages[first:])
+    ulps = max_ulps(k_a[first:], k_pages[first:])
+    log(f"fused_rope_decode_append {label}: max |kernel - plain| = "
+        f"{e:.3e} (tolerance {DECODE_TOL}; {int(keep.sum())} of "
+        f"{len(keep)} rows); pool V bit-identical {v_exact}, K within "
+        f"{ulps} ulp (tolerance {MAX_ULPS})")
+    if not (e <= DECODE_TOL and v_exact and ulps <= MAX_ULPS):
+        raise SystemExit(f"fused_rope_decode_append {label} disagrees with "
+                         f"its plain version")
+    del k_a, v_a, out, want
+    t_kernel, t_sdpa, t_chain, b_ms, b_by, shape = time_fused_decode(
+        kmod, unfused_kmod, k_pages, v_pages, args, theta, flush, label)
+    return dict(shape=label, ms=t_kernel, yardstick_a_ms=t_sdpa,
+                yardstick_b_ms=t_chain, bound_ms=b_ms, bound_by=b_by,
+                max_abs_err=e, max_ulps=ulps, **shape)
+
+
+def check_fused_decode(cfg, n_pages: int, pg: int, gen: torch.Generator,
+                       flush: torch.Tensor) -> dict:
+    """B4 at ``PAGED_SMOKE`` held against the plain version and timed
+    beside the two yardsticks and the plain version; phase 10 adds the
+    engines' own steps to ``shapes``."""
+    from repro_torch.kernels import fused_rope_decode_append as kmod
+    from repro_torch.kernels import paged_decode_attention as unfused_kmod
+    from repro_torch.kernels import ref
+    theta = cfg.rope_theta
+    k_pages, v_pages = paged_pools(cfg, n_pages, pg, gen)
+    label, rows, nb = PAGED_SMOKE
+    args = paged_decode_inputs(cfg, n_pages, pg, rows, nb, gen, fused=True)
+    own = hold_fused_decode(kmod, unfused_kmod, k_pages, v_pages, args,
+                            theta, flush, label)
+    t_plain = time_ms(lambda: ref.fused_rope_decode_append_ref(
+        *args, k_pages, v_pages, theta=theta), flush,
+                      label=f"fused_rope_decode_append {label} plain")
+    log(f"fused_rope_decode_append {label}: plain {t_plain:.4f} ms")
+    shape = {k: v for k, v in own.items()
+             if k not in ("shape", "ms", "yardstick_a_ms", "yardstick_b_ms",
+                          "bound_ms", "bound_by", "max_abs_err", "max_ulps")}
     return dict(name="fused_rope_decode_append", route="cuda",
                 source="src/repro_torch/kernels/csrc/"
                        "fused_rope_decode_append.cu",
                 replaces="src/repro/kernels/fused_rope_decode_append.py:158",
-                max_abs_err=err, max_ulps=ulps, ms=t_kernel,
-                kernel_ms=t_kernel, plain_ms=t_plain, bound_ms=b_ms,
-                bound_by=b_by, library_ms=None,
+                max_abs_err=own["max_abs_err"], max_ulps=own["max_ulps"],
+                ms=own["ms"], kernel_ms=own["ms"], plain_ms=t_plain,
+                bound_ms=own["bound_ms"], bound_by=own["bound_by"],
+                library_ms=None,
                 yardsticks_ms={
                     "torch apply_rope + index_put_ + "
                     "scaled_dot_product_attention on the pre-gathered "
-                    "window": t_sdpa,
+                    "window": own["yardstick_a_ms"],
                     "unfused chain: torch apply_rope + scatter + "
-                    "paged_decode_attention kernel": t_chain},
-                shape=dict(B=B, Hq=Hq, Hkv=Hkv, D=D, pg=pg, nb=nb,
-                           n_valid_tokens=n_valid, pool_pages=n_pages + 1))
+                    "paged_decode_attention kernel": own["yardstick_b_ms"]},
+                shape=shape, shapes=[own])
 
 
 #: flash_prefill's smoke rows: left-padded lengths of 8 rows of 512
@@ -1257,8 +1381,9 @@ def check_launches(label: str, summary: dict, used) -> None:
         f"{launches} as implied")
 
 
-def run_unfused_slice():
-    """Phase 5 (and 4): returns (summary, what the fused slice reuses)."""
+def run_unfused_slice(steps: dict):
+    """Phase 5 (and 4): returns (summary, what the fused slice reuses);
+    its typical decode step goes to ``steps["slice"]``."""
     from repro_torch.launch import serve
     args = serve.parse_args(PAGED_ARGV)
     t0 = time.perf_counter()
@@ -1267,10 +1392,13 @@ def run_unfused_slice():
     t_build = time.perf_counter() - t0
     model, params = engines[0].model, engines[0].params
     ref_stats = check_reference(model, params, args.page_tokens)
-    summary = serve_trace("slice", core, engines, serve.make_trace(args, vocab),
-                          args.duration, dict(build_s=t_build,
-                                              pool_pages=engines[0].allocator
-                                              .n_pages, **ref_stats))
+    with StepRecorder(model.cfg.n_layers) as rec:
+        summary = serve_trace("slice", core, engines,
+                              serve.make_trace(args, vocab), args.duration,
+                              dict(build_s=t_build,
+                                   pool_pages=engines[0].allocator.n_pages,
+                                   **ref_stats))
+    steps["slice"] = rec.typical()
     if summary["prefix_hit_tokens"] <= 0:
         raise SystemExit("no prefix-sharing hit: the tail path never ran")
     check_launches("unfused slice", summary, UNFUSED + ("flash_prefill",))
@@ -1341,8 +1469,9 @@ def check_fused_engines(model, params, pg: int, vocab: int) -> dict:
     return dict(streams=len(ps), streams_equal=n_equal, near_ties=ties)
 
 
-def run_fused_slice(reuse: dict) -> dict:
-    """Phase 6: returns the fused slice's summary."""
+def run_fused_slice(reuse: dict, steps: dict) -> dict:
+    """Phase 6: returns the fused slice's summary; its typical decode step
+    goes to ``steps["fused_slice"]``."""
     from repro_torch.engine.static_engine import StaticEngine
     from repro_torch.launch import serve
     from repro_torch.serving import RealBackend, SchedulerCore
@@ -1359,9 +1488,11 @@ def run_fused_slice(reuse: dict) -> dict:
     backend = RealBackend(engines, mem=mem, kv_layout="paged",
                           sched_bucket=est.bucket, kv_retain="request")
     core = SchedulerCore(reuse["strategy"], backend, args.workers, est, mem)
-    summary = serve_trace("fused_slice", core, engines,
-                          serve.make_trace(args, reuse["vocab"]),
-                          args.duration, dict(engine_parity=parity))
+    with StepRecorder(model.cfg.n_layers) as rec:
+        summary = serve_trace("fused_slice", core, engines,
+                              serve.make_trace(args, reuse["vocab"]),
+                              args.duration, dict(engine_parity=parity))
+    steps["fused_slice"] = rec.typical()
     if summary["prefix_hit_tokens"] <= 0:
         raise SystemExit("fused slice: no prefix-sharing hit")
     if summary["reprefill_tokens"] != 0:
@@ -1391,7 +1522,7 @@ def run_dense_slice() -> dict:
     return summary
 
 
-def run_ils(scls: dict) -> dict:
+def run_ils(scls: dict, steps: dict) -> dict:
     """Phase 8: the paper's ILS baseline at full width.  llama3.2-1b with
     the launcher's seeded weights; the smoke trace's 40 prompts go to
     ``ContinuousEngine.serve`` with their output lengths forced and
@@ -1401,7 +1532,8 @@ def run_ils(scls: dict) -> dict:
     once, its allocator must end where it began, and only flash_prefill
     (once per layer per join) and the layout's decode kernel (once per
     layer per decode iteration) may launch.  Returns the launches of the
-    dense run."""
+    dense and paged runs; the paged run's typical decode iteration goes to
+    ``steps["ils"]``."""
     from repro_torch.configs import get_config
     from repro_torch.engine.continuous_engine import ContinuousEngine
     from repro_torch.kernels import ops
@@ -1426,7 +1558,8 @@ def run_ils(scls: dict) -> dict:
         torch.cuda.synchronize()
         ops.reset_counts()
         t0 = time.perf_counter()
-        res = eng.serve(prompts, forced_gen_lens=forced, max_gen=max_gen)
+        with StepRecorder(L if layout == "paged" else 0) as rec:
+            res = eng.serve(prompts, forced_gen_lens=forced, max_gen=max_gen)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         launches = ops.launches()
@@ -1459,6 +1592,8 @@ def run_ils(scls: dict) -> dict:
             raise SystemExit(f"ILS paged: {eng.alloc.free_blocks} pages free "
                              f"after serving, {free0} before")
         launches_by_run[layout] = launches
+        if layout == "paged":
+            steps["ils"] = rec.typical()
         log(f"ILS {layout}: {len(trace)}/{len(trace)} requests, "
             f"{res.iterations} iterations, parallel mean "
             f"{res.mean_parallel:.3f} peak {res.peak_parallel}, "
@@ -1541,6 +1676,137 @@ def run_mamba_slice() -> dict:
     return summary
 
 
+# ---------------------------------------------------------------------------
+# phase 10: the paged decode kernels at the engines' own decode steps
+# ---------------------------------------------------------------------------
+class StepRecorder:
+    """Inside ``with``, wraps ``models.attention.attention_decode_paged``
+    (the paged engines' decode attention, once per layer per step) and
+    keeps a copy of the index inputs of each step's first layer: block
+    table, slot_pos (marking the new token), write slots and q_pos, with
+    the pool's shape.  ``n_layers`` 0 records nothing."""
+
+    def __init__(self, n_layers: int):
+        self.n_layers, self.calls, self.steps = n_layers, 0, []
+
+    def __enter__(self):
+        from repro_torch.models import attention
+        orig = self._orig = attention.attention_decode_paged
+
+        def recording(p, x, q_pos, k_pages, v_pages, block_table, slot_pos,
+                      slots, cfg, window, impl="unfused"):
+            if self.n_layers and self.calls % self.n_layers == 0:
+                self.steps.append(dict(
+                    bt=block_table.clone(), slot_pos=slot_pos.clone(),
+                    slots=slots.to(torch.int32, copy=True),
+                    q_pos=q_pos.to(torch.int32, copy=True),
+                    pool=tuple(k_pages.shape), Hq=cfg.n_heads,
+                    window=window))
+            self.calls += 1
+            return orig(p, x, q_pos, k_pages, v_pages, block_table,
+                        slot_pos, slots, cfg, window, impl=impl)
+
+        attention.attention_decode_paged = recording
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.models import attention
+        attention.attention_decode_paged = self._orig
+
+    def typical(self) -> dict:
+        """The recorded step whose live slots are the median of the run's
+        (the upper median), with the run's statistics: rows of the batch,
+        rows with pages of their own (the others are batch pads or idle
+        rows on the null page), live slots, the longest row."""
+        if not self.steps:
+            raise SystemExit("no paged decode step was recorded")
+        live = torch.stack([(st["slot_pos"] >= 0).sum()
+                            for st in self.steps]).tolist()
+        own = torch.stack([(st["bt"] != 0).any(dim=1).sum()
+                           for st in self.steps]).tolist()
+        i = sorted(range(len(live)), key=live.__getitem__)[len(live) // 2]
+        st = self.steps[i]
+        n = len(live)
+        stats = dict(step=i, steps=n, rows=st["bt"].shape[0],
+                     own_rows=own[i], live_slots=live[i],
+                     longest_row=int((st["slot_pos"] >= 0).sum(1).max()),
+                     slots=st["slot_pos"].shape[1],
+                     mean_rows=sum(s["bt"].shape[0] for s in self.steps) / n,
+                     mean_own_rows=sum(own) / n, mean_live_slots=sum(live) / n)
+        if st["window"] is not None:
+            raise SystemExit("phase 10 times the decode kernels without a "
+                             "window, but the engine ran one")
+        return dict(st, stats=stats)
+
+
+#: (kernel, recorded run) of phase 10: each paged decode kernel at its own
+#: slice's typical step, and both at the paged ILS engine's (the fused
+#: kernel appending where the engine's write went)
+ENGINE_STEPS = (("paged_decode_attention", "slice"),
+                ("paged_decode_attention", "ils"),
+                ("fused_rope_decode_append", "fused_slice"),
+                ("fused_rope_decode_append", "ils"))
+
+
+def step_inputs(cfg, step: dict, gen: torch.Generator, fused: bool):
+    """(label, pools, args) of a recorded step: random pools of the
+    engine's size, random q (and k/v_new), the step's own index tensors."""
+    dev = torch.device("cuda")
+    P, pg, Hkv, D = step["pool"]
+    k_pages, v_pages = paged_pools(cfg, P - 1, pg, gen)
+    bt, slot_pos = step["bt"].to(dev), step["slot_pos"].to(dev)
+    slots, q_pos = step["slots"].to(dev), step["q_pos"].to(dev)
+    B = bt.shape[0]
+    q = torch.randn((B, step["Hq"], D), generator=gen,
+                    device=dev).to(cfg.dtype)
+    label = f"{B}x{slot_pos.shape[1]}"
+    if not fused:
+        return label, (k_pages, v_pages), (q, bt, slot_pos, q_pos)
+    k_new, v_new = (torch.randn((B, Hkv, D), generator=gen,
+                                device=dev).to(cfg.dtype) for _ in range(2))
+    return label, (k_pages, v_pages), (q, k_new, v_new, bt, slot_pos, slots,
+                                       q_pos)
+
+
+def check_engine_steps(cfg, steps: dict, rows: dict) -> None:
+    """Phase 10: each ``ENGINE_STEPS`` kernel on its recorded step's index
+    tensors, held against its plain version and timed as in phase 3; the
+    entries (with the run's statistics) join the kernel's ``shapes``."""
+    from repro_torch.kernels import fused_rope_decode_append as fkmod
+    from repro_torch.kernels import paged_decode_attention as kmod
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(1)
+    flush = torch.empty(128 * 2 ** 20, dtype=torch.uint8, device="cuda")
+    for name, run in ENGINE_STEPS:
+        fused = name == "fused_rope_decode_append"
+        shape, (k_pages, v_pages), args = step_inputs(cfg, steps[run], gen,
+                                                      fused)
+        label = f"{run} {shape}"
+        log(f"{name} {label}: the engine's step {steps[run]['stats']}")
+        if fused:
+            entry = hold_fused_decode(fkmod, kmod, k_pages, v_pages, args,
+                                      cfg.rope_theta, flush, label)
+            rows[name]["max_ulps"] = max(rows[name]["max_ulps"],
+                                         entry["max_ulps"])
+        else:
+            entry = hold_paged_decode(kmod, k_pages, v_pages, args, flush,
+                                      label)
+        entry["engine_step"] = steps[run]["stats"]
+        rows[name]["shapes"].append(entry)
+        rows[name]["max_abs_err"] = max(rows[name]["max_abs_err"],
+                                        entry["max_abs_err"])
+        del k_pages, v_pages, args
+        release_cuda()
+
+
+def save_steps(steps: dict, path: str) -> None:
+    """The recorded steps, on the host, for
+    ``scripts/compare_attention.py --steps``."""
+    torch.save({run: {k: (v.cpu() if torch.is_tensor(v) else v)
+                      for k, v in st.items()} for run, st in steps.items()},
+               path)
+
+
 def release_cuda() -> None:
     """Free the engines (and their page pools) that went out of scope."""
     gc.collect()
@@ -1590,6 +1856,12 @@ def main() -> int:
         print("chip_smoke: no CUDA device; this script runs on the card",
               file=sys.stderr)
         return 1
+    save_to = None
+    if sys.argv[1:2] == ["--save-steps"] and len(sys.argv) == 3:
+        save_to = sys.argv[2]
+    elif len(sys.argv) > 1:
+        print(__doc__, file=sys.stderr)
+        return 2
     sys.path.insert(0, os.path.join(ROOT, "src"))
     from repro_torch.configs import get_config
     from repro_torch.kernels import build
@@ -1629,15 +1901,20 @@ def main() -> int:
     check_mamba_parity()
     release_cuda()
 
-    scls = {}
-    scls["slice"], reuse = run_unfused_slice()
+    scls, steps = {}, {}
+    scls["slice"], reuse = run_unfused_slice(steps)
     release_cuda()
-    scls["fused_slice"] = run_fused_slice(reuse)
+    scls["fused_slice"] = run_fused_slice(reuse, steps)
     del reuse
     release_cuda()
     scls["dense_slice"] = run_dense_slice()
     release_cuda()
-    ils = run_ils(scls)
+    ils = run_ils(scls, steps)
+    release_cuda()
+    check_engine_steps(cfg, steps, {row["name"]: row for row in rows})
+    if save_to:
+        save_steps(steps, save_to)
+    del steps
     release_cuda()
     scls["mamba_slice"] = run_mamba_slice()
     release_cuda()

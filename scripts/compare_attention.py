@@ -1,0 +1,206 @@
+#!/usr/bin/env python3
+"""Time the port's attention kernels of several source trees on one card,
+in turns, each beside PyTorch yardsticks.
+
+    python3 scripts/compare_attention.py [--kernels dense|paged|all]
+                                         [--steps PATH] ROOT [ROOT ...]
+
+Each ROOT is a checkout (or an unpacked ``git archive``) of this
+repository whose kernels are built from its own sources; each turn runs in
+a fresh process that imports ``repro_torch`` from ``ROOT/src``.  Give the
+roots in the order to run them (for two versions: old, new, new, old).
+Inputs, timing (``time_ms``) and bounds are this checkout's
+``chip_smoke.py``'s.
+
+``dense`` (flash_prefill at ``PREFILL_TIMED``, decode_attention at
+``DECODE_TIMED``, each beside one SDPA call) and ``paged``
+(paged_decode_attention beside one SDPA call over the window gathered
+beforehand, fused_rope_decode_append beside torch RoPE + ``index_put_`` +
+that SDPA call and beside the unfused chain on ROOT's
+paged_decode_attention; both at ``PAGED_SMOKE`` over a pool of the
+slices' size, and with ``--steps`` at the engines' recorded decode steps
+``ENGINE_STEPS``, which ``chip_smoke.py --save-steps PATH`` writes).
+
+The three kernels on the split-slot loop (decode_attention and the two
+paged ones) also run ``PROFILE_CALLS`` times per shape under
+``torch.profiler`` (the L2 cache flushed and the card kept busy by a
+device sleep before each call); the trace gives the mean device time of
+the call's first kernel (pass 1, or the whole kernel of a one-kernel
+tree), of its merge kernel where there is one (launched as a programmatic
+dependent, it starts while pass 1 runs, so its time includes that wait),
+and of the span from the first kernel's start to the last one's end, over
+the calls the trace holds.  Prints one JSON line per turn, then the
+card's name and power limit.
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import subprocess
+import sys
+import tempfile
+
+HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+PROFILE_CALLS = 20
+#: kernel names of the profiled wrappers, in either tree
+KERNEL_WORDS = ("split_kernel", "merge_kernel", "decode_attention",
+                "fused_rope_decode_append")
+
+
+def profile_calls(smoke, fn, flush) -> dict:
+    """Mean device µs of pass 1, of the merge (0 without one) and of the
+    span of one call of ``fn``, over the calls a ``torch.profiler`` trace
+    holds (``calls_traced`` of ``PROFILE_CALLS``)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    cycles = int(smoke.sleep_cycles_per_ms())   # 1 ms before each call
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(PROFILE_CALLS):
+            flush.zero_()
+            torch.cuda._sleep(cycles)
+            fn()
+        torch.cuda.synchronize()
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "trace.json")
+        prof.export_chrome_trace(path)
+        with open(path) as f:
+            events = json.load(f)["traceEvents"]
+    kernels = sorted((e for e in events if e.get("cat") == "kernel"
+                      and any(w in e["name"] for w in KERNEL_WORDS)),
+                     key=lambda e: e["ts"])
+    calls, merge = [], []
+    for e in kernels:
+        if "merge_kernel" in e["name"] and calls:
+            merge.append(e["dur"])
+            calls[-1][1] = e["ts"] + e["dur"]
+        else:
+            calls.append([e["ts"], e["ts"] + e["dur"], e["dur"]])
+    if not calls:
+        raise SystemExit("profile: no kernel of the wrapper in the trace")
+    n = len(calls)  # the trace may drop a few of the calls made
+    return dict(pass1_us=sum(c[2] for c in calls) / n,
+                merge_us=sum(merge) / max(len(merge), 1),
+                span_us=sum(c[1] - c[0] for c in calls) / n,
+                calls_traced=n)
+
+
+def dense_turn(smoke, cfg, gen, flush) -> dict:
+    from repro_torch.kernels import decode_attention as dkmod
+    from repro_torch.kernels import flash_prefill as pkmod
+    out = {"flash_prefill": {}, "decode_attention": {}}
+    for label, lens, T in smoke.PREFILL_TIMED:
+        q, k, v, pos = smoke.prefill_inputs(cfg, lens, T, gen)
+        t, lib, b_ms, b_by, _ = smoke.time_prefill(pkmod, q, k, v, pos,
+                                                   flush, label)
+        out["flash_prefill"][label] = dict(ms=t, library_ms=lib,
+                                           bound_ms=b_ms, bound_by=b_by)
+    for label, rows, W in smoke.DECODE_TIMED:
+        args = smoke.dense_decode_inputs(cfg, rows, W, gen)
+        t, lib, b_ms, b_by, _ = smoke.time_dense_decode(dkmod, rows, args,
+                                                        flush, label)
+        out["decode_attention"][label] = dict(
+            ms=t, library_ms=lib, bound_ms=b_ms, bound_by=b_by,
+            profile=profile_calls(smoke, lambda: dkmod.decode_attention(
+                *args), flush))
+    return out
+
+
+def paged_turn(smoke, cfg, gen, flush, steps_path) -> dict:
+    import torch
+    from repro_torch.kernels import fused_rope_decode_append as fkmod
+    from repro_torch.kernels import paged_decode_attention as kmod
+    pg = 16
+    n_pages = smoke.pool_pages(cfg, 48e9, pg)
+    label, rows, nb = smoke.PAGED_SMOKE
+    pools = smoke.paged_pools(cfg, n_pages, pg, gen)
+    cases = [("paged_decode_attention", label, pools,
+              smoke.paged_decode_inputs(cfg, n_pages, pg, rows, nb, gen)),
+             ("fused_rope_decode_append", label, pools,
+              smoke.paged_decode_inputs(cfg, n_pages, pg, rows, nb, gen,
+                                        fused=True))]
+    if steps_path:
+        steps = torch.load(steps_path)
+        for name, run in smoke.ENGINE_STEPS:
+            fused = name == "fused_rope_decode_append"
+            shape, step_pools, args = smoke.step_inputs(cfg, steps[run], gen,
+                                                        fused)
+            cases.append((name, f"{run} {shape}", step_pools, args))
+    out = {"paged_decode_attention": {}, "fused_rope_decode_append": {}}
+    for name, label, (k_pages, v_pages), args in cases:
+        if name == "paged_decode_attention":
+            t, lib, b_ms, b_by, _ = smoke.time_paged_decode(
+                kmod, k_pages, v_pages, args, flush, label)
+            entry = dict(ms=t, library_ms=lib)
+            q, bt, slot_pos, q_pos = args
+
+            def fn():
+                kmod.paged_decode_attention(q, k_pages, v_pages, bt,
+                                            slot_pos, q_pos)
+        else:
+            t, t_a, t_b, b_ms, b_by, _ = smoke.time_fused_decode(
+                fkmod, kmod, k_pages, v_pages, args, cfg.rope_theta, flush,
+                label)
+            entry = dict(ms=t, yardstick_a_ms=t_a, yardstick_b_ms=t_b)
+
+            def fn():
+                fkmod.fused_rope_decode_append(*args, k_pages, v_pages,
+                                               theta=cfg.rope_theta)
+        out[name][label] = dict(entry, bound_ms=b_ms, bound_by=b_by,
+                                profile=profile_calls(smoke, fn, flush))
+    return out
+
+
+def one_turn(root: str, kernels: str, steps_path) -> dict:
+    import torch
+    sys.path.insert(0, os.path.join(root, "src"))
+    sys.path.insert(0, HERE)
+    import chip_smoke as smoke
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import build
+    assert build.__file__.startswith(os.path.abspath(root))
+    cfg = get_config("llama3.2-1b")
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(0)
+    flush = torch.empty(128 * 2 ** 20, dtype=torch.uint8, device="cuda")
+    out = {"root": root}
+    if kernels in ("dense", "all"):
+        out.update(dense_turn(smoke, cfg, gen, flush))
+    if kernels in ("paged", "all"):
+        out.update(paged_turn(smoke, cfg, gen, flush, steps_path))
+    return out
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--kernels", choices=("dense", "paged", "all"),
+                    default="all")
+    ap.add_argument("--steps", default=None,
+                    help="decode steps from chip_smoke.py --save-steps")
+    ap.add_argument("--turn", action="store_true", help=argparse.SUPPRESS)
+    ap.add_argument("roots", nargs="+")
+    a = ap.parse_args()
+    steps = os.path.abspath(a.steps) if a.steps else None
+    if a.turn:
+        print(json.dumps(one_turn(a.roots[0], a.kernels, steps)), flush=True)
+        return 0
+    for root in a.roots:
+        cmd = [sys.executable, os.path.abspath(__file__), "--turn",
+               "--kernels", a.kernels, os.path.abspath(root)]
+        if steps:
+            cmd[3:3] = ["--steps", steps]
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        sys.stderr.write(proc.stdout + proc.stderr)
+        if proc.returncode:
+            return proc.returncode
+        print(proc.stdout.strip().splitlines()[-1], flush=True)
+    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True).stdout.strip(), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -2,10 +2,11 @@
 Python wrapper.
 
 Port of the Pallas kernel ``repro.kernels.decode_attention``.  Source:
-``csrc/decode_attention.cu``: each row's slots are split over several
-blocks (pass 1 writes float32 partial softmaxes to a workspace that this
-wrapper allocates, pass 2 merges them); one call launches both passes and
-counts one launch.  The plain version is
+``csrc/decode_attention.cu``, on the split-slot loop of
+``csrc/split_attention.cuh`` (host side in ``kernels.split``): each row's
+slots are split over several blocks (pass 1 writes float32 partial
+softmaxes to a workspace that this wrapper allocates, pass 2 merges them);
+one call launches both passes and counts one launch.  The plain version is
 ``kernels.ref.decode_attention_ref``; ``kernels.ops`` dispatches between
 the two by device.
 """
@@ -17,6 +18,7 @@ from typing import Optional
 import torch
 
 from repro_torch.kernels import build
+from repro_torch.kernels.split import sm_count, split_slots, workspace
 
 #: launches of the CUDA kernel since the last reset
 launches = 0
@@ -24,14 +26,8 @@ launches = 0
 #: shapes the kernel is compiled for (template instances in the source)
 HEAD_DIMS = (32, 64, 128)
 MAX_GROUP = 8
-#: slots per page of the kernel's loop; a split covers whole pages
-PAGE = 16
-#: fewest and most slots a split takes (the kernel stages a split's
-#: slot_pos in shared memory)
-MIN_SPLIT, MAX_SPLIT = 64, 2048
 
 _fn = None
-_sm_count = {}
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 
@@ -49,23 +45,6 @@ def _launcher():
 def reset_launches() -> None:
     global launches
     launches = 0
-
-
-def split_slots(B: int, W: int, Hkv: int, n_sm: int) -> int:
-    """Slots per split: a multiple of ``PAGE`` in [``MIN_SPLIT``,
-    ``MAX_SPLIT``], small enough that the (split, kv head, row) grid holds
-    two blocks per SM where W allows it.  A function of shapes only, never
-    of slot_pos, so that a captured launch stays valid."""
-    want = -(-2 * n_sm // max(1, B * Hkv))    # splits per (row, kv head)
-    chunk = min(MAX_SPLIT, max(MIN_SPLIT, -(-W // want)))
-    return -(-chunk // PAGE) * PAGE
-
-
-def _n_sm(dev: torch.device) -> int:
-    if dev.index not in _sm_count:
-        _sm_count[dev.index] = torch.cuda.get_device_properties(
-            dev).multi_processor_count
-    return _sm_count[dev.index]
 
 
 def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
@@ -113,10 +92,8 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
         raise ValueError("decode_attention kernel: the caches must be "
                          "16-byte aligned")
     out = torch.empty_like(q)
-    chunk = split_slots(B, W, Hkv, _n_sm(dev))
-    n_split = -(-W // chunk)       # a partial per split
-    ws = torch.empty(B * Hkv * n_split * (Hq // Hkv) * (D + 2),
-                     dtype=torch.float32, device=dev)
+    chunk = split_slots(B, W, Hkv, sm_count(dev))
+    ws = workspace(B, W, Hq, Hkv, D, chunk, dev)
     fn = _launcher()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream

@@ -4,10 +4,12 @@ kernel's Python wrapper.
 Port of the Pallas kernel ``repro.kernels.fused_rope_decode_append``: one
 launch rotates the new token's q and k at ``q_pos``, appends its K/V at
 logical slot ``slots`` of the pool and runs paged decode attention over
-the pool after the append.  Source: ``csrc/fused_rope_decode_append.cu``
-(whose page loop it shares with ``paged_decode_attention``).  The plain
-version is ``kernels.ref.fused_rope_decode_append_ref``; ``kernels.ops``
-dispatches between the two by device.
+the pool after the append.  Source: ``csrc/fused_rope_decode_append.cu``,
+on the split-slot loop and workspace of ``kernels.split`` (pass 1
+rotates, appends and writes partials, pass 2 merges them); one call
+launches both passes and counts one launch.  The plain version is
+``kernels.ref.fused_rope_decode_append_ref``; ``kernels.ops`` dispatches
+between the two by device.
 """
 from __future__ import annotations
 
@@ -20,6 +22,7 @@ from repro_torch.kernels import build
 from repro_torch.kernels.fused_rope_prefill_write import inv_freq
 from repro_torch.kernels.paged_decode_attention import (HEAD_DIMS, MAX_GROUP,
                                                         PAGE_TOKENS)
+from repro_torch.kernels.split import sm_count, split_slots, workspace
 
 #: launches of the CUDA kernel since the last reset
 launches = 0
@@ -33,8 +36,8 @@ def _launcher():
     if _fn is None:
         fn = build.load(
             "fused_rope_decode_append").fused_rope_decode_append_launch
-        fn.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 11 \
-            + [ctypes.c_int] * 7 + [ctypes.c_float, ctypes.c_void_p]
+        fn.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 12 \
+            + [ctypes.c_int] * 8 + [ctypes.c_float, ctypes.c_void_p]
         fn.restype = ctypes.c_int
         _fn = fn
     return _fn
@@ -101,6 +104,8 @@ def fused_rope_decode_append(q: torch.Tensor, k_new: torch.Tensor,
                          "must be 16-byte aligned")
     freqs = inv_freq(D, theta, dev)
     out = torch.empty_like(q)
+    chunk = split_slots(B, nb * pg, Hkv, sm_count(dev))
+    ws = workspace(B, nb * pg, Hq, Hkv, D, chunk, dev)
     fn = _launcher()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
@@ -108,8 +113,8 @@ def fused_rope_decode_append(q: torch.Tensor, k_new: torch.Tensor,
                  v_new.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
                  block_table.data_ptr(), slot_pos.data_ptr(),
                  slots.data_ptr(), q_pos.data_ptr(), freqs.data_ptr(),
-                 out.data_ptr(), B, Hq, Hkv, D, nb, pg, window or 0,
-                 D ** -0.5, stream)
+                 out.data_ptr(), ws.data_ptr(), B, Hq, Hkv, D, nb, pg, chunk,
+                 window or 0, D ** -0.5, stream)
         launches += 1
     if err:
         raise RuntimeError(f"fused_rope_decode_append kernel launch failed: "

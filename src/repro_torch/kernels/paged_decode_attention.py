@@ -2,8 +2,13 @@
 Python wrapper.
 
 Port of the Pallas kernel ``repro.kernels.paged_decode_attention``.
-Source: ``csrc/paged_decode_attention.cu``.  The plain version is
-``kernels.ref.paged_decode_attention_ref``; ``kernels.ops`` dispatches
+Source: ``csrc/paged_decode_attention.cu``, on the split-slot loop it
+shares with ``decode_attention`` (``csrc/split_attention.cuh``, host side
+in ``kernels.split``): each row's slots are split over several blocks
+(pass 1 writes float32 partial softmaxes to a workspace that this wrapper
+allocates, pass 2 merges them); one call launches both passes and counts
+one launch.  The plain version
+is ``kernels.ref.paged_decode_attention_ref``; ``kernels.ops`` dispatches
 between the two by device.
 """
 from __future__ import annotations
@@ -14,6 +19,7 @@ from typing import Optional
 import torch
 
 from repro_torch.kernels import build
+from repro_torch.kernels.split import sm_count, split_slots, workspace
 
 #: launches of the CUDA kernel since the last reset
 launches = 0
@@ -31,8 +37,8 @@ def _launcher():
     global _fn
     if _fn is None:
         fn = build.load("paged_decode_attention").paged_decode_attention_launch
-        fn.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 7 \
-            + [ctypes.c_int] * 7 + [ctypes.c_float, ctypes.c_void_p]
+        fn.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 8 \
+            + [ctypes.c_int] * 8 + [ctypes.c_float, ctypes.c_void_p]
         fn.restype = ctypes.c_int
         _fn = fn
     return _fn
@@ -71,7 +77,7 @@ def paged_decode_attention(q: torch.Tensor, k_pages: torch.Tensor,
     P, pg, Hkv = k_pages.shape[0], k_pages.shape[1], k_pages.shape[2]
     nb = block_table.shape[1] if block_table.dim() == 2 else -1
     if (k_pages.shape != (P, pg, Hkv, D) or v_pages.shape != k_pages.shape
-            or Hq % Hkv or block_table.shape != (B, nb)
+            or Hq % Hkv or nb < 1 or block_table.shape != (B, nb)
             or slot_pos.shape != (B, nb * pg) or q_pos.shape != (B,)):
         raise ValueError(f"paged_decode_attention kernel: shapes q "
                          f"{tuple(q.shape)}, pools {tuple(k_pages.shape)}/"
@@ -87,13 +93,17 @@ def paged_decode_attention(q: torch.Tensor, k_pages: torch.Tensor,
         raise ValueError("paged_decode_attention kernel: the page pools "
                          "must be 16-byte aligned")
     out = torch.empty_like(q)
+    # whole 16-slot steps: a pool page of 8 or 16 slots lies in one split
+    chunk = split_slots(B, nb * pg, Hkv, sm_count(dev))
+    ws = workspace(B, nb * pg, Hq, Hkv, D, chunk, dev)
     fn = _launcher()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = fn(_DTYPES[q.dtype], q.data_ptr(), k_pages.data_ptr(),
                  v_pages.data_ptr(), block_table.data_ptr(),
-                 slot_pos.data_ptr(), q_pos.data_ptr(), out.data_ptr(), B,
-                 Hq, Hkv, D, nb, pg, window or 0, D ** -0.5, stream)
+                 slot_pos.data_ptr(), q_pos.data_ptr(), out.data_ptr(),
+                 ws.data_ptr(), B, Hq, Hkv, D, nb, pg, chunk, window or 0,
+                 D ** -0.5, stream)
         launches += 1
     if err:
         raise RuntimeError(f"paged_decode_attention kernel launch failed: "

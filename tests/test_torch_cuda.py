@@ -34,9 +34,11 @@ def cuda_device():
     return torch.device("cuda")
 
 
-def _decode_inputs(B, nb, pg, Hq, Hkv, D, dtype, device, seed=0):
-    """Random pools and shuffled block tables; row lengths vary, the last
-    row is a batch-bucket pad row (null pages, every slot masked)."""
+def _decode_inputs(B, nb, pg, Hq, Hkv, D, dtype, device, seed=0,
+                   fills=None):
+    """Random pools and shuffled block tables; row lengths vary (row b
+    holds ``fills[b]`` tokens where given), the last row is a batch-bucket
+    pad row (null pages, every slot masked)."""
     rng = np.random.default_rng(seed)
     P = B * nb + 1
     kp = torch.from_numpy(rng.standard_normal((P, pg, Hkv, D)))
@@ -47,7 +49,8 @@ def _decode_inputs(B, nb, pg, Hq, Hkv, D, dtype, device, seed=0):
     q_pos = np.zeros((B,), np.int32)
     perm = rng.permutation(np.arange(1, P))
     for b in range(B - 1):
-        fill = int(rng.integers(1, nb * pg + 1))
+        fill = (int(rng.integers(1, nb * pg + 1)) if fills is None
+                else fills[b])
         n_used = -(-fill // pg)
         bt[b, :n_used] = perm[b * nb:b * nb + n_used]
         slot_pos[b, :fill] = np.arange(fill)
@@ -59,20 +62,33 @@ def _decode_inputs(B, nb, pg, Hq, Hkv, D, dtype, device, seed=0):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("window", [None, 6])
-@pytest.mark.parametrize("B,nb,pg,Hq,Hkv,D", [
-    (4, 5, 16, 8, 2, 64),
-    (3, 11, 8, 32, 8, 64),     # more pages than warps per block
-    (2, 3, 16, 16, 2, 128),    # the widest group and head dim compiled
-    (3, 4, 8, 8, 2, 32),       # the reduced llama3.2-1b heads
+@pytest.mark.parametrize("B,nb,pg,Hq,Hkv,D,fills", [
+    (4, 5, 16, 8, 2, 64, None),
+    (3, 11, 8, 32, 8, 64, None),     # more pages than warps per block
+    (2, 3, 16, 16, 2, 128, None),    # the widest group and head dim
+    (3, 4, 8, 8, 2, 32, None),       # the reduced llama3.2-1b heads
+    # rows over several splits (80 slots each on a 132-SM card) beside a
+    # row shorter than one split
+    (4, 40, 16, 32, 8, 64, [600, 40, 257]),
+    # pages of 8: splits of 64 slots start at pages 8, 16 and 24
+    (3, 25, 8, 32, 8, 64, [200, 70]),
+    (2, 20, 16, 16, 2, 128, [320]),
 ])
 def test_paged_decode_attention_matches_plain(cuda_device, dtype, window,
-                                              B, nb, pg, Hq, Hkv, D):
-    args = _decode_inputs(B, nb, pg, Hq, Hkv, D, dtype, cuda_device)
+                                              B, nb, pg, Hq, Hkv, D, fills):
+    """Held to the plain version; the pad row, which has no live slot, is
+    the mean of the V of its (null) pages."""
+    args = _decode_inputs(B, nb, pg, Hq, Hkv, D, dtype, cuda_device,
+                          fills=fills)
     got = decode_kernel.paged_decode_attention(*args, window=window)
     want = ref.paged_decode_attention_ref(*args, window=window)
     torch.cuda.synchronize()
     assert torch.isfinite(got).all()
     assert (got.float() - want.float()).abs().max().item() <= ATOL[dtype]
+    vp, bt = args[2], args[3]
+    mean_v = vp[bt[-1].long()].float().mean(dim=(0, 1))
+    mean_v = mean_v.repeat_interleave(Hq // Hkv, dim=0)
+    assert (got[-1].float() - mean_v).abs().max().item() <= ATOL[dtype]
 
 
 def test_paged_decode_attention_refuses_uncompiled_shapes(cuda_device):
@@ -191,6 +207,13 @@ def _fused_decode_inputs(B, nb, pg, Hq, Hkv, D, fills, dtype, device,
     (3, 11, 8, 32, 8, 64, [80, 7, 0]),          # more pages than warps
     (3, 4, 16, 16, 2, 128, [15, 32, 0]),    # widest group and head dim
     (3, 4, 8, 8, 2, 32, [7, 20, 0]),        # the reduced llama3.2-1b heads
+    # splits of 64 slots: the new slot first in its split and its only
+    # live slot (64), last in its split (127), in the fifth split of a row
+    # over five (300)
+    (4, 20, 16, 32, 8, 64, [64, 127, 300, 0]),
+    # pages of 8, splits from pages 8 and 16: the new slot last in the
+    # third split (191), first and alone in the second (64)
+    (3, 30, 8, 16, 2, 128, [191, 64, 0]),
 ])
 def test_fused_rope_decode_append_matches_plain(cuda_device, dtype, window,
                                                 B, nb, pg, Hq, Hkv, D,

@@ -490,8 +490,7 @@ def test_decode_attention_split_depends_on_shapes_only(B, W):
     """The kernel's slots per split: whole pages, within the bounds the
     kernel stages in shared memory, at most 1024 splits, and at least two
     blocks per SM of a 132-SM card wherever W holds that many splits."""
-    from repro_torch.kernels import decode_attention as dense_decode_kernel
-    k = dense_decode_kernel
+    from repro_torch.kernels import split as k
     Hkv, n_sm = 8, 132
     chunk = k.split_slots(B, W, Hkv, n_sm)
     n_split = -(-W // chunk)
@@ -499,6 +498,47 @@ def test_decode_attention_split_depends_on_shapes_only(B, W):
     assert n_split <= 1024
     if W >= 2 * n_sm // (B * Hkv) * k.MIN_SPLIT:
         assert n_split * B * Hkv >= 2 * n_sm - B * Hkv
+
+
+@pytest.mark.parametrize("B,nb,pg", [(8, 36, 16), (4, 40, 16), (64, 80, 16),
+                                     (8, 72, 8), (4, 81, 8), (3, 25, 8),
+                                     (1, 1, 8), (1, 1, 16)])
+def test_paged_decode_split_depends_on_shapes_only(B, nb, pg):
+    """The paged kernels' slots per split at the smoke's shapes (8 rows of
+    36 pages of 16, 4 of 40, the paged ILS engine's 64 of 80) and at pages
+    of 8: whole 16-slot steps, so a pool page lies in one split; within
+    the bounds the kernel stages in shared memory; at most 1024 splits;
+    the same for the same shapes; at least two blocks per SM of a 132-SM
+    card wherever the slots hold that many splits; a workspace of one
+    partial per split."""
+    from repro_torch.kernels import split as k
+    Hq, Hkv, D, n_sm = 32, 8, 64, 132
+    W = nb * pg
+    chunk = k.split_slots(B, W, Hkv, n_sm)
+    n_split = -(-W // chunk)
+    assert chunk % k.PAGE == 0 and chunk % pg == 0
+    assert k.MIN_SPLIT <= chunk <= k.MAX_SPLIT
+    assert n_split <= 1024
+    assert chunk == k.split_slots(B, W, Hkv, n_sm)
+    if W >= 2 * n_sm // (B * Hkv) * k.MIN_SPLIT:
+        assert n_split * B * Hkv >= 2 * n_sm - B * Hkv
+    ws = k.workspace(B, W, Hq, Hkv, D, chunk, torch.device("cpu"))
+    assert ws.dtype == torch.float32
+    assert ws.numel() == B * Hkv * n_split * (Hq // Hkv) * (D + 2)
+
+
+@pytest.mark.parametrize("B,nb,pg,Hkv,want", [(4, 40, 16, 8, 80),
+                                              (3, 25, 8, 8, 64),
+                                              (2, 20, 16, 2, 64),
+                                              (4, 20, 16, 8, 64),
+                                              (3, 30, 8, 2, 64)])
+def test_paged_decode_split_of_the_card_cases(B, nb, pg, Hkv, want):
+    """The split cases of ``test_torch_cuda``'s paged decode tests split as
+    their comments say on a 132-SM card (an H100): several splits per long
+    row, and splits of 64 that start mid-way through a table of 8-slot
+    pages."""
+    from repro_torch.kernels import split
+    assert split.split_slots(B, nb * pg, Hkv, 132) == want
 
 
 def test_dense_attention_dispatch_takes_the_plain_versions_on_cpu():
