@@ -3,8 +3,9 @@
 
     python3 chip_smoke.py [--save-steps PATH]
 
-``--save-steps`` also writes the decode steps that phase 10 recorded to
-PATH (``torch.save``), for ``scripts/compare_attention.py --steps PATH``.
+``--save-steps`` also writes the decode steps that phase 10 recorded and
+the Mamba-2 prefill stages that phase 9 recorded to PATH (``torch.save``),
+for ``scripts/compare_attention.py --steps PATH``.
 
 Phases, each of which ends the script with a non-zero exit code when it
 fails (nothing is caught):
@@ -20,7 +21,8 @@ fails (nothing is caught):
    decode_attention over 768-slot rows, one of them empty, and at the
    dense slices' 2 x 1344 and 16 x 1280; ssd_scan at
    mamba2-130m's prefill: 8 left-padded rows of 512 tokens, 24 heads of
-   P 64, N 128, chunks of 128, float32) and is held against its plain
+   P 64, N 128, chunks of 128, float32, one group and two; phase 11 adds
+   the Mamba-2 slice's own stages) and is held against its plain
    PyTorch version on the same inputs, then timed beside that plain
    version, PyTorch yardsticks computing the same function, and the least
    time the card could take (the decode kernels and flash_prefill also at
@@ -70,9 +72,11 @@ fails (nothing is caught):
    --kv-retain slice`` at full width and depth (24 layers, bf16, random
    weights from a seeded ``torch.Generator``) serves the same trace: every
    request completes, re-prefill is above zero, ssd_scan launches exactly
-   24 times per prefill stage and no other kernel launches; then a
-   full-width prefill of a 300-token prompt (two full 128-token chunks,
-   where the JAX oracle overflows to NaN: ROADMAP C2) gives finite logits;
+   24 times per prefill stage and no other kernel launches, and each
+   stage's scan shape (rows, tokens, each row's valid tokens) is recorded
+   (``StageRecorder``); then a full-width prefill of a 300-token prompt
+   (two full 128-token chunks, where the JAX oracle overflows to NaN:
+   ROADMAP C2) gives finite logits;
 10. engine steps (run after phase 8): while phases 5, 6 and 8 served,
    the index inputs of each paged decode step (block table, slot_pos,
    write slots, q_pos) were recorded; paged_decode_attention at the
@@ -80,7 +84,11 @@ fails (nothing is caught):
    fused_rope_decode_append at the fused slice's and the ILS run's (the
    step whose live slots are the run's median), each over random pools of
    the engine's size, are held against their plain versions and timed as
-   in phase 3 (``shapes`` entries with the run's statistics).
+   in phase 3 (``shapes`` entries with the run's statistics);
+11. Mamba-2 stages (run after phase 9): ssd_scan at the recorded stage
+   that is the run's median by rows x tokens and at its largest, random
+   float32 inputs with the stages' pads, held against its plain version
+   and timed as in phase 3 (``shapes`` entries with the run's statistics).
 
 The last line of standard output is ``{"ok": true, "device": {...}}``; the
 line before it is the ``nvidia-smi`` reading and the one before that the
@@ -103,6 +111,7 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 HBM_BYTES_PER_S = 3.35e12    # H100 SXM device memory rate
 BF16_FLOP_PER_S = 989e12     # H100 SXM dense bf16 tensor-core peak
 F32_FLOP_PER_S = 67e12       # H100 SXM float32 outside the tensor cores
+TF32_FLOP_PER_S = 495e12     # H100 SXM dense TF32 tensor-core peak
 DECODE_TOL = 2e-2            # bf16 decode attention vs its plain version
 REF_TOL = 5e-2               # logits, paged kernels vs dense plain path,
                              # relative to the largest |logit| (bf16, 16 layers)
@@ -973,60 +982,102 @@ def scan_error(kmod, ref, args, chunk: int):
     return max(errs), max(e / m for e, m in zip(errs, scales))
 
 
-def check_ssd_scan(gen: torch.Generator, flush: torch.Tensor) -> dict:
-    """B7 at the Mamba-2 prefill's shapes: 8 left-padded rows of 512 tokens
-    (4 chunks of 128; 300 to 512 valid), mamba2-130m's 24 heads of P 64,
-    N 128, one group, float32; also with two groups.  Most of these chunks
-    sum dt·|A| past ln(float32 max), where the JAX oracle gives NaN (C2)."""
-    import math
-    from repro_torch.configs import get_config
-    from repro_torch.kernels import ref
-    from repro_torch.kernels import ssd_scan as kmod
-    cfg = get_config("mamba2-130m")
-    Q = cfg.ssm_chunk
-    lengths, T = [512, 497, 300, 505, 460, 489, 333, 512], 512
-    err = rel = 0.0
-    for G in (2, cfg.ssm_n_groups):  # the timed case last
-        args = ssd_inputs(cfg, lengths, T, gen, G=G)
-        e, r = scan_error(kmod, ref, args, Q)
-        log(f"ssd_scan G={G}: max |kernel - plain| = {e:.3e}, relative to "
-            f"max |plain| {r:.3e} (tolerance {SSD_TOL})")
-        if not r <= SSD_TOL:
-            raise SystemExit(f"ssd_scan (G={G}) disagrees with its plain "
-                             f"version")
-        err, rel = max(err, e), max(rel, r)
-    x, dt, A, Bm, Cm = args
+#: (label, row lengths, T) of phase 3's B7 case: 8 left-padded rows of 512
+SSD_SMOKE = ("8x512", [512, 497, 300, 505, 460, 489, 333, 512], 512)
+#: B7's products: 3xTF32 on the tensor cores, three TF32 products per
+#: multiply-add
+SSD_ROUTE = ("3xTF32 on the tensor cores: 3 TF32 products per multiply-add "
+             "at 495 TFLOP/s")
+
+
+def ssd_bound(x, Bm, Q: int):
+    """(bound_ms, bound_by, bytes, GFLOP) of one ssd_scan call on x
+    (B,T,H,P) and B (B,T,G,N): x, y, dt, A, B, C and the final state moved
+    once; C·B once per group over the causal pairs, scores·x, the state
+    update, and C·state in every chunk but a row's first (its entering
+    state is zero); each multiply-add three TF32 products (``SSD_ROUTE``)."""
     B, T, H, P = x.shape
     G, N = Bm.shape[2], Bm.shape[3]
     nc = T // Q
-    overflow = int(((dt * -A).reshape(B, nc, Q, H).sum(2)
-                    > math.log(torch.finfo(torch.float32).max)).sum())
-    t_kernel = time_ms(lambda: kmod.ssd_scan(*args, Q), flush,
-                       label="ssd_scan kernel")
-    t_plain = time_ms(lambda: ref.ssd_scan_ref(*args, Q), flush, iters=10,
-                      label="ssd_scan plain")
-    n_bytes = 4 * (2 * x.numel() + dt.numel() + A.numel() + Bm.numel()
-                   + Cm.numel() + B * H * P * N)   # x, y, dt, A, B, C, state
+    n_bytes = 4 * (2 * x.numel() + B * T * H + H + 2 * Bm.numel()
+                   + B * H * P * N)
     tri = Q * (Q + 1) // 2                          # causal (t, s) pairs
     macs = (B * nc * (G * tri * N                   # C.B per group
                       + H * (tri * P                # scores . x
                              + Q * N * P))          # state update
             + B * (nc - 1) * H * Q * N * P)         # C.state, zero at chunk 0
-    b_ms, b_by = bound(n_bytes, 2 * macs, F32_FLOP_PER_S)
-    log(f"ssd_scan: kernel {t_kernel:.4f} ms, plain {t_plain:.4f} ms, bound "
-        f"{b_ms:.4f} ms ({b_by}; {n_bytes / 1e6:.1f} MB, "
-        f"{2 * macs / 1e9:.2f} GFLOP); {overflow} of {B * nc * H} "
+    b_ms, b_by = bound(n_bytes, 3 * 2 * macs, TF32_FLOP_PER_S)
+    return b_ms, b_by, n_bytes, 2 * macs / 1e9
+
+
+def hold_ssd_scan(cfg, lengths, T: int, gen: torch.Generator,
+                  flush: torch.Tensor, label: str, G=None) -> dict:
+    """B7 on left-padded rows of ``lengths`` (T tokens each): held against
+    its plain version within ``SSD_TOL`` (finite), then timed beside it;
+    the entry of a ``shapes`` list."""
+    import math
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import ssd_scan as kmod
+    Q = cfg.ssm_chunk
+    args = ssd_inputs(cfg, lengths, T, gen, G=G)
+    err, rel = scan_error(kmod, ref, args, Q)
+    x, dt, A, Bm, _ = args
+    B, _, H, P = x.shape
+    G, N = Bm.shape[2], Bm.shape[3]
+    log(f"ssd_scan {label} G={G}: max |kernel - plain| = {err:.3e}, relative "
+        f"to max |plain| {rel:.3e} (tolerance {SSD_TOL})")
+    if not rel <= SSD_TOL:
+        raise SystemExit(f"ssd_scan ({label}, G={G}) disagrees with its "
+                         f"plain version")
+    nc = T // Q
+    overflow = int(((dt * -A).reshape(B, nc, Q, H).sum(2)
+                    > math.log(torch.finfo(torch.float32).max)).sum())
+    t_kernel = time_ms(lambda: kmod.ssd_scan(*args, Q), flush,
+                       label=f"ssd_scan {label}")
+    t_plain = time_ms(lambda: ref.ssd_scan_ref(*args, Q), flush, iters=10,
+                      label=f"ssd_scan plain {label}")
+    b_ms, b_by, n_bytes, gflop = ssd_bound(x, Bm, Q)
+    log(f"ssd_scan {label}: kernel {t_kernel:.4f} ms, plain {t_plain:.4f} "
+        f"ms, bound {b_ms:.4f} ms ({b_by}; {n_bytes / 1e6:.1f} MB, "
+        f"{gflop:.2f} GFLOP at 3xTF32); {overflow} of {B * nc * H} "
         f"(row, chunk, head) sums of dt*|A| pass ln(float32 max)")
+    return dict(label=label, ms=t_kernel, plain_ms=t_plain, bound_ms=b_ms,
+                bound_by=b_by, max_abs_err=err, max_rel_err=rel,
+                B=B, T=T, H=H, P=P, N=N, G=G, Q=Q, lengths=list(lengths),
+                valid_tokens=sum(lengths), gflop=gflop,
+                oracle_overflow_chunks=overflow)
+
+
+def check_ssd_scan(gen: torch.Generator, flush: torch.Tensor) -> dict:
+    """B7 at the Mamba-2 prefill's shapes: 8 left-padded rows of 512 tokens
+    (4 chunks of 128; 300 to 512 valid), mamba2-130m's 24 heads of P 64,
+    N 128, one group, float32; also with two groups.  Most of these chunks
+    sum dt·|A| past ln(float32 max), where the JAX oracle gives NaN (C2).
+    Phase 11 adds the Mamba-2 slice's own prefill stages to ``shapes``."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import ssd_scan as kmod
+    cfg = get_config("mamba2-130m")
+    label, lengths, T = SSD_SMOKE
+    args = ssd_inputs(cfg, lengths, T, gen, G=2)
+    err2, rel2 = scan_error(kmod, ref, args, cfg.ssm_chunk)
+    log(f"ssd_scan {label} G=2: max |kernel - plain| = {err2:.3e}, relative "
+        f"to max |plain| {rel2:.3e} (tolerance {SSD_TOL})")
+    if not rel2 <= SSD_TOL:
+        raise SystemExit("ssd_scan (G=2) disagrees with its plain version")
+    del args
+    entry = hold_ssd_scan(cfg, lengths, T, gen, flush, label)
     return dict(name="ssd_scan", route="cuda",
                 source="src/repro_torch/kernels/csrc/ssd_scan.cu",
                 replaces="src/repro/kernels/ssd_scan.py:89",
-                max_abs_err=err, max_rel_err=rel, ms=t_kernel,
-                kernel_ms=t_kernel, plain_ms=t_plain, bound_ms=b_ms,
-                bound_by=b_by, library_ms=None,
+                max_abs_err=max(err2, entry["max_abs_err"]),
+                max_rel_err=max(rel2, entry["max_rel_err"]),
+                ms=entry["ms"], kernel_ms=entry["ms"],
+                plain_ms=entry["plain_ms"], bound_ms=entry["bound_ms"],
+                bound_by=entry["bound_by"], bound_route=SSD_ROUTE,
+                library_ms=None,
                 library="none: no single PyTorch call computes the SSD scan",
-                shape=dict(B=B, T=T, H=H, P=P, N=N, G=G, Q=Q,
-                           valid_tokens=sum(lengths), gflop=2 * macs / 1e9,
-                           oracle_overflow_chunks=overflow))
+                shape=entry, shapes=[entry])
 
 
 # ---------------------------------------------------------------------------
@@ -1614,9 +1665,10 @@ def run_ils(scls: dict, steps: dict) -> dict:
     return launches_by_run
 
 
-def run_mamba_slice() -> dict:
+def run_mamba_slice(stages: list) -> dict:
     """Phase 9: the launcher's dense SCLS path serving full-width
-    mamba2-130m (24 layers, bf16, seeded random weights) on the same trace;
+    mamba2-130m (24 layers, bf16, seeded random weights) on the same trace,
+    each prefill stage's scan shape appended to ``stages`` (``StageRecorder``);
     then a full-width prefill of a 300-token prompt, whose two full chunks
     sum dt·|A| past ln(float32 max) in layer 0 (where the JAX oracle gives
     NaN, ROADMAP C2), must give finite logits.  Returns the summary."""
@@ -1632,13 +1684,18 @@ def run_mamba_slice() -> dict:
     t_build = time.perf_counter() - t0
     model, params = engines[0].model, engines[0].params
     cfg = model.cfg
-    summary = serve_trace("mamba_slice", core, engines,
-                          serve.make_trace(args, vocab), args.duration,
-                          dict(build_s=t_build))
+    with StageRecorder(cfg.n_layers) as rec:
+        summary = serve_trace("mamba_slice", core, engines,
+                              serve.make_trace(args, vocab), args.duration,
+                              dict(build_s=t_build))
     if summary["reprefill_tokens"] <= 0:
         raise SystemExit("mamba slice: nothing re-prefilled, but requests "
                          "of up to 256 tokens outlive slices of 64")
     check_launches("mamba slice", summary, SSM)
+    if len(rec.stages) != summary["prefill_stages"]:
+        raise SystemExit(f"mamba slice: {len(rec.stages)} scan stages "
+                         f"recorded, {summary['prefill_stages']} run")
+    stages.extend(rec.stages)
 
     rng = np.random.default_rng(7)
     T = 300
@@ -1739,6 +1796,81 @@ class StepRecorder:
         return dict(st, stats=stats)
 
 
+class StageRecorder:
+    """Inside ``with``, wraps ``kernels.ops.ssd_chunked_scan`` (the Mamba-2
+    prefill's scan, once per layer per stage) and keeps the shape of each
+    stage's first layer: rows B, tokens T (a multiple of the chunk) and
+    each row's valid tokens, counted where some head's dt is not 0 (the
+    mixer zeroes dt at pads; rows are left-padded, and a batch-bucket pad
+    row holds the one pad token the engine gives it)."""
+
+    def __init__(self, n_layers: int):
+        self.n_layers, self.calls, self.stages = n_layers, 0, []
+
+    def __enter__(self):
+        from repro_torch.kernels import ops
+        orig = self._orig = ops.ssd_chunked_scan
+
+        def recording(x, dt, A, B, C, chunk=128):
+            if self.calls % self.n_layers == 0:  # counted on the device
+                self.stages.append(dict(
+                    B=x.shape[0], T=x.shape[1], chunk=chunk,
+                    lengths=(dt != 0).any(-1).sum(1)))
+            self.calls += 1
+            return orig(x, dt, A, B, C, chunk)
+
+        ops.ssd_chunked_scan = recording
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.kernels import ops
+        ops.ssd_chunked_scan = self._orig
+        for st in self.stages:
+            st["lengths"] = st["lengths"].tolist()
+
+
+def timed_stages(stages: list) -> list:
+    """(label, stage, statistics) of the recorded stages phase 11 times:
+    the median stage by B x T (the upper median) and the largest, with the
+    run's statistics."""
+    if not stages:
+        raise SystemExit("no Mamba-2 prefill stage was recorded")
+    size = [st["B"] * st["T"] for st in stages]
+    order = sorted(range(len(stages)), key=size.__getitem__)
+    n = len(stages)
+    stats = dict(stages=n, mean_rows=sum(st["B"] for st in stages) / n,
+                 mean_tokens=sum(st["T"] for st in stages) / n,
+                 max_T=max(st["T"] for st in stages),
+                 mean_valid_tokens=sum(sum(st["lengths"])
+                                       for st in stages) / n)
+    out = []
+    for name, i in (("median", order[n // 2]), ("largest", order[-1])):
+        st = stages[i]
+        out.append((f"{name} stage {st['B']}x{st['T']}", st,
+                    dict(stats, stage=i, B_x_T=size[i])))
+    return out
+
+
+def check_ssd_stages(stages: list, row: dict) -> None:
+    """Phase 11: B7 at the Mamba-2 slice's own prefill stages (the median
+    by B x T and the largest), random float32 inputs with the stages' pads,
+    held against the plain version and timed as in phase 3; the entries
+    (with the run's statistics) join B7's ``shapes``."""
+    from repro_torch.configs import get_config
+    cfg = get_config("mamba2-130m")
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(3)
+    flush = torch.empty(128 * 2 ** 20, dtype=torch.uint8, device="cuda")
+    for label, st, stats in timed_stages(stages):
+        log(f"ssd_scan {label}: the engine's stage {stats}")
+        entry = hold_ssd_scan(cfg, st["lengths"], st["T"], gen, flush, label)
+        entry["engine_stage"] = stats
+        row["shapes"].append(entry)
+        row["max_abs_err"] = max(row["max_abs_err"], entry["max_abs_err"])
+        row["max_rel_err"] = max(row["max_rel_err"], entry["max_rel_err"])
+        release_cuda()
+
+
 #: (kernel, recorded run) of phase 10: each paged decode kernel at its own
 #: slice's typical step, and both at the paged ILS engine's (the fused
 #: kernel appending where the engine's write went)
@@ -1799,12 +1931,17 @@ def check_engine_steps(cfg, steps: dict, rows: dict) -> None:
         release_cuda()
 
 
-def save_steps(steps: dict, path: str) -> None:
-    """The recorded steps, on the host, for
-    ``scripts/compare_attention.py --steps``."""
-    torch.save({run: {k: (v.cpu() if torch.is_tensor(v) else v)
-                      for k, v in st.items()} for run, st in steps.items()},
-               path)
+def host_steps(steps: dict) -> dict:
+    """The recorded decode steps with their tensors on the host."""
+    return {run: {k: (v.cpu() if torch.is_tensor(v) else v)
+                  for k, v in st.items()} for run, st in steps.items()}
+
+
+def save_steps(steps: dict, stages: list, path: str) -> None:
+    """The recorded decode steps (on the host) and, under ``ssd_stages``,
+    the Mamba-2 prefill stages, for ``scripts/compare_attention.py
+    --steps``."""
+    torch.save(dict(steps, ssd_stages=stages), path)
 
 
 def release_cuda() -> None:
@@ -1911,12 +2048,17 @@ def main() -> int:
     release_cuda()
     ils = run_ils(scls, steps)
     release_cuda()
-    check_engine_steps(cfg, steps, {row["name"]: row for row in rows})
-    if save_to:
-        save_steps(steps, save_to)
-    del steps
+    by_name = {row["name"]: row for row in rows}
+    check_engine_steps(cfg, steps, by_name)
+    steps = host_steps(steps)
     release_cuda()
-    scls["mamba_slice"] = run_mamba_slice()
+    stages = []
+    scls["mamba_slice"] = run_mamba_slice(stages)
+    release_cuda()
+    check_ssd_stages(stages, by_name["ssd_scan"])
+    if save_to:
+        save_steps(steps, stages, save_to)
+    del steps
     release_cuda()
     # each kernel's launches on its own slice's main path, all paths beside
     by_path = {label: sm["launches"] for label, sm in scls.items()}

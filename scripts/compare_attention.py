@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
-"""Time the port's attention kernels of several source trees on one card,
-in turns, each beside PyTorch yardsticks.
+"""Time the port's attention kernels and its SSD scan of several source
+trees on one card, in turns, each beside PyTorch yardsticks.
 
-    python3 scripts/compare_attention.py [--kernels dense|paged|all]
+    python3 scripts/compare_attention.py [--kernels dense|paged|ssd|all]
                                          [--steps PATH] ROOT [ROOT ...]
 
 Each ROOT is a checkout (or an unpacked ``git archive``) of this
@@ -19,7 +19,10 @@ beforehand, fused_rope_decode_append beside torch RoPE + ``index_put_`` +
 that SDPA call and beside the unfused chain on ROOT's
 paged_decode_attention; both at ``PAGED_SMOKE`` over a pool of the
 slices' size, and with ``--steps`` at the engines' recorded decode steps
-``ENGINE_STEPS``, which ``chip_smoke.py --save-steps PATH`` writes).
+``ENGINE_STEPS``, which ``chip_smoke.py --save-steps PATH`` writes), and
+``ssd`` (ssd_scan at ``SSD_SMOKE``, and with ``--steps`` at the median
+and largest Mamba-2 prefill stages that the same file holds, beside the
+least time the card could take).
 
 The three kernels on the split-slot loop (decode_attention and the two
 paged ones) also run ``PROFILE_CALLS`` times per shape under
@@ -29,8 +32,13 @@ the call's first kernel (pass 1, or the whole kernel of a one-kernel
 tree), of its merge kernel where there is one (launched as a programmatic
 dependent, it starts while pass 1 runs, so its time includes that wait),
 and of the span from the first kernel's start to the last one's end, over
-the calls the trace holds.  Prints one JSON line per turn, then the
-card's name and power limit.
+the calls the trace holds.  ssd_scan's calls run the same way; the
+trace gives each of its kernels' mean device time (one kernel in a tree
+before the four-pass design, the passes ``ssd_cb_kernel``,
+``ssd_state_kernel``, ``ssd_pass_kernel`` and ``ssd_output_kernel``
+after it) and the span of a call.  Prints one JSON line per turn, then
+the card's name and power limit; exits 2 before any turn when a ROOT
+holds no ``src/repro_torch``.
 """
 from __future__ import annotations
 
@@ -46,12 +54,16 @@ PROFILE_CALLS = 20
 #: kernel names of the profiled wrappers, in either tree
 KERNEL_WORDS = ("split_kernel", "merge_kernel", "decode_attention",
                 "fused_rope_decode_append")
+#: ssd_scan's kernels: the one-block kernel before the four passes, then
+#: the passes in launch order (a call starts with the first or second)
+SSD_WORDS = ("ssd_scan_kernel", "ssd_cb_kernel", "ssd_state_kernel",
+             "ssd_pass_kernel", "ssd_output_kernel")
 
 
-def profile_calls(smoke, fn, flush) -> dict:
-    """Mean device µs of pass 1, of the merge (0 without one) and of the
-    span of one call of ``fn``, over the calls a ``torch.profiler`` trace
-    holds (``calls_traced`` of ``PROFILE_CALLS``)."""
+def traced_kernels(smoke, fn, flush, words) -> list:
+    """The device kernels whose names hold one of ``words``, in order of
+    start, from a ``torch.profiler`` trace of ``PROFILE_CALLS`` calls of
+    ``fn``, each after an L2 flush and 1 ms of device sleep."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     cycles = int(smoke.sleep_cycles_per_ms())   # 1 ms before each call
@@ -68,9 +80,37 @@ def profile_calls(smoke, fn, flush) -> dict:
         prof.export_chrome_trace(path)
         with open(path) as f:
             events = json.load(f)["traceEvents"]
-    kernels = sorted((e for e in events if e.get("cat") == "kernel"
-                      and any(w in e["name"] for w in KERNEL_WORDS)),
-                     key=lambda e: e["ts"])
+    return sorted((e for e in events if e.get("cat") == "kernel"
+                   and any(w in e["name"] for w in words)),
+                  key=lambda e: e["ts"])
+
+
+def profile_passes(smoke, fn, flush) -> dict:
+    """ssd_scan's kernels by name (``SSD_WORDS``): mean device µs of each,
+    and of the span from a call's first kernel's start to its last one's
+    end, over the calls the trace holds."""
+    kernels = traced_kernels(smoke, fn, flush, SSD_WORDS)
+    calls = []
+    for e in kernels:
+        word = next(w for w in SSD_WORDS if w in e["name"])
+        if word in SSD_WORDS[:2] or not calls:
+            calls.append({"start": e["ts"], "end": 0.0})
+        calls[-1][word] = calls[-1].get(word, 0.0) + e["dur"]
+        calls[-1]["end"] = max(calls[-1]["end"], e["ts"] + e["dur"])
+    if not calls:
+        raise SystemExit("profile: no ssd_scan kernel in the trace")
+    n = len(calls)
+    out = {f"{w}_us": sum(c.get(w, 0.0) for c in calls) / n
+           for w in SSD_WORDS if any(w in c for c in calls)}
+    return dict(out, span_us=sum(c["end"] - c["start"] for c in calls) / n,
+                calls_traced=n)
+
+
+def profile_calls(smoke, fn, flush) -> dict:
+    """Mean device µs of pass 1, of the merge (0 without one) and of the
+    span of one call of ``fn``, over the calls a ``torch.profiler`` trace
+    holds (``calls_traced`` of ``PROFILE_CALLS``)."""
+    kernels = traced_kernels(smoke, fn, flush, KERNEL_WORDS)
     calls, merge = [], []
     for e in kernels:
         if "merge_kernel" in e["name"] and calls:
@@ -153,6 +193,31 @@ def paged_turn(smoke, cfg, gen, flush, steps_path) -> dict:
     return out
 
 
+def ssd_turn(smoke, gen, flush, steps_path) -> dict:
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ssd_scan as kmod
+    cfg = get_config("mamba2-130m")
+    Q = cfg.ssm_chunk
+    cases = [smoke.SSD_SMOKE]
+    if steps_path:
+        stages = torch.load(steps_path)["ssd_stages"]
+        cases += [(label, st["lengths"], st["T"])
+                  for label, st, _ in smoke.timed_stages(stages)]
+    out = {}
+    for label, lengths, T in cases:
+        args = smoke.ssd_inputs(cfg, lengths, T, gen)
+
+        def fn():
+            kmod.ssd_scan(*args, Q)
+
+        t = smoke.time_ms(fn, flush, label=f"ssd_scan {label}")
+        b_ms, b_by, _, _ = smoke.ssd_bound(args[0], args[3], Q)
+        out[label] = dict(ms=t, bound_ms=b_ms, bound_by=b_by,
+                          profile=profile_passes(smoke, fn, flush))
+    return {"ssd_scan": out}
+
+
 def one_turn(root: str, kernels: str, steps_path) -> dict:
     import torch
     sys.path.insert(0, os.path.join(root, "src"))
@@ -170,15 +235,18 @@ def one_turn(root: str, kernels: str, steps_path) -> dict:
         out.update(dense_turn(smoke, cfg, gen, flush))
     if kernels in ("paged", "all"):
         out.update(paged_turn(smoke, cfg, gen, flush, steps_path))
+    if kernels in ("ssd", "all"):
+        out.update(ssd_turn(smoke, gen, flush, steps_path))
     return out
 
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--kernels", choices=("dense", "paged", "all"),
+    ap.add_argument("--kernels", choices=("dense", "paged", "ssd", "all"),
                     default="all")
     ap.add_argument("--steps", default=None,
-                    help="decode steps from chip_smoke.py --save-steps")
+                    help="decode steps and Mamba-2 prefill stages from "
+                         "chip_smoke.py --save-steps")
     ap.add_argument("--turn", action="store_true", help=argparse.SUPPRESS)
     ap.add_argument("roots", nargs="+")
     a = ap.parse_args()
@@ -186,6 +254,12 @@ def main() -> int:
     if a.turn:
         print(json.dumps(one_turn(a.roots[0], a.kernels, steps)), flush=True)
         return 0
+    missing = [r for r in a.roots if not os.path.isfile(
+        os.path.join(r, "src", "repro_torch", "kernels", "build.py"))]
+    if missing:
+        print(f"compare_attention: no src/repro_torch under {missing}",
+              file=sys.stderr)
+        return 2
     for root in a.roots:
         cmd = [sys.executable, os.path.abspath(__file__), "--turn",
                "--kernels", a.kernels, os.path.abspath(root)]
@@ -194,6 +268,8 @@ def main() -> int:
         proc = subprocess.run(cmd, capture_output=True, text=True)
         sys.stderr.write(proc.stdout + proc.stderr)
         if proc.returncode:
+            print(f"compare_attention: the turn of {root} exited "
+                  f"{proc.returncode}", file=sys.stderr)
             return proc.returncode
         print(proc.stdout.strip().splitlines()[-1], flush=True)
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",

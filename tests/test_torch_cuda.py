@@ -517,6 +517,14 @@ def _ssd_inputs(B, T, H, P, N, G, device, seed=5, dt_value=None,
     (2, 256, 24, 64, 128, 2, 128, [256, 200], None),    # two groups
     (1, 128, 2, 8, 8, 1, 64, None, 1.5),                # C2: oracle NaN
     (2, 24, 3, 8, 4, 1, 8, None, None),                 # small, odd heads
+    (2, 128, 24, 64, 128, 1, 128, [128, 77], None),     # one chunk
+    (1, 1408, 24, 64, 128, 1, 128, [1391], None),       # 11 chunks, 1 row
+    (2, 256, 4, 64, 128, 4, 128, [256, 130], None),     # G = H
+    (2, 256, 24, 64, 128, 1, 128, [256, 0], None),      # a row all pad
+    (2, 512, 24, 64, 128, 1, 128, [279, 418], None),    # a recorded stage
+    (2, 1024, 24, 64, 128, 1, 128, None, 1.5),          # C2 in every chunk
+    (1, 504, 6, 12, 20, 3, 36, [500], 1.5),             # C2, ragged tiles
+    (1, 768, 2, 136, 132, 2, 256, [700], None),         # 2 row tiles, 3 P
 ])
 def test_ssd_scan_matches_plain(cuda_device, B, T, H, P, N, G, Q, lengths,
                                 dt_value):
@@ -533,6 +541,13 @@ def test_ssd_scan_matches_plain(cuda_device, B, T, H, P, N, G, Q, lengths,
         assert err <= SSD_TOL, err
 
 
+def test_ssd_scan_plan_holds_the_kernels_shared_memory(cuda_device):
+    """The wrapper's plan reckons each pass's shared memory as the built
+    kernel does, at chunks that fill the tiles and at ones that do not."""
+    for Q in (8, 36, 128, 256, 1000):
+        assert ssd_kernel.kernel_smem_bytes(Q) == ssd_kernel.smem_bytes(Q)
+
+
 def test_ssd_scan_refuses_what_it_does_not_take(cuda_device):
     args = _ssd_inputs(1, 32, 4, 8, 8, 2, cuda_device)
     with pytest.raises(TypeError, match="float32"):
@@ -547,6 +562,12 @@ def test_ssd_scan_refuses_what_it_does_not_take(cuda_device):
         ssd_kernel.ssd_scan(x_t, *args[1:], 8)
     with pytest.raises(ValueError, match="CUDA"):
         ssd_kernel.ssd_scan(*[a.cpu() for a in args], 8)
+    flat = torch.empty(args[0].numel() + 1, device=cuda_device)
+    x_off = flat[1:].view(args[0].shape).copy_(args[0])  # 4 bytes off
+    ssd_kernel.reset_launches()
+    with pytest.raises(ValueError, match="aligned"):
+        ssd_kernel.ssd_scan(x_off, *args[1:], 8)
+    assert ssd_kernel.launches == 0
 
 
 def test_ssd_scan_launches_nothing_for_an_empty_batch(cuda_device):

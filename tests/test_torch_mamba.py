@@ -107,6 +107,152 @@ def test_c2_oracle_overflows_where_the_port_follows_the_pallas_kernel():
     np.testing.assert_allclose(st.numpy(), np.asarray(sp), **SCAN_TOL)
 
 
+def _four_passes(x, dt, A, Bm, Cm, Q):
+    """A test-only statement, in numpy float32, of the four passes of
+    ``csrc/ssd_scan.cu``: (1) CB = C·Bᵀ once per (row, chunk, group); (2)
+    per (row, chunk, head) cum, e^{cum_last} and S_loc = Σ_s e^{cum_last −
+    cum_s} dt_s x_s ⊗ B_s; (3) per (row, head) the entering states S_in[c]
+    = e^{cum_last[c−1]} S_in[c−1] + S_loc[c−1]; (4) y = e^{cum_t} C_t·S_in
+    + Σ_{s≤t} CB[t,s] e^{cum_t − cum_s} dt_s x_s, masked before anything
+    reaches y.  Every exponent is clamped at 0, as the kernel clamps the
+    scan's rounding; none is positive, so numpy's overflow check, raised
+    to an error here, never fires."""
+    Bsz, T, H, P = x.shape
+    G, N = Bm.shape[2], Bm.shape[3]
+    nc, rep = T // Q, H // G
+    xc = x.reshape(Bsz, nc, Q, H, P)
+    dtc = dt.reshape(Bsz, nc, Q, H)
+    Bc = Bm.reshape(Bsz, nc, Q, G, N)
+    Cc = Cm.reshape(Bsz, nc, Q, G, N)
+    with np.errstate(over="raise", invalid="raise"):
+        CB = np.einsum("bctgn,bcsgn->bcgts", Cc, Bc)              # pass 1
+        cum = np.cumsum(dtc * A, axis=2)                          # pass 2
+        w = np.exp(np.minimum(cum[:, :, -1:] - cum, 0)) * dtc
+        decay = np.exp(cum[:, :, -1])                             # (B,nc,H)
+        S_loc = np.einsum("bcsh,bcshp,bcshn->bchpn", w, xc,
+                          np.repeat(Bc, rep, axis=3))
+        S_in = np.zeros_like(S_loc)                               # pass 3
+        state = np.zeros((Bsz, H, P, N), np.float32)
+        for c in range(nc):
+            S_in[:, c] = state
+            state = decay[:, c, :, None, None] * state + S_loc[:, c]
+        causal = np.tril(np.ones((Q, Q), bool))                   # pass 4
+        diff = cum[:, :, :, None, :] - cum[:, :, None, :, :]      # (t, s)
+        M = np.where(causal[None, None, :, :, None],
+                     np.repeat(CB, rep, axis=2).transpose(0, 1, 3, 4, 2)
+                     * np.exp(np.minimum(diff, 0)) * dtc[:, :, None], 0)
+        y = (np.einsum("bcthn,bchpn->bcthp", np.repeat(Cc, rep, axis=3),
+                       S_in) * np.exp(cum)[..., None]
+             + np.einsum("bctsh,bcshp->bcthp", M, xc))
+    return y.reshape(Bsz, T, H, P).astype(np.float32), state
+
+
+@pytest.mark.parametrize("B,T,H,P,N,G,Q,dt_value", [
+    (2, 24, 3, 8, 4, 1, 8, None),
+    (2, 32, 4, 8, 4, 2, 8, None),
+    (2, 48, 4, 8, 8, 2, 8, None),       # six chunks, two groups
+    (1, 256, 2, 8, 8, 1, 64, 1.5),      # C2 in each of the four chunks
+    (2, 192, 4, 4, 8, 2, 64, 1.5),      # C2, two rows and two groups
+])
+def test_four_pass_decomposition_matches_the_pallas_kernel(B, T, H, P, N, G,
+                                                           Q, dt_value):
+    """The kernel's algorithm before any chip time: the four passes give
+    the Pallas kernel's y and final state (interpret mode) within
+    ``SCAN_TOL``, finite also where every chunk's Σ dt·|A| passes 88.7 and
+    the JAX oracle is NaN (ROADMAP C2).  Random dt takes chunks of 8: at
+    chunks of 64 the cumulative sums reach |cum| ~ 57, whose float32
+    rounding puts the port's plain version, the Pallas kernel and this
+    statement each ~5e-5 from a float64 evaluation of y (|y| ~ 36); the
+    C2 cases' constant dt sums exactly."""
+    from repro.kernels.ref import ssd_scan_ref as jax_oracle
+    from repro.kernels.ssd_scan import ssd_scan as pallas_scan
+    x, dt, A, Bm, Cm = _scan_inputs(B, T, H, P, N, G, seed=4,
+                                    dt_value=dt_value)
+    if dt_value is not None:
+        A = -np.ones(H, np.float32)
+        yj, _ = jax_oracle(*map(jnp.asarray, (x, dt, A, Bm, Cm)), Q)
+        assert np.isnan(np.asarray(yj)).any()
+        assert ((dt * -A).reshape(B, T // Q, Q, H).sum(2) > 88.8).all()
+    y, state = _four_passes(x, dt, A, Bm, Cm, Q)
+    assert np.isfinite(y).all() and np.isfinite(state).all()
+    Bh, Ch = (np.repeat(m, H // G, axis=2) for m in (Bm, Cm))
+    yp, sp = pallas_scan(*map(jnp.asarray, (x, dt, A, Bh, Ch)), Q,
+                         interpret=True)
+    np.testing.assert_allclose(y, np.asarray(yp), **SCAN_TOL)
+    np.testing.assert_allclose(state, np.asarray(sp), **SCAN_TOL)
+
+
+@pytest.mark.parametrize("B,T,H,P,N,G,Q", [
+    (8, 512, 24, 64, 128, 1, 128),      # chip_smoke.py's B7 shape
+    (1, 1024, 24, 64, 128, 1, 128),     # one row of eight chunks
+    (2, 640, 24, 64, 128, 1, 128),
+    (1, 1408, 24, 64, 128, 1, 128),     # a re-prefill of eleven chunks
+    (2, 24, 3, 8, 4, 1, 8),             # the reduced shapes' scale
+    (1, 504, 6, 12, 20, 3, 36),         # no tile filled
+    (1, 768, 2, 136, 132, 2, 256),      # two row tiles, three P tiles
+])
+def test_ssd_kernel_plan(B, T, H, P, N, G, Q):
+    """The wrapper's host-side plan: scratch of the passes' shapes, grids
+    that cover every (row, chunk, group) tile of the lower triangle and
+    every (row, chunk, head) tile, and at mamba2-130m's widths at least
+    two blocks of each pass per SM, with 192 (row, chunk, head) blocks in
+    passes 2 and 4 at one row of 1,024 tokens."""
+    from repro_torch.kernels import ssd_scan as kmod
+    pl = kmod.plan(B, T, H, P, N, G, Q)
+    nc = T // Q
+    assert pl["nc"] == nc
+    assert pl["scratch"] == {"cb": (B, nc, G, Q, Q),
+                             "state": (B, nc, H, P, N),
+                             "cum": (B, nc, H, Q), "decay": (B, nc, H)}
+    nt = -(-Q // kmod.CB_TILE)
+    tiles_y = {"cb": nt * (nt + 1) // 2,
+               "state": -(-P // 64) * -(-N // 128),
+               "pass": -(-P * N // (4 * kmod.PASS_THREADS)),
+               "output": -(-Q // 128) * -(-P // 64)}
+    tiles_x = {"cb": B * nc * G, "state": B * nc * H, "pass": B * H,
+               "output": B * nc * H}
+    assert pl["grids"] == {k: (tiles_x[k], tiles_y[k]) for k in tiles_x}
+    assert pl["smem"]["pass"] == 0
+    assert max(pl["smem"].values()) <= kmod.MAX_SMEM
+    if (P, N, Q) == (64, 128, 128):
+        assert all(2 * v <= kmod.MAX_SMEM for v in pl["smem"].values())
+        assert pl["grids"]["state"][1] == pl["grids"]["output"][1] == 1
+        if (B, T) == (1, 1024):
+            assert pl["grids"]["state"][0] == pl["grids"]["output"][0] \
+                == 192
+
+
+@pytest.mark.parametrize("shape,match", [
+    ((1, 32, 4, 8, 8, 1, 12), "multiple of the chunk"),
+    ((1, 32, 4, 8, 8, 3, 8), "of G"),
+    ((1, 30, 4, 8, 8, 1, 6), "multiples of 4"),
+    ((1, 32, 4, 6, 8, 1, 8), "multiples of 4"),
+    ((1, 32, 4, 8, 6, 1, 8), "multiples of 4"),
+    ((1, 32768, 1, 4, 4, 1, 32768), "shared memory"),
+    ((1, 8, 1, 8192, 8192, 1, 8), "blocks in y"),
+])
+def test_ssd_kernel_plan_refuses_what_the_kernel_does_not_take(shape, match):
+    from repro_torch.kernels import ssd_scan as kmod
+    with pytest.raises(ValueError, match=match):
+        kmod.plan(*shape)
+
+
+def test_ssd_kernel_plan_takes_every_shape_the_one_block_kernel_took():
+    """The kernel it replaces held x, B, C, the state and a score tile of a
+    (row, head) in one block's shared memory; every chunk, P and N that
+    fitted there fits the passes' tiles."""
+    from repro_torch.kernels import ssd_scan as kmod
+    for Q in range(4, 1025, 4):
+        for P, N in ((4, 4), (64, 128), (128, 128)):
+            R = min(Q, 32)
+            while Q % R:
+                R -= 4
+            old = 4 * (Q * P + 2 * Q * (N + 1) + P * (N + 1)
+                       + R * (Q + 1) + 4 * Q)
+            if old <= kmod.MAX_SMEM:
+                kmod.plan(1, Q, 2, P, N, 1, Q)
+
+
 def test_ssd_ops_takes_the_plain_version_on_cpu_and_counts_it():
     from repro_torch.kernels import ops, ref
     arrays = _torch(_scan_inputs(2, 16, 4, 8, 4, 2))

@@ -90,3 +90,56 @@ def test_paged_shape_counts_distinct_live_pool_rows(smoke):
     assert fused["n_valid_tokens"] == 9 + 4
     assert smoke.appended_rows(bt, slots, pg).tolist() == [2 * pg + 3,
                                                            3 * pg + 4, 0, 0]
+
+
+def test_stage_recorder_keeps_each_mamba_prefill_stage(smoke):
+    """One record per prefill stage of the reduced float32 mamba2-130m's
+    dense engine (the first layer's scan): rows, chunk-padded tokens and
+    each row's valid tokens, the prompt's own length on the first slice
+    and prompt + generated on the re-prefill, batch-bucket pad rows the
+    one pad token the engine gives them; the
+    ops' scan restored on exit.  ``timed_stages`` picks the upper median by
+    rows x tokens and the largest."""
+    from repro_torch.configs import get_config
+    from repro_torch.engine.static_engine import StaticEngine
+    from repro_torch.kernels import ops
+    from repro_torch.models.registry import get_model
+    model = get_model(get_config("mamba2-130m", reduced=True))
+    params = model.init(0, device="cpu")
+    engine = StaticEngine(model, params, device="cpu", eos_id=1,
+                          len_bucket=8)
+    rng = np.random.default_rng(3)
+    lens = [5, 23, 9]
+    ps = [rng.integers(2, model.cfg.vocab_size, size=n).astype(np.int32)
+          for n in lens]
+    orig = ops.ssd_chunked_scan
+    engine.n_prefill_stages = 0
+    with smoke.StageRecorder(model.cfg.n_layers) as rec:
+        assert ops.ssd_chunked_scan is not orig
+        first = engine.serve_batch(ps, 4, forced_gen_lens=[6, 6, 6])
+        gen = [r["tokens"] for r in first.results]
+        engine.serve_batch(ps[:2], 4, forced_gen_lens=[2, 2],
+                           already_generated=gen[:2])
+    assert ops.ssd_chunked_scan is orig
+    assert rec.calls == model.cfg.n_layers * engine.n_prefill_stages
+    assert len(rec.stages) == engine.n_prefill_stages == 2
+    Q = model.cfg.ssm_chunk
+    for st in rec.stages:
+        assert st["T"] % Q == 0 and st["chunk"] == Q
+        assert len(st["lengths"]) == st["B"]
+        assert all(isinstance(n, int) for n in st["lengths"])
+    a, b = rec.stages
+    assert a["B"] == 4 and b["B"] == 2
+    assert sorted(a["lengths"]) == sorted(lens + [1])
+    assert sorted(b["lengths"]) == sorted(
+        n + len(g) for n, g in zip(lens[:2], gen[:2]))
+    picked = smoke.timed_stages(rec.stages + [dict(B=1, T=Q, lengths=[3])])
+    sizes = sorted(st["B"] * st["T"] for st in rec.stages) + [Q]
+    (m_label, m_st, m_stats), (l_label, l_st, _) = picked
+    assert m_st["B"] * m_st["T"] == sorted(sizes)[len(sizes) // 2]
+    assert l_st["B"] * l_st["T"] == max(sizes)
+    assert m_label.startswith("median stage") and l_label.startswith(
+        "largest stage")
+    assert m_stats["stages"] == 3
+    with pytest.raises(SystemExit):
+        smoke.timed_stages([])
