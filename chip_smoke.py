@@ -3,9 +3,10 @@
 
     python3 chip_smoke.py [--save-steps PATH]
 
-``--save-steps`` also writes the decode steps that phase 10 recorded and
-the Mamba-2 prefill stages that phase 9 recorded to PATH (``torch.save``),
-for ``scripts/compare_attention.py --steps PATH``.
+``--save-steps`` also writes the decode steps that phase 10 recorded, the
+Mamba-2 prefill stages that phase 9 recorded and the paged prefill stages
+that phase 12 recorded to PATH (``torch.save``), for
+``scripts/compare_attention.py --steps PATH``.
 
 Phases, each of which ends the script with a non-zero exit code when it
 fails (nothing is caught):
@@ -22,7 +23,8 @@ fails (nothing is caught):
    dense slices' 2 x 1344 and 16 x 1280; ssd_scan at
    mamba2-130m's prefill: 8 left-padded rows of 512 tokens, 24 heads of
    P 64, N 128, chunks of 128, float32, one group and two; phase 11 adds
-   the Mamba-2 slice's own stages) and is held against its plain
+   the Mamba-2 slice's own stages, phase 12 the paged slices' own prefill
+   stages to the writes') and is held against its plain
    PyTorch version on the same inputs, then timed beside that plain
    version, PyTorch yardsticks computing the same function, and the least
    time the card could take (the decode kernels and flash_prefill also at
@@ -88,7 +90,16 @@ fails (nothing is caught):
 11. Mamba-2 stages (run after phase 9): ssd_scan at the recorded stage
    that is the run's median by rows x tokens and at its largest, random
    float32 inputs with the stages' pads, held against its plain version
-   and timed as in phase 3 (``shapes`` entries with the run's statistics).
+   and timed as in phase 3 (``shapes`` entries with the run's statistics);
+12. prefill stages (run after phase 11): while phases 5 and 6 served, the
+   index inputs of each prefill stage's write (positions, block table,
+   stage-A' tails included) were recorded (``PrefillRecorder``);
+   paged_prefill_write at the unfused slice's median stage (by valid
+   tokens) and its largest, and fused_rope_prefill_write at the fused
+   slice's, each over random pools of the engine's size and random K/V,
+   are held against their plain versions and timed as in phase 3, beside
+   an empty launch timed the same way (``shapes`` entries with the run's
+   statistics).
 
 The last line of standard output is ``{"ok": true, "device": {...}}``; the
 line before it is the ``nvidia-smi`` reading and the one before that the
@@ -415,149 +426,161 @@ def check_decode(cfg, n_pages: int, pg: int, gen: torch.Generator,
                 "window", shape=shape, shapes=[own])
 
 
-def check_write(cfg, n_pages: int, pg: int, gen: torch.Generator,
-                flush: torch.Tensor) -> dict:
-    from repro_torch.kernels import paged_prefill_write as kmod
-    from repro_torch.kernels import ref
-    from repro_torch.models.transformer import make_positions
-    dev = torch.device("cuda")
-    B, T, Hkv, D = 8, 512, cfg.n_kv_heads, cfg.head_dim
-    # a stage-A prefill batch: left-padded rows of their own lengths; the
-    # last row is a stage-A' tail whose positions start past a 2-page
-    # shared prefix (its slots below 32 must stay untouched)
-    lengths = torch.tensor([512, 497, 480, 505, 460, 489, 300, 544],
-                           device=dev)
-    start = torch.tensor([0] * 7 + [2 * pg], device=dev)
-    tokens = torch.zeros((B, T), dtype=torch.int32, device=dev)
-    base = make_positions(tokens, lengths - start)
-    positions = torch.where(base >= 0, base + start[:, None],
+#: (label, each row's valid tokens, each row's first position, T) of the
+#: write kernels' phase-3 shape: a stage-A prefill batch of left-padded
+#: rows of their own lengths, the last a stage-A' tail whose positions
+#: start past a 2-page shared prefix (its slots below 32 stay untouched).
+#: Both kernels are also timed at the prefill stages that the slices
+#: themselves ran (``PrefillRecorder``, phase 12).
+WRITE_SMOKE = ("8x512", (512, 497, 480, 505, 460, 489, 300, 512),
+               (0,) * 7 + (32,), 512)
+
+
+def smoke_write_indices(n_pages: int, pg: int, gen: torch.Generator,
+                        device: str = "cuda"):
+    """(positions, block_table) of ``WRITE_SMOKE``: left-padded rows at
+    their first positions, each row's pages drawn at random from a pool of
+    ``n_pages`` (page 0 the null page)."""
+    _, lengths, starts, T = WRITE_SMOKE
+    dev = torch.device(device)
+    idx = torch.arange(T, device=dev)[None]
+    n = torch.tensor(lengths, device=dev)[:, None]
+    start = torch.tensor(starts, device=dev)[:, None]
+    positions = torch.where(idx >= T - n, idx - (T - n) + start,
                             -1).to(torch.int32)
-    nb = -(-int(lengths.max()) // pg)
-    shape = (n_pages + 1, pg, Hkv, D)
-    k_pool = torch.randn(shape, generator=gen, device=dev).to(cfg.dtype)
-    v_pool = torch.randn(shape, generator=gen, device=dev).to(cfg.dtype)
+    nb = -(-int((n + start).max()) // pg)
     perm = torch.randperm(n_pages, generator=gen, device=dev) + 1
-    bt = perm[:B * nb].reshape(B, nb).to(torch.int32).contiguous()
-    k_new = torch.randn((B, T, Hkv, D), generator=gen, device=dev).to(cfg.dtype)
-    v_new = torch.randn((B, T, Hkv, D), generator=gen, device=dev).to(cfg.dtype)
+    bt = perm[:len(lengths) * nb].reshape(len(lengths), nb)
+    return positions, bt.to(torch.int32).contiguous()
 
-    k_a, v_a = k_pool.clone(), v_pool.clone()
-    kmod.paged_prefill_write(k_new, v_new, positions, bt, k_a, v_a)
-    k_b, v_b = k_pool.clone(), v_pool.clone()
-    ref.paged_prefill_write_ref(k_new, v_new, positions, bt, k_b, v_b)
-    torch.cuda.synchronize()
-    err = max((k_a.float() - k_b.float()).abs().max().item(),
-              (v_a.float() - v_b.float()).abs().max().item())
-    exact = torch.equal(k_a, k_b) and torch.equal(v_a, v_b)
-    log(f"paged_prefill_write: pools bit-identical to the plain version: "
-        f"{exact} (max |diff| {err:.3e}, tolerance: exact)")
-    if not exact:
-        raise SystemExit("paged_prefill_write disagrees with its plain "
-                         "version")
-    del k_b, v_b
 
-    valid = positions >= 0
-    slot = positions.clamp(min=0).long()
-    page = torch.gather(bt.long(), 1, slot // pg)[valid]
-    off = (slot % pg)[valid]
-    k_valid, v_valid = k_new[valid], v_new[valid]
-
-    def library():
-        k_a.index_put_((page, off), k_valid)
-        v_a.index_put_((page, off), v_valid)
-
-    t_kernel = time_ms(lambda: kmod.paged_prefill_write(
-        k_new, v_new, positions, bt, k_a, v_a), flush,
-                       label="paged_prefill_write kernel")
-    t_plain = time_ms(lambda: ref.paged_prefill_write_ref(
-        k_new, v_new, positions, bt, k_a, v_a), flush,
-                      label="paged_prefill_write plain")
-    t_lib = time_ms(library, flush,
-                    label="paged_prefill_write index_put_")
-    n_valid = int(valid.sum())
-    row = Hkv * D * k_new.element_size()
-    n_bytes = (2 * 2 * n_valid * row                # K and V rows in and out
-               + positions.numel() * 4 + n_valid * 4)   # positions, pages
-    b_ms, b_by = bound(n_bytes, 0.0)
-    log(f"paged_prefill_write: kernel {t_kernel:.4f} ms, plain "
-        f"{t_plain:.4f} ms, library {t_lib:.4f} ms, bound {b_ms:.4f} ms")
-    return dict(name="paged_prefill_write", route="cuda",
-                source="src/repro_torch/kernels/csrc/paged_prefill_write.cu",
-                replaces="src/repro/kernels/paged_prefill_write.py:85",
-                max_abs_err=err, ms=t_kernel, kernel_ms=t_kernel,
-                plain_ms=t_plain, bound_ms=b_ms, bound_by=b_by,
-                library_ms=t_lib, library="index_put_ of the valid K and "
-                "V rows at precomputed (page, offset) indices",
-                shape=dict(B=B, T=T, Hkv=Hkv, D=D, pg=pg, nb=nb,
-                           n_valid_tokens=n_valid, pool_pages=n_pages + 1))
+def write_targets(positions: torch.Tensor, bt: torch.Tensor, pg: int):
+    """The pool row (page * pg + offset) that each valid token names, in
+    the order of ``positions[positions >= 0]``."""
+    slot = positions.clamp(min=0).long().clamp(max=bt.shape[1] * pg - 1)
+    page = torch.gather(bt.long(), 1, slot // pg)
+    return (page * pg + slot % pg)[positions >= 0]
 
 
 def written_slots(positions: torch.Tensor, bt: torch.Tensor, pg: int,
-                  n_pool: int) -> torch.Tensor:
-    """(P, pg) mask of the pool slots that the valid tokens name."""
-    valid = positions >= 0
-    slot = positions.clamp(min=0).long()
-    page = torch.gather(bt.long(), 1, slot // pg)[valid]
-    mask = torch.zeros((n_pool, pg), dtype=torch.bool, device=bt.device)
-    mask[page, (slot % pg)[valid]] = True
-    return mask
+                  n_pool: int, times: int = 1) -> torch.Tensor:
+    """(P, pg) mask of the pool slots that exactly ``times`` valid tokens
+    name (``times`` 0: at least one)."""
+    count = torch.bincount(write_targets(positions, bt, pg),
+                           minlength=n_pool * pg).reshape(n_pool, pg)
+    return count > 0 if times == 0 else count == times
 
 
-def check_fused_write(cfg, n_pages: int, pg: int, gen: torch.Generator,
-                      flush: torch.Tensor) -> dict:
-    from repro_torch.kernels import fused_rope_prefill_write as kmod
-    from repro_torch.kernels import paged_prefill_write as unfused_kmod
+def write_bound(positions: torch.Tensor, Hkv: int, D: int, elt: int,
+                fused: bool):
+    """(bound_ms, bound_by, valid tokens) of one prefill write: each valid
+    token's K and V rows read and written once, the positions, one page
+    index per valid token (and for the fused write the inverse frequencies
+    and the rotation's 3 float32 operations per K value)."""
+    n_valid = int((positions >= 0).sum())
+    n_bytes = (2 * 2 * n_valid * Hkv * D * elt
+               + positions.numel() * 4 + n_valid * 4)
+    if not fused:
+        return (*bound(n_bytes, 0.0), n_valid)
+    return (*bound(n_bytes + D // 2 * 4, 3 * n_valid * Hkv * D,
+                   F32_FLOP_PER_S), n_valid)
+
+
+def empty_launch_ms(flush: torch.Tensor) -> float:
+    """An empty kernel (a device sleep of 0 cycles) timed by ``time_ms``:
+    the fixed cost of one launch under the method that times the
+    kernels."""
+    return time_ms(lambda: torch.cuda._sleep(0), flush,
+                   label="empty launch")
+
+
+def hold_write(kmods, cfg, pools, positions: torch.Tensor,
+               bt: torch.Tensor, gen: torch.Generator, flush: torch.Tensor,
+               label: str, fused: bool) -> dict:
+    """One prefill write at (positions, block_table) over random pools,
+    random K/V (B, T, Hkv, D) of the model's type: held against its plain
+    version (on every slot one token names, paged_prefill_write
+    bit-identical, fused_rope_prefill_write V bit-identical and K within
+    ``MAX_ULPS``; a slot several tokens name holds one writer's V value in
+    every place; every other slot untouched), then timed as in phase 3
+    beside the plain version,
+    its yardsticks (``index_put_`` of the valid rows at precomputed
+    indices; for the fused write torch RoPE + that ``index_put_``, and the
+    unfused chain) and its bound.  ``kmods`` are the write kernels'
+    modules (paged_prefill_write, fused_rope_prefill_write).  Returns the
+    entry."""
     from repro_torch.kernels import ref
     from repro_torch.models.common import apply_rope
-    from repro_torch.models.transformer import make_positions
-    dev = torch.device("cuda")
-    B, T, Hkv, D = 8, 512, cfg.n_kv_heads, cfg.head_dim
-    theta = cfg.rope_theta
-    # check_write's stage-A batch: left-padded rows, the last a stage-A'
-    # tail past a 2-page shared prefix (its slots below 32 untouched)
-    lengths = torch.tensor([512, 497, 480, 505, 460, 489, 300, 544],
-                           device=dev)
-    start = torch.tensor([0] * 7 + [2 * pg], device=dev)
-    tokens = torch.zeros((B, T), dtype=torch.int32, device=dev)
-    base = make_positions(tokens, lengths - start)
-    positions = torch.where(base >= 0, base + start[:, None],
-                            -1).to(torch.int32)
-    nb = -(-int(lengths.max()) // pg)
-    shape = (n_pages + 1, pg, Hkv, D)
-    k_pool = torch.randn(shape, generator=gen, device=dev).to(cfg.dtype)
-    v_pool = torch.randn(shape, generator=gen, device=dev).to(cfg.dtype)
-    perm = torch.randperm(n_pages, generator=gen, device=dev) + 1
-    bt = perm[:B * nb].reshape(B, nb).to(torch.int32).contiguous()
-    k_new = torch.randn((B, T, Hkv, D), generator=gen, device=dev).to(cfg.dtype)
-    v_new = torch.randn((B, T, Hkv, D), generator=gen, device=dev).to(cfg.dtype)
+    unfused_kmod, fused_kmod = kmods
+    k_pool, v_pool = pools
+    B, T = positions.shape
+    Hkv, D, theta = cfg.n_kv_heads, cfg.head_dim, cfg.rope_theta
+    P, pg = k_pool.shape[:2]
+    dev = positions.device
+    k_new, v_new = (torch.randn((B, T, Hkv, D), generator=gen,
+                                device=dev).to(cfg.dtype) for _ in range(2))
+    if fused:
+        def kernel(ka, va):
+            fused_kmod.fused_rope_prefill_write(k_new, v_new, positions, bt,
+                                                ka, va, theta=theta)
+
+        def plain(ka, va):
+            ref.fused_rope_prefill_write_ref(k_new, v_new, positions, bt,
+                                             ka, va, theta=theta)
+    else:
+        def kernel(ka, va):
+            unfused_kmod.paged_prefill_write(k_new, v_new, positions, bt,
+                                             ka, va)
+
+        def plain(ka, va):
+            ref.paged_prefill_write_ref(k_new, v_new, positions, bt, ka, va)
 
     k_a, v_a = k_pool.clone(), v_pool.clone()
-    kmod.fused_rope_prefill_write(k_new, v_new, positions, bt, k_a, v_a,
-                                  theta=theta)
+    kernel(k_a, v_a)
     k_b, v_b = k_pool.clone(), v_pool.clone()
-    ref.fused_rope_prefill_write_ref(k_new, v_new, positions, bt, k_b, v_b,
-                                     theta=theta)
+    plain(k_b, v_b)
     torch.cuda.synchronize()
-    written = written_slots(positions, bt, pg, n_pages + 1)
-    v_exact = torch.equal(v_a, v_b)
-    untouched = torch.equal(k_a[~written], k_pool[~written])
-    ulps = max_ulps(k_a[written], k_b[written])
-    err = (k_a[written].float() - k_b[written].float()).abs().max().item()
-    log(f"fused_rope_prefill_write: V bit-identical {v_exact}, unwritten "
-        f"slots untouched {untouched}, K within {ulps} ulp (max |diff| "
-        f"{err:.3e}; tolerance: V exact, K {MAX_ULPS} ulp)")
-    if not (v_exact and untouched and ulps <= MAX_ULPS):
-        raise SystemExit("fused_rope_prefill_write disagrees with its plain "
-                         "version")
-    del k_b, v_b
+    # a slot that several tokens name (the engine's batch-pad rows all
+    # write the null page's first slot, which is never read) holds
+    # whichever write lands last, value by value, in the kernel and in the
+    # plain version alike: there each value of V must be one writer's
+    named = written_slots(positions, bt, pg, P, times=0)
+    once = written_slots(positions, bt, pg, P)
+    rows = write_targets(positions, bt, pg)
+    dup = ~once.reshape(-1)[rows]
+    raced, which = torch.unique(rows[dup], return_inverse=True)
+    got = v_a.reshape(P * pg, Hkv * D)[rows[dup]]
+    hits = torch.zeros((raced.numel(), Hkv * D), dtype=torch.long,
+                       device=dev)
+    hits.index_add_(0, which, (got == v_new[positions >= 0][dup]
+                               .reshape(-1, Hkv * D)).long())
+    raced_ok = bool((hits > 0).all())
+    v_exact = torch.equal(v_a[once], v_b[once])
+    untouched = (torch.equal(k_a[~named], k_pool[~named])
+                 and torch.equal(v_a[~named], v_pool[~named]))
+    ulps = max_ulps(k_a[once], k_b[once])
+    err = max((k_a[once].float() - k_b[once].float()).abs().max().item(),
+              (v_a[once].float() - v_b[once].float()).abs().max().item())
+    name = "fused_rope_prefill_write" if fused else "paged_prefill_write"
+    k_tol = MAX_ULPS if fused else 0
+    log(f"{name} {label}: V bit-identical {v_exact}, unwritten slots "
+        f"untouched {untouched}, K within {ulps} ulp (max |diff| "
+        f"{err:.3e}; tolerance: V exact, K {k_tol} ulp); "
+        f"{int((named & ~once).sum())} slots named by several tokens hold "
+        f"a writer's V value in every place: {raced_ok}")
+    if not (v_exact and untouched and ulps <= k_tol and raced_ok):
+        raise SystemExit(f"{name} {label} disagrees with its plain version")
+    del k_b, v_b, k_pool, v_pool
 
-    valid = positions >= 0
-    flat = valid.reshape(-1).nonzero().squeeze(1)
-    slot = positions.clamp(min=0).long()
-    page = torch.gather(bt.long(), 1, slot // pg).reshape(-1)[flat]
-    off = (slot % pg).reshape(-1)[flat]
+    flat = (positions >= 0).reshape(-1).nonzero().squeeze(1)
+    page, off = rows // pg, rows % pg
     rope_pos = positions.clamp(min=0)
+    k_rows = k_new.reshape(B * T, Hkv, D)[flat]
     v_rows = v_new.reshape(B * T, Hkv, D)[flat]
+
+    def index_put():
+        k_a.index_put_((page, off), k_rows)
+        v_a.index_put_((page, off), v_rows)
 
     def rope_index_put():
         kr = apply_rope(k_new, rope_pos, theta).reshape(B * T, Hkv, D)
@@ -568,41 +591,59 @@ def check_fused_write(cfg, n_pages: int, pg: int, gen: torch.Generator,
         kr = apply_rope(k_new, rope_pos, theta)
         unfused_kmod.paged_prefill_write(kr, v_new, positions, bt, k_a, v_a)
 
-    t_kernel = time_ms(lambda: kmod.fused_rope_prefill_write(
-        k_new, v_new, positions, bt, k_a, v_a, theta=theta), flush,
-                       label="fused_rope_prefill_write kernel")
-    t_plain = time_ms(lambda: ref.fused_rope_prefill_write_ref(
-        k_new, v_new, positions, bt, k_a, v_a, theta=theta), flush,
-                      label="fused_rope_prefill_write plain")
-    t_put = time_ms(rope_index_put, flush,
-                    label="fused_rope_prefill_write yardstick (a)")
-    t_chain = time_ms(unfused_chain, flush,
-                      label="fused_rope_prefill_write yardstick (b)")
-    n_valid = int(valid.sum())
-    row = Hkv * D * k_new.element_size()
-    n_bytes = (2 * 2 * n_valid * row                # K and V rows in and out
-               + positions.numel() * 4 + n_valid * 4    # positions, pages
-               + D // 2 * 4)                            # inverse frequencies
-    n_flops = 3 * n_valid * Hkv * D                 # the rotation, float32
-    b_ms, b_by = bound(n_bytes, n_flops, F32_FLOP_PER_S)
-    log(f"fused_rope_prefill_write: kernel {t_kernel:.4f} ms, plain "
-        f"{t_plain:.4f} ms, torch RoPE + index_put_ {t_put:.4f} ms, "
-        f"torch RoPE + paged_prefill_write {t_chain:.4f} ms, bound "
-        f"{b_ms:.4f} ms")
-    return dict(name="fused_rope_prefill_write", route="cuda",
-                source="src/repro_torch/kernels/csrc/"
-                       "fused_rope_prefill_write.cu",
-                replaces="src/repro/kernels/fused_rope_prefill_write.py:117",
-                max_abs_err=err, max_ulps=ulps, ms=t_kernel,
-                kernel_ms=t_kernel, plain_ms=t_plain, bound_ms=b_ms,
-                bound_by=b_by, library_ms=None,
-                yardsticks_ms={
-                    "torch apply_rope + index_put_ at precomputed "
-                    "(page, offset) indices": t_put,
-                    "unfused chain: torch apply_rope + paged_prefill_write "
-                    "kernel": t_chain},
-                shape=dict(B=B, T=T, Hkv=Hkv, D=D, pg=pg, nb=nb,
-                           n_valid_tokens=n_valid, pool_pages=n_pages + 1))
+    t_kernel = time_ms(lambda: kernel(k_a, v_a), flush,
+                       label=f"{name} {label} kernel")
+    t_plain = time_ms(lambda: plain(k_a, v_a), flush,
+                      label=f"{name} {label} plain")
+    b_ms, b_by, n_valid = write_bound(positions, Hkv, D,
+                                      k_new.element_size(), fused)
+    entry = dict(label=label, ms=t_kernel, plain_ms=t_plain, bound_ms=b_ms,
+                 bound_by=b_by, max_abs_err=err,
+                 shape=dict(B=B, T=T, Hkv=Hkv, D=D, pg=pg, nb=bt.shape[1],
+                            n_valid_tokens=n_valid, pool_pages=P))
+    if fused:
+        entry.update(max_ulps=ulps, yardsticks_ms={
+            "torch apply_rope + index_put_ at precomputed (page, offset) "
+            "indices": time_ms(rope_index_put, flush,
+                               label=f"{name} {label} yardstick (a)"),
+            "unfused chain: torch apply_rope + paged_prefill_write kernel":
+                time_ms(unfused_chain, flush,
+                        label=f"{name} {label} yardstick (b)")})
+    else:
+        entry["library_ms"] = time_ms(index_put, flush,
+                                      label=f"{name} {label} index_put_")
+    log(f"{name} {label}: kernel {t_kernel:.4f} ms, plain {t_plain:.4f} ms, "
+        f"yardsticks {entry.get('library_ms', entry.get('yardsticks_ms'))}, "
+        f"bound {b_ms:.4f} ms ({b_by}, {n_valid} valid tokens)")
+    return entry
+
+
+def check_write(cfg, n_pages: int, pg: int, gen: torch.Generator,
+                flush: torch.Tensor, fused: bool = False) -> dict:
+    """Phase 3's row of paged_prefill_write (``fused``:
+    fused_rope_prefill_write) at ``WRITE_SMOKE`` over pools of the slice's
+    size; phase 12 adds the slices' own prefill stages to ``shapes``."""
+    from repro_torch.kernels import fused_rope_prefill_write as fkmod
+    from repro_torch.kernels import paged_prefill_write as kmod
+    positions, bt = smoke_write_indices(n_pages, pg, gen)
+    entry = hold_write((kmod, fkmod), cfg, paged_pools(cfg, n_pages, pg, gen),
+                       positions, bt, gen, flush, WRITE_SMOKE[0], fused)
+    if fused:
+        row = dict(name="fused_rope_prefill_write", route="cuda",
+                   source="src/repro_torch/kernels/csrc/"
+                          "fused_rope_prefill_write.cu",
+                   replaces="src/repro/kernels/fused_rope_prefill_write.py"
+                            ":117", library_ms=None)
+    else:
+        row = dict(name="paged_prefill_write", route="cuda",
+                   source="src/repro_torch/kernels/csrc/"
+                          "paged_prefill_write.cu",
+                   replaces="src/repro/kernels/paged_prefill_write.py:85",
+                   library="index_put_ of the valid K and V rows at "
+                           "precomputed (page, offset) indices")
+    row.update({k: v for k, v in entry.items() if k != "label"},
+               kernel_ms=entry["ms"], shapes=[entry])
+    return row
 
 
 def time_fused_decode(kmod, unfused_kmod, k_pages, v_pages, args,
@@ -1432,9 +1473,19 @@ def check_launches(label: str, summary: dict, used) -> None:
         f"{launches} as implied")
 
 
-def run_unfused_slice(steps: dict):
+def recorded_writes(label: str, rec: "PrefillRecorder",
+                    summary: dict) -> list:
+    """The slice's recorded prefill stages, one per stage it ran."""
+    if len(rec.stages) != summary["prefill_stages"]:
+        raise SystemExit(f"{label}: {len(rec.stages)} prefill write stages "
+                         f"recorded, {summary['prefill_stages']} run")
+    return rec.stages
+
+
+def run_unfused_slice(steps: dict, writes: dict):
     """Phase 5 (and 4): returns (summary, what the fused slice reuses);
-    its typical decode step goes to ``steps["slice"]``."""
+    its typical decode step goes to ``steps["slice"]``, its prefill stages
+    to ``writes["slice"]``."""
     from repro_torch.launch import serve
     args = serve.parse_args(PAGED_ARGV)
     t0 = time.perf_counter()
@@ -1443,13 +1494,15 @@ def run_unfused_slice(steps: dict):
     t_build = time.perf_counter() - t0
     model, params = engines[0].model, engines[0].params
     ref_stats = check_reference(model, params, args.page_tokens)
-    with StepRecorder(model.cfg.n_layers) as rec:
+    with StepRecorder(model.cfg.n_layers) as rec, \
+            PrefillRecorder(model.cfg.n_layers) as wrec:
         summary = serve_trace("slice", core, engines,
                               serve.make_trace(args, vocab), args.duration,
                               dict(build_s=t_build,
                                    pool_pages=engines[0].allocator.n_pages,
                                    **ref_stats))
     steps["slice"] = rec.typical()
+    writes["slice"] = recorded_writes("slice", wrec, summary)
     if summary["prefix_hit_tokens"] <= 0:
         raise SystemExit("no prefix-sharing hit: the tail path never ran")
     check_launches("unfused slice", summary, UNFUSED + ("flash_prefill",))
@@ -1520,9 +1573,10 @@ def check_fused_engines(model, params, pg: int, vocab: int) -> dict:
     return dict(streams=len(ps), streams_equal=n_equal, near_ties=ties)
 
 
-def run_fused_slice(reuse: dict, steps: dict) -> dict:
+def run_fused_slice(reuse: dict, steps: dict, writes: dict) -> dict:
     """Phase 6: returns the fused slice's summary; its typical decode step
-    goes to ``steps["fused_slice"]``."""
+    goes to ``steps["fused_slice"]``, its prefill stages to
+    ``writes["fused_slice"]``."""
     from repro_torch.engine.static_engine import StaticEngine
     from repro_torch.launch import serve
     from repro_torch.serving import RealBackend, SchedulerCore
@@ -1539,11 +1593,13 @@ def run_fused_slice(reuse: dict, steps: dict) -> dict:
     backend = RealBackend(engines, mem=mem, kv_layout="paged",
                           sched_bucket=est.bucket, kv_retain="request")
     core = SchedulerCore(reuse["strategy"], backend, args.workers, est, mem)
-    with StepRecorder(model.cfg.n_layers) as rec:
+    with StepRecorder(model.cfg.n_layers) as rec, \
+            PrefillRecorder(model.cfg.n_layers) as wrec:
         summary = serve_trace("fused_slice", core, engines,
                               serve.make_trace(args, reuse["vocab"]),
                               args.duration, dict(engine_parity=parity))
     steps["fused_slice"] = rec.typical()
+    writes["fused_slice"] = recorded_writes("fused slice", wrec, summary)
     if summary["prefix_hit_tokens"] <= 0:
         raise SystemExit("fused slice: no prefix-sharing hit")
     if summary["reprefill_tokens"] != 0:
@@ -1871,6 +1927,123 @@ def check_ssd_stages(stages: list, row: dict) -> None:
         release_cuda()
 
 
+# ---------------------------------------------------------------------------
+# phase 12: the prefill writes at the slices' own prefill stages
+# ---------------------------------------------------------------------------
+#: the prefill write kernels, by whether they rotate K
+WRITES = ("paged_prefill_write", "fused_rope_prefill_write")
+
+
+class PrefillRecorder:
+    """Inside ``with``, wraps ``kernels.ops.paged_prefill_write`` and
+    ``kernels.ops.fused_rope_prefill_write`` (the paged engines' prefill
+    writes, once per layer per stage, stage-A' tails included) and keeps a
+    copy of each stage's first layer's index inputs: the kernel, positions
+    and block table, with the pool's shape; on exit they move to the host
+    with the stage's rows, tokens, valid tokens and whether a row starts
+    past a shared prefix (a tail)."""
+
+    def __init__(self, n_layers: int):
+        self.n_layers, self.calls, self.stages = n_layers, 0, []
+
+    def __enter__(self):
+        from repro_torch.kernels import ops
+        self._orig = {name: getattr(ops, name) for name in WRITES}
+
+        def recorder(name):
+            orig = self._orig[name]
+
+            def recording(k_new, v_new, positions, block_table, k_pages,
+                          v_pages, *args, **kw):
+                if self.calls % self.n_layers == 0:
+                    self.stages.append(dict(
+                        kernel=name, positions=positions.clone(),
+                        bt=block_table.clone(), pool=tuple(k_pages.shape)))
+                self.calls += 1
+                return orig(k_new, v_new, positions, block_table, k_pages,
+                            v_pages, *args, **kw)
+            return recording
+
+        for name in WRITES:
+            setattr(ops, name, recorder(name))
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.kernels import ops
+        for name, fn in self._orig.items():
+            setattr(ops, name, fn)
+        for st in self.stages:
+            pos = st["positions"] = st["positions"].cpu()
+            st["bt"] = st["bt"].cpu()
+            valid = pos >= 0
+            first = torch.where(valid, pos, torch.iinfo(torch.int32).max)
+            st.update(B=pos.shape[0], T=pos.shape[1],
+                      valid=int(valid.sum()),
+                      tail=bool((first.min(dim=1).values[valid.any(1)]
+                                 > 0).any()))
+
+
+def timed_writes(stages: list) -> list:
+    """(label, stage, statistics) of the recorded write stages phase 12
+    times: the median stage by valid tokens (the upper median) and the
+    largest, with the run's statistics."""
+    if not stages:
+        raise SystemExit("no paged prefill stage was recorded")
+    order = sorted(range(len(stages)), key=lambda i: stages[i]["valid"])
+    n = len(stages)
+    stats = dict(stages=n, tail_stages=sum(st["tail"] for st in stages),
+                 mean_rows=sum(st["B"] for st in stages) / n,
+                 mean_tokens=sum(st["T"] for st in stages) / n,
+                 mean_valid_tokens=sum(st["valid"] for st in stages) / n)
+    out = []
+    for name, i in (("median", order[n // 2]), ("largest", order[-1])):
+        st = stages[i]
+        out.append((f"{name} stage {st['B']}x{st['T']}", st,
+                    dict(stats, stage=i, valid=st["valid"], tail=st["tail"])))
+    return out
+
+
+#: (kernel, recorded run) of phase 12: each write at its own slice's stages
+ENGINE_WRITES = (("paged_prefill_write", "slice"),
+                 ("fused_rope_prefill_write", "fused_slice"))
+
+
+def check_write_stages(cfg, writes: dict, rows: dict) -> None:
+    """Phase 12: each ``ENGINE_WRITES`` kernel at its slice's median and
+    largest recorded prefill stage (index tensors as recorded, random
+    pools of the engine's size and random K/V), held against its plain
+    version and timed as in phase 3 beside an empty launch; the entries
+    (with the run's statistics) join the kernel's ``shapes``."""
+    from repro_torch.kernels import fused_rope_prefill_write as fkmod
+    from repro_torch.kernels import paged_prefill_write as kmod
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(4)
+    flush = torch.empty(128 * 2 ** 20, dtype=torch.uint8, device="cuda")
+    empty = empty_launch_ms(flush)
+    log(f"empty launch: {empty:.4f} ms")
+    for name, run in ENGINE_WRITES:
+        fused = name == "fused_rope_prefill_write"
+        rows[name]["empty_launch_ms"] = empty
+        for label, st, stats in timed_writes(writes[run]):
+            if st["kernel"] != name:
+                raise SystemExit(f"phase 12: the {run} stage ran "
+                                 f"{st['kernel']}, not {name}")
+            P, pg = st["pool"][:2]
+            log(f"{name} {run} {label}: the engine's stage {stats}")
+            entry = hold_write((kmod, fkmod), cfg,
+                               paged_pools(cfg, P - 1, pg, gen),
+                               st["positions"].cuda(), st["bt"].cuda(), gen,
+                               flush, f"{run} {label}", fused)
+            entry.update(empty_launch_ms=empty, engine_stage=stats)
+            rows[name]["shapes"].append(entry)
+            rows[name]["max_abs_err"] = max(rows[name]["max_abs_err"],
+                                            entry["max_abs_err"])
+            if fused:
+                rows[name]["max_ulps"] = max(rows[name]["max_ulps"],
+                                             entry["max_ulps"])
+            release_cuda()
+
+
 #: (kernel, recorded run) of phase 10: each paged decode kernel at its own
 #: slice's typical step, and both at the paged ILS engine's (the fused
 #: kernel appending where the engine's write went)
@@ -1937,11 +2110,11 @@ def host_steps(steps: dict) -> dict:
                   for k, v in st.items()} for run, st in steps.items()}
 
 
-def save_steps(steps: dict, stages: list, path: str) -> None:
-    """The recorded decode steps (on the host) and, under ``ssd_stages``,
-    the Mamba-2 prefill stages, for ``scripts/compare_attention.py
-    --steps``."""
-    torch.save(dict(steps, ssd_stages=stages), path)
+def save_steps(steps: dict, stages: list, writes: dict, path: str) -> None:
+    """The recorded decode steps (on the host), under ``ssd_stages`` the
+    Mamba-2 prefill stages and under ``write_stages`` the paged slices'
+    prefill stages, for ``scripts/compare_attention.py --steps``."""
+    torch.save(dict(steps, ssd_stages=stages, write_stages=writes), path)
 
 
 def release_cuda() -> None:
@@ -2026,7 +2199,8 @@ def main() -> int:
     gen.manual_seed(0)
     flush = torch.empty(128 * 2 ** 20, dtype=torch.uint8, device="cuda")
     rows = [check(cfg, n_pages, pg, gen, flush)
-            for check in (check_decode, check_write, check_fused_write,
+            for check in (check_decode, check_write,
+                          lambda *a: check_write(*a, fused=True),
                           check_fused_decode)]
     rows += [check(cfg, gen, flush)
              for check in (check_flash_prefill, check_dense_decode)]
@@ -2038,10 +2212,10 @@ def main() -> int:
     check_mamba_parity()
     release_cuda()
 
-    scls, steps = {}, {}
-    scls["slice"], reuse = run_unfused_slice(steps)
+    scls, steps, writes = {}, {}, {}
+    scls["slice"], reuse = run_unfused_slice(steps, writes)
     release_cuda()
-    scls["fused_slice"] = run_fused_slice(reuse, steps)
+    scls["fused_slice"] = run_fused_slice(reuse, steps, writes)
     del reuse
     release_cuda()
     scls["dense_slice"] = run_dense_slice()
@@ -2056,8 +2230,10 @@ def main() -> int:
     scls["mamba_slice"] = run_mamba_slice(stages)
     release_cuda()
     check_ssd_stages(stages, by_name["ssd_scan"])
+    release_cuda()
+    check_write_stages(cfg, writes, by_name)
     if save_to:
-        save_steps(steps, stages, save_to)
+        save_steps(steps, stages, writes, save_to)
     del steps
     release_cuda()
     # each kernel's launches on its own slice's main path, all paths beside

@@ -1,9 +1,10 @@
 #!/usr/bin/env python3
-"""Time the port's attention kernels and its SSD scan of several source
-trees on one card, in turns, each beside PyTorch yardsticks.
+"""Time the port's attention kernels, its SSD scan and its prefill writes
+of several source trees on one card, in turns, each beside PyTorch
+yardsticks.
 
-    python3 scripts/compare_attention.py [--kernels dense|paged|ssd|all]
-                                         [--steps PATH] ROOT [ROOT ...]
+    python3 scripts/compare_attention.py
+        [--kernels dense|paged|ssd|write|all] [--steps PATH] ROOT [ROOT ...]
 
 Each ROOT is a checkout (or an unpacked ``git archive``) of this
 repository whose kernels are built from its own sources; each turn runs in
@@ -22,7 +23,11 @@ slices' size, and with ``--steps`` at the engines' recorded decode steps
 ``ENGINE_STEPS``, which ``chip_smoke.py --save-steps PATH`` writes), and
 ``ssd`` (ssd_scan at ``SSD_SMOKE``, and with ``--steps`` at the median
 and largest Mamba-2 prefill stages that the same file holds, beside the
-least time the card could take).
+least time the card could take), and ``write`` (paged_prefill_write and
+fused_rope_prefill_write at ``WRITE_SMOKE``, and with ``--steps`` at the
+median and largest prefill stages of their own slices that the same file
+holds, each beside its plain version, its yardsticks, its bound and an
+empty launch, and each call's device time from a trace).
 
 The three kernels on the split-slot loop (decode_attention and the two
 paged ones) also run ``PROFILE_CALLS`` times per shape under
@@ -54,6 +59,8 @@ PROFILE_CALLS = 20
 #: kernel names of the profiled wrappers, in either tree
 KERNEL_WORDS = ("split_kernel", "merge_kernel", "decode_attention",
                 "fused_rope_decode_append")
+#: the prefill writes' kernels, in either tree
+WRITE_WORDS = ("paged_prefill_write_kernel", "fused_rope_prefill_write_kernel")
 #: ssd_scan's kernels: the one-block kernel before the four passes, then
 #: the passes in launch order (a call starts with the first or second)
 SSD_WORDS = ("ssd_scan_kernel", "ssd_cb_kernel", "ssd_state_kernel",
@@ -61,9 +68,10 @@ SSD_WORDS = ("ssd_scan_kernel", "ssd_cb_kernel", "ssd_state_kernel",
 
 
 def traced_kernels(smoke, fn, flush, words) -> list:
-    """The device kernels whose names hold one of ``words``, in order of
-    start, from a ``torch.profiler`` trace of ``PROFILE_CALLS`` calls of
-    ``fn``, each after an L2 flush and 1 ms of device sleep."""
+    """The device kernels (and copies) whose names hold one of ``words``,
+    in order of start, from a ``torch.profiler`` trace of
+    ``PROFILE_CALLS`` calls of ``fn``, each after an L2 flush and 1 ms of
+    device sleep."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     cycles = int(smoke.sleep_cycles_per_ms())   # 1 ms before each call
@@ -80,7 +88,8 @@ def traced_kernels(smoke, fn, flush, words) -> list:
         prof.export_chrome_trace(path)
         with open(path) as f:
             events = json.load(f)["traceEvents"]
-    return sorted((e for e in events if e.get("cat") == "kernel"
+    return sorted((e for e in events
+                   if e.get("cat") in ("kernel", "gpu_memcpy")
                    and any(w in e["name"] for w in words)),
                   key=lambda e: e["ts"])
 
@@ -125,6 +134,57 @@ def profile_calls(smoke, fn, flush) -> dict:
                 merge_us=sum(merge) / max(len(merge), 1),
                 span_us=sum(c[1] - c[0] for c in calls) / n,
                 calls_traced=n)
+
+
+def write_turn(smoke, cfg, gen, flush, steps_path) -> dict:
+    """The prefill writes at ``WRITE_SMOKE`` and, with ``steps_path``, at
+    their slices' recorded stages (``ENGINE_WRITES``): each held and timed
+    by ``hold_write``, with the mean device µs of its kernel in a trace of
+    ``PROFILE_CALLS`` calls."""
+    import torch
+    from repro_torch.kernels import fused_rope_prefill_write as fkmod
+    from repro_torch.kernels import paged_prefill_write as kmod
+    pg = 16
+    n_pages = smoke.pool_pages(cfg, 48e9, pg)
+    positions, bt = smoke.smoke_write_indices(n_pages, pg, gen)
+    cases = [(name, smoke.WRITE_SMOKE[0], (n_pages + 1, pg), positions, bt)
+             for name in smoke.WRITES]
+    if steps_path:
+        writes = torch.load(steps_path)["write_stages"]
+        for name, run in smoke.ENGINE_WRITES:
+            cases += [(name, f"{run} {label}", st["pool"][:2],
+                       st["positions"].cuda(), st["bt"].cuda())
+                      for label, st, _ in smoke.timed_writes(writes[run])]
+    out = {name: {} for name in smoke.WRITES}
+    out["empty_launch_ms"] = smoke.empty_launch_ms(flush)
+    for name, label, (P, pg), pos, bt in cases:
+        fused = name == "fused_rope_prefill_write"
+        pools = smoke.paged_pools(cfg, P - 1, pg, gen)
+        entry = smoke.hold_write((kmod, fkmod), cfg, pools, pos, bt, gen,
+                                 flush, label, fused)
+        k_new, v_new = (torch.randn((*pos.shape, cfg.n_kv_heads,
+                                     cfg.head_dim), generator=gen,
+                                    device="cuda").to(cfg.dtype)
+                        for _ in range(2))
+        if fused:
+            def fn():
+                fkmod.fused_rope_prefill_write(k_new, v_new, pos, bt, *pools,
+                                               theta=cfg.rope_theta)
+        else:
+            def fn():
+                kmod.paged_prefill_write(k_new, v_new, pos, bt, *pools)
+        kernels = traced_kernels(smoke, fn, flush, WRITE_WORDS)
+        if not kernels:
+            raise SystemExit(f"profile: no {name} kernel in the trace")
+        out[name][label] = dict(
+            {k: entry[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                   "library_ms", "yardsticks_ms", "shape")
+             if k in entry},
+            device_us=sum(e["dur"] for e in kernels) / len(kernels),
+            calls_traced=len(kernels))
+        del pools, entry
+        torch.cuda.empty_cache()
+    return out
 
 
 def dense_turn(smoke, cfg, gen, flush) -> dict:
@@ -237,16 +297,18 @@ def one_turn(root: str, kernels: str, steps_path) -> dict:
         out.update(paged_turn(smoke, cfg, gen, flush, steps_path))
     if kernels in ("ssd", "all"):
         out.update(ssd_turn(smoke, gen, flush, steps_path))
+    if kernels in ("write", "all"):
+        out.update(write_turn(smoke, cfg, gen, flush, steps_path))
     return out
 
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--kernels", choices=("dense", "paged", "ssd", "all"),
+    ap.add_argument("--kernels", choices=("dense", "paged", "ssd", "write", "all"),
                     default="all")
     ap.add_argument("--steps", default=None,
-                    help="decode steps and Mamba-2 prefill stages from "
-                         "chip_smoke.py --save-steps")
+                    help="decode steps, Mamba-2 and paged prefill stages "
+                         "from chip_smoke.py --save-steps")
     ap.add_argument("--turn", action="store_true", help=argparse.SUPPRESS)
     ap.add_argument("roots", nargs="+")
     a = ap.parse_args()

@@ -1,8 +1,9 @@
 // Helpers shared by the port's attention and KV-write kernels: float
 // conversions and vector loads of float32 / bfloat16 values, the RoPE
 // rotation of a pair, the slot mask of decode attention, where a slot's K/V row
-// lies (a page pool through the block table, or a dense cache), and the
-// dispatch over the compiled (head dim, page size) instances.  The
+// lies (a page pool through the block table, or a dense cache), the
+// prefill writes' vectors per thread, and the dispatch over the compiled
+// (head dim, page size) instances.  The
 // decode attention loop itself is split_attention.cuh.
 #pragma once
 
@@ -139,6 +140,19 @@ struct DenseRows {
     return first + slot;
   }
 };
+
+// The 16-byte vectors of each tensor a thread of a prefill write moves: 2
+// where that still leaves every SM kMinBlocksPerSM blocks of `threads`,
+// else 1, so that a stage of a few hundred tokens spreads over the whole
+// card and a larger one gives each thread twice the bytes in flight.
+constexpr int kMinBlocksPerSM = 4;
+inline int vectors_per_thread(int64_t n_vecs, int threads) {
+  int dev = 0, sms = 132;
+  if (cudaGetDevice(&dev) == cudaSuccess)
+    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  return n_vecs / (2 * threads) >= static_cast<int64_t>(kMinBlocksPerSM) * sms
+             ? 2 : 1;
+}
 
 // Dispatch a launcher template over the compiled (D, PG) instances:
 // launch<T, D, PG>() for D in {32, 64, 128}, PG in {8, 16}, else

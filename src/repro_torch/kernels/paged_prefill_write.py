@@ -78,6 +78,9 @@ def paged_prefill_write(k_new: torch.Tensor, v_new: torch.Tensor,
     if row_bytes % 16:
         raise ValueError(f"paged_prefill_write kernel: a token row of "
                          f"{row_bytes} bytes is not a multiple of 16")
+    if any(t.data_ptr() % 16 for t in (k_new, v_new, k_pages, v_pages)):
+        raise ValueError("paged_prefill_write kernel: K/V and the page "
+                         "pools must be 16-byte aligned")
     fn = _launcher()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream

@@ -175,6 +175,107 @@ def test_fused_rope_prefill_write_matches_plain(cuda_device, dtype, D, pg,
     assert _max_ulps(ka[written], kb[written]) <= 1
 
 
+#: the rows of ``_edge_write_inputs``: (kind, valid tokens, first position)
+EDGE_ROWS = (("run", 1, 0),        # a one-token row
+             ("pad", 0, 0),        # a pad-only row
+             ("run", 30, 21),      # a run that starts mid-page
+             ("run", 27, 0),       # a run that ends mid-page
+             ("shuffled", 33, 5),  # positions 5..37 in no order
+             ("clipped", 20, 0))   # its last position past the table
+
+
+def _edge_write_inputs(T, pg, Hkv, D, dtype, device, seed=3, nb=None):
+    """One row of each ``EDGE_ROWS`` kind, left-padded in T tokens; the
+    clipped row's last token names position 10**6, which lands in the
+    table's last slot (named by no other token); pages are shuffled.
+    ``nb`` widens the table: the entries no token names are the null
+    page 0, but for the last, which the clipped token writes."""
+    rng = np.random.default_rng(seed)
+    B = len(EDGE_ROWS)
+    positions = np.full((B, T), -1, np.int32)
+    for b, (kind, n, start) in enumerate(EDGE_ROWS):
+        row = np.arange(start, start + n)
+        if kind == "shuffled":
+            row = rng.permutation(row)
+        elif kind == "clipped":
+            row[-1] = 10 ** 6
+        positions[b, T - n:] = row
+    used = -(-max(s + n for _, n, s in EDGE_ROWS) // pg) + 1
+    P = B * used + 1
+    pages = rng.permutation(np.arange(1, P))[:B * used].reshape(B, used)
+    bt = np.zeros((B, nb or used), np.int64)
+    bt[:, :used - 1] = pages[:, :-1]
+    bt[:, -1] = pages[:, -1]
+    floats = [torch.from_numpy(rng.standard_normal(shape)).to(
+        device=device, dtype=dtype) for shape in
+        ((B, T, Hkv, D), (B, T, Hkv, D), (P, pg, Hkv, D))]
+    ints = [torch.from_numpy(a.astype(np.int32)).to(device)
+            for a in (positions, bt)]
+    return floats[0], floats[1], ints[0], ints[1], floats[2]
+
+
+def _written(pos, bt, pg, n_pool):
+    """(P, pg) mask of the pool slots the valid tokens name (clipped)."""
+    written = torch.zeros((n_pool, pg), dtype=torch.bool, device=pos.device)
+    valid = pos >= 0
+    slot = pos.clamp(min=0).long().clamp(max=bt.shape[1] * pg - 1)
+    page = torch.gather(bt.long(), 1, slot // pg)[valid]
+    written[page, (slot % pg)[valid]] = True
+    return written
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("pg", [8, 16])
+@pytest.mark.parametrize("T,Hkv,D,nb", [
+    (37, 8, 64, None),    # T a multiple of neither page size; tiles span
+                          # rows
+    (40, 2, 32, None),    # T a multiple of 8 only; the reduced heads
+    (40, 8, 128, None),
+    (35, 64, 128, None),  # rows of 64 KiB (float32): one token a tile,
+                          # and more than one pass of the tile's threads
+    (250, 8, 64, None),   # enough tokens for 2 vectors a thread (132 SMs)
+    (1100, 8, 64, None),  # and a call of 8 rows of 512's size
+    (40, 8, 64, 1100),    # a wide block table
+])
+def test_prefill_writes_hold_every_edge_case(cuda_device, dtype, pg, T, Hkv,
+                                             D, nb):
+    """Both prefill writes against their plain versions on the edge rows
+    (``EDGE_ROWS``): paged_prefill_write's pools bit-identical;
+    fused_rope_prefill_write's V bit-identical, K within one unit in the
+    last place; for both every slot the call must not write untouched."""
+    k_new, v_new, pos, bt, pool = _edge_write_inputs(T, pg, Hkv, D, dtype,
+                                                     cuda_device, nb=nb)
+    written = _written(pos, bt, pg, pool.shape[0])
+    ka, va, kb, vb = (pool.clone() for _ in range(4))
+    write_kernel.paged_prefill_write(k_new, v_new, pos, bt, ka, va)
+    ref.paged_prefill_write_ref(k_new, v_new, pos, bt, kb, vb)
+    torch.cuda.synchronize()
+    assert torch.equal(ka, kb) and torch.equal(va, vb)
+    assert torch.equal(ka[~written], pool[~written])
+    assert torch.equal(va[~written], pool[~written])
+
+    ka, va, kb, vb = (pool.clone() for _ in range(4))
+    fwrite_kernel.fused_rope_prefill_write(k_new, v_new, pos, bt, ka, va,
+                                           theta=THETA)
+    ref.fused_rope_prefill_write_ref(k_new, v_new, pos, bt, kb, vb,
+                                     theta=THETA)
+    torch.cuda.synchronize()
+    assert torch.equal(va, vb)
+    assert torch.equal(ka[~written], pool[~written])
+    assert torch.equal(va[~written], pool[~written])
+    assert _max_ulps(ka[written], kb[written]) <= 1
+
+
+def test_paged_prefill_write_refuses_misaligned_pools(cuda_device):
+    k_new, v_new, pos, bt, pool = _write_inputs(2, 16, 16, 8, 64, [0, 0],
+                                                torch.float32, cuda_device)
+    shifted = pool.reshape(-1)[1:1 + pool.numel() - pool[0].numel()]
+    shifted = shifted.reshape(pool.shape[0] - 1, *pool.shape[1:])
+    with pytest.raises(ValueError, match="aligned"):
+        write_kernel.paged_prefill_write(k_new, v_new, pos, bt, shifted,
+                                         pool[1:].contiguous())
+
+
 def _fused_decode_inputs(B, nb, pg, Hq, Hkv, D, fills, dtype, device,
                          seed=1):
     """Row b holds ``fills[b]`` tokens and appends at slot ``fills[b]``

@@ -182,6 +182,70 @@ def test_four_pass_decomposition_matches_the_pallas_kernel(B, T, H, P, N, G,
     np.testing.assert_allclose(state, np.asarray(sp), **SCAN_TOL)
 
 
+def _sequential_f64(x, dt, A, Bm, Cm):
+    """The SSM the chunked scan computes, step by step in float64: h_t =
+    e^{dt_t A} h_{t-1} + dt_t x_t ⊗ B_t, y_t = h_t · C_t (group h // (H/G)
+    serving head h).  Returns (y (B,T,H,P), final state (B,H,P,N))."""
+    Bsz, T, H, P = x.shape
+    rep = H // Bm.shape[2]
+    x, dt, A = (a.astype(np.float64) for a in (x, dt, A))
+    Bh, Ch = (np.repeat(m, rep, axis=2).astype(np.float64) for m in (Bm, Cm))
+    h = np.zeros((Bsz, H, P, Bm.shape[3]))
+    y = np.zeros((Bsz, T, H, P))
+    for t in range(T):
+        h = (np.exp(dt[:, t] * A)[..., None, None] * h
+             + (dt[:, t, :, None] * x[:, t])[..., None] * Bh[:, t, :, None])
+        y[:, t] = np.einsum("bhpn,bhn->bhp", h, Ch[:, t])
+    return y, h
+
+
+#: C4: the port's plain scan no farther from a float64 evaluation than the
+#: Pallas kernel is, at most by this factor.  Both round the decay
+#: exponent cum_t - cum_s as a difference of float32 cumulative sums, torch
+#: and XLA in other orders, so neither is exact and their errors differ by
+#: rounding alone; a factor of 2 admits that and refuses an error the port
+#: adds of its own
+C4_FACTOR = 2.0
+
+
+@pytest.mark.parametrize("B,T,H", [(1, 256, 2), (2, 384, 3)])
+def test_ssd_scan_ref_at_the_served_chunk_is_as_close_to_float64_as_pallas(
+        B, T, H):
+    """ROADMAP C4: mamba2-130m's heads (P 64, N 128, one group) at the
+    chunk it serves (128), random dt = softplus(z - 1.5) kept below the C2
+    threshold (every chunk's Σ dt·|A| < 88.7, so all three are finite).
+    The port's plain version (the function B7 follows) and the Pallas
+    kernel (interpret mode) are each held against the float64 recurrence,
+    relative to its largest |y| (and |state|): the port no farther than
+    ``C4_FACTOR`` times the Pallas kernel's distance."""
+    from repro.kernels.ssd_scan import ssd_scan as pallas_scan
+    from repro_torch.kernels.ref import ssd_scan_ref
+    P, N, Q = 64, 128, 128
+    rng = np.random.default_rng(11)
+    x = rng.standard_normal((B, T, H, P)).astype(np.float32)
+    dt = np.log1p(np.exp(rng.standard_normal((B, T, H)) - 1.5)).astype(
+        np.float32)
+    A = (-np.exp(0.2 * rng.standard_normal(H))).astype(np.float32)
+    Bm, Cm = (rng.standard_normal((B, T, 1, N)).astype(np.float32)
+              for _ in range(2))
+    sums = (dt * -A).reshape(B, T // Q, Q, H).sum(2)
+    assert (sums < 88.7).all() and sums.max() > 20
+    y64, s64 = _sequential_f64(x, dt, A, Bm, Cm)
+    yt, st = ssd_scan_ref(*_torch((x, dt, A, Bm, Cm)), Q)
+    Bh, Ch = (np.repeat(m, H, axis=2) for m in (Bm, Cm))
+    yp, sp = pallas_scan(*map(jnp.asarray, (x, dt, A, Bh, Ch)), Q,
+                         interpret=True)
+    for port, pallas, want in ((yt.numpy(), np.asarray(yp), y64),
+                               (st.numpy(), np.asarray(sp), s64)):
+        e_port, e_pallas = _rel(port, want), _rel(pallas, want)
+        assert e_port <= C4_FACTOR * e_pallas, (e_port, e_pallas)
+
+
+def _rel(got, want):
+    """Largest |got - want| relative to the largest |want|."""
+    return float(np.abs(got - want).max() / np.abs(want).max())
+
+
 @pytest.mark.parametrize("B,T,H,P,N,G,Q", [
     (8, 512, 24, 64, 128, 1, 128),      # chip_smoke.py's B7 shape
     (1, 1024, 24, 64, 128, 1, 128),     # one row of eight chunks

@@ -122,7 +122,10 @@ def _rel(got, want):
 def test_attention_decode_rowslots_matches_jax(models):
     """Per-row write slots (rows at their own positions, one idle row at
     slot 0): the layer output at 1e-5 relative, the caches written at the
-    rows' slots as the JAX one-hot blend writes them."""
+    rows' slots as the JAX one-hot blend writes them.  The written K and V
+    are ``x @ wk`` and ``x @ wv``, computed by torch on one side and XLA on
+    the other, so they are held at ``BLOCK_TOL``; every slot the step does
+    not write is V bit for bit (the blend leaves it as it was)."""
     from repro.models import attention as jattn
     from repro_torch.models import attention as tattn
     jm, jp, tm, tp = models
@@ -152,7 +155,12 @@ def test_attention_decode_rowslots_matches_jax(models):
                 torch.from_numpy(slots), cfg, window)
         assert _rel(_np(got), want) <= BLOCK_TOL
         np.testing.assert_allclose(_np(tk), np.asarray(jk), atol=BLOCK_TOL)
-        np.testing.assert_array_equal(_np(tv), np.asarray(jv))
+        written = np.zeros((B, W), bool)
+        written[np.arange(B), slots] = True
+        np.testing.assert_allclose(_np(tv)[written], np.asarray(jv)[written],
+                                   atol=BLOCK_TOL)
+        np.testing.assert_array_equal(_np(tv)[~written],
+                                      np.asarray(jv)[~written])
 
 
 def test_decode_step_rowslots_matches_jax(models):

@@ -143,3 +143,88 @@ def test_stage_recorder_keeps_each_mamba_prefill_stage(smoke):
     assert m_stats["stages"] == 3
     with pytest.raises(SystemExit):
         smoke.timed_stages([])
+
+
+@pytest.mark.parametrize("impl", ["unfused", "fused"])
+def test_prefill_recorder_keeps_each_paged_prefill_stage(smoke, impl):
+    """One record per prefill stage of the reduced float32 llama3.2-1b's
+    paged ``StaticEngine`` (the first layer's write): a fresh prompt, then
+    in one call a resumed resident, a fresh stage A and a stage-A' tail
+    past two shared pages, each through its ``impl``'s write; positions
+    and block table as the engine passed them, the tail marked; the ops'
+    writes restored on exit.  ``timed_writes`` picks the upper median by
+    valid tokens and the largest, the stages phase 12 times."""
+    from repro_torch.configs import get_config
+    from repro_torch.engine.static_engine import StaticEngine
+    from repro_torch.kernels import ops
+    from repro_torch.models.registry import get_model
+    model = get_model(get_config("llama3.2-1b", reduced=True))
+    params = model.init(0, device="cpu")
+    engine = StaticEngine(model, params, device="cpu", eos_id=1,
+                          len_bucket=8, kv_layout="paged", page_tokens=8,
+                          kv_pool_tokens=512, attn_impl=impl)
+    rng = np.random.default_rng(9)
+    src, tail, fresh = (rng.integers(2, model.cfg.vocab_size, size=n)
+                        .astype(np.int32) for n in (21, 7, 11))
+    joiner = np.concatenate([src[:16], tail])
+    orig = {name: getattr(ops, name) for name in smoke.WRITES}
+    engine.n_prefill_stages = engine.n_tail_prefill_stages = 0
+    with smoke.PrefillRecorder(model.cfg.n_layers) as rec:
+        assert all(getattr(ops, n) is not f for n, f in orig.items())
+        first = engine.serve_batch_paged([src], 8, [1], forced_gen_lens=[24])
+        engine.serve_batch_paged(
+            [src, joiner, fresh], 8, [1, 2, 3], forced_gen_lens=[16, 12, 12],
+            already_generated=[first.results[0]["tokens"], [], []])
+    assert all(getattr(ops, n) is f for n, f in orig.items())
+    assert rec.calls == model.cfg.n_layers * engine.n_prefill_stages
+    assert len(rec.stages) == engine.n_prefill_stages == 3
+    assert engine.n_tail_prefill_stages == 1
+    name = "fused_rope_prefill_write" if impl == "fused" else \
+        "paged_prefill_write"
+    assert all(st["kernel"] == name for st in rec.stages)
+    assert sorted(st["valid"] for st in rec.stages) == [7, 11, 21]
+    for st in rec.stages:
+        pos = st["positions"]
+        assert (st["B"], st["T"]) == tuple(pos.shape)
+        assert st["bt"].shape[0] == st["B"] and st["bt"].dtype == torch.int32
+        assert st["pool"][1:] == (8, model.cfg.n_kv_heads,
+                                  model.cfg.head_dim)
+        assert st["tail"] == (st["valid"] == 7)
+        if st["tail"]:
+            assert pos[pos >= 0].tolist() == list(range(16, 23))
+    picked = smoke.timed_writes(rec.stages)
+    (m_label, m_st, m_stats), (l_label, l_st, l_stats) = picked
+    assert (m_st["valid"], l_st["valid"]) == (11, 21)
+    assert m_label.startswith("median stage") and l_label.startswith(
+        "largest stage")
+    assert m_stats["stages"] == 3 and m_stats["tail_stages"] == 1
+    assert smoke.recorded_writes("x", rec, dict(prefill_stages=3)) \
+        is rec.stages
+    with pytest.raises(SystemExit):
+        smoke.recorded_writes("x", rec, dict(prefill_stages=4))
+    with pytest.raises(SystemExit):
+        smoke.timed_writes([])
+    for rid in (1, 2, 3):
+        engine.release_request(rid)
+
+
+def test_write_smoke_indices_follow_the_phase_3_batch(smoke):
+    """``WRITE_SMOKE``'s positions and block table (on the CPU here): rows
+    left-padded to T at their own lengths, the tail row from position 32,
+    3,755 valid tokens; each row's pages distinct; the bound counts each
+    valid K/V row read and written once."""
+    _, lengths, starts, T = smoke.WRITE_SMOKE
+    gen = torch.Generator()
+    gen.manual_seed(0)
+    positions, bt = smoke.smoke_write_indices(1000, 16, gen, device="cpu")
+    assert positions.shape == (len(lengths), T)
+    assert int((positions >= 0).sum()) == sum(lengths) == 3755
+    for row, n, s in zip(positions.tolist(), lengths, starts):
+        assert row[:T - n] == [-1] * (T - n)
+        assert row[T - n:] == list(range(s, s + n))
+    assert bt.shape == (len(lengths), 34) and len(set(bt.flatten().tolist())) \
+        == bt.numel()
+    b_ms, b_by, n_valid = smoke.write_bound(positions, 8, 64, 2, False)
+    assert (b_by, n_valid) == ("bytes", 3755)
+    n_bytes = 4 * 3755 * 8 * 64 * 2 + positions.numel() * 4 + 3755 * 4
+    assert b_ms == pytest.approx(n_bytes / smoke.HBM_BYTES_PER_S * 1e3)
