@@ -28,20 +28,35 @@ fails (nothing is caught):
    PyTorch version on the same inputs, then timed beside that plain
    version, PyTorch yardsticks computing the same function, and the least
    time the card could take (the decode kernels and flash_prefill also at
-   the shapes the slices run: ``shapes`` in their rows);
-4. reference: on a small input, the paged serving path with either
-   ``attn_impl`` (through the kernels) is held against the dense path of
-   the same model (through flash_prefill and decode_attention);
+   the shapes the slices run: ``shapes`` in their rows); then again at
+   the other dense configs' heads, each config's own kernels
+   (``CONFIG_HEADS``): codeqwen1.5-7b's (32/32, head_dim 128)
+   flash_prefill, paged_decode_attention and paged_prefill_write,
+   minitron-4b's (24/8, head_dim 128) fused kernels, and at gemma-2b's (8
+   query heads over one KV head of 256) every attention kernel and both
+   writes (flash_prefill 8 x 512 and 1 x 1280, decode_attention 8 x 768,
+   the paged decode kernels 8 x 576, the writes 8 x 512; ``shapes``
+   entries labelled "<arch> heads");
+4. reference (run by each transformer slice, phases 5-7 and 13-15, before
+   it serves): on a small input, the slice's served path (through its
+   kernels) is held against the plain full forward of the same model on
+   the card (``transformer.forward``: torch attention, no kernel, no
+   cache); then control faults (a wrong slot, swapped KV heads, a lost
+   QKV bias) through the same path must move the logits past the
+   tolerance, which the script checks after the last slice;
 4b. ILS parity: the reduced float32 llama3.2-1b, one set of weights on the
    card and on the CPU; small dense and paged ``ContinuousEngine``s and
    the dense ``StaticEngine`` give the same token streams on both (near
    ties recorded), the kernels launch once per layer per prefill / decode
    step, and dense == paged on the card;
-4c. Mamba-2 parity: the reduced float32 mamba2-130m, one set of weights
-   (per-head parameters drawn apart) on the card and on the CPU; the dense
-   ``StaticEngine`` gives the same token streams on both over two slices
-   (the second re-prefills), ssd_scan launches once per layer per prefill
-   and no attention kernel launches;
+4c. config parity: the reduced float32 mamba2-130m (per-head parameters
+   drawn apart), codeqwen1.5-7b (QKV biases drawn apart), minitron-4b and
+   gemma-2b, and gemma-2b at head_dim 256, one set of weights on the card
+   and on the CPU; the dense ``StaticEngine`` and, for the transformers,
+   the paged unfused and fused ones give the same token streams on both
+   over two slices, each path's kernels launching once per layer per
+   prefill stage / decode step and no other, the CPU engine's plain
+   versions as often;
 5. unfused slice: full-width llama3.2-1b in bf16 with random weights,
    built by ``repro_torch.launch.serve`` (SCLS, one worker, persistent
    paged KV with ``kv_retain="request"`` and prefix sharing), serves a
@@ -52,13 +67,14 @@ fails (nothing is caught):
    the tail prefills attend over gathered pages); then one more slice (8
    fresh 256-token requests, 32 decode steps) under ``torch.profiler``,
    for the device's busy share;
-6. fused slice: small fused and unfused engines serve the same batches
-   (token streams equal but for recorded near-ties), then
-   ``StaticEngine(attn_impl="fused")`` workers on the launcher's model,
-   weights, estimator and memory model serve the same trace: every request
-   completes, prefix sharing hits, nothing is re-prefilled, and only the
-   fused kernels launch, once per layer per prefill stage / decode step;
-   then the profiler window of phase 5 on a fused engine;
+6. fused slice: the launcher's build once more, its paged engines swapped
+   for ``StaticEngine(attn_impl="fused")`` workers on its model, weights,
+   estimator and memory model; first small fused and unfused engines
+   serve the same batches (token streams equal but for recorded
+   near-ties), then the same trace: every request completes, prefix
+   sharing hits, nothing is re-prefilled, and only the fused kernels
+   launch, once per layer per prefill stage / decode step; then the
+   profiler window of phase 5 on a fused engine;
 7. dense slice: the launcher with ``--kv-layout dense --kv-retain slice``
    (the paper's SCLS, which re-prefills prompt + generated tokens at every
    reschedule) serves the same trace: every request completes, re-prefill
@@ -79,32 +95,50 @@ fails (nothing is caught):
    (``StageRecorder``); then a full-width prefill of a 300-token prompt
    (two full 128-token chunks, where the JAX oracle overflows to NaN:
    ROADMAP C2) gives finite logits;
-10. engine steps (run after phase 8): while phases 5, 6 and 8 served,
-   the index inputs of each paged decode step (block table, slot_pos,
-   write slots, q_pos) were recorded; paged_decode_attention at the
-   unfused slice's and the paged ILS run's typical step, and
-   fused_rope_decode_append at the fused slice's and the ILS run's (the
-   step whose live slots are the run's median), each over random pools of
-   the engine's size, are held against their plain versions and timed as
-   in phase 3 (``shapes`` entries with the run's statistics);
+10. engine steps (run after phase 8, and after phase 15 for the configs):
+   while the paged slices and the paged ILS run served, the index inputs
+   of each paged decode step (block table, slot_pos, write slots, q_pos)
+   were recorded; paged_decode_attention at the llama unfused slice's,
+   the paged ILS run's and the codeqwen1.5-7b slice's typical step, and
+   fused_rope_decode_append at the llama fused slice's, the ILS run's and
+   the minitron-4b slice's (the step whose live slots are the run's
+   median), each over random pools of the engine's size at its model's
+   heads, are held against their plain versions and timed as in phase 3
+   (``shapes`` entries with the run's statistics);
 11. Mamba-2 stages (run after phase 9): ssd_scan at the recorded stage
    that is the run's median by rows x tokens and at its largest, random
    float32 inputs with the stages' pads, held against its plain version
    and timed as in phase 3 (``shapes`` entries with the run's statistics);
-12. prefill stages (run after phase 11): while phases 5 and 6 served, the
-   index inputs of each prefill stage's write (positions, block table,
-   stage-A' tails included) were recorded (``PrefillRecorder``);
-   paged_prefill_write at the unfused slice's median stage (by valid
-   tokens) and its largest, and fused_rope_prefill_write at the fused
-   slice's, each over random pools of the engine's size and random K/V,
-   are held against their plain versions and timed as in phase 3, beside
-   an empty launch timed the same way (``shapes`` entries with the run's
-   statistics).
+12. prefill stages (run after phase 11, and after phase 15 for the
+   configs): while the paged slices served, the index inputs of each
+   prefill stage's write (positions, block table, stage-A' tails
+   included) were recorded (``PrefillRecorder``); paged_prefill_write at
+   the llama unfused slice's and the codeqwen1.5-7b slice's median stage
+   (by valid tokens) and largest, and fused_rope_prefill_write at the
+   llama fused slice's and the minitron-4b slice's, each over random pools
+   of the engine's size and random K/V, are held against their plain
+   versions and timed as in phase 3, beside an empty launch timed the
+   same way (``shapes`` entries with the run's statistics);
+13-15. the other dense configs at full width and depth (bf16, random
+   weights from a seeded ``torch.Generator``), each built by the
+   launcher's ``build_core`` (its wall time, weights and estimator fit
+   included, is reported as ``build_s``) and serving a CodeFuse trace
+   (rate 2/s over 6 s, ``max_gen`` 128 over slices of 32, a 40 GB KV
+   budget): codeqwen1.5-7b (32 layers, MHA 32/32, QKV bias, untied head)
+   on the persistent paged unfused path with two shared-prefix pairs,
+   minitron-4b (32 layers, GQA 24/8, untied head) on fused engines built
+   as phase 6 builds them, gemma-2b (18 layers, MQA 8/1, head_dim 256,
+   GeGLU, embeddings scaled by sqrt(d)) on dense SCLS, each checked as
+   phases 4-7 check llama's slices (phase 4 first).
+
+One function (``run_slice``) runs phases 5-7, 9 and 13-15, each a
+``SLICES`` entry (launcher arguments and path).
 
 The last line of standard output is ``{"ok": true, "device": {...}}``; the
 line before it is the ``nvidia-smi`` reading and the one before that the
-per-kernel JSON (launches from each kernel's slice, phases 5 to 7 and 9,
-with every path's beside them; times from phase 3).
+per-kernel JSON (launches from each kernel's llama3.2-1b or mamba2-130m
+slice, phases 5 to 7 and 9, with every path's beside them, phases 13 to
+15 included; times from phase 3).
 """
 from __future__ import annotations
 
@@ -124,8 +158,10 @@ BF16_FLOP_PER_S = 989e12     # H100 SXM dense bf16 tensor-core peak
 F32_FLOP_PER_S = 67e12       # H100 SXM float32 outside the tensor cores
 TF32_FLOP_PER_S = 495e12     # H100 SXM dense TF32 tensor-core peak
 DECODE_TOL = 2e-2            # bf16 decode attention vs its plain version
-REF_TOL = 5e-2               # logits, paged kernels vs dense plain path,
-                             # relative to the largest |logit| (bf16, 16 layers)
+REF_TOL = 3.5e-2             # logits, a served path vs the plain forward,
+                             # relative to the largest |logit| (bf16): sound
+                             # paths read <= 1.85e-2 on the H100, the weakest
+                             # control fault 6.98e-2 (a wrong slot, gemma-2b)
 MAX_ULPS = 1                 # rotated K, fused kernel vs its plain version
 SSD_TOL = 1e-4               # ssd_scan vs its plain version, relative to the
                              # largest |value|: float32 sums of <= 128 terms
@@ -137,8 +173,13 @@ SLEEP_MARGIN = 3             # device sleep / the host's enqueue time, least
 MAX_SLEEP_MS = 200.0         # a longer enqueue is a fault, not a timing
 
 
+T_START = time.perf_counter()
+
+
 def log(msg: str) -> None:
-    print(f"[smoke] {msg}", flush=True)
+    """A line of the run's log, headed by the seconds since the start."""
+    print(f"[smoke {time.perf_counter() - T_START:6.1f} s] {msg}",
+          flush=True)
 
 
 def card_reading() -> str:
@@ -842,6 +883,26 @@ def time_prefill(kmod, q, k, v, pos, flush: torch.Tensor, label: str):
     return t_kernel, t_lib, b_ms, b_by, shape
 
 
+def hold_prefill(cfg, lens, T: int, window, gen: torch.Generator,
+                 label: str):
+    """B5 on left-padded rows of ``lens`` held against its plain version
+    (finite, within ``DECODE_TOL``): (the largest error, the inputs)."""
+    from repro_torch.kernels import flash_prefill as kmod
+    from repro_torch.kernels import ref
+    q, k, v, pos = prefill_inputs(cfg, lens, T, gen)
+    out = kmod.flash_prefill(q, k, v, pos, window=window)
+    want = ref.flash_prefill_ref(q, k, v, pos, window=window)
+    torch.cuda.synchronize()
+    e = (out.float() - want.float()).abs().max().item()
+    finite = bool(torch.isfinite(out).all())
+    log(f"flash_prefill {label}: max |kernel - plain| = {e:.3e} "
+        f"(tolerance {DECODE_TOL}), finite {finite}")
+    if not (finite and e <= DECODE_TOL):
+        raise SystemExit(f"flash_prefill {label} disagrees with its "
+                         f"plain version")
+    return e, (q, k, v, pos)
+
+
 def check_flash_prefill(cfg, gen: torch.Generator,
                         flush: torch.Tensor) -> dict:
     """B5 at the dense prefill's shapes: 8 left-padded rows of 512 (300 to
@@ -854,21 +915,8 @@ def check_flash_prefill(cfg, gen: torch.Generator,
     cases = [("8x512", lengths, 512, None), ("8x512 window 128", lengths,
                                              512, 128),
              ("1x1280", [1280], 1280, None)]
-    err = 0.0
-    for label, lens, T, window in cases:
-        q, k, v, pos = prefill_inputs(cfg, lens, T, gen)
-        out = kmod.flash_prefill(q, k, v, pos, window=window)
-        want = ref.flash_prefill_ref(q, k, v, pos, window=window)
-        torch.cuda.synchronize()
-        e = (out.float() - want.float()).abs().max().item()
-        finite = bool(torch.isfinite(out).all())
-        log(f"flash_prefill {label}: max |kernel - plain| = {e:.3e} "
-            f"(tolerance {DECODE_TOL}), finite {finite}")
-        if not (finite and e <= DECODE_TOL):
-            raise SystemExit(f"flash_prefill {label} disagrees with its "
-                             f"plain version")
-        err = max(err, e)
-        del out, want
+    err = max(hold_prefill(cfg, lens, T, window, gen, label)[0]
+              for label, lens, T, window in cases)
 
     shapes = []
     for label, lens, T in PREFILL_TIMED:
@@ -946,37 +994,50 @@ def time_dense_decode(kmod, rows, args, flush: torch.Tensor, label: str):
     return t_kernel, t_lib, b_ms, b_by, shape
 
 
+def hold_dense_decode(rows, args, flush: torch.Tensor, label: str) -> dict:
+    """B6 on ``args`` (``dense_decode_inputs`` of ``rows``, the last row
+    empty) held against its plain version and the empty row against the
+    mean of its V, then timed beside SDPA: the entry of ``shapes``."""
+    from repro_torch.kernels import decode_attention as kmod
+    from repro_torch.kernels import ref
+    q, v_cache = args[0], args[2]
+    G = q.shape[1] // v_cache.shape[2]
+    out = kmod.decode_attention(*args)
+    want = ref.decode_attention_ref(*args)
+    torch.cuda.synchronize()
+    e = (out.float() - want.float()).abs().max().item()
+    mean_v = v_cache[-1].float().mean(dim=0).repeat_interleave(G, dim=0)
+    e_mean = (out[-1].float() - mean_v).abs().max().item()
+    log(f"decode_attention {label}: max |kernel - plain| = {e:.3e}, "
+        f"empty row vs the mean of its V {e_mean:.3e} (tolerance "
+        f"{DECODE_TOL})")
+    if not (e <= DECODE_TOL and e_mean <= DECODE_TOL):
+        raise SystemExit(f"decode_attention {label} disagrees with its "
+                         f"plain version")
+    del out, want
+    t_kernel, t_lib, b_ms, b_by, shape = time_dense_decode(
+        kmod, rows, args, flush, label)
+    return dict(shape=label, ms=t_kernel, library_ms=t_lib, bound_ms=b_ms,
+                bound_by=b_by, max_abs_err=e, **shape)
+
+
 def check_dense_decode(cfg, gen: torch.Generator,
                        flush: torch.Tensor) -> dict:
     """B6 at the dense decode's shapes ``DECODE_TIMED``: rows at different
     positions behind left pads, one row fully masked, each shape held
     against the plain version and timed against SDPA (``shapes``; 8 x 768
     gives the row's own numbers)."""
-    from repro_torch.kernels import decode_attention as kmod
     from repro_torch.kernels import ref
-    G = cfg.n_heads // cfg.n_kv_heads
-    err = 0.0
     shapes = []
     for label, rows, W in DECODE_TIMED:
         args = dense_decode_inputs(cfg, rows, W, gen)
-        out = kmod.decode_attention(*args)
-        want = ref.decode_attention_ref(*args)
-        torch.cuda.synchronize()
-        e = (out.float() - want.float()).abs().max().item()
-        v_cache = args[2]
-        mean_v = v_cache[-1].float().mean(dim=0).repeat_interleave(G, dim=0)
-        e_mean = (out[-1].float() - mean_v).abs().max().item()
-        log(f"decode_attention {label}: max |kernel - plain| = {e:.3e}, "
-            f"empty row vs the mean of its V {e_mean:.3e} (tolerance "
-            f"{DECODE_TOL})")
-        if not (e <= DECODE_TOL and e_mean <= DECODE_TOL):
-            raise SystemExit(f"decode_attention {label} disagrees with its "
-                             f"plain version")
-        err = max(err, e)
-        t_kernel, t_lib, b_ms, b_by, shape = time_dense_decode(
-            kmod, rows, args, flush, label)
-        shapes.append(dict(shape=label, ms=t_kernel, library_ms=t_lib,
-                           bound_ms=b_ms, bound_by=b_by, **shape))
+        shapes.append(hold_dense_decode(rows, args, flush, label))
+    err = max(e["max_abs_err"] for e in shapes)
+    t_kernel, t_lib, b_ms, b_by = (shapes[-1][k] for k in (
+        "ms", "library_ms", "bound_ms", "bound_by"))
+    shape = {k: v for k, v in shapes[-1].items()
+             if k not in ("shape", "ms", "library_ms", "bound_ms", "bound_by",
+                          "max_abs_err")}
     t_plain = time_ms(lambda: ref.decode_attention_ref(*args), flush,
                       label="decode_attention 8x768 plain")
     log(f"decode_attention 8x768: plain {t_plain:.4f} ms")
@@ -1121,78 +1182,240 @@ def check_ssd_scan(gen: torch.Generator, flush: torch.Tensor) -> dict:
                 shape=entry, shapes=[entry])
 
 
+#: the KV budget of phases 13-15 (bytes; the paged slices' page pool),
+#: which also sizes phase 3's pools at the other configs' heads
+CONFIG_M_AVAILABLE = 40e9
+#: (arch, kernels) of phase 3 at the other dense configs' heads: the
+#: kernels of each config's slice (phases 13-15) at its heads, and at
+#: gemma-2b's (head_dim 256) every attention kernel and both writes
+CONFIG_HEADS = (
+    ("codeqwen1.5-7b", ("flash_prefill", "paged_decode_attention",
+                        "paged_prefill_write")),
+    ("minitron-4b", ("fused_rope_decode_append", "fused_rope_prefill_write")),
+    ("gemma-2b", ("flash_prefill", "decode_attention",
+                  "paged_decode_attention", "fused_rope_decode_append",
+                  "paged_prefill_write", "fused_rope_prefill_write")))
+
+
+def check_config_heads(arch: str, names, rows: dict,
+                       flush: torch.Tensor) -> None:
+    """Phase 3 at ``arch``'s heads (bf16, 16-token pages over pools of the
+    size ``CONFIG_M_AVAILABLE`` holds): of the kernels in ``names``,
+    flash_prefill at 8 x 512 and 1 x 1280, decode_attention at 8 x 768,
+    paged_decode_attention and fused_rope_decode_append at 8 x 576, the two
+    prefill writes at 8 x 512, each held against its plain version and
+    timed beside its yardsticks with its bound, as at llama3.2-1b's heads.
+    The entries go to the rows' ``shapes``, labelled "<arch> heads", and
+    each row's ``max_abs_err`` covers them."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import flash_prefill as pkmod
+    from repro_torch.kernels import fused_rope_decode_append as fkmod
+    from repro_torch.kernels import fused_rope_prefill_write as fwkmod
+    from repro_torch.kernels import paged_decode_attention as ukmod
+    from repro_torch.kernels import paged_prefill_write as wkmod
+    cfg = get_config(arch)
+    tag = f"{arch} heads"
+    pg = 16
+    n_pages = pool_pages(cfg, CONFIG_M_AVAILABLE, pg)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(1)
+
+    def add(name: str, entry: dict) -> None:
+        rows[name]["shapes"].append(entry)
+        rows[name]["max_abs_err"] = max(rows[name]["max_abs_err"],
+                                        entry["max_abs_err"])
+        if "max_ulps" in entry:
+            rows[name]["max_ulps"] = max(rows[name]["max_ulps"],
+                                         entry["max_ulps"])
+
+    if "flash_prefill" in names:
+        for label, lens, T in PREFILL_TIMED:
+            label = f"{tag} {label}"
+            e, (q, k, v, pos) = hold_prefill(cfg, lens, T, None, gen, label)
+            t_kernel, t_lib, b_ms, b_by, shape = time_prefill(
+                pkmod, q, k, v, pos, flush, label)
+            add("flash_prefill", dict(shape=label, ms=t_kernel,
+                                      library_ms=t_lib, bound_ms=b_ms,
+                                      bound_by=b_by, max_abs_err=e, **shape))
+            del q, k, v, pos
+    if "decode_attention" in names:
+        label, drows, W = DECODE_TIMED[-1]
+        add("decode_attention", hold_dense_decode(
+            drows, dense_decode_inputs(cfg, drows, W, gen), flush,
+            f"{tag} {label}"))
+    release_cuda()
+
+    label, prows, nb = PAGED_SMOKE
+    if "paged_decode_attention" in names or \
+            "fused_rope_decode_append" in names:
+        k_pages, v_pages = paged_pools(cfg, n_pages, pg, gen)
+        if "paged_decode_attention" in names:
+            args = paged_decode_inputs(cfg, n_pages, pg, prows, nb, gen)
+            add("paged_decode_attention", hold_paged_decode(
+                ukmod, k_pages, v_pages, args, flush, f"{tag} {label}"))
+        if "fused_rope_decode_append" in names:
+            args = paged_decode_inputs(cfg, n_pages, pg, prows, nb, gen,
+                                       fused=True)
+            add("fused_rope_decode_append", hold_fused_decode(
+                fkmod, ukmod, k_pages, v_pages, args, cfg.rope_theta, flush,
+                f"{tag} {label}"))
+        del k_pages, v_pages, args
+        release_cuda()
+
+    positions, bt = smoke_write_indices(n_pages, pg, gen)
+    for fused, name in ((False, "paged_prefill_write"),
+                        (True, "fused_rope_prefill_write")):
+        if name in names:
+            add(name, hold_write((wkmod, fwkmod), cfg,
+                                 paged_pools(cfg, n_pages, pg, gen),
+                                 positions, bt, gen, flush,
+                                 f"{tag} {WRITE_SMOKE[0]}", fused))
+            release_cuda()
+
+
 # ---------------------------------------------------------------------------
-# phase 4: paged kernel paths against the dense plain path, small input
+# phase 4: each slice's served path against the plain forward, small input
 # ---------------------------------------------------------------------------
-def check_reference(model, params, pg: int) -> dict:
-    """Prefill 4 prompts and decode 4 steps through the paged path with
-    each ``attn_impl`` and the dense path (flash_prefill and
-    decode_attention), feeding all the same tokens; the logits must agree
-    to ``REF_TOL`` of their largest magnitude."""
+def cache_slot(cache, b: int, p: int, pad: int):
+    """(k, v) views, every layer, of row ``b``'s position ``p`` in a paged
+    cache (slot = position) or a dense one (left layout: ``pad`` slots of
+    the row's left padding first)."""
+    from repro_torch.kvcache import PagedKVCache
+    if isinstance(cache, PagedKVCache):
+        pg = cache.k_pages.shape[2]
+        page = int(cache.block_table[b, p // pg])
+        return cache.k_pages[:, page, p % pg], cache.v_pages[:, page, p % pg]
+    return cache.k[:, b, pad + p], cache.v[:, b, pad + p]
+
+
+def check_served_logits(model, params, path: str, pg: int) -> dict:
+    """Phase 4: one prefill of 4 left-padded prompts and 4 greedy decode
+    steps through ``path``'s serving functions (the kernels): the dense
+    ``prefill`` / ``decode_step``, or ``prefill_paged`` /
+    ``decode_step_paged`` with ``attn_impl=path``.  After each, the
+    last-token logits are held against ``transformer.forward`` of the same
+    tokens on the card (plain torch attention under the causal left-pad
+    mask, no kernel and no cache), to ``REF_TOL`` of the reference's
+    largest |logit|: the paths round to bf16 in other places (the kernels
+    keep each weight as a bf16 pair, the plain attention rounds P to bf16
+    once; the layers' outputs are rounded after sums in another order),
+    which moved the logits of these random models by 0.90e-2 (gemma-2b)
+    to 1.85e-2 (minitron-4b) of their largest value on the H100, while
+    the weakest control fault below moved them by 6.98e-2: the tolerance
+    sits about 2x from each.  The QKV biases, where the config has them (zero at init, as JAX's
+    ``dense_param`` makes them), are drawn first, N(0, 0.5^2) from a
+    seeded generator, and the slice then serves with them.
+
+    Then the same path serves once per control fault, which must move the
+    logits past ``REF_TOL``: ``slot`` (after the prefill, each row's last
+    prompt token holds its first token's K and V in every layer: a write
+    to the wrong slot), ``head`` (KV heads 0 and 1 swapped in every layer:
+    a wrong head; where there are two or more), ``bias`` (the QKV biases
+    zeroed; where the config has them).  Their readings go to the returned
+    ``controls``; ``main`` fails the run if one is within ``REF_TOL``."""
     import numpy as np
     from repro_torch.kvcache import PagedKVCache, init_page_pools
     from repro_torch.models import transformer as tfm
     cfg = model.cfg
-    dev = torch.device("cuda")
+    dev = params.embed.table.device
     rng = np.random.default_rng(1)
     lens = [40, 33, 17, 48]
     T, B, n_steps = 48, len(lens), 4
     toks = np.zeros((B, T), np.int32)
     for b, n in enumerate(lens):
         toks[b, T - n:] = rng.integers(2, cfg.vocab_size, size=n)
-    tokens = torch.from_numpy(toks).to(dev)
+    seq = torch.from_numpy(toks).to(dev)
     lengths = torch.tensor(lens, dtype=torch.int32, device=dev)
-    nb = -(-(T + n_steps) // pg)
-    bt = (torch.arange(B * nb, dtype=torch.int32, device=dev)
-          .reshape(B, nb) + 1)
-    W = nb * pg
-    caches = {}
-    for impl in ("unfused", "fused"):
-        k_pages, v_pages = init_page_pools(cfg.n_layers, B * nb, pg,
-                                           cfg.n_kv_heads, cfg.head_dim,
-                                           cfg.dtype, dev)
-        caches[impl] = PagedKVCache(
-            k_pages, v_pages, bt,
-            torch.full((B, W), -1, dtype=torch.int32, device=dev), lengths)
-
-    def rel(a, ref_logits):
-        return ((a.float() - ref_logits.float()).abs().max().item()
-                / ref_logits.float().abs().max().item())
-
-    worst = {"unfused": 0.0, "fused": 0.0, "fused_vs_unfused": 0.0}
+    biased = [d for layer in params.layers if cfg.qkv_bias
+              for d in (layer.attn.wq, layer.attn.wk, layer.attn.wv)]
+    g = torch.Generator(device=dev)
+    g.manual_seed(5)
+    refs = []
     with torch.no_grad():
-        ld, dense = model.prefill(params, {"tokens": tokens,
-                                           "lengths": lengths}, T + n_steps)
-        lp = {}
-        for impl in caches:
-            lp[impl], caches[impl] = tfm.prefill_paged(
-                params, cfg, tokens, lengths, caches[impl], attn_impl=impl)
+        for d in biased:
+            d.b.copy_(0.5 * torch.randn(d.b.shape, generator=g, device=dev))
         for step in range(n_steps + 1):
-            for impl in caches:
-                worst[impl] = max(worst[impl], rel(lp[impl], ld))
-            worst["fused_vs_unfused"] = max(
-                worst["fused_vs_unfused"], rel(lp["fused"], lp["unfused"]))
+            pos = tfm.make_positions(seq, lengths + step)
+            refs.append(tfm.forward(params, cfg, seq, pos)[:, -1].float())
+            cur = torch.argmax(refs[-1], -1).to(torch.int32)
+            seq = torch.cat([seq, cur[:, None]], dim=1)
+
+    def serve(fault=None) -> list:
+        """The relative gap of each step's logits, ``fault`` applied to
+        the cache after the prefill."""
+        gaps = []
+        if path == "dense":
+            served, cache = model.prefill(params, {"tokens": seq[:, :T],
+                                                   "lengths": lengths},
+                                          T + n_steps)
+        else:
+            nb = -(-(T + n_steps) // pg)
+            bt = (torch.arange(B * nb, dtype=torch.int32, device=dev)
+                  .reshape(B, nb) + 1)
+            k_pages, v_pages = init_page_pools(cfg.n_layers, B * nb, pg,
+                                               cfg.n_kv_heads, cfg.head_dim,
+                                               cfg.dtype, dev)
+            cache = PagedKVCache(k_pages, v_pages, bt, torch.full(
+                (B, nb * pg), -1, dtype=torch.int32, device=dev), lengths)
+            served, cache = tfm.prefill_paged(params, cfg, seq[:, :T],
+                                              lengths, cache, attn_impl=path)
+        if fault is not None:
+            fault(cache)
+        for step in range(n_steps + 1):
+            if not (bool(torch.isfinite(served).all())
+                    and served.shape == (B, cfg.vocab_size)):
+                raise SystemExit(f"{cfg.name} {path}: served logits of step "
+                                 f"{step} not finite or not (B, vocab)")
+            gaps.append((served.float() - refs[step]).abs().max().item()
+                        / refs[step].abs().max().item())
             if step == n_steps:
                 break
-            cur = torch.argmax(ld, -1).to(torch.int32)
+            cur = seq[:, T + step].contiguous()
             q_pos = lengths + step
-            for impl in caches:
-                lp[impl], caches[impl] = tfm.decode_step_paged(
-                    params, cfg, caches[impl], cur, q_pos, q_pos,
-                    attn_impl=impl)
-            ld, dense = model.decode_step(params, dense, cur, step)
+            if path == "dense":
+                served, cache = model.decode_step(params, cache, cur, step)
+            else:
+                served, cache = tfm.decode_step_paged(
+                    params, cfg, cache, cur, q_pos, q_pos, attn_impl=path)
+        return gaps
+
+    def wrong_slot(cache) -> None:
+        for b, n in enumerate(lens):
+            k_dst, v_dst = cache_slot(cache, b, n - 1, T - n)
+            k_src, v_src = cache_slot(cache, b, 0, T - n)
+            k_dst.copy_(k_src)
+            v_dst.copy_(v_src)
+
+    def wrong_head(cache) -> None:
+        pools = ((cache.k_pages, cache.v_pages)
+                 if isinstance(cache, PagedKVCache) else (cache.k, cache.v))
+        for x in pools:
+            x[..., :2, :] = x[..., [1, 0], :].clone()
+
+    with torch.no_grad():
+        worst = serve()
+        controls = {"slot": max(serve(wrong_slot))}
+        if cfg.n_kv_heads > 1:
+            controls["head"] = max(serve(wrong_head))
+        if biased:
+            kept = [d.b.clone() for d in biased]
+            for d in biased:
+                d.b.zero_()
+            controls["bias"] = max(serve())
+            for d, b in zip(biased, kept):
+                d.b.copy_(b)
         torch.cuda.synchronize()
-    ok = all(bool(torch.isfinite(x).all()) and x.shape == (B, cfg.vocab_size)
-             for x in lp.values())
-    log(f"reference: paged vs dense logits over prefill + "
-        f"{n_steps} decode steps, max relative difference: unfused "
-        f"{worst['unfused']:.3e}, fused {worst['fused']:.3e}, fused vs "
-        f"unfused {worst['fused_vs_unfused']:.3e} (tolerance {REF_TOL}); "
-        f"finite and shaped: {ok}")
-    if not (ok and max(worst.values()) <= REF_TOL):
-        raise SystemExit("a paged kernel path disagrees with the dense "
-                         "reference path")
-    return {f"max_rel_logit_diff_{k}": v for k, v in worst.items()}
+    log(f"{cfg.name} {path}: served logits vs the plain forward over "
+        f"prefill + {n_steps} decode steps, max relative difference "
+        f"{max(worst):.3e} (per step {[f'{w:.2e}' for w in worst]}; "
+        f"tolerance {REF_TOL}); control faults "
+        f"{ {k: f'{v:.3e}' for k, v in controls.items()} } (each must "
+        f"exceed {REF_TOL})")
+    if max(worst) > REF_TOL:
+        raise SystemExit(f"{cfg.name}: the {path} path disagrees with the "
+                         f"plain forward")
+    return dict(max_rel_logit_diff=max(worst), rel_logit_diff_by_step=worst,
+                controls=controls)
 
 
 # ---------------------------------------------------------------------------
@@ -1280,92 +1503,171 @@ def check_ils_parity() -> None:
 
 
 # ---------------------------------------------------------------------------
-# phase 4c: the Mamba-2 engine, card against CPU
+# phase 4c: the other configs' engines, card against CPU
 # ---------------------------------------------------------------------------
-def check_mamba_parity() -> None:
-    """The reduced float32 mamba2-130m with one set of weights on the card
-    and on the CPU (A_log, dt_bias, D and conv_b drawn per head and channel,
-    which JAX's init makes alike): the dense ``StaticEngine`` serves two
-    slices of the same prompts on each, the second re-prefilling prompt +
-    generated tokens.  On the card every prefill runs ssd_scan once per
-    layer and nothing else launches; the streams must be equal but for
-    recorded near-ties."""
+#: (arch, head_dim) of phase 4c: mamba2-130m, each other dense config, and
+#: gemma-2b once more at its published head_dim 256 (the float32 kernels
+#: at D 256)
+CONFIG_PARITY = (("mamba2-130m", None), ("codeqwen1.5-7b", None),
+                 ("minitron-4b", None), ("gemma-2b", None), ("gemma-2b", 256))
+
+
+def perturb(params, cfg) -> None:
+    """Draw apart, from a seeded generator, the parameters that the
+    initialiser makes alike, as the CPU tests' shared weights do: the QKV
+    biases (zero at init) and Mamba-2's A_log, dt_bias, D and conv_b (alike
+    per head and channel)."""
+    g = torch.Generator().manual_seed(5)
+    with torch.no_grad():
+        for layer in params.layers:
+            if cfg.family == "ssm":
+                m = layer.mixer
+                drawn = ((m.A_log, 0.0, 0.5), (m.dt_bias, 0.0, 0.5),
+                         (m.D, 1.0, 0.5), (m.conv_b, 0.0, 0.2))
+            else:
+                a = layer.attn
+                drawn = tuple((d.b, 0.0, 0.5) for d in (a.wq, a.wk, a.wv)
+                              if d.b is not None)
+            for p, loc, scale in drawn:
+                p.copy_(loc + scale * torch.randn(p.shape, generator=g))
+
+
+def check_config_parity(arch: str, head_dim=None) -> dict:
+    """The reduced float32 ``arch`` (its head_dim replaced where given)
+    with one set of weights (``perturb``) on the card and on the CPU: the
+    dense ``StaticEngine``, and for a transformer the paged unfused and
+    fused ones, each serve the same prompts over two slices (the dense one
+    re-prefills the second, the paged ones resume their pages).  On the
+    card each runs its path's kernels once per layer per prefill stage /
+    decode step (two stages dense, one paged) and nothing else, on the CPU
+    their plain versions as often; the streams must equal the CPU's but for recorded near-ties."""
     import numpy as np
     from repro_torch.configs import get_config
     from repro_torch.engine.static_engine import StaticEngine
     from repro_torch.kernels import ops
     from repro_torch.models.registry import get_model
     from repro_torch.testing import prefill_logits, stream_tie
-    model = get_model(get_config("mamba2-130m", reduced=True))
+    cfg = get_config(arch, reduced=True)
+    model = get_model(cfg if head_dim is None else
+                      cfg.replace(head_dim=head_dim))
     cpu = model.init(0, device="cpu")
-    g = torch.Generator().manual_seed(5)
-    with torch.no_grad():
-        for layer in cpu.layers:
-            m = layer.mixer
-            for p, loc, scale in ((m.A_log, 0.0, 0.5), (m.dt_bias, 0.0, 0.5),
-                                  (m.D, 1.0, 0.5), (m.conv_b, 0.0, 0.2)):
-                p.copy_(loc + scale * torch.randn(p.shape, generator=g))
+    perturb(cpu, model.cfg)
     card = model.init(0, device="cuda")
     card.load_state_dict(cpu.state_dict())
     ref_logits = prefill_logits(model, cpu)
-    rng = np.random.default_rng(6)
+    rng = np.random.default_rng(8)
     ps = [rng.integers(2, model.cfg.vocab_size, size=n).astype(np.int32)
           for n in (5, 13, 9, 40, 3, 21)]
     forced = [12, 3, 12, 9, 12, 5]
     L = model.cfg.n_layers
-    kw = dict(eos_id=1, len_bucket=8)
-    engines = {"cpu": StaticEngine(model, cpu, device="cpu", **kw),
-               "card": StaticEngine(model, card, device="cuda", **kw)}
-    outs = {dev: [[] for _ in ps] for dev in engines}
-    ties = []
-    ops.reset_counts()
-    for _ in range(2):
-        idx = [i for i in range(len(ps)) if len(outs["cpu"][i]) < forced[i]]
-        kw = dict(forced_gen_lens=[forced[i] - len(outs["cpu"][i])
-                                   for i in idx],
-                  already_generated=[outs["cpu"][i] for i in idx])
-        for dev, eng in engines.items():
-            res = eng.serve_batch([ps[i] for i in idx], 8, **kw)
-            for s, i in enumerate(idx):
-                outs[dev][i] = outs[dev][i] + res.results[s]["tokens"]
-    torch.cuda.synchronize()
-    launches, se = ops.launches(), engines["card"]
-    expect = dict.fromkeys(launches, 0)
-    expect["ssd_scan"] = L * se.n_prefill_stages
-    if launches != expect or se.n_prefill_stages != 2 or \
-            ops.plain_calls["ssd_scan"] != L * 2 or \
-            any(n for k, n in ops.plain_calls.items() if k != "ssd_scan"):
-        raise SystemExit(f"Mamba-2 engine on the card: launches {launches} "
-                         f"!= {expect}, plain calls {ops.plain_calls} (the "
-                         f"CPU engine's only)")
-    for i, (p, a, b) in enumerate(zip(ps, outs["cpu"], outs["card"])):
-        gap = stream_tie(ref_logits, p, a, b)
-        if gap is not None:
-            ties.append(dict(request=i, gap=gap))
-    log(f"Mamba-2 parity (reduced float32 mamba2-130m): the dense "
-        f"StaticEngine on the card matches the CPU over {len(ps)} requests "
-        f"and 2 slices; ssd_scan launches {launches['ssd_scan']} = {L} x "
-        f"{se.n_prefill_stages} prefills, nothing else; near-ties {ties}")
-    print(json.dumps({"mamba_parity": dict(requests=len(ps), near_ties=ties,
-                                           launches=launches)}), flush=True)
+    paged = dict(kv_layout="paged", page_tokens=8, kv_pool_tokens=512)
+    paths = ((("dense", {}, SSM),) if model.cfg.family == "ssm" else
+             (("dense", {}, DENSE),
+              ("unfused", paged, PATH_KERNELS["unfused"]),
+              ("fused", dict(paged, attn_impl="fused"), FUSED)))
+    ties, result = [], {}
+    for path, kw, used in paths:
+        engines = {name: StaticEngine(model, params, eos_id=1, len_bucket=8,
+                                      device=dev, **kw)
+                   for name, params, dev in (("cpu", cpu, "cpu"),
+                                             ("card", card, "cuda"))}
+        outs = {dev: [[] for _ in ps] for dev in engines}
+        counts = dict(prefix_hit_tokens=0, reprefill_tokens=0)
+        ops.reset_counts()
+        for _ in range(2):
+            idx = [i for i in range(len(ps))
+                   if len(outs["cpu"][i]) < forced[i]]
+            skw = dict(forced_gen_lens=[forced[i] - len(outs["cpu"][i])
+                                        for i in idx],
+                       already_generated=[outs["cpu"][i] for i in idx])
+            for dev, eng in engines.items():
+                batch = [ps[i] for i in idx]
+                res = (eng.serve_batch(batch, 8, **skw) if path == "dense"
+                       else eng.serve_batch_paged(batch, 8, idx, **skw))
+                for s_, i in enumerate(idx):
+                    outs[dev][i] = outs[dev][i] + res.results[s_]["tokens"]
+                if dev == "card":
+                    for k in counts:
+                        counts[k] += getattr(res, k)
+        torch.cuda.synchronize()
+        se = engines["card"]
+        launches = ops.launches()
+        label = f"{arch} {path} engine (reduced, card)"
+        check_launches(label, dict(
+            n_layers=L, prefill_stages=se.n_prefill_stages,
+            tail_prefill_stages=se.n_tail_prefill_stages,
+            decode_steps=se.n_decode_steps, launches=launches,
+            n_completed=len(ps), n_requests=len(ps), **counts), used)
+        stages = 2 if path == "dense" else 1
+        if dict(ops.plain_calls) != launches or \
+                se.n_prefill_stages != stages:
+            raise SystemExit(f"{label}: plain calls {ops.plain_calls} (the "
+                             f"CPU engine's) != launches {launches}, or "
+                             f"{se.n_prefill_stages} prefill stages, not "
+                             f"{stages}")
+        for i, (p, a, b) in enumerate(zip(ps, outs["cpu"], outs["card"])):
+            if len(a) != forced[i]:
+                raise SystemExit(f"{arch} {path}: request {i} ended at "
+                                 f"{len(a)} of {forced[i]} tokens")
+            gap = stream_tie(ref_logits, p, a, b)
+            if gap is not None:
+                ties.append(dict(path=path, request=i, gap=gap))
+        result[path] = launches
+    log(f"{arch} parity (reduced float32, "
+        f"{'SSM' if model.cfg.family == 'ssm' else 'head_dim %d' % model.cfg.head_dim}): "
+        f"the {', '.join(p for p, _, _ in paths)} StaticEngines on the card "
+        f"match the CPU over {len(ps)} requests and 2 slices; near-ties "
+        f"{ties}")
+    return dict(head_dim=model.cfg.head_dim, requests=len(ps),
+                near_ties=ties, launches=result)
 
 
 # ---------------------------------------------------------------------------
-# phases 5-7 and 9: the slices, through the launcher's build_core
+# phases 5-9 and 13-15: the slices, through the launcher's build_core
 # ---------------------------------------------------------------------------
+#: the launcher's arguments of phases 5-9 (llama3.2-1b; mamba2-130m)
 SLICE_ARGV = ["--backend", "real", "--arch", "llama3.2-1b",
               "--strategy", "scls", "--workers", "1", "--rate", "4",
               "--duration", "8", "--slice-len", "64", "--max-gen", "256",
               "--page-tokens", "16", "--m-available", "48e9",
               "--shared-prefix", "3", "--seed", "0"]
-PAGED_ARGV = SLICE_ARGV + ["--kv-layout", "paged", "--kv-retain", "request"]
-DENSE_ARGV = SLICE_ARGV + ["--kv-layout", "dense", "--kv-retain", "slice"]
-MAMBA_ARGV = [("mamba2-130m" if a == "llama3.2-1b" else a)
-              for a in DENSE_ARGV]
+PAGED_KV = ["--kv-layout", "paged", "--kv-retain", "request"]
+DENSE_KV = ["--kv-layout", "dense", "--kv-retain", "slice"]
+DENSE_ARGV = SLICE_ARGV + DENSE_KV
+#: the launcher's arguments of phases 13-15: a CodeFuse trace whose
+#: requests (up to 128 tokens) outlive slices of 32, over the budget
+#: ``CONFIG_M_AVAILABLE``
+CONFIG_ARGV = ["--backend", "real", "--strategy", "scls", "--workers", "1",
+               "--rate", "2", "--duration", "6", "--slice-len", "32",
+               "--max-gen", "128", "--page-tokens", "16",
+               "--m-available", str(CONFIG_M_AVAILABLE), "--seed", "0"]
 FUSED = ("fused_rope_prefill_write", "fused_rope_decode_append")
 UNFUSED = ("paged_prefill_write", "paged_decode_attention")
 DENSE = ("flash_prefill", "decode_attention")
 SSM = ("ssd_scan",)
+#: the kernels of each path
+PATH_KERNELS = {"unfused": UNFUSED + ("flash_prefill",), "fused": FUSED,
+                "dense": DENSE, "ssm": SSM}
+#: summary label: (launcher arguments, path) of each slice.  Phases 5-7:
+#: llama3.2-1b on the persistent paged unfused path, on fused engines and
+#: on dense SCLS; 9: mamba2-130m on dense SCLS; 13-15: codeqwen1.5-7b (MHA
+#: 32/32, QKV bias) paged unfused, minitron-4b (GQA 24/8) fused, gemma-2b
+#: (MQA 8/1, head_dim 256) dense
+SLICES = {
+    "slice": (SLICE_ARGV + PAGED_KV, "unfused"),
+    "fused_slice": (SLICE_ARGV + PAGED_KV, "fused"),
+    "dense_slice": (DENSE_ARGV, "dense"),
+    "mamba_slice": (DENSE_ARGV + ["--arch", "mamba2-130m"], "ssm"),
+    "codeqwen_slice": (CONFIG_ARGV + ["--arch", "codeqwen1.5-7b",
+                                      "--shared-prefix", "2"] + PAGED_KV,
+                       "unfused"),
+    "minitron_fused_slice": (CONFIG_ARGV + ["--arch", "minitron-4b",
+                                            "--shared-prefix", "2"]
+                             + PAGED_KV, "fused"),
+    "gemma_dense_slice": (CONFIG_ARGV + ["--arch", "gemma-2b"] + DENSE_KV,
+                          "dense")}
+#: the least requests a slice's trace serves (shared-prefix pairs included)
+MIN_SLICE_REQUESTS = 12
 
 
 def time_engine(engine) -> dict:
@@ -1482,37 +1784,102 @@ def recorded_writes(label: str, rec: "PrefillRecorder",
     return rec.stages
 
 
-def run_unfused_slice(steps: dict, writes: dict):
-    """Phase 5 (and 4): returns (summary, what the fused slice reuses);
-    its typical decode step goes to ``steps["slice"]``, its prefill stages
-    to ``writes["slice"]``."""
+def run_slice(label: str) -> tuple:
+    """Phases 5-7, 9 and 13-15: the slice ``label`` of ``SLICES``, its
+    model at full width and depth in bf16 with seeded random weights,
+    built by the launcher's ``build_core`` (weights, the estimator fit and
+    the memory model: ``build_s``).  The fused path swaps the launcher's
+    paged engines for ``StaticEngine(attn_impl="fused")`` workers on its
+    model, estimator and memory model, and first holds small fused and
+    unfused engines against each other (``check_fused_engines``).  A
+    transformer's served path is held against the plain forward
+    (``check_served_logits``), then the slice serves the trace: every
+    request completes, each kernel of the path launches once per layer per
+    prefill stage or decode step and no other kernel launches, the paged
+    paths hit shared prefixes and re-prefill nothing, the dense ones
+    re-prefill.  The paged slices record their decode steps
+    (``StepRecorder``) and prefill writes (``PrefillRecorder``) and run the
+    profiler window; the Mamba-2 slice records its scans
+    (``StageRecorder``) and runs ``check_long_prefill``.  Returns (summary,
+    record): ``step`` (the typical decode step) and ``writes``, or
+    ``stages``."""
+    import contextlib
+    from repro_torch.engine.static_engine import StaticEngine
     from repro_torch.launch import serve
-    args = serve.parse_args(PAGED_ARGV)
+    from repro_torch.serving import RealBackend, SchedulerCore
+    argv, path = SLICES[label]
+    paged = path in ("unfused", "fused")
+    args = serve.parse_args(argv)
     t0 = time.perf_counter()
     core, engines, vocab = serve.build_core(args)
+    model, params = engines[0].model, engines[0].params
+    cfg = model.cfg
+    if path == "fused":
+        pool_tokens = engines[0].allocator.n_pages * args.page_tokens
+        strategy, est, mem = core.s, core.est, core.mem
+        del core, engines
+        release_cuda()
+        engines = [StaticEngine(model, params, eos_id=1, len_bucket=8,
+                                kv_layout="paged",
+                                page_tokens=args.page_tokens,
+                                kv_pool_tokens=pool_tokens,
+                                prefix_sharing=args.prefix_sharing,
+                                attn_impl="fused", device="cuda")
+                   for _ in range(args.workers)]
+        backend = RealBackend(engines, mem=mem, kv_layout="paged",
+                              sched_bucket=est.bucket, kv_retain="request")
+        core = SchedulerCore(strategy, backend, args.workers, est, mem)
     torch.cuda.synchronize()
     t_build = time.perf_counter() - t0
-    model, params = engines[0].model, engines[0].params
-    ref_stats = check_reference(model, params, args.page_tokens)
-    with StepRecorder(model.cfg.n_layers) as rec, \
-            PrefillRecorder(model.cfg.n_layers) as wrec:
-        summary = serve_trace("slice", core, engines,
-                              serve.make_trace(args, vocab), args.duration,
-                              dict(build_s=t_build,
-                                   pool_pages=engines[0].allocator.n_pages,
-                                   **ref_stats))
-    steps["slice"] = rec.typical()
-    writes["slice"] = recorded_writes("slice", wrec, summary)
-    if summary["prefix_hit_tokens"] <= 0:
-        raise SystemExit("no prefix-sharing hit: the tail path never ran")
-    check_launches("unfused slice", summary, UNFUSED + ("flash_prefill",))
-    profile_window(engines[0], vocab)
-    reuse = dict(args=args, model=model, params=params, est=core.est,
-                 mem=core.mem, strategy=core.s,
-                 pool_tokens=engines[0].allocator.n_pages * args.page_tokens,
-                 vocab=vocab, max_rel_logit_diff=ref_stats[
-                     "max_rel_logit_diff_fused_vs_unfused"])
-    return summary, reuse
+    extra = dict(arch=cfg.name, path=path, build_s=t_build,
+                 weights_gib=sum(p.numel() * p.element_size()
+                                 for p in params.parameters()) / 2 ** 30)
+    if path != "ssm":
+        extra.update(check_served_logits(model, params, path,
+                                         args.page_tokens))
+    if path == "fused":
+        extra["engine_parity"] = check_fused_engines(
+            model, params, args.page_tokens, vocab)
+    trace = serve.make_trace(args, vocab)
+    if len(trace) < MIN_SLICE_REQUESTS or args.max_gen <= args.slice_len:
+        raise SystemExit(f"{label}: {len(trace)} requests of max_gen "
+                         f"{args.max_gen} over slices of {args.slice_len}")
+    extra["prompt_tokens"] = sum(r.input_len for r in trace)
+    if paged:
+        extra["pool_pages"] = engines[0].allocator.n_pages
+    L = cfg.n_layers
+    recorders = ((StepRecorder(L), PrefillRecorder(L)) if paged else
+                 (StageRecorder(L),) if path == "ssm" else ())
+    with contextlib.ExitStack() as stack:
+        for rec in recorders:
+            stack.enter_context(rec)
+        summary = serve_trace(label, core, engines, trace, args.duration,
+                              extra)
+    if paged and (summary["prefix_hit_tokens"] <= 0
+                  or summary["reprefill_tokens"]):
+        raise SystemExit(f"{label}: prefix hits "
+                         f"{summary['prefix_hit_tokens']} tokens, re-prefill "
+                         f"{summary['reprefill_tokens']} tokens")
+    if not paged and summary["reprefill_tokens"] <= 0:
+        raise SystemExit(f"{label}: nothing re-prefilled, but requests of up "
+                         f"to {args.max_gen} tokens outlive slices of "
+                         f"{args.slice_len}")
+    check_launches(label, summary, PATH_KERNELS[path])
+    record = {}
+    if paged:
+        record["step"] = dict(recorders[0].typical(), arch=cfg.name)
+        record["writes"] = [dict(st, arch=cfg.name) for st in
+                            recorded_writes(label, recorders[1], summary)]
+        profile_window(engines[0], vocab)
+    elif path == "ssm":
+        record["stages"] = recorders[0].stages
+        if len(record["stages"]) != summary["prefill_stages"]:
+            raise SystemExit(f"{label}: {len(record['stages'])} scan stages "
+                             f"recorded, {summary['prefill_stages']} run")
+        summary.update(check_long_prefill(model, params))
+    log(f"{label}: {cfg.name} set up in {t_build:.1f} s (weights, estimator "
+        f"fit, engines), served in {summary['wall_s']:.1f} s")
+    return summary, record
 
 
 def check_fused_engines(model, params, pg: int, vocab: int) -> dict:
@@ -1571,62 +1938,6 @@ def check_fused_engines(model, params, pg: int, vocab: int) -> dict:
     log(f"fused engines: {n_equal} of {len(ps)} streams equal to the "
         f"unfused engine's, near-ties {ties}")
     return dict(streams=len(ps), streams_equal=n_equal, near_ties=ties)
-
-
-def run_fused_slice(reuse: dict, steps: dict, writes: dict) -> dict:
-    """Phase 6: returns the fused slice's summary; its typical decode step
-    goes to ``steps["fused_slice"]``, its prefill stages to
-    ``writes["fused_slice"]``."""
-    from repro_torch.engine.static_engine import StaticEngine
-    from repro_torch.launch import serve
-    from repro_torch.serving import RealBackend, SchedulerCore
-    args, model, params = reuse["args"], reuse["model"], reuse["params"]
-    parity = check_fused_engines(model, params, args.page_tokens,
-                                 reuse["vocab"])
-    engines = [StaticEngine(model, params, eos_id=1, len_bucket=8,
-                            kv_layout="paged", page_tokens=args.page_tokens,
-                            kv_pool_tokens=reuse["pool_tokens"],
-                            prefix_sharing=args.prefix_sharing,
-                            attn_impl="fused", device="cuda")
-               for _ in range(args.workers)]
-    mem, est = reuse["mem"], reuse["est"]
-    backend = RealBackend(engines, mem=mem, kv_layout="paged",
-                          sched_bucket=est.bucket, kv_retain="request")
-    core = SchedulerCore(reuse["strategy"], backend, args.workers, est, mem)
-    with StepRecorder(model.cfg.n_layers) as rec, \
-            PrefillRecorder(model.cfg.n_layers) as wrec:
-        summary = serve_trace("fused_slice", core, engines,
-                              serve.make_trace(args, reuse["vocab"]),
-                              args.duration, dict(engine_parity=parity))
-    steps["fused_slice"] = rec.typical()
-    writes["fused_slice"] = recorded_writes("fused slice", wrec, summary)
-    if summary["prefix_hit_tokens"] <= 0:
-        raise SystemExit("fused slice: no prefix-sharing hit")
-    if summary["reprefill_tokens"] != 0:
-        raise SystemExit(f"fused slice: {summary['reprefill_tokens']} "
-                         f"tokens re-prefilled")
-    check_launches("fused slice", summary, FUSED)
-    profile_window(engines[0], reuse["vocab"])
-    return summary
-
-
-def run_dense_slice() -> dict:
-    """Phase 7: the launcher's dense SCLS path on the same trace; returns
-    its summary."""
-    from repro_torch.launch import serve
-    args = serve.parse_args(DENSE_ARGV)
-    t0 = time.perf_counter()
-    core, engines, vocab = serve.build_core(args)
-    torch.cuda.synchronize()
-    t_build = time.perf_counter() - t0
-    summary = serve_trace("dense_slice", core, engines,
-                          serve.make_trace(args, vocab), args.duration,
-                          dict(build_s=t_build))
-    if summary["reprefill_tokens"] <= 0:
-        raise SystemExit("dense slice: nothing re-prefilled, but requests "
-                         "of up to 256 tokens outlive slices of 64")
-    check_launches("dense slice", summary, DENSE)
-    return summary
 
 
 def run_ils(scls: dict, steps: dict) -> dict:
@@ -1700,7 +2011,7 @@ def run_ils(scls: dict, steps: dict) -> dict:
                              f"after serving, {free0} before")
         launches_by_run[layout] = launches
         if layout == "paged":
-            steps["ils"] = rec.typical()
+            steps["ils"] = dict(rec.typical(), arch=model.cfg.name)
         log(f"ILS {layout}: {len(trace)}/{len(trace)} requests, "
             f"{res.iterations} iterations, parallel mean "
             f"{res.mean_parallel:.3f} peak {res.peak_parallel}, "
@@ -1721,51 +2032,30 @@ def run_ils(scls: dict, steps: dict) -> dict:
     return launches_by_run
 
 
-def run_mamba_slice(stages: list) -> dict:
-    """Phase 9: the launcher's dense SCLS path serving full-width
-    mamba2-130m (24 layers, bf16, seeded random weights) on the same trace,
-    each prefill stage's scan shape appended to ``stages`` (``StageRecorder``);
-    then a full-width prefill of a 300-token prompt, whose two full chunks
-    sum dt·|A| past ln(float32 max) in layer 0 (where the JAX oracle gives
-    NaN, ROADMAP C2), must give finite logits.  Returns the summary."""
+def check_long_prefill(model, params) -> dict:
+    """Phase 9's last check: a full-width Mamba-2 prefill of a 300-token
+    prompt, whose two full chunks sum dt·|A| past ln(float32 max) in layer
+    0 (where the JAX oracle gives NaN, ROADMAP C2), must give finite
+    logits.  Returns the readings."""
     import math
     import numpy as np
-    from repro_torch.launch import serve
     from repro_torch.models import mamba2
     from repro_torch.models.common import embed_apply, rms_norm
-    args = serve.parse_args(MAMBA_ARGV)
-    t0 = time.perf_counter()
-    core, engines, vocab = serve.build_core(args)
-    torch.cuda.synchronize()
-    t_build = time.perf_counter() - t0
-    model, params = engines[0].model, engines[0].params
     cfg = model.cfg
-    with StageRecorder(cfg.n_layers) as rec:
-        summary = serve_trace("mamba_slice", core, engines,
-                              serve.make_trace(args, vocab), args.duration,
-                              dict(build_s=t_build))
-    if summary["reprefill_tokens"] <= 0:
-        raise SystemExit("mamba slice: nothing re-prefilled, but requests "
-                         "of up to 256 tokens outlive slices of 64")
-    check_launches("mamba slice", summary, SSM)
-    if len(rec.stages) != summary["prefill_stages"]:
-        raise SystemExit(f"mamba slice: {len(rec.stages)} scan stages "
-                         f"recorded, {summary['prefill_stages']} run")
-    stages.extend(rec.stages)
-
+    dev = params.embed.table.device
     rng = np.random.default_rng(7)
     T = 300
-    toks = torch.from_numpy(rng.integers(2, vocab, size=(1, T))
-                            .astype(np.int32)).cuda()
-    lens = torch.tensor([T], dtype=torch.int32, device="cuda")
+    toks = torch.from_numpy(rng.integers(2, cfg.vocab_size, size=(1, T))
+                            .astype(np.int32)).to(dev)
+    lens = torch.tensor([T], dtype=torch.int32, device=dev)
     with torch.no_grad():
         logits, cache = model.prefill(params, {"tokens": toks,
                                                "lengths": lens}, 0)
         # layer 0's per-chunk sums of dt·|A| over the chunk-padded prompt
         mixer = params.layers[0].mixer
-        h = embed_apply(params.embed, toks)
+        h = embed_apply(params.embed, toks, cfg)
         h, valid, lead = mamba2._pad_to_chunk(
-            h, torch.ones((1, T), dtype=torch.bool, device="cuda"),
+            h, torch.ones((1, T), dtype=torch.bool, device=dev),
             cfg.ssm_chunk)
         _, _, dt = mamba2._split_zxbcdt(
             mixer, rms_norm(h, params.layers[0].ln, cfg.norm_eps), cfg)
@@ -1784,9 +2074,8 @@ def run_mamba_slice(stages: list) -> dict:
     if not (finite and logits.shape == (1, cfg.vocab_size)):
         raise SystemExit("mamba slice: the full-width prefill past two "
                          "chunks is not finite")
-    summary.update(c2_prompt_tokens=T, c2_layer0_max_chunk_sum=
-                   sums.max().item(), c2_layer0_overflow_chunk_heads=over)
-    return summary
+    return dict(c2_prompt_tokens=T, c2_layer0_max_chunk_sum=sums.max().item(),
+                c2_layer0_overflow_chunk_heads=over)
 
 
 # ---------------------------------------------------------------------------
@@ -2003,17 +2292,24 @@ def timed_writes(stages: list) -> list:
     return out
 
 
-#: (kernel, recorded run) of phase 12: each write at its own slice's stages
+#: (kernel, recorded run) of phase 12: each write at its own llama3.2-1b
+#: slice's stages
 ENGINE_WRITES = (("paged_prefill_write", "slice"),
                  ("fused_rope_prefill_write", "fused_slice"))
+#: (kernel, recorded run) of phase 12 after phases 13-14: each write at its
+#: own slice's stages, codeqwen1.5-7b's and minitron-4b's heads
+CONFIG_WRITES = (("paged_prefill_write", "codeqwen_slice"),
+                 ("fused_rope_prefill_write", "minitron_fused_slice"))
 
 
-def check_write_stages(cfg, writes: dict, rows: dict) -> None:
-    """Phase 12: each ``ENGINE_WRITES`` kernel at its slice's median and
-    largest recorded prefill stage (index tensors as recorded, random
-    pools of the engine's size and random K/V), held against its plain
-    version and timed as in phase 3 beside an empty launch; the entries
-    (with the run's statistics) join the kernel's ``shapes``."""
+def check_write_stages(writes: dict, rows: dict, cases) -> None:
+    """Phase 12: each ``cases`` kernel (``ENGINE_WRITES``,
+    ``CONFIG_WRITES``) at its slice's median and largest recorded prefill
+    stage (index tensors as recorded, random pools of the engine's size
+    and random K/V at the slice's heads), held against its plain version
+    and timed as in phase 3 beside an empty launch; the entries (with the
+    run's statistics) join the kernel's ``shapes``."""
+    from repro_torch.configs import get_config
     from repro_torch.kernels import fused_rope_prefill_write as fkmod
     from repro_torch.kernels import paged_prefill_write as kmod
     gen = torch.Generator(device="cuda")
@@ -2021,13 +2317,14 @@ def check_write_stages(cfg, writes: dict, rows: dict) -> None:
     flush = torch.empty(128 * 2 ** 20, dtype=torch.uint8, device="cuda")
     empty = empty_launch_ms(flush)
     log(f"empty launch: {empty:.4f} ms")
-    for name, run in ENGINE_WRITES:
+    for name, run in cases:
         fused = name == "fused_rope_prefill_write"
         rows[name]["empty_launch_ms"] = empty
         for label, st, stats in timed_writes(writes[run]):
             if st["kernel"] != name:
                 raise SystemExit(f"phase 12: the {run} stage ran "
                                  f"{st['kernel']}, not {name}")
+            cfg = get_config(st["arch"])
             P, pg = st["pool"][:2]
             log(f"{name} {run} {label}: the engine's stage {stats}")
             entry = hold_write((kmod, fkmod), cfg,
@@ -2045,12 +2342,17 @@ def check_write_stages(cfg, writes: dict, rows: dict) -> None:
 
 
 #: (kernel, recorded run) of phase 10: each paged decode kernel at its own
-#: slice's typical step, and both at the paged ILS engine's (the fused
-#: kernel appending where the engine's write went)
+#: llama3.2-1b slice's typical step, and both at the paged ILS engine's
+#: (the fused kernel appending where the engine's write went)
 ENGINE_STEPS = (("paged_decode_attention", "slice"),
                 ("paged_decode_attention", "ils"),
                 ("fused_rope_decode_append", "fused_slice"),
                 ("fused_rope_decode_append", "ils"))
+#: (kernel, recorded run) of phase 10 after phases 13-14: each paged decode
+#: kernel at its own slice's typical step, codeqwen1.5-7b's (MHA) and
+#: minitron-4b's (3 query heads a KV head) heads
+CONFIG_STEPS = (("paged_decode_attention", "codeqwen_slice"),
+                ("fused_rope_decode_append", "minitron_fused_slice"))
 
 
 def step_inputs(cfg, step: dict, gen: torch.Generator, fused: bool):
@@ -2058,7 +2360,9 @@ def step_inputs(cfg, step: dict, gen: torch.Generator, fused: bool):
     engine's size, random q (and k/v_new), the step's own index tensors."""
     dev = torch.device("cuda")
     P, pg, Hkv, D = step["pool"]
-    k_pages, v_pages = paged_pools(cfg, P - 1, pg, gen)
+    k_pages, v_pages = (torch.randn(step["pool"], generator=gen,
+                                    device=dev).to(cfg.dtype)
+                        for _ in range(2))
     bt, slot_pos = step["bt"].to(dev), step["slot_pos"].to(dev)
     slots, q_pos = step["slots"].to(dev), step["q_pos"].to(dev)
     B = bt.shape[0]
@@ -2073,17 +2377,20 @@ def step_inputs(cfg, step: dict, gen: torch.Generator, fused: bool):
                                        q_pos)
 
 
-def check_engine_steps(cfg, steps: dict, rows: dict) -> None:
-    """Phase 10: each ``ENGINE_STEPS`` kernel on its recorded step's index
-    tensors, held against its plain version and timed as in phase 3; the
-    entries (with the run's statistics) join the kernel's ``shapes``."""
+def check_engine_steps(steps: dict, rows: dict, cases) -> None:
+    """Phase 10: each ``cases`` kernel (``ENGINE_STEPS``, ``CONFIG_STEPS``)
+    on its recorded step's index tensors at the step's model's heads,
+    held against its plain version and timed as in phase 3; the entries
+    (with the run's statistics) join the kernel's ``shapes``."""
+    from repro_torch.configs import get_config
     from repro_torch.kernels import fused_rope_decode_append as fkmod
     from repro_torch.kernels import paged_decode_attention as kmod
     gen = torch.Generator(device="cuda")
     gen.manual_seed(1)
     flush = torch.empty(128 * 2 ** 20, dtype=torch.uint8, device="cuda")
-    for name, run in ENGINE_STEPS:
+    for name, run in cases:
         fused = name == "fused_rope_decode_append"
+        cfg = get_config(steps[run]["arch"])
         shape, (k_pages, v_pages), args = step_inputs(cfg, steps[run], gen,
                                                       fused)
         label = f"{run} {shape}"
@@ -2153,7 +2460,8 @@ def profile_window(engine, vocab: int) -> None:
     busy = sum(dev_us(e) for e in events) / 1e6
     top = sorted(events, key=dev_us, reverse=True)[:8]
     print(json.dumps({"profile": dict(
-        attn_impl=engine.attn_impl, rows=8, prompt_tokens=256,
+        model=engine.model.cfg.name, attn_impl=engine.attn_impl, rows=8,
+        prompt_tokens=256,
         steps=res.steps, wall_s=wall,
         prefill_s=res.prefill_time, device_busy_s=busy,
         device_busy_share=busy / wall,
@@ -2205,37 +2513,60 @@ def main() -> int:
     rows += [check(cfg, gen, flush)
              for check in (check_flash_prefill, check_dense_decode)]
     rows.append(check_ssd_scan(gen, flush))
+    by_name = {row["name"]: row for row in rows}
+    release_cuda()
+    for arch, names in CONFIG_HEADS:
+        check_config_heads(arch, names, by_name, flush)
     del flush
     release_cuda()
     check_ils_parity()
     release_cuda()
-    check_mamba_parity()
+    parity = [dict(arch=arch, **check_config_parity(arch, head_dim))
+              for arch, head_dim in CONFIG_PARITY]
+    print(json.dumps({"config_parity": parity}), flush=True)
     release_cuda()
 
     scls, steps, writes = {}, {}, {}
-    scls["slice"], reuse = run_unfused_slice(steps, writes)
-    release_cuda()
-    scls["fused_slice"] = run_fused_slice(reuse, steps, writes)
-    del reuse
-    release_cuda()
-    scls["dense_slice"] = run_dense_slice()
-    release_cuda()
+    for label in ("slice", "fused_slice", "dense_slice"):
+        scls[label], record = run_slice(label)
+        if record:
+            steps[label], writes[label] = record["step"], record["writes"]
+        del record
+        release_cuda()
     ils = run_ils(scls, steps)
     release_cuda()
-    by_name = {row["name"]: row for row in rows}
-    check_engine_steps(cfg, steps, by_name)
+    check_engine_steps(steps, by_name, ENGINE_STEPS)
     steps = host_steps(steps)
     release_cuda()
-    stages = []
-    scls["mamba_slice"] = run_mamba_slice(stages)
+    scls["mamba_slice"], record = run_slice("mamba_slice")
+    stages = record["stages"]
     release_cuda()
     check_ssd_stages(stages, by_name["ssd_scan"])
     release_cuda()
-    check_write_stages(cfg, writes, by_name)
+    check_write_stages(writes, by_name, ENGINE_WRITES)
     if save_to:
         save_steps(steps, stages, writes, save_to)
-    del steps
+    steps, writes = {}, {}
     release_cuda()
+    for label in ("codeqwen_slice", "minitron_fused_slice",
+                  "gemma_dense_slice"):
+        scls[label], record = run_slice(label)
+        if record:
+            steps[label] = host_steps({label: record["step"]})[label]
+            writes[label] = record["writes"]
+        del record
+        release_cuda()
+    check_engine_steps(steps, by_name, CONFIG_STEPS)
+    release_cuda()
+    check_write_stages(writes, by_name, CONFIG_WRITES)
+    release_cuda()
+    # every control fault of phase 4 must have failed its slice's gate
+    weak = {f"{label} {fault}": gap for label, sm in scls.items()
+            for fault, gap in sm.get("controls", {}).items()
+            if not gap > REF_TOL}
+    if weak:
+        raise SystemExit(f"phase 4: control faults within REF_TOL "
+                         f"{REF_TOL} of the plain forward: {weak}")
     # each kernel's launches on its own slice's main path, all paths beside
     by_path = {label: sm["launches"] for label, sm in scls.items()}
     by_path.update({f"ils_{k}": v for k, v in ils.items()})

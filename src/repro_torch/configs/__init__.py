@@ -1,15 +1,20 @@
 """Architecture config registry: ``--arch <id>`` resolution.
 
-The port serves the dense llama3.2-1b and the Mamba-2 SSM mamba2-130m;
-the other families of ``repro.configs`` come with their model code.
+The port serves the dense llama3.2-1b, codeqwen1.5-7b, minitron-4b and
+gemma-2b and the Mamba-2 SSM mamba2-130m; the other families of
+``repro.configs`` come with their model code.
 """
 from __future__ import annotations
 
-from repro_torch.configs import llama3_2_1b, mamba2_130m
+from repro_torch.configs import (codeqwen1_5_7b, gemma_2b, llama3_2_1b,
+                                 mamba2_130m, minitron_4b)
 from repro_torch.models.common import ModelConfig
 
 _MODULES = {
     "llama3.2-1b": llama3_2_1b,
+    "codeqwen1.5-7b": codeqwen1_5_7b,
+    "minitron-4b": minitron_4b,
+    "gemma-2b": gemma_2b,
     "mamba2-130m": mamba2_130m,
 }
 

@@ -85,6 +85,9 @@ int dispatch_d(int D, const void* q, const void* k_cache, const void* v_cache,
   if (D == 128)
     return launch<T, 128>(q, k_cache, v_cache, slot_pos, q_pos, out, ws, B,
                           Hq, Hkv, W, chunk, window, scale, stream);
+  if (D == 256)
+    return launch<T, 256>(q, k_cache, v_cache, slot_pos, q_pos, out, ws, B,
+                          Hq, Hkv, W, chunk, window, scale, stream);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
@@ -93,9 +96,9 @@ int dispatch_d(int D, const void* q, const void* k_cache, const void* v_cache,
 // q (B,Hq,D); k_cache/v_cache (B,W,Hkv,D); slot_pos (B,W) int32 (-1
 // empty); q_pos (B,) int32; out (B,Hq,D); ws float32 workspace of
 // B * Hkv * ceil(W / chunk) * (Hq / Hkv) * (D + 2) values.  dtype 0 is
-// float32, 1 is bfloat16; D in {32, 64, 128}, Hq / Hkv <= 8, any W >= 1,
-// chunk a multiple of 16 in [16, 2048] (slots per split) with at most
-// 1024 splits, caches 16-byte
+// float32, 1 is bfloat16; D in {32, 64, 128, 256}, Hq / Hkv <= 8, any
+// W >= 1, chunk a multiple of 16 in [16, 2048] (slots per split) with at
+// most 1024 splits, caches 16-byte
 // aligned; window <= 0 means none.  Launches both passes on `stream` and
 // returns cudaGetLastError(), or cudaErrorInvalidValue for a shape the
 // kernel does not take.

@@ -30,7 +30,8 @@
 //    three warpgroups.  One warp of the third (the producer, its registers
 //    cut by setmaxnreg to give them to the others) loads each q tile's Q
 //    by TMA into a double buffer, walks its K/V tiles, classifies each
-//    and feeds the needed ones by TMA into a 3-stage ring on mbarriers:
+//    and feeds the needed ones by TMA into a 3-stage ring on mbarriers
+//    (at head dim 256 one Q buffer and 2 stages: see Cfg):
 //    4-D tensor maps (D, H, T, B) select the heads and write each tile
 //    with the 128-byte swizzle (64-byte at D 32) that the wgmma
 //    descriptors name.  So the next q tile's Q and first K/V tiles load
@@ -47,7 +48,9 @@
 //    CUDA cores, D / 32 neighbouring threads per query row (one at D 32),
 //    each holding 32 of its dims in interleaved 4-dim chunks; the parts
 //    of a score are summed by shuffles.  Bound by one shared-memory
-//    operand per multiply-add.
+//    operand per multiply-add.  K/V tiles hold 4096 / D keys above D 64
+//    (16 at D 256: 32 KB of static shared memory for K and V), so a block
+//    of 256 threads has 8192 / D query rows (32 at D 256: G <= 32).
 //
 // Where the trouble lies, and what the kernels do:
 //  - Tile skipping: a K/V tile is skipped only when no key in it can be
@@ -296,8 +299,6 @@ constexpr int kConsumers = 2;                      // warpgroups of 64 rows
 constexpr int kThreads = (kConsumers + 1) * 128;   // + the producer's
 constexpr int kRows = kConsumers * 64;             // query rows per block
 constexpr int kBK = 64;                            // keys per K/V tile
-constexpr int kStages = 3;                         // K/V tiles in flight
-constexpr int kProducerRegs = 56, kConsumerRegs = 224;
 constexpr float kLog2e = 1.4426950408889634f;
 
 // Shared-memory tiles of head dim D: Q (kRows query rows), K and V
@@ -305,10 +306,23 @@ constexpr float kLog2e = 1.4426950408889634f;
 // swizzle row wide (64 values; 32 at D 32 with the 64-byte swizzle), each
 // box written by TMA with the swizzle the wgmma descriptors name.  Two Q
 // tiles (the next q tile's loads while this one is computed), then the
-// K/V ring, each stage's key positions and header (tile index, mask-free),
-// and the barriers.
+// K/V ring of 3 stages, each stage's key positions and header (tile
+// index, mask-free), and the barriers.
+//
+// Head dim 256 does not fit that: two 64 KB Q tiles and three 64 KB K/V
+// stages are 320 KB against the 227 KB a block may hold.  Its instance
+// takes FlashAttention-3's answer for hdim 256, one Q buffer and 2 stages
+// (192 KB): the next q tile's Q waits for this one's last product, its K/V
+// tiles still load ahead.  Its consumers hold O as 128 floats a thread
+// beside S's 32 and P's 32 words, so setmaxnreg gives them 232 registers
+// and the producer 40 (the 168 a thread of the launch, moved between the
+// warpgroups); the other head dims keep 224 and 56.
 template <int D>
 struct Cfg {
+  static constexpr int kQBufs = D == 256 ? 1 : 2;      // Q tiles
+  static constexpr int kStages = D == 256 ? 2 : 3;     // K/V tiles in flight
+  static constexpr int kProducerRegs = D == 256 ? 40 : 56;
+  static constexpr int kConsumerRegs = D == 256 ? 232 : 224;
   static constexpr int kSwizzle = D == 32 ? 64 : 128;  // bytes per row
   static constexpr int kBoxCols = kSwizzle / 2;        // bf16 per box row
   static constexpr int kBoxes = D / kBoxCols;          // boxes across D
@@ -317,12 +331,14 @@ struct Cfg {
   static constexpr int kBox = kBK * kSwizzle;          // bytes per K/V box
   static constexpr int kTile = kBoxes * kBox;          // a K or a V tile
   static constexpr int kStage = 2 * kTile;             // K then V
-  static constexpr int kRingOff = 2 * kQTile;
+  static constexpr int kRingOff = kQBufs * kQTile;
   static constexpr int kPosOff = kRingOff + kStages * kStage;  // kBK ints
   static constexpr int kHdrOff = kPosOff + kStages * kBK * 4;  // 2 ints
   static constexpr int kBarOff = kHdrOff + kStages * 8;
-  // full[kStages], empty[kStages], q_full[2], q_empty[2]
-  static constexpr int kBytes = kBarOff + (2 * kStages + 4) * 8 + 1024;
+  // full[kStages], empty[kStages], q_full[kQBufs], q_empty[kQBufs]
+  static constexpr int kBytes =
+      kBarOff + (2 * kStages + 2 * kQBufs) * 8 + 1024;
+  static_assert(kBytes <= 232448, "a block holds at most 227 KB");
 };
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
@@ -502,12 +518,19 @@ __device__ __forceinline__ void wgmma_ss_n64(float* d, uint64_t desc_a,
       : "l"(desc_a), "l"(desc_b), "r"(scale_d));
 }
 
+// O += P V over N output columns; N = 256 as two n128 products on the
+// halves of V's columns (boxes 0-1 and 2-3, `half` bytes apart), whose
+// accumulators are o[0..63] and o[64..127] in the one-instruction layout
 template <int N>
 __device__ __forceinline__ void wgmma_pv(float* d, const uint32_t* a,
-                                         uint64_t desc) {
+                                         uint64_t desc, uint32_t half = 0) {
   if constexpr (N == 32) wgmma_pv_n32(d, a, desc);
   if constexpr (N == 64) wgmma_pv_n64(d, a, desc);
   if constexpr (N == 128) wgmma_pv_n128(d, a, desc);
+  if constexpr (N == 256) {
+    wgmma_pv_n128(d, a, desc);
+    wgmma_pv_n128(d + 64, a, desc + (half >> 4));  // start address field
+  }
 }
 
 // Work item i (a q tile of one row and kv head): the q tiles with the
@@ -547,18 +570,18 @@ __global__ void __launch_bounds__(kThreads, 1) flash_prefill_kernel(
   int* pos_s = reinterpret_cast<int*>(smem + C::kPosOff);
   int* hdr = reinterpret_cast<int*>(smem + C::kHdrOff);
   const uint32_t full_bar = q_tiles + C::kBarOff;
-  const uint32_t empty_bar = full_bar + kStages * 8;
-  const uint32_t q_full = empty_bar + kStages * 8;  // two Q tiles
-  const uint32_t q_empty = q_full + 16;
+  const uint32_t empty_bar = full_bar + C::kStages * 8;
+  const uint32_t q_full = empty_bar + C::kStages * 8;  // kQBufs Q tiles
+  const uint32_t q_empty = q_full + 8 * C::kQBufs;
 
   const int G = Hq / Hkv;
   const int n_items = B * Hkv * n_qt;
   if (threadIdx.x == 0) {
-    for (int s = 0; s < kStages; ++s) {
+    for (int s = 0; s < C::kStages; ++s) {
       mbar_init(full_bar + 8 * s, 32);        // the producer warp's lanes
       mbar_init(empty_bar + 8 * s, 4 * kConsumers);  // consumer warps
     }
-    for (int s = 0; s < 2; ++s) {
+    for (int s = 0; s < C::kQBufs; ++s) {
       mbar_init(q_full + 8 * s, 1);           // the producer's TMA
       mbar_init(q_empty + 8 * s, 4 * kConsumers);
     }
@@ -571,7 +594,8 @@ __global__ void __launch_bounds__(kThreads, 1) flash_prefill_kernel(
     // producer: one warp walks the items' Q and K/V tiles, classifies each
     // K/V tile and feeds the needed ones through the ring, an item's last
     // followed by an end marker
-    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(kProducerRegs));
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(
+        C::kProducerRegs));
     if (threadIdx.x % 128 >= 32) return;
     const int lane = threadIdx.x & 31;
     int stage = 0;
@@ -599,8 +623,8 @@ __global__ void __launch_bounds__(kThreads, 1) flash_prefill_kernel(
         has_pad |= __shfl_xor_sync(kFull, has_pad, o);
       }
       // Q: (D, G heads, bq tokens) boxes; past T zero-filled
-      const uint32_t qb = it & 1;
-      mbar_wait(q_empty + 8 * qb, ((it >> 1) & 1) ^ 1);
+      const uint32_t qb = it % C::kQBufs;
+      mbar_wait(q_empty + 8 * qb, ((it / C::kQBufs) & 1) ^ 1);
       if (lane == 0) {
         mbar_arrive_tx(q_full + 8 * qb, 2 * D * G * bq);
 #pragma unroll
@@ -649,7 +673,7 @@ __global__ void __launch_bounds__(kThreads, 1) flash_prefill_kernel(
         } else {
           mbar_arrive(fb);
         }
-        if (++stage == kStages) {
+        if (++stage == C::kStages) {
           stage = 0;
           phase ^= 1;
         }
@@ -657,7 +681,7 @@ __global__ void __launch_bounds__(kThreads, 1) flash_prefill_kernel(
       mbar_wait(empty_bar + 8 * stage, phase ^ 1);
       if (lane == 0) hdr[2 * stage] = -1;  // the item's end
       mbar_arrive(full_bar + 8 * stage);
-      if (++stage == kStages) {
+      if (++stage == C::kStages) {
         stage = 0;
         phase ^= 1;
       }
@@ -667,7 +691,8 @@ __global__ void __launch_bounds__(kThreads, 1) flash_prefill_kernel(
 
   // consumers: warpgroup wg holds query rows [64 wg, 64 wg + 64) of a q
   // tile, warp w of it rows 16 w .. 16 w + 15 of those
-  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(kConsumerRegs));
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(
+      C::kConsumerRegs));
   const int lane = threadIdx.x & 31, warp = (threadIdx.x >> 5) & 3;
   const int grp = lane >> 2, tig = lane & 3;  // fragment row, column pair
   const float c = scale * kLog2e;   // exp(x * scale) = exp2(x * c)
@@ -697,9 +722,9 @@ __global__ void __launch_bounds__(kThreads, 1) flash_prefill_kernel(
     for (int e = 0; e < D / 2; ++e) o[e] = 0.f;
     float m[2] = {kNegInf, kNegInf};  // running max of the raw scores
     float l[2] = {0.f, 0.f};          // this thread's part of the row sums
-    const uint32_t qb = it & 1;
+    const uint32_t qb = it % C::kQBufs;
     const uint32_t qa = q_tiles + qb * C::kQTile + 64 * wg * C::kSwizzle;
-    mbar_wait(q_full + 8 * qb, (it >> 1) & 1);
+    mbar_wait(q_full + 8 * qb, (it / C::kQBufs) & 1);
 
     for (;;) {
       mbar_wait(full_bar + 8 * stage, phase);
@@ -707,7 +732,7 @@ __global__ void __launch_bounds__(kThreads, 1) flash_prefill_kernel(
       if (kt < 0) {  // the item's end: hand the stage back
         __syncwarp();
         if (lane == 0) mbar_arrive(empty_bar + 8 * stage);
-        if (++stage == kStages) {
+        if (++stage == C::kStages) {
           stage = 0;
           phase ^= 1;
         }
@@ -808,8 +833,8 @@ __global__ void __launch_bounds__(kThreads, 1) flash_prefill_kernel(
       for (int jj = 0; jj < kBK / 16; ++jj) {
         const uint64_t vd = smem_desc<C::kSwizzle>(
             kb + C::kTile + 16 * jj * C::kSwizzle, C::kBox);
-        wgmma_pv<D>(o, pa[jj], vd);
-        wgmma_pv<D>(o, pa_lo[jj], vd);
+        wgmma_pv<D>(o, pa[jj], vd, 2 * C::kBox);
+        wgmma_pv<D>(o, pa_lo[jj], vd, 2 * C::kBox);
       }
       wgmma_commit();
       wgmma_wait();
@@ -817,7 +842,7 @@ __global__ void __launch_bounds__(kThreads, 1) flash_prefill_kernel(
 
       __syncwarp();
       if (lane == 0) mbar_arrive(empty_bar + 8 * stage);  // the tile is read
-      if (++stage == kStages) {
+      if (++stage == C::kStages) {
         stage = 0;
         phase ^= 1;
       }
@@ -957,8 +982,9 @@ int launch(int dtype, const void* q, const void* k, const void* v,
 }  // namespace
 
 // q (B,T,Hq,D); k/v (B,T,Hkv,D); positions (B,T) int32 (pads < 0); out
-// (B,T,Hq,D).  dtype 0 is float32, 1 is bfloat16; D in {32, 64, 128}; Hq a
-// multiple of Hkv with Hq / Hkv <= 64; any T >= 1; q, k, v and out 16-byte
+// (B,T,Hq,D).  dtype 0 is float32, 1 is bfloat16; D in {32, 64, 128, 256};
+// Hq a multiple of Hkv with Hq / Hkv <= 64 (<= 8192 / D in float32); any
+// T >= 1; q, k, v and out 16-byte
 // aligned; window <= 0 means none.  Launches on `stream` and returns
 // cudaGetLastError(), or cudaErrorInvalidValue for a shape the kernel does
 // not take.
@@ -979,6 +1005,9 @@ extern "C" int flash_prefill_launch(int dtype, const void* q, const void* k,
                       window, scale, s);
   if (D == 128)
     return launch<128>(dtype, q, k, v, positions, out, B, T_len, Hq, Hkv,
+                       window, scale, s);
+  if (D == 256)
+    return launch<256>(dtype, q, k, v, positions, out, B, T_len, Hq, Hkv,
                        window, scale, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }

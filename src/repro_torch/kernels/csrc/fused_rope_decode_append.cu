@@ -169,9 +169,10 @@ struct Launch {
 // in place; block_table (B,nb), slot_pos (B,nb*pg), slots (B,) and q_pos
 // (B,) int32; inv_freq (D/2,) float32; out (B,Hq,D); ws float32 workspace
 // of B * Hkv * ceil(nb * pg / chunk) * (Hq / Hkv) * (D + 2) values.  dtype
-// 0 is float32, 1 is bfloat16; D in {32, 64, 128}, pg in {8, 16}, Hq / Hkv
-// <= 8, nb >= 1, chunk a multiple of 16 in [16, 2048] (slots per split)
-// with at most 1024 splits, pools 16-byte aligned; window <= 0 means none.
+// 0 is float32, 1 is bfloat16; D in {32, 64, 128, 256}, pg in {8, 16},
+// Hq / Hkv <= 8, nb >= 1, chunk a multiple of 16 in [16, 2048] (slots per
+// split) with at most 1024 splits, pools 16-byte aligned; window <= 0
+// means none.
 // Launches both passes on `stream` and returns the launches' error, or
 // cudaErrorInvalidValue for a shape the kernel does not take.
 extern "C" int fused_rope_decode_append_launch(

@@ -155,7 +155,7 @@ inline int vectors_per_thread(int64_t n_vecs, int threads) {
 }
 
 // Dispatch a launcher template over the compiled (D, PG) instances:
-// launch<T, D, PG>() for D in {32, 64, 128}, PG in {8, 16}, else
+// launch<T, D, PG>() for D in {32, 64, 128, 256}, PG in {8, 16}, else
 // cudaErrorInvalidValue.
 template <typename T, template <typename, int, int> class L, typename... A>
 int dispatch(int D, int pg, A... args) {
@@ -165,6 +165,8 @@ int dispatch(int D, int pg, A... args) {
   if (D == 64 && pg == 16) return L<T, 64, 16>::run(args...);
   if (D == 128 && pg == 8) return L<T, 128, 8>::run(args...);
   if (D == 128 && pg == 16) return L<T, 128, 16>::run(args...);
+  if (D == 256 && pg == 8) return L<T, 256, 8>::run(args...);
+  if (D == 256 && pg == 16) return L<T, 256, 16>::run(args...);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 

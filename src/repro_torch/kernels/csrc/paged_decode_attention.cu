@@ -95,8 +95,8 @@ struct Launch {
 // q (B,Hq,D); k_pages/v_pages (P,pg,Hkv,D); block_table (B,nb) int32;
 // slot_pos (B,nb*pg) int32; q_pos (B,) int32; out (B,Hq,D); ws float32
 // workspace of B * Hkv * ceil(nb * pg / chunk) * (Hq / Hkv) * (D + 2)
-// values.  dtype 0 is float32, 1 is bfloat16; D in {32, 64, 128}, pg in
-// {8, 16}, Hq / Hkv <= 8, nb >= 1, chunk a multiple of 16 in [16, 2048]
+// values.  dtype 0 is float32, 1 is bfloat16; D in {32, 64, 128, 256}, pg
+// in {8, 16}, Hq / Hkv <= 8, nb >= 1, chunk a multiple of 16 in [16, 2048]
 // (slots per split) with at most 1024 splits, pools 16-byte aligned;
 // window <= 0 means none.  Launches both passes on `stream` and returns
 // the launches' error, or cudaErrorInvalidValue for a shape the kernel

@@ -19,8 +19,9 @@
 //    attend_split: its 4 warps
 //    take the range's 16-slot steps in turn (64-slot block tiles), each
 //    warp with a cp.async ring of its own (2 to 4 steps in flight, by what
-//    ~16 KB hold), a running softmax per query head and no block barrier
-//    in the loop.  A step's scores and its P V product:
+//    ~16 KB hold; at head dim 256 see SplitSmem), a running softmax per
+//    query head and no block barrier in the loop.  A step's scores and
+//    its P V product:
 //     - bfloat16, on the tensor cores: mma.sync m16n8k16 with the G query
 //       heads as the rows of A (G padded to 16), K's and V's fragments by
 //       ldmatrix (.trans for V) from rows padded by 16 bytes, P a bf16
@@ -100,14 +101,26 @@ __device__ __forceinline__ void cp_async_wait() {
 // stage's live-slot mask; then q (G, D) as floats, the warps' partials for
 // the in-block merge, the split's slot_pos and its block-table entries
 // (paged rows: at most one per 8 slots).
+//
+// Head dim 256 makes a step 16.5 KB in bfloat16 and 32.5 KB in float32.
+// The stages are sized by the step, not the warps: 2 stages a warp in
+// bfloat16 (134 KB of rings, ~184 KB a block at G 8 and the longest
+// split: one block an SM, each warp's next step in flight while it
+// computes one), and 1 in float32 (4 x 2 stages would be 266 KB, past the
+// 227 KB a block may hold; a warp then loads a step and computes it in
+// turn, the 4 warps overlapping each other).  Four warps stay, as every
+// other instance has them, so that the in-block merge and the grid are
+// those of the other head dims.
 template <typename T, int D>
 struct SplitSmem {
   static constexpr int kRow = D * static_cast<int>(sizeof(T));  // bytes
   static constexpr int kPadRow = kRow + 16;
   static constexpr int kPageBytes = 2 * kPage * kPadRow;  // K, then V
-  // steps in flight per warp: as many as ~16 KB hold, 2 to 4
+  // steps in flight per warp: as many as ~16 KB hold, 2 to 4; one where a
+  // step passes 32 KB (float32 at D 256)
   static constexpr int kStages =
-      16384 / kPageBytes >= 4 ? 4 : (16384 / kPageBytes >= 3 ? 3 : 2);
+      kPageBytes > 32768 ? 1
+      : (16384 / kPageBytes >= 4 ? 4 : (16384 / kPageBytes >= 3 ? 3 : 2));
   static constexpr int kWarpBytes = kStages * kPageBytes +
                                     kMaxG * kPage * 4 +  // weights (G, step)
                                     16;                  // live masks
@@ -285,12 +298,16 @@ __device__ __forceinline__ uint32_t pack(float lo_x, float hi_x) {
 // fragments by ldmatrix.trans, each weight a bf16 pair (high and low
 // part, two products) so that P keeps ~16 bits.  Lane (grp, tig) holds
 // head grp: its scores of slots 8 n + 2 tig + {0, 1} and output dims
-// 8 n + 2 tig + {0, 1}.
+// 8 n + 2 tig + {0, 1}.  Rows 8..15 of each product are 0 (A's padding
+// rows); at head dim 256 they are not kept between products, which saves
+// the 64 registers that otherwise push the kernel past 255 and into
+// spills; the other head dims keep all four values of each fragment.
 template <int D>
 struct MmaWarp {
+  static constexpr int kKept = D == 256 ? 2 : 4;  // values kept a fragment
   uint32_t qa[D / 16][2];  // head grp, dims 16 kk + 2 tig (+ 8)
   float m, l;              // running max; this lane's part of the sum
-  float o[D / 8][4];       // [2], [3]: rows 8..15, always 0
+  float o[D / 8][kKept];   // [2], [3]: rows 8..15, always 0
 
   // A's fragments from q (G, D) as floats in shared memory: bf16 values
   // (the input's, or the fused kernel's rotated q rounded to bf16), so
@@ -314,7 +331,7 @@ struct MmaWarp {
 #pragma unroll
     for (int nd = 0; nd < D / 8; ++nd)
 #pragma unroll
-      for (int e = 0; e < 4; ++e) o[nd][e] = 0.f;
+      for (int e = 0; e < kKept; ++e) o[nd][e] = 0.f;
   }
   __device__ __forceinline__ void weigh(const char* kb, const char* vb,
                                         const float*, float*, uint32_t mask,
@@ -373,8 +390,16 @@ struct MmaWarp {
       for (int u = 0; u < 2; ++u) {
         o[nd + u][0] *= alpha;
         o[nd + u][1] *= alpha;
-        mma(o[nd + u], hi0, hi2, b[2 * u], b[2 * u + 1]);
-        mma(o[nd + u], lo0, lo2, b[2 * u], b[2 * u + 1]);
+        if constexpr (kKept == 4) {
+          mma(o[nd + u], hi0, hi2, b[2 * u], b[2 * u + 1]);
+          mma(o[nd + u], lo0, lo2, b[2 * u], b[2 * u + 1]);
+        } else {
+          float c[4] = {o[nd + u][0], o[nd + u][1], 0.f, 0.f};
+          mma(c, hi0, hi2, b[2 * u], b[2 * u + 1]);
+          mma(c, lo0, lo2, b[2 * u], b[2 * u + 1]);
+          o[nd + u][0] = c[0];
+          o[nd + u][1] = c[1];
+        }
       }
     }
   }
@@ -562,6 +587,8 @@ __device__ __forceinline__ void split_pass(
     int Hkv, int h, int window, float scale, float* __restrict__ part,
     Post post = Post()) {
   using S = SplitSmem<T, D>;
+  static_assert(S::bytes(kMaxG, kMaxChunk) <= 232448,
+                "a block holds at most 227 KB");
   int32_t* sp_s = reinterpret_cast<int32_t*>(smem + S::sp_off(G));
   for (int i = threadIdx.x; i < hi - lo; i += kSplitThreads)
     cp_async_4(sp_s + i, sp_row + lo + i);

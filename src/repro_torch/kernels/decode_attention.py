@@ -24,7 +24,7 @@ from repro_torch.kernels.split import sm_count, split_slots, workspace
 launches = 0
 
 #: shapes the kernel is compiled for (template instances in the source)
-HEAD_DIMS = (32, 64, 128)
+HEAD_DIMS = (32, 64, 128, 256)
 MAX_GROUP = 8
 
 _fn = None

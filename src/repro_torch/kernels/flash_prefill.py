@@ -19,9 +19,15 @@ from repro_torch.kernels import build
 launches = 0
 
 #: head dims the kernel is compiled for (template instances in the source)
-HEAD_DIMS = (32, 64, 128)
+HEAD_DIMS = (32, 64, 128, 256)
 #: most query heads per KV head (a block holds 128 query rows in bf16)
 MAX_GROUP = 64
+
+
+def max_group(D: int, dtype: torch.dtype) -> int:
+    """Most query heads per KV head the kernel takes at head dim ``D``: a
+    float32 block holds 8192 / D query rows (32 at D 256)."""
+    return MAX_GROUP if dtype == torch.bfloat16 else min(MAX_GROUP, 8192 // D)
 
 _fn = None
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -73,10 +79,10 @@ def flash_prefill(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError(f"flash_prefill kernel: shapes q {tuple(q.shape)}, "
                          f"k {tuple(k.shape)}, v {tuple(v.shape)}, positions "
                          f"{tuple(positions.shape)}")
-    if D not in HEAD_DIMS or Hq // Hkv > MAX_GROUP:
+    if D not in HEAD_DIMS or Hq // Hkv > max_group(D, q.dtype):
         raise ValueError(f"flash_prefill kernel: head_dim {D} not in "
                          f"{HEAD_DIMS} or {Hq // Hkv} query heads per KV "
-                         f"head above {MAX_GROUP}")
+                         f"head above {max_group(D, q.dtype)}")
     if any(t.data_ptr() % 16 for t in (q, k, v)):
         raise ValueError("flash_prefill kernel: q, k and v must be 16-byte "
                          "aligned")

@@ -25,7 +25,7 @@ from repro_torch.kernels.split import sm_count, split_slots, workspace
 launches = 0
 
 #: shapes the kernel is compiled for (template instances in the source)
-HEAD_DIMS = (32, 64, 128)
+HEAD_DIMS = (32, 64, 128, 256)
 PAGE_TOKENS = (8, 16)
 MAX_GROUP = 8
 

@@ -134,9 +134,10 @@ class Attention(nn.Module):
     def __init__(self, cfg: ModelConfig, device: torch.device):
         super().__init__()
         D, Hq, Hkv = cfg.head_dim, cfg.n_heads, cfg.n_kv_heads
-        self.wq = Dense(cfg.d_model, Hq * D, cfg.dtype, device)
-        self.wk = Dense(cfg.d_model, Hkv * D, cfg.dtype, device)
-        self.wv = Dense(cfg.d_model, Hkv * D, cfg.dtype, device)
+        bias = cfg.qkv_bias
+        self.wq = Dense(cfg.d_model, Hq * D, cfg.dtype, device, bias=bias)
+        self.wk = Dense(cfg.d_model, Hkv * D, cfg.dtype, device, bias=bias)
+        self.wv = Dense(cfg.d_model, Hkv * D, cfg.dtype, device, bias=bias)
         self.wo = Dense(Hq * D, cfg.d_model, cfg.dtype, device)
 
     def reset_parameters(self, generator: torch.Generator) -> None:
@@ -145,6 +146,9 @@ class Attention(nn.Module):
 
 
 def _qkv(p: Attention, x: torch.Tensor, cfg: ModelConfig):
+    """q, k and v of x (B,T,d), each with its bias where the config has
+    one, unrotated: every path rotates q and k (or hands them to a fused
+    kernel that does) after this."""
     B, T, _ = x.shape
     q = p.wq(x).reshape(B, T, cfg.n_heads, cfg.head_dim)
     k = p.wk(x).reshape(B, T, cfg.n_kv_heads, cfg.head_dim)
@@ -205,6 +209,27 @@ def dense_decode_attend(q: torch.Tensor, k_cache: torch.Tensor,
     return kernel_ops.decode_attention(
         q[:, 0].contiguous(), k_cache, v_cache, slot_pos,
         q_pos.to(torch.int32), window=window)[:, None]
+
+
+def attention_forward(p: Attention, x: torch.Tensor, positions: torch.Tensor,
+                      cfg: ModelConfig,
+                      window: Optional[int]) -> torch.Tensor:
+    """Full-sequence attention without a cache, in plain torch: no kernel
+    runs here on any device (``transformer.forward``, the reference the
+    serving paths' kernels are held against).  x (B,T,d), positions (B,T)
+    with pads < 0; from ``CHUNK_THRESHOLD`` tokens the q-blocked path."""
+    B, T, _ = x.shape
+    q, k, v = _qkv(p, x, cfg)
+    rp = positions.clamp(min=0)
+    q = apply_rope(q, rp, cfg.rope_theta)
+    k = apply_rope(k, rp, cfg.rope_theta)
+    scale = cfg.head_dim ** -0.5
+    if T >= CHUNK_THRESHOLD:
+        o = gqa_attend_chunked(q, k, v, scale, positions, window)
+    else:
+        o = gqa_attend_blocked(q, k, v, prefill_mask(positions, window),
+                               scale)
+    return p.wo(o.reshape(B, T, -1))
 
 
 def attention_prefill(p: Attention, x: torch.Tensor, positions: torch.Tensor,

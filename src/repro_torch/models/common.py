@@ -9,11 +9,18 @@ conventions kept exactly:
 
 * a dense weight is stored ``(d_in, d_out)`` and applied as ``x @ w``;
 * ``rms_norm`` computes in float32 and scales by ``(1 + w)``;
-* RoPE is the Llama half rotation; the MLP is SwiGLU;
-* embeddings are tied (``unembed = h @ table.T``).
+* a dense layer adds its bias ``b`` after the product where it has one
+  (``qkv_bias``: q, k and v of Qwen1.5), rounding the product first;
+* RoPE is the Llama half rotation;
+* the MLP is gated: SwiGLU (``act="silu"``) or GeGLU (``act="gelu"``,
+  the tanh approximation, as ``jax.nn.gelu(approximate=True)``);
+* embeddings are tied (``unembed = h @ table.T``) unless
+  ``tie_embeddings`` is off, then ``unembed`` is a dense layer of its own;
+  ``scale_embed`` (Gemma) multiplies them by sqrt(d_model) rounded to the
+  table's type first.
 
-The config carries the fields of the families the port serves: dense
-llama (no QKV bias, no embedding scale, tied embeddings, SiLU) and the
+The config carries the fields of the families the port serves: the dense
+transformers (llama3.2-1b, codeqwen1.5-7b, minitron-4b, gemma-2b) and the
 Mamba-2 SSM (``ssm_*``, used by ``models.mamba2``).
 """
 from __future__ import annotations
@@ -42,6 +49,10 @@ class ModelConfig:
     vocab_size: int = 1024
     rope_theta: float = 10000.0
     norm_eps: float = 1e-6
+    act: str = "silu"  # silu (SwiGLU) | gelu (GeGLU)
+    qkv_bias: bool = False  # qwen1.5
+    tie_embeddings: bool = True
+    scale_embed: bool = False  # gemma: embeddings * sqrt(d_model)
     sliding_window: Optional[int] = None
     # --- SSM (mamba2 / SSD) ---
     ssm_state: int = 128
@@ -77,27 +88,46 @@ def normal_(t: torch.Tensor, generator: torch.Generator,
 
 
 class Dense(nn.Module):
-    """``y = x @ w`` with ``w`` stored ``(d_in, d_out)``."""
+    """``y = x @ w (+ b)`` with ``w`` stored ``(d_in, d_out)``; the bias,
+    where there is one, is added to the product already rounded to the
+    layer's type, as ``dense_apply`` does in JAX."""
 
     def __init__(self, d_in: int, d_out: int, dtype: torch.dtype,
-                 device: torch.device):
+                 device: torch.device, bias: bool = False):
         super().__init__()
         self.w = nn.Parameter(torch.empty(d_in, d_out, dtype=dtype,
                                           device=device), requires_grad=False)
+        self.b = (nn.Parameter(torch.empty(d_out, dtype=dtype, device=device),
+                               requires_grad=False) if bias else None)
 
     def reset_parameters(self, generator: torch.Generator) -> None:
+        """N(0, 1/d_in) weights, a zero bias (``dense_param``)."""
         normal_(self.w, generator, self.w.shape[0] ** -0.5)
+        if self.b is not None:
+            with torch.no_grad():
+                self.b.zero_()
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return x @ self.w
+        y = x @ self.w
+        return y if self.b is None else y + self.b
+
+
+def activate(x: torch.Tensor, act: str) -> torch.Tensor:
+    """The MLP's gate activation: SiLU, or GELU's tanh approximation."""
+    if act == "silu":
+        return F.silu(x)
+    if act == "gelu":
+        return F.gelu(x, approximate="tanh")
+    raise ValueError(f"unknown act {act}")
 
 
 class MLP(nn.Module):
-    """SwiGLU MLP: ``down(silu(gate(x)) * up(x))``."""
+    """Gated MLP: ``down(act(gate(x)) * up(x))`` (SwiGLU or GeGLU)."""
 
     def __init__(self, d_model: int, d_ff: int, dtype: torch.dtype,
-                 device: torch.device):
+                 device: torch.device, act: str = "silu"):
         super().__init__()
+        self.act = act
         self.gate = Dense(d_model, d_ff, dtype, device)
         self.up = Dense(d_model, d_ff, dtype, device)
         self.down = Dense(d_ff, d_model, dtype, device)
@@ -107,11 +137,12 @@ class MLP(nn.Module):
             m.reset_parameters(generator)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.down(F.silu(self.gate(x)) * self.up(x))
+        return self.down(activate(self.gate(x), self.act) * self.up(x))
 
 
 class Embed(nn.Module):
-    """Token table ``(vocab, d_model)``; tied with the unembedding."""
+    """Token table ``(vocab, d_model)``; tied with the unembedding unless
+    the config unties it."""
 
     def __init__(self, vocab: int, d_model: int, dtype: torch.dtype,
                  device: torch.device):
@@ -162,8 +193,19 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
     return out.to(x.dtype)
 
 
-def embed_apply(embed: Embed, tokens: torch.Tensor) -> torch.Tensor:
-    return embed.table[tokens]
+def embed_scale(cfg: ModelConfig, dtype: torch.dtype) -> float:
+    """sqrt(d_model) rounded to ``dtype``, as ``jnp.asarray(cfg.d_model **
+    0.5, h.dtype)`` rounds it (45.25 for d 2048 in bf16); the product with
+    a value of that type then rounds once, as in JAX."""
+    return torch.tensor(cfg.d_model ** 0.5, dtype=dtype).item()
+
+
+def embed_apply(embed: Embed, tokens: torch.Tensor,
+                cfg: ModelConfig) -> torch.Tensor:
+    h = embed.table[tokens]
+    if cfg.scale_embed:
+        h = h * embed_scale(cfg, h.dtype)
+    return h
 
 
 def unembed_apply(embed: Embed, h: torch.Tensor) -> torch.Tensor:

@@ -227,7 +227,7 @@ def prefill(params: Mamba2, cfg: ModelConfig, tokens: torch.Tensor,
     B, T = tokens.shape
     idx = torch.arange(T, device=tokens.device)[None]
     valid = idx >= (T - lengths.to(idx.dtype)[:, None])
-    h = embed_apply(params.embed, tokens)
+    h = embed_apply(params.embed, tokens, cfg)
     h = torch.where(valid[..., None], h, torch.zeros((), dtype=h.dtype,
                                                      device=h.device))
     h, valid_p, _ = _pad_to_chunk(h, valid, cfg.ssm_chunk)
@@ -250,7 +250,7 @@ def decode_step(params: Mamba2, cfg: ModelConfig, cache: MambaCache,
                 ) -> Tuple[torch.Tensor, MambaCache]:
     """One decode iteration. tokens (B,); ``step`` is ignored (the cache
     carries the state)."""
-    h = embed_apply(params.embed, tokens[:, None])
+    h = embed_apply(params.embed, tokens[:, None], cfg)
     convs, states = [], []
     for l, layer in enumerate(params.layers):
         o, conv, state = mixer_decode(

@@ -3,8 +3,10 @@
 PyTorch counterpart of ``repro.models.transformer``.  The parameters are
 an ``nn.Module`` (``Transformer``) with one ``Block`` per layer; the JAX
 package's stacked leading layer axis becomes a loop over ``layers``.  The
-serving functions keep the JAX signatures:
+functions keep the JAX signatures (``forward``, without a cache, is the
+plain reference; the others serve):
 
+  forward(params, cfg, tokens, positions)                  -> logits
   prefill(params, cfg, tokens, lengths, cache_window)      -> (logits, KVCache)
   decode_step(params, cfg, cache, tokens, step)            -> (logits, KVCache)
   decode_step_rowslots(params, cfg, cache, tokens, q_pos, slots)
@@ -26,7 +28,7 @@ from torch import nn
 from repro_torch.kvcache.paged import PagedKVCache
 from repro_torch.models import attention as attn
 from repro_torch.models.attention import KVCache
-from repro_torch.models.common import (MLP, Embed, ModelConfig,
+from repro_torch.models.common import (MLP, Dense, Embed, ModelConfig,
                                        embed_apply, rms_norm, rms_weight,
                                        unembed_apply)
 
@@ -35,7 +37,7 @@ class Block(nn.Module):
     def __init__(self, cfg: ModelConfig, device: torch.device):
         super().__init__()
         self.attn = attn.Attention(cfg, device)
-        self.mlp = MLP(cfg.d_model, cfg.d_ff, cfg.dtype, device)
+        self.mlp = MLP(cfg.d_model, cfg.d_ff, cfg.dtype, device, act=cfg.act)
         self.ln_attn = rms_weight(cfg.d_model, cfg.dtype, device)
         self.ln_mlp = rms_weight(cfg.d_model, cfg.dtype, device)
 
@@ -48,7 +50,8 @@ class Block(nn.Module):
 
 
 class Transformer(nn.Module):
-    """Parameters of the dense LM; names follow the JAX parameter tree."""
+    """Parameters of the dense LM; names follow the JAX parameter tree
+    (an untied head is ``unembed.w``, JAX's ``unembed/w``)."""
 
     def __init__(self, cfg: ModelConfig, device: torch.device):
         super().__init__()
@@ -56,6 +59,8 @@ class Transformer(nn.Module):
         self.layers = nn.ModuleList([Block(cfg, device)
                                      for _ in range(cfg.n_layers)])
         self.ln_f = rms_weight(cfg.d_model, cfg.dtype, device)
+        self.unembed = (None if cfg.tie_embeddings else
+                        Dense(cfg.d_model, cfg.vocab_size, cfg.dtype, device))
 
     def reset_parameters(self, generator: torch.Generator) -> None:
         self.embed.reset_parameters(generator)
@@ -63,13 +68,16 @@ class Transformer(nn.Module):
             layer.reset_parameters(generator)
         with torch.no_grad():
             self.ln_f.zero_()
+        if self.unembed is not None:
+            self.unembed.reset_parameters(generator)
 
 
 def init(generator: torch.Generator, cfg: ModelConfig,
          device: torch.device) -> Transformer:
     """Random weights drawn from ``generator`` (which must live on
-    ``device``): N(0, 0.02) embeddings, N(0, d_in^-1) dense layers,
-    zero norm gains — the JAX package's recipe."""
+    ``device``): N(0, 0.02) embeddings, N(0, d_in^-1) dense layers (an
+    untied head too), zero biases and norm gains — the JAX package's
+    recipe."""
     params = Transformer(cfg, device)
     params.reset_parameters(generator)
     return params
@@ -77,7 +85,10 @@ def init(generator: torch.Generator, cfg: ModelConfig,
 
 def _logits(params: Transformer, cfg: ModelConfig,
             h: torch.Tensor) -> torch.Tensor:
-    return unembed_apply(params.embed, rms_norm(h, params.ln_f, cfg.norm_eps))
+    h = rms_norm(h, params.ln_f, cfg.norm_eps)
+    if params.unembed is None:
+        return unembed_apply(params.embed, h)
+    return params.unembed(h)
 
 
 def _mlp_residual(layer: Block, h: torch.Tensor,
@@ -101,6 +112,27 @@ def _compact_slot_pos(lengths: torch.Tensor, W: int) -> torch.Tensor:
     return torch.where(slots < lengths[:, None], slots, -1).to(torch.int32)
 
 
+def forward(params: Transformer, cfg: ModelConfig, tokens: torch.Tensor,
+            positions: Optional[torch.Tensor] = None,
+            window: Optional[int] = None) -> torch.Tensor:
+    """Full-sequence forward (no cache) -> logits (B,T,V).  Its attention
+    is plain torch (``attention.attention_forward``) on every device, so
+    on the card it is the reference that the serving paths, whose
+    attention runs the kernels, are held against.  ``positions`` default
+    to 0..T-1; left pads carry positions < 0."""
+    window = window if window is not None else cfg.sliding_window
+    B, T = tokens.shape
+    if positions is None:
+        positions = torch.arange(T, dtype=torch.int32,
+                                 device=tokens.device)[None].expand(B, T)
+    h = embed_apply(params.embed, tokens, cfg)
+    for layer in params.layers:
+        x = rms_norm(h, layer.ln_attn, cfg.norm_eps)
+        a = attn.attention_forward(layer.attn, x, positions, cfg, window)
+        h = _mlp_residual(layer, h + a, cfg)
+    return _logits(params, cfg, h)
+
+
 # ---------------------------------------------------------------------------
 # dense cache (profiling path)
 # ---------------------------------------------------------------------------
@@ -111,7 +143,7 @@ def prefill(params: Transformer, cfg: ModelConfig, tokens: torch.Tensor,
     ``cache_window``."""
     window = window if window is not None else cfg.sliding_window
     positions = make_positions(tokens, lengths)
-    h = embed_apply(params.embed, tokens)
+    h = embed_apply(params.embed, tokens, cfg)
     T = positions.shape[1]
     ks, vs = [], []
     for layer in params.layers:
@@ -138,7 +170,7 @@ def decode_step(params: Transformer, cfg: ModelConfig, cache: KVCache,
     q_pos = cache.lengths + step
     slot = attn.decode_slot(cache)
     slot_pos = attn.decode_slot_pos(cache, q_pos)
-    h = embed_apply(params.embed, tokens[:, None])
+    h = embed_apply(params.embed, tokens[:, None], cfg)
     for l, layer in enumerate(params.layers):
         x = rms_norm(h, layer.ln_attn, cfg.norm_eps)
         a = attn.attention_decode(layer.attn, x, q_pos, cache.k[l],
@@ -162,7 +194,7 @@ def decode_step_rowslots(params: Transformer, cfg: ModelConfig,
     slot_pos = cache.slot_pos.clone()
     slot_pos.scatter_(1, slots.long()[:, None],
                       q_pos.to(torch.int32)[:, None])
-    h = embed_apply(params.embed, tokens[:, None])
+    h = embed_apply(params.embed, tokens[:, None], cfg)
     for l, layer in enumerate(params.layers):
         x = rms_norm(h, layer.ln_attn, cfg.norm_eps)
         a = attn.attention_decode_rowslots(layer.attn, x, q_pos, cache.k[l],
@@ -191,7 +223,7 @@ def prefill_paged(params: Transformer, cfg: ModelConfig,
     with ``slot_pos``/``lengths`` of the prefilled rows."""
     window = window if window is not None else cfg.sliding_window
     positions = make_positions(tokens, lengths)
-    h = embed_apply(params.embed, tokens)
+    h = embed_apply(params.embed, tokens, cfg)
     for l, layer in enumerate(params.layers):
         x = rms_norm(h, layer.ln_attn, cfg.norm_eps)
         a = attn.attention_prefill_paged(
@@ -222,7 +254,7 @@ def prefill_tail_paged(params: Transformer, cfg: ModelConfig,
     base = make_positions(tokens, lengths - start)
     positions = torch.where(base >= 0, base + start[:, None],
                             -1).to(torch.int32)
-    h = embed_apply(params.embed, tokens)
+    h = embed_apply(params.embed, tokens, cfg)
     slot_pos = _compact_slot_pos(lengths, cache.window)
     for l, layer in enumerate(params.layers):
         x = rms_norm(h, layer.ln_attn, cfg.norm_eps)
@@ -246,7 +278,7 @@ def decode_step_paged(params: Transformer, cfg: ModelConfig,
     slot_pos = cache.slot_pos.clone()
     slot_pos.scatter_(1, slots.long()[:, None],
                       q_pos.to(torch.int32)[:, None])
-    h = embed_apply(params.embed, tokens[:, None])
+    h = embed_apply(params.embed, tokens[:, None], cfg)
     for l, layer in enumerate(params.layers):
         x = rms_norm(h, layer.ln_attn, cfg.norm_eps)
         a = attn.attention_decode_paged(

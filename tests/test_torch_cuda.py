@@ -73,6 +73,14 @@ def _decode_inputs(B, nb, pg, Hq, Hkv, D, dtype, device, seed=0,
     # pages of 8: splits of 64 slots start at pages 8, 16 and 24
     (3, 25, 8, 32, 8, 64, [200, 70]),
     (2, 20, 16, 16, 2, 128, [320]),
+    # gemma-2b's heads (MQA 8/1, head_dim 256): a row over several splits
+    # beside a short one, pages of 16 and of 8
+    (3, 12, 16, 8, 1, 256, [150, 60]),
+    (3, 20, 8, 8, 1, 256, [150, 33]),
+    # minitron-4b's heads (GQA 24/8: 3 query heads a KV head) and
+    # codeqwen1.5-7b's (MHA 32/32), head_dim 128, over several splits
+    (3, 12, 16, 24, 8, 128, [150, 60]),
+    (3, 20, 8, 32, 32, 128, [150, 33]),
 ])
 def test_paged_decode_attention_matches_plain(cuda_device, dtype, window,
                                               B, nb, pg, Hq, Hkv, D, fills):
@@ -148,7 +156,7 @@ def _max_ulps(a: torch.Tensor, b: torch.Tensor) -> int:
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("D,pg", [(64, 16), (128, 8)])
+@pytest.mark.parametrize("D,pg", [(64, 16), (128, 8), (128, 16)])
 @pytest.mark.parametrize("start", [[0, 0, 0], [0, 32, 0], [0, 21, 5]])
 def test_fused_rope_prefill_write_matches_plain(cuda_device, dtype, D, pg,
                                                 start):
@@ -231,6 +239,7 @@ def _written(pos, bt, pg, n_pool):
                           # rows
     (40, 2, 32, None),    # T a multiple of 8 only; the reduced heads
     (40, 8, 128, None),
+    (40, 32, 128, None),  # codeqwen1.5-7b's heads: rows of 8 KiB (bf16)
     (35, 64, 128, None),  # rows of 64 KiB (float32): one token a tile,
                           # and more than one pass of the tile's threads
     (250, 8, 64, None),   # enough tokens for 2 vectors a thread (132 SMs)
@@ -315,6 +324,14 @@ def _fused_decode_inputs(B, nb, pg, Hq, Hkv, D, fills, dtype, device,
     # pages of 8, splits from pages 8 and 16: the new slot last in the
     # third split (191), first and alone in the second (64)
     (3, 30, 8, 16, 2, 128, [191, 64, 0]),
+    # gemma-2b's heads at head_dim 256 (one angle a thread): the new slot
+    # first in the second split (64), in the third (150); pages of 8
+    (3, 12, 16, 8, 1, 256, [64, 150, 0]),
+    (3, 20, 8, 8, 1, 256, [127, 9, 0]),
+    # minitron-4b's heads (3 query heads a KV head) and codeqwen1.5-7b's
+    # (MHA), head_dim 128
+    (3, 12, 16, 24, 8, 128, [64, 150, 0]),
+    (3, 20, 8, 32, 32, 128, [127, 9, 0]),
 ])
 def test_fused_rope_decode_append_matches_plain(cuda_device, dtype, window,
                                                 B, nb, pg, Hq, Hkv, D,
@@ -405,6 +422,16 @@ def _prefill_inputs(B, T, Hq, Hkv, D, dtype, device, seed=3):
     (2, 300, 32, 8, 64),     # T not a multiple of the 128-row tile
     (2, 300, 24, 8, 64),     # 3 heads per KV head over several q tiles
     (8, 512, 32, 8, 64),     # the smoke shape: the most outputs
+    # head_dim 256 (one Q buffer, two K/V stages in bf16; 32 query rows a
+    # float32 block): gemma-2b's MQA 8/1 over several q tiles, at its
+    # smoke shape, and MHA (128 tokens a q tile)
+    (2, 300, 8, 1, 256),
+    (8, 512, 8, 1, 256),
+    (2, 100, 16, 16, 256),
+    # minitron-4b's heads (3 query heads a KV head) and codeqwen1.5-7b's
+    # (MHA), head_dim 128
+    (2, 300, 24, 8, 128),
+    (2, 300, 32, 32, 128),
 ])
 def test_flash_prefill_matches_plain(cuda_device, dtype, window, B, T, Hq,
                                      Hkv, D):
@@ -472,6 +499,14 @@ def _dense_decode_inputs(B, W, Hq, Hkv, D, dtype, device, seed=4,
     (16, 1280, 32, 8, 64, "left"),    # the dense ILS engine's 16 slots
     (4, 300, 32, 8, 64, "ring"),      # a ring cache: slot_pos unsorted
     (3, 130, 16, 2, 128, "ring"),
+    # gemma-2b's heads (MQA 8/1, head_dim 256)
+    (3, 200, 8, 1, 256, "compact"),
+    (2, 1000, 8, 1, 256, "left"),
+    (4, 300, 8, 1, 256, "ring"),
+    # minitron-4b's heads (3 query heads a KV head) and codeqwen1.5-7b's
+    # (MHA), head_dim 128
+    (3, 200, 24, 8, 128, "compact"),
+    (2, 1000, 32, 32, 128, "left"),
 ])
 def test_decode_attention_matches_plain(cuda_device, dtype, window, B, W,
                                         Hq, Hkv, D, layout):
@@ -513,6 +548,12 @@ def test_dense_attention_kernels_refuse_what_they_do_not_take(cuda_device):
         prefill_kernel.flash_prefill(q[..., :16].contiguous(),
                                      k[..., :16].contiguous(),
                                      v[..., :16].contiguous(), pos)
+    assert prefill_kernel.launches == before
+    # a float32 block holds 32 query rows at head_dim 256
+    q, k, v, pos = _prefill_inputs(1, 8, 64, 1, 256, torch.float32,
+                                   cuda_device)
+    with pytest.raises(ValueError, match="above 32"):
+        prefill_kernel.flash_prefill(q, k, v, pos)
     assert prefill_kernel.launches == before
 
     q, kc, vc, sp, qp = _dense_decode_inputs(3, 20, 8, 2, 64, torch.float32,
@@ -582,6 +623,21 @@ def test_reduced_model_engines_on_the_card_match_the_cpu(cuda_device):
     and dense == paged on the card.  The phase raises SystemExit when it
     fails."""
     _smoke().check_ils_parity()
+
+
+@pytest.mark.parametrize("arch,head_dim", [("codeqwen1.5-7b", None),
+                                           ("minitron-4b", None),
+                                           ("gemma-2b", None),
+                                           ("gemma-2b", 256)])
+def test_reduced_dense_configs_on_the_card_match_the_cpu(cuda_device, arch,
+                                                         head_dim):
+    """chip_smoke.py's phase 4c: the reduced float32 config (codeqwen's
+    QKV biases drawn apart; gemma-2b also at its published head_dim 256)
+    through the dense, paged unfused and fused static engines on the card
+    gives the CPU's token streams but for near-ties, each path's kernels
+    launching once per layer per prefill stage / decode step.  The phase
+    raises SystemExit when it fails."""
+    _smoke().check_config_parity(arch, head_dim)
 
 
 # ---------------------------------------------------------------------------
@@ -692,8 +748,8 @@ def test_ops_dispatch_ssd_scan_to_the_kernel(cuda_device):
 
 
 def test_reduced_mamba_engine_on_the_card_matches_the_cpu(cuda_device):
-    """chip_smoke.py's phase 4c: the reduced float32 mamba2-130m's dense
-    static engine on the card (ssd_scan once per layer per prefill, no
-    other kernel) gives the CPU's token streams over two slices but for
-    near-ties.  The phase raises when it fails."""
-    _smoke().check_mamba_parity()
+    """chip_smoke.py's phase 4c for mamba2-130m: the reduced float32
+    model's dense static engine on the card (ssd_scan once per layer per
+    prefill, no other kernel) gives the CPU's token streams over two
+    slices but for near-ties.  The phase raises when it fails."""
+    _smoke().check_config_parity("mamba2-130m")

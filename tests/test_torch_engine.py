@@ -29,7 +29,7 @@ def _engines(models, pool_tokens=512, page_tokens=8, eos_id=1,
     return JaxEngine(jm, jp, **kw), StaticEngine(tm, tp, device="cpu", **kw)
 
 
-def _assert_same_result(want, got, prompts_in):
+def _assert_same_result(want, got, prompts_in, arch="llama3.2-1b"):
     assert got.steps == want.steps
     assert got.reprefill_tokens == want.reprefill_tokens
     assert got.prefix_hit_tokens == want.prefix_hit_tokens
@@ -37,15 +37,16 @@ def _assert_same_result(want, got, prompts_in):
     assert got.batch_input_len == want.batch_input_len
     assert got.early_return == want.early_return
     for p, a, b in zip(prompts_in, want.results, got.results):
-        assert_same_stream(p, a["tokens"], b["tokens"])
+        assert_same_stream(p, a["tokens"], b["tokens"], arch)
         for key in ("n_valid", "finished", "invalid", "pad"):
             assert b[key] == a[key], key
 
 
-def _serve_both(jeng, teng, batch, slice_len, rids, **kw):
+def _serve_both(jeng, teng, batch, slice_len, rids, arch="llama3.2-1b",
+                **kw):
     want = jeng.serve_batch_paged(batch, slice_len, rids, **kw)
     got = teng.serve_batch_paged(batch, slice_len, rids, **kw)
-    _assert_same_result(want, got, batch)
+    _assert_same_result(want, got, batch, arch)
     return want, got
 
 
@@ -59,6 +60,11 @@ def _release_all(jeng, teng, rids):
 def test_multi_slice_retention_zero_reprefill(models):
     """>= 3 slices with retained pages: every resumed slice remaps its
     pages (no re-prefill) and the streams match the JAX engine's."""
+    check_multi_slice_retention(models)
+
+
+def check_multi_slice_retention(models, arch="llama3.2-1b"):
+    """The retention scenario on ``models`` (the reduced ``arch``)."""
     jm, jp, tm, tp = models
     jeng, teng = _engines(models)
     ps = prompts(tm.cfg.vocab_size, [7, 12, 4], seed=0)
@@ -69,6 +75,7 @@ def test_multi_slice_retention_zero_reprefill(models):
         idx = [i for i in range(len(ps)) if len(outs[i]) < totals[i]]
         want, got = _serve_both(
             jeng, teng, [ps[i] for i in idx], 8, [100 + i for i in idx],
+            arch=arch,
             forced_gen_lens=[totals[i] - len(outs[i]) for i in idx],
             already_generated=[outs[i] for i in idx])
         reprefill += got.reprefill_tokens
@@ -151,6 +158,11 @@ def test_fused_engine_multi_slice_matches_jax_fused_and_port_unfused(models):
     7/12/4 tokens, totals 20/9/16, slices of 8, pages of 8): the port's
     fused engine streams the JAX fused engine's tokens and the port's
     unfused engine's, slice by slice."""
+    check_fused_multi_slice(models)
+
+
+def check_fused_multi_slice(models, arch="llama3.2-1b"):
+    """The fused retention scenario on ``models`` (the reduced ``arch``)."""
     from repro_torch.engine.static_engine import StaticEngine
     jm, jp, tm, tp = models
     jeng, teng = _engines(models, attn_impl="fused")
@@ -166,9 +178,9 @@ def test_fused_engine_multi_slice_matches_jax_fused_and_port_unfused(models):
         kw = dict(forced_gen_lens=[totals[i] - len(outs[i]) for i in idx],
                   already_generated=[outs[i] for i in idx])
         rids = [100 + i for i in idx]
-        want, got = _serve_both(jeng, teng, batch, 8, rids, **kw)
+        want, got = _serve_both(jeng, teng, batch, 8, rids, arch=arch, **kw)
         unfused = ueng.serve_batch_paged(batch, 8, rids, **kw)
-        _assert_same_result(unfused, got, batch)
+        _assert_same_result(unfused, got, batch, arch)
         n_slices += 1
         for s, i in enumerate(idx):
             outs[i].extend(want.results[s]["tokens"])

@@ -61,6 +61,7 @@ def _torch(*arrays):
     (2, 3, 8, 4, 2, 16),
     (3, 3, 8, 6, 2, 16),    # non-pow2 batch
     (2, 4, 16, 8, 2, 32),   # the reduced llama3.2-1b heads
+    (3, 3, 16, 8, 1, 256),  # gemma-2b's heads: MQA 8/1 at head_dim 256
 ])
 @pytest.mark.parametrize("window", [None, 6])
 def test_paged_decode_attention_plain_matches_jax(B, nb, pg, Hq, Hkv, D,
@@ -293,6 +294,7 @@ def _fused_decode_inputs(B, nb, pg, Hq, Hkv, D, fills, seed=0):
     (2, 3, 8, 4, 2, 16, [16, 0]),           # first offset of a page; pad row
     (3, 3, 8, 6, 2, 16, [7, 23, 11]),       # last offsets of pages
     (4, 2, 16, 8, 2, 32, [15, 16, 3, 0]),   # reduced llama heads; pad row
+    (3, 3, 16, 8, 1, 256, [20, 33, 0]),     # gemma-2b's heads, D 256
 ])
 def test_fused_rope_decode_append_plain_matches_jax(dtype, window, B, nb, pg,
                                                     Hq, Hkv, D, fills):
@@ -381,6 +383,7 @@ def _prefill_np(B, T, Hq, Hkv, D, lens, seed=5):
     (3, 12, 8, 2, 32, [12, 5, 0]),    # T not a multiple of 8; an all-pad row
     (2, 24, 4, 1, 16, [24, 1]),       # MQA, a one-token row
     (1, 13, 4, 4, 8, [13]),           # MHA, odd T
+    (2, 20, 8, 1, 256, [20, 7]),      # gemma-2b's heads: MQA 8/1, D 256
 ])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("window", [None, 5])
@@ -438,6 +441,7 @@ def _dense_decode_np(B, W, Hq, Hkv, D, seed=6):
     (4, 37, 8, 2, 32),     # W not a multiple of 8
     (3, 24, 4, 1, 16),     # MQA
     (2, 16, 4, 4, 8),      # MHA
+    (3, 24, 8, 1, 256),    # gemma-2b's heads: MQA 8/1, D 256
 ])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("window", [None, 6])

@@ -55,6 +55,11 @@ def test_apply_rope_matches_jax(theta):
 
 
 def test_mlp_matches_jax(models):
+    check_mlp(models)
+
+
+def check_mlp(models):
+    """Layer 0's MLP (the config's activation) at ``BLOCK_TOL``."""
     jm, jp, tm, tp = models
     rng = np.random.default_rng(2)
     x = rng.standard_normal((2, 6, tm.cfg.d_model)).astype(np.float32)
@@ -65,6 +70,11 @@ def test_mlp_matches_jax(models):
 
 
 def test_params_from_jax_carries_every_leaf(models):
+    check_params_carry(models)
+
+
+def check_params_carry(models):
+    """Every JAX leaf lands in the port's module, with as many values."""
     jm, jp, tm, tp = models
     flat = jax.tree_util.tree_flatten_with_path(jp)[0]
     n_jax = sum(np.asarray(leaf).size for _, leaf in flat)
@@ -97,6 +107,12 @@ def _left_pad(vocab, lens, T, seed):
 
 
 def test_dense_prefill_and_decode_match_jax(models):
+    check_dense_prefill_and_decode(models)
+
+
+def check_dense_prefill_and_decode(models):
+    """Dense prefill of two left-padded rows, then 3 decode steps: logits
+    at ``LOGIT_TOL``."""
     jm, jp, tm, tp = models
     toks, lens = _left_pad(tm.cfg.vocab_size, [12, 7], 12, seed=4)
     jl, jc = jm.prefill(jp, {"tokens": jnp.asarray(toks),
@@ -221,7 +237,7 @@ def _assert_pages_match(jcache, tcache):
                                atol=BLOCK_TOL)
 
 
-def _check_paged_prefill_and_decode(models, impl):
+def check_paged_prefill_and_decode(models, impl):
     jm, jp, tm, tp = models
     cfg, jcfg, pg = tm.cfg, jm.cfg, 8
     toks, lens = _left_pad(cfg.vocab_size, [16, 9, 13], 16, seed=5)
@@ -260,13 +276,13 @@ def _check_paged_prefill_and_decode(models, impl):
 
 
 def test_paged_prefill_and_decode_logits_match_jax(models):
-    _check_paged_prefill_and_decode(models, "unfused")
+    check_paged_prefill_and_decode(models, "unfused")
 
 
 def test_fused_paged_prefill_and_decode_logits_match_jax(models):
     """``attn_impl="fused"`` (RoPE inside the page write, one decode launch
     that rotates, appends and attends) against the JAX fused path."""
-    _check_paged_prefill_and_decode(models, "fused")
+    check_paged_prefill_and_decode(models, "fused")
 
 
 def test_unfused_paged_prefill_attends_through_flash_prefill(models,
@@ -306,7 +322,7 @@ def test_unfused_paged_prefill_attends_through_flash_prefill(models,
     np.testing.assert_array_equal(_np(cache.k_pages), _np(want_cache.k_pages))
 
 
-def _check_paged_tail_prefill(models, impl, start):
+def check_paged_tail_prefill(models, impl, start):
     """A row joins another's first ``start`` tokens (page-aligned in the
     engine; the fused write is exact for any start) and prefills only its
     tail: logits agree, and the shared slots are read, never written."""
@@ -360,14 +376,14 @@ def test_paged_tail_prefill_logits_match_jax(models):
     """A row joins another's first two pages (16 shared tokens) and
     prefills only its tail: logits agree, and the shared pages are read,
     never written."""
-    _check_paged_tail_prefill(models, "unfused", 16)
+    check_paged_tail_prefill(models, "unfused", 16)
 
 
 def test_fused_paged_tail_prefill_logits_match_jax(models):
     """The fused tail prefill, at the engine's page-aligned start (two
     pages) and at a start in the middle of the second page."""
     for start in (16, 13):
-        _check_paged_tail_prefill(models, "fused", start)
+        check_paged_tail_prefill(models, "fused", start)
 
 
 def test_large_prefill_blocks_queries_without_changing_the_maths(monkeypatch):

@@ -1,7 +1,7 @@
 """Set-up shared by the port's tests (``tests/test_torch_*.py``): a
-reduced model on both sides (llama3.2-1b by default, or mamba2-130m),
-the port's weights carried over from the JAX initialisation, and inputs
-made with numpy from a seed."""
+reduced model on both sides (llama3.2-1b by default, or any arch of
+``repro_torch.configs``), the port's weights carried over from the JAX
+initialisation, and inputs made with numpy from a seed."""
 import functools
 
 import jax
@@ -24,24 +24,44 @@ def _perturb_ssm(tree, seed=7):
     return tree
 
 
+def _perturb_bias(tree, seed=8):
+    """JAX's init makes the QKV biases zero (``dense_param``), so a bias
+    left out would pass unseen: give each its own values, in the tree both
+    sides load."""
+    rng = np.random.default_rng(seed)
+    attn = tree["layers"]["attn"]
+    for name in ("wq", "wk", "wv"):
+        leaf = attn[name]["b"]
+        attn[name]["b"] = (0.5 * rng.standard_normal(leaf.shape)
+                           ).astype(leaf.dtype)
+    return tree
+
+
 @functools.lru_cache(maxsize=None)
-def shared_models(arch="llama3.2-1b"):
+def shared_models(arch="llama3.2-1b", head_dim=None):
     """(jax_model, jax_params, torch_model, torch_params) of the reduced
-    float32 ``arch``, with the JAX ``init(PRNGKey(0))`` weights loaded
-    into the port's module on the CPU (for mamba2-130m, with the per-head
-    parameters perturbed on both sides)."""
+    float32 ``arch`` (its ``head_dim`` replaced where given, on both
+    sides), with the JAX ``init(PRNGKey(0))`` weights loaded into the
+    port's module on the CPU (for mamba2-130m with the per-head
+    parameters, for a config with QKV biases with the biases, drawn apart
+    on both sides)."""
     from repro.configs import get_config as jax_config
     from repro.models.registry import get_model as jax_model
     from repro_torch.configs import get_config as torch_config
     from repro_torch.models.registry import get_model as torch_model
     from repro_torch.weights import params_from_jax
-    jm = jax_model(jax_config(arch, reduced=True))
+    jcfg, tcfg = jax_config(arch, reduced=True), torch_config(arch,
+                                                              reduced=True)
+    if head_dim is not None:
+        jcfg, tcfg = (c.replace(head_dim=head_dim) for c in (jcfg, tcfg))
+    jm = jax_model(jcfg)
     jp = jm.init(jax.random.PRNGKey(0))
     tree = jax.tree.map(np.asarray, jp)
-    if jm.cfg.family == "ssm":
-        tree = _perturb_ssm(tree)
+    if jm.cfg.family == "ssm" or jm.cfg.qkv_bias:
+        tree = (_perturb_ssm if jm.cfg.family == "ssm" else _perturb_bias)(
+            tree)
         jp = jax.tree.map(jax.numpy.asarray, tree)
-    tm = torch_model(torch_config(arch, reduced=True))
+    tm = torch_model(tcfg)
     tp = tm.init(0, device="cpu")
     tp.load_state_dict(params_from_jax(tree))
     return jm, jp, tm, tp
