@@ -121,7 +121,7 @@ fails (nothing is caught):
    same way (``shapes`` entries with the run's statistics);
 13-15. the other dense configs at full width and depth (bf16, random
    weights from a seeded ``torch.Generator``), each built by the
-   launcher's ``build_core`` (its wall time, weights and estimator fit
+   launcher's ``build_server`` (its wall time, weights and estimator fit
    included, is reported as ``build_s``) and serving a CodeFuse trace
    (rate 2/s over 6 s, ``max_gen`` 128 over slices of 32, a 40 GB KV
    budget): codeqwen1.5-7b (32 layers, MHA 32/32, QKV bias, untied head)
@@ -1623,7 +1623,7 @@ def check_config_parity(arch: str, head_dim=None) -> dict:
 
 
 # ---------------------------------------------------------------------------
-# phases 5-9 and 13-15: the slices, through the launcher's build_core
+# phases 5-9 and 13-15: the slices, through the launcher's build_server
 # ---------------------------------------------------------------------------
 #: the launcher's arguments of phases 5-9 (llama3.2-1b; mamba2-130m)
 SLICE_ARGV = ["--backend", "real", "--arch", "llama3.2-1b",
@@ -1668,6 +1668,16 @@ SLICES = {
                           "dense")}
 #: the least requests a slice's trace serves (shared-prefix pairs included)
 MIN_SLICE_REQUESTS = 12
+#: phase 16: the JAX launcher's serving path in the port (ServingConfig ->
+#: build_server -> SliceServer) with prediction-aware SCLS, the proxy MLP
+#: on the card and a Chrome trace, codeqwen1.5-7b paged unfused
+LAUNCHER_ARGV = (CONFIG_ARGV + ["--arch", "codeqwen1.5-7b",
+                                "--shared-prefix", "2"] + PAGED_KV
+                 + ["--strategy", "scls-pred", "--predictor", "proxy"])
+#: where phase 16 writes its trace (and the decision audit beside it)
+LAUNCHER_TRACE = os.path.join(ROOT, "build", "smoke_trace.json")
+#: phase 16's session: turn 1's new tokens and output, turn 2's new tail
+SESSION_TURN1, SESSION_GEN, SESSION_TAIL = 57, 24, 16
 
 
 def time_engine(engine) -> dict:
@@ -1698,11 +1708,11 @@ def time_engine(engine) -> dict:
     return acc
 
 
-def serve_trace(label: str, core, engines, trace, duration: float,
-                extra: dict) -> dict:
-    """Run ``trace`` through ``core`` with every kernel count set to 0
-    just before and read just after; check that every request completed
-    with well-formed output; print and return the slice's summary."""
+def serve_trace(label: str, engines, drive, extra: dict) -> dict:
+    """Run ``drive()`` (it serves and returns the run's metrics and every
+    request it served) with every kernel count set to 0 just before and
+    read just after; check that every request completed with well-formed
+    output; print and return the slice's summary."""
     from repro_torch.kernels import ops
     vocab = engines[0].model.cfg.vocab_size
     timers = [time_engine(e) for e in engines]
@@ -1711,7 +1721,7 @@ def serve_trace(label: str, core, engines, trace, duration: float,
     torch.cuda.reset_peak_memory_stats()
     ops.reset_counts()
     t0 = time.perf_counter()
-    metrics = core.run(trace, duration)
+    metrics, requests = drive()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = ops.launches()
@@ -1732,14 +1742,14 @@ def serve_trace(label: str, core, engines, trace, duration: float,
                    engine_prefill_s=sum(a["prefill_s"] for a in timers),
                    engine_decode_s=decode_s, **extra)
     print(json.dumps({label: summary}), flush=True)
-    bad = [r.rid for r in trace
+    bad = [r.rid for r in requests
            if not r.done or r.output_tokens is None
            or len(r.output_tokens) != min(r.gen_len, r.max_gen)
            or not all(0 <= t < vocab for t in r.output_tokens)]
     if metrics.n_completed != metrics.n_requests or \
-            metrics.n_requests != len(trace):
-        raise SystemExit(f"{label}: {metrics.n_completed} of {len(trace)} "
-                         f"requests completed")
+            metrics.n_requests != len(requests):
+        raise SystemExit(f"{label}: {metrics.n_completed} of "
+                         f"{len(requests)} requests completed")
     if bad:
         raise SystemExit(f"{label}: requests with missing or malformed "
                          f"output: {bad}")
@@ -1787,8 +1797,9 @@ def recorded_writes(label: str, rec: "PrefillRecorder",
 def run_slice(label: str) -> tuple:
     """Phases 5-7, 9 and 13-15: the slice ``label`` of ``SLICES``, its
     model at full width and depth in bf16 with seeded random weights,
-    built by the launcher's ``build_core`` (weights, the estimator fit and
-    the memory model: ``build_s``).  The fused path swaps the launcher's
+    built by the launcher's ``build_server`` (weights, the estimator fit,
+    the memory model and the core: ``build_s``), whose core serves the
+    trace offline (``SchedulerCore.run``).  The fused path swaps the launcher's
     paged engines for ``StaticEngine(attn_impl="fused")`` workers on its
     model, estimator and memory model, and first holds small fused and
     unfused engines against each other (``check_fused_engines``).  A
@@ -1809,9 +1820,12 @@ def run_slice(label: str) -> tuple:
     from repro_torch.serving import RealBackend, SchedulerCore
     argv, path = SLICES[label]
     paged = path in ("unfused", "fused")
-    args = serve.parse_args(argv)
+    args, opts = serve.parse_args(argv)
     t0 = time.perf_counter()
-    core, engines, vocab = serve.build_core(args)
+    server, vocab = serve.build_server(args)
+    core = server.core
+    engines = core.backend.engines
+    del server
     model, params = engines[0].model, engines[0].params
     cfg = model.cfg
     if path == "fused":
@@ -1840,7 +1854,7 @@ def run_slice(label: str) -> tuple:
     if path == "fused":
         extra["engine_parity"] = check_fused_engines(
             model, params, args.page_tokens, vocab)
-    trace = serve.make_trace(args, vocab)
+    trace = serve.make_trace(args, opts, vocab)
     if len(trace) < MIN_SLICE_REQUESTS or args.max_gen <= args.slice_len:
         raise SystemExit(f"{label}: {len(trace)} requests of max_gen "
                          f"{args.max_gen} over slices of {args.slice_len}")
@@ -1853,8 +1867,9 @@ def run_slice(label: str) -> tuple:
     with contextlib.ExitStack() as stack:
         for rec in recorders:
             stack.enter_context(rec)
-        summary = serve_trace(label, core, engines, trace, args.duration,
-                              extra)
+        summary = serve_trace(
+            label, engines,
+            lambda: (core.run(trace, args.duration), trace), extra)
     if paged and (summary["prefix_hit_tokens"] <= 0
                   or summary["reprefill_tokens"]):
         raise SystemExit(f"{label}: prefix hits "
@@ -1880,6 +1895,186 @@ def run_slice(label: str) -> tuple:
     log(f"{label}: {cfg.name} set up in {t_build:.1f} s (weights, estimator "
         f"fit, engines), served in {summary['wall_s']:.1f} s")
     return summary, record
+
+
+def time_calls(obj, names) -> dict:
+    """Wrap each method ``names`` of ``obj`` to count its calls and sum
+    their wall seconds, the card synchronised before and after each."""
+    acc = {n: {"calls": 0, "s": 0.0} for n in names}
+    for n in names:
+        def timed(*a, _fn=getattr(obj, n), _acc=acc[n], **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = _fn(*a, **kw)
+            torch.cuda.synchronize()
+            _acc["calls"] += 1
+            _acc["s"] += time.perf_counter() - t0
+            return out
+        setattr(obj, n, timed)
+    return acc
+
+
+def stream_chunks(handle, core) -> list:
+    """Consume ``handle.tokens()`` (it drives the core); the tokens that
+    arrive at one core time came with one slice, so each such run is one
+    chunk."""
+    chunks, at = [], None
+    for tok in handle.tokens():
+        if core.now != at:
+            chunks.append([])
+            at = core.now
+        chunks[-1].append(int(tok))
+    return chunks
+
+
+def run_launcher_path() -> dict:
+    """Phase 16: the launcher's serving path at full width.  The
+    launcher's ``parse_args`` and ``build_server`` build codeqwen1.5-7b
+    (bf16, random weights, 32 layers) behind ``SliceServer`` with
+    ``scls-pred``, the proxy predictor's MLP on the card, metrics, the
+    decision audit and a Chrome trace (``--trace-out``).  With every kernel
+    count at 0 the server replays the CodeFuse trace (two shared-prefix
+    pairs), takes one interactive request mid-run and streams it slice by
+    slice, drains, then serves a two-turn ``Session`` (turn 2 resends turn
+    1's prompt and output plus a 16-token tail) and closes it.  Fails
+    unless every request completes, the streamed tokens equal the
+    handle's, turn 2 joins at least turn 1's whole pages, closing the
+    session gives back every page it held, the exported trace passes
+    ``scripts/validate_obs.py`` and rebuilds ``core.batch_log``, the audit
+    holds a batch and an offload entry for each dispatch, the proxy lives
+    on the card, and only paged_decode_attention, paged_prefill_write and
+    flash_prefill launch, once per layer per decode step / (stage-A)
+    prefill stage."""
+    import asyncio
+    import importlib.util
+    import numpy as np
+    from repro_torch.launch import serve
+    label = "launcher_path"
+    cfg, opts = serve.parse_args(LAUNCHER_ARGV
+                                 + ["--trace-out", LAUNCHER_TRACE])
+    os.makedirs(os.path.dirname(LAUNCHER_TRACE), exist_ok=True)
+    t0 = time.perf_counter()
+    server, vocab = serve.build_server(cfg)
+    core = server.core
+    engines = core.backend.engines
+    pred = core.predictor
+    devices = {p.device.type for p in pred.mlp.parameters()}
+    if pred.name != "proxy" or devices != {"cuda"}:
+        raise SystemExit(f"{label}: predictor {pred.name} on {devices}, not "
+                         f"the proxy on the card")
+    pred_timers = time_calls(pred, ("predict_remaining", "observe"))
+    torch.cuda.synchronize()
+    t_build = time.perf_counter() - t0
+    model = engines[0].model
+    pg = cfg.page_tokens
+    trace = serve.make_trace(cfg, opts, vocab)
+    rng = np.random.default_rng(5)
+    turn1 = rng.integers(2, vocab, size=SESSION_TURN1).astype(np.int32)
+    tail = rng.integers(2, vocab, size=SESSION_TAIL).astype(np.int32)
+    seen = {}
+
+    async def two_turns():
+        s = server.aio.session(max_gen=cfg.max_gen)
+        h1 = await s.submit_turn(turn1, gen_len=SESSION_GEN)
+        await h1.result()
+        hits = core.prefix_hit_tokens
+        h2 = await s.submit_turn(tail, gen_len=SESSION_GEN)
+        await h2.result()
+        seen["turn2_hit_tokens"] = core.prefix_hit_tokens - hits
+        seen["free_with_anchor"] = core.backend.free_blocks()
+        await s.close()
+        return h1, h2
+
+    def drive():
+        server.replay(trace)
+        live = serve.submit_interactive(server, cfg, vocab,
+                                        gen_len=2 * cfg.slice_len + 8)
+        chunks = stream_chunks(live, core)
+        streamed = [t for c in chunks for t in c]
+        if streamed != live.output_tokens or not live.done:
+            raise SystemExit(f"{label}: streamed {len(streamed)} tokens, "
+                             f"the handle holds {len(live.output_tokens)}")
+        if len(chunks) < -(-live.request.gen_len // cfg.slice_len):
+            raise SystemExit(f"{label}: {live.request.gen_len} tokens "
+                             f"streamed in {len(chunks)} chunks over slices "
+                             f"of {cfg.slice_len}")
+        seen["served"] = server.drain(cfg.duration)
+        seen["chunks"] = [len(c) for c in chunks]
+        seen["free_before_session"] = core.backend.free_blocks()
+        h1, h2 = asyncio.run(two_turns())
+        seen["free_after_session"] = core.backend.free_blocks()
+        seen["turn1_tokens"] = len(turn1) + len(h1.output_tokens)
+        if not np.array_equal(h2.request.prompt, np.concatenate(
+                [turn1, np.asarray(h1.output_tokens, np.int32), tail])):
+            raise SystemExit(f"{label}: turn 2's prompt is not turn 1's "
+                             f"prompt and output plus the tail")
+        return (server.drain(cfg.duration),
+                trace + [live.request, h1.request, h2.request])
+
+    extra = dict(arch=model.cfg.name, path="unfused", build_s=t_build,
+                 strategy=cfg.strategy, predictor=pred.name)
+    summary = serve_trace(label, engines, drive, extra)
+    check_launches(label, summary, PATH_KERNELS["unfused"])
+    whole = (seen["turn1_tokens"] - 1) // pg * pg
+    if seen["turn2_hit_tokens"] < whole:
+        raise SystemExit(f"{label}: turn 2 joined "
+                         f"{seen['turn2_hit_tokens']} prefix tokens, turn "
+                         f"1's whole pages hold {whole}")
+    free = [sum(seen[k]) for k in ("free_before_session",
+                                   "free_with_anchor", "free_after_session")]
+    if free[2] != free[0] or free[1] >= free[0]:
+        raise SystemExit(f"{label}: free blocks {seen['free_before_session']}"
+                         f" before the session, {seen['free_with_anchor']} "
+                         f"with its anchor, {seen['free_after_session']} "
+                         f"after release_session")
+    paths = serve.export_trace(cfg, server)
+    subprocess.run([sys.executable,
+                    os.path.join(ROOT, "scripts", "validate_obs.py"),
+                    paths[0], "--decisions", paths[1]], check=True)
+    spec = importlib.util.spec_from_file_location(
+        "validate_obs", os.path.join(ROOT, "scripts", "validate_obs.py"))
+    validate_obs = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(validate_obs)
+    with open(paths[0]) as f:
+        trace_events = json.load(f)
+    batch_log = json.loads(json.dumps(core.batch_log))
+    if validate_obs.trace_slice_log(trace_events) != batch_log:
+        raise SystemExit(f"{label}: the trace's slice spans do not rebuild "
+                         f"the dispatch log")
+    audit = core.obs.audit
+    n_static = sum(1 for e in batch_log if e[0] == "static")
+    n_batch = len(audit.query(kind="batch"))
+    n_offload = len(audit.query(kind="offload"))
+    if not n_batch == n_offload == n_static or \
+            len(audit) >= audit.capacity:
+        raise SystemExit(f"{label}: audit holds {n_batch} batch and "
+                         f"{n_offload} offload entries for {n_static} "
+                         f"dispatches ({len(audit)} of {audit.capacity})")
+    served = seen["served"]
+    ms = {n: a["s"] / max(a["calls"], 1) * 1e3
+          for n, a in pred_timers.items()}
+    reading = dict(
+        card=card_reading(), requests=served.n_requests,
+        throughput=served.throughput, p99_response=served.p99_response,
+        ttft_mean=served.ttft_mean, makespan=served.makespan,
+        calibration_scale=core.calibrator.scale,
+        empirical_coverage=core.calibrator.empirical_coverage(),
+        proxy_ms=ms, proxy_calls={n: a["calls"]
+                                  for n, a in pred_timers.items()},
+        stream_chunks=seen["chunks"],
+        turn2_hit_tokens=seen["turn2_hit_tokens"],
+        turn1_tokens=seen["turn1_tokens"],
+        free_blocks=free,
+        trace_events=len(trace_events["traceEvents"]),
+        audit_entries=len(audit), dispatches=n_static)
+    print(json.dumps({label + "_reading": reading}), flush=True)
+    log(f"{label}: {served.n_requests} requests at {served.throughput:.4f} "
+        f"req/s, p99 {served.p99_response:.2f} s, TTFT "
+        f"{served.ttft_mean:.2f} s; proxy {ms['predict_remaining']:.3f} ms "
+        f"a prediction, {ms['observe']:.3f} ms an update on the card; "
+        f"{reading['trace_events']} trace events, {len(audit)} audit entries")
+    summary.update(reading)
+    return summary
 
 
 def check_fused_engines(model, params, pg: int, vocab: int) -> dict:
@@ -1957,10 +2152,10 @@ def run_ils(scls: dict, steps: dict) -> dict:
     from repro_torch.kernels import ops
     from repro_torch.launch import serve
     from repro_torch.models.registry import get_model
-    args = serve.parse_args(DENSE_ARGV)
+    args, opts = serve.parse_args(DENSE_ARGV)
     model = get_model(get_config("llama3.2-1b"))
     params = model.init(args.seed, device="cuda")
-    trace = serve.make_trace(args, model.cfg.vocab_size)
+    trace = serve.make_trace(args, opts, model.cfg.vocab_size)
     prompts = [r.prompt for r in trace]
     forced = [r.gen_len for r in trace]
     max_gen, W, L = 256, 1280, model.cfg.n_layers
@@ -2559,6 +2754,8 @@ def main() -> int:
     check_engine_steps(steps, by_name, CONFIG_STEPS)
     release_cuda()
     check_write_stages(writes, by_name, CONFIG_WRITES)
+    release_cuda()
+    scls["launcher_path"] = run_launcher_path()
     release_cuda()
     # every control fault of phase 4 must have failed its slice's gate
     weak = {f"{label} {fault}": gap for label, sm in scls.items()

@@ -285,6 +285,11 @@ class StaticEngine:
         self._prefix.remove(rid)
         return self.allocator.release(rid, missing_ok=True)
 
+    @property
+    def retained_blocks(self) -> int:
+        """Blocks currently held by retained/in-flight requests."""
+        return self.allocator.used_blocks if self.allocator else 0
+
     @torch.no_grad()
     def serve_batch_paged(self, prompts: Sequence[np.ndarray],
                           slice_len: int, rids: Sequence[int],

@@ -1,17 +1,36 @@
-"""repro_torch.serving — the scheduling core and its execution backends.
+"""repro_torch.serving — request-level online serving over one shared
+scheduling loop.
 
 One :class:`SchedulerCore` runs the scheduling loop (arrival intake →
-DP batch → max-min offload → slice dispatch → re-enqueue); a backend
-supplies the physics (:class:`SimBackend`: calibrated latency models in
-virtual time; :class:`RealBackend`: the port's engines on the card,
-measured wall time).
+predict → DP batch → max-min offload → slice dispatch → re-enqueue); a
+backend supplies the physics (:class:`SimBackend`: calibrated latency
+models in virtual time; :class:`RealBackend`: the port's engines on the
+card, measured wall time).  :class:`SliceServer` (synchronous) and
+:class:`AsyncSliceServer` (N concurrent clients, multi-turn
+:class:`Session` s) put submit / stream / cancel and SLO-aware admission
+in front of it, and :class:`ServingConfig` builds the whole stack.  The
+reference's HTTP front end is not ported.
 """
+from repro_torch.serving.admission import (NO_ADMISSION, AdmissionController,
+                                           AdmissionDecision,
+                                           AdmissionRejected,
+                                           predicted_queue_delay,
+                                           predicted_service_time)
+from repro_torch.serving.aio import (AsyncRequestHandle, AsyncSliceServer,
+                                     Session)
 from repro_torch.serving.backends import (Backend, BatchExecution,
                                           RealBackend, SimBackend)
-from repro_torch.serving.config import fitted_estimator
+from repro_torch.serving.config import (SERVABLE_REAL, ServingConfig,
+                                        default_sim_environment,
+                                        fitted_estimator)
 from repro_torch.serving.core import SchedulerCore, WorkerState
+from repro_torch.serving.server import RequestHandle, SliceServer
 
 __all__ = [
-    "Backend", "BatchExecution", "RealBackend", "SchedulerCore",
-    "SimBackend", "WorkerState", "fitted_estimator",
+    "AdmissionController", "AdmissionDecision", "AdmissionRejected",
+    "AsyncRequestHandle", "AsyncSliceServer", "Backend", "BatchExecution",
+    "NO_ADMISSION", "RealBackend", "RequestHandle", "SERVABLE_REAL",
+    "SchedulerCore", "ServingConfig", "Session", "SimBackend", "SliceServer",
+    "WorkerState", "default_sim_environment", "fitted_estimator",
+    "predicted_queue_delay", "predicted_service_time",
 ]

@@ -13,7 +13,8 @@ unit of work turns into a duration and token outcomes:
     from the model.  ``kv_retain="slice"`` (dense or paged layout) runs
     each slice from a fresh prefill, the paper's SCLS; ``"request"``
     (paged only) keeps each request's prefix pages resident in its engine
-    across slices.  Sessions are not ported yet.
+    across slices, and anchors a multi-turn session's last completed turn
+    past its lifetime so the next turn joins those pages.
 """
 from __future__ import annotations
 
@@ -78,6 +79,12 @@ class Backend(Protocol):
     def finish_request(self, req: Request) -> None:
         """``req`` went terminal: release per-request resources
         (idempotent)."""
+        ...
+
+    def release_session(self, session_id: int) -> None:
+        """A multi-turn session closed: release any prefix pages anchored
+        for it beyond its requests' lifetimes.  Idempotent no-op when the
+        backend retains nothing per session."""
         ...
 
     def prefill_time(self, req: Request) -> float:
@@ -148,6 +155,9 @@ class SimBackend:
     def finish_request(self, req: Request) -> None:
         pass  # no per-request resources in virtual time
 
+    def release_session(self, session_id: int) -> None:
+        pass  # no per-session resources in virtual time
+
     def prefill_time(self, req: Request) -> float:
         return self.true_lat.t_prefill(
             1, req.effective_input_len) * self._noise()
@@ -198,6 +208,9 @@ class RealBackend:
         self.allocators: Optional[List[PageAllocator]] = None
         #: kv_retain="request": worker whose engine retains each rid's pages
         self._engine_of: Dict[int, int] = {}
+        #: session_id -> (wid, rid) whose pages are anchored past the
+        #: request's lifetime so the next turn's prefix join can hit them
+        self._session_anchor: Dict[int, tuple] = {}
         if kv_layout != "paged":
             return
         if not isinstance(mem, PagedMemoryEstimator):
@@ -277,14 +290,36 @@ class RealBackend:
                 alloc.release(r.rid)
 
     def finish_request(self, req: Request) -> None:
-        """Terminal (finished/cancelled): free the retained prefix pages."""
+        """Terminal (finished/cancelled): free the retained prefix pages.
+
+        A *completed* request belonging to a session is anchored instead:
+        its pages (prompt + answer — exactly the next turn's prefix) stay
+        resident, replacing the session's previous anchor.  Anchored pages
+        remain LRU-evictable under pool pressure and are dropped for good
+        by :meth:`release_session` (or an engine eviction); a *cancelled*
+        turn releases immediately like any other request.
+        """
         if self.kv_retain != "request":
             return
         wid = self._engine_of.pop(req.rid, None)
         if wid is None:
             return
-        self.engines[wid].release_request(req.rid)
+        sid = getattr(req, "session_id", None)
+        if sid is not None and req.done and not req.cancelled:
+            old = self._session_anchor.get(sid)
+            if old is not None and old[1] != req.rid:
+                self.engines[old[0]].release_request(old[1])
+            self._session_anchor[sid] = (wid, req.rid)
+        else:
+            self.engines[wid].release_request(req.rid)
         self._sync_retained_gauge()
+
+    def release_session(self, session_id: int) -> None:
+        """Drop the session's anchored prefix pages (idempotent)."""
+        anchor = self._session_anchor.pop(session_id, None)
+        if anchor is not None:
+            self.engines[anchor[0]].release_request(anchor[1])
+            self._sync_retained_gauge()
 
     def batch_affinity(self, batch: Batch) -> Optional[int]:
         """Retention-affinity hint for the offloader's ε-tiebreak: the
@@ -315,6 +350,30 @@ class RealBackend:
         if self.mem is not None:
             self.mem.retained_blocks = sum(a.used_blocks
                                            for a in self.allocators)
+
+    def free_blocks(self) -> List[int]:
+        """Per-worker free KV-block counts (paged layout; ``[]`` when
+        dense)."""
+        if self.allocators is None:
+            return []
+        return [a.free_blocks for a in self.allocators]
+
+    def obs_snapshot(self) -> Dict[str, int]:
+        """KV-pool state for the observability gauges / counter tracks
+        (``repro_torch.obs``); ``{}`` on the dense layout, where there is
+        no page pool to report."""
+        if self.allocators is None:
+            return {}
+        snap = dict(
+            free_pages=sum(a.free_blocks for a in self.allocators),
+            evictions=sum(getattr(e, "n_evictions", 0)
+                          for e in self.engines))
+        if self.kv_retain == "request":
+            snap["retained_blocks"] = sum(a.used_blocks
+                                          for a in self.allocators)
+            snap["shared_blocks"] = sum(a.shared_blocks
+                                        for a in self.allocators)
+        return snap
 
     def prefill_time(self, req: Request) -> float:
         raise NotImplementedError("RealBackend does not run continuous modes")

@@ -1,20 +1,19 @@
 """The ONE scheduling loop shared by every runtime (sim and real).
 
-The port's copy of ``repro.serving.core.SchedulerCore``: the arrival
-intake → ``dp_batch`` → offload → slice dispatch → re-enqueue loop as a
-discrete-event engine; a :class:`~repro_torch.serving.backends.Backend`
-supplies the only parts that differ between runtimes (durations and
-token outcomes).  This copy leaves out the observability hooks
-(``repro.obs``) and the prediction-aware mode (``pred``: SCLS-PRED /
-ORACLE), which come with a later slice of the port; a core for a
-``pred`` strategy raises.
+The port's copy of ``repro.serving.core.SchedulerCore``: the loop
+(arrival intake → predict → ``dp_batch`` → offload → slice dispatch →
+re-enqueue) as a discrete-event engine; a
+:class:`~repro_torch.serving.backends.Backend` supplies the only parts
+that legitimately differ (durations and token outcomes).
 
-Worker modes mirror the strategy modes (``core.schedulers``):
+Worker modes mirror the strategy modes (``repro_torch.core.schedulers``):
 
   * perreq     — SLS/SO: requests round-robined on arrival; each worker
                  runs FCFS static batches of fixed size.
   * central    — PM/AB/LB/SCLS: a central tick drains the pool, batches,
                  and offloads whole batches to worker queues.
+  * pred       — SCLS-PRED/ORACLE: central tick with calibrated predicted
+                 remaining-length buckets (``core.batcher.bucketed_pred_batch``).
   * continuous — ILS: per-iteration join/exit with a conservative
                  parallelism cap (sim backend only).
   * cont_scls  — SCLS-CB: S-token slice leases on continuous batching
@@ -23,8 +22,10 @@ Worker modes mirror the strategy modes (``core.schedulers``):
 Beyond the offline ``run()``, the core is an *online* machine: requests
 can be submitted at any time (``submit``), observed incrementally
 (``token_log`` grows per slice), and cancelled mid-flight (``cancel`` —
-the request leaves at the next slice/lease boundary and its page
-envelope is freed by the backend).
+the request leaves at the next slice/lease boundary, its page envelope is
+freed by the backend, and the predictor is trained on the truncated
+length).  :class:`repro_torch.serving.server.SliceServer` wraps this in a
+request-handle API.
 """
 from __future__ import annotations
 
@@ -44,10 +45,12 @@ from repro_torch.core.offloader import (MaxMinOffloader, Offloader,
                                         RoundRobinOffloader)
 from repro_torch.core.request import Batch, Request, bucket_len
 from repro_torch.core.schedulers import StrategyConfig
+from repro_torch.obs import OBS_OFF, Observability
+from repro_torch.predict import LengthPredictor, PredictionPipeline
 from repro_torch.serving.backends import Backend
 
 #: modes driven by the central scheduling tick
-CENTRAL_MODES = ("central", "cont_scls")
+CENTRAL_MODES = ("central", "cont_scls", "pred")
 #: modes that need Backend.supports_continuous
 CONTINUOUS_MODES = ("continuous", "cont_scls")
 
@@ -78,11 +81,10 @@ class SchedulerCore:
 
     def __init__(self, strategy: StrategyConfig, backend: Backend,
                  n_workers: int, sched_est: ServingTimeEstimator,
-                 mem: MemoryEstimator, ils_span: int = 32):
-        if strategy.mode == "pred":
-            raise NotImplementedError(
-                f"strategy {strategy.name} (prediction-aware mode 'pred') "
-                f"is not ported yet (see ROADMAP)")
+                 mem: MemoryEstimator,
+                 predictor: Optional[LengthPredictor] = None,
+                 ils_span: int = 32,
+                 obs: Optional[Observability] = None):
         if (strategy.mode in CONTINUOUS_MODES
                 and not backend.supports_continuous):
             raise ValueError(
@@ -98,6 +100,13 @@ class SchedulerCore:
                 f"got {type(mem).__name__}")
         self.s = strategy
         self.backend = backend
+        # pred mode: the shared predictor pipeline (one code path for all
+        # runtimes — construction, observe→predict→calibrate→batch, feedback)
+        self.pred: Optional[PredictionPipeline] = (
+            PredictionPipeline(strategy, predictor)
+            if strategy.mode == "pred" else None)
+        self.predictor = self.pred.predictor if self.pred else None
+        self.calibrator = self.pred.calibrator if self.pred else None
         self.n_workers = n_workers
         self.est = sched_est
         self.mem = mem
@@ -132,15 +141,23 @@ class SchedulerCore:
         # progress observers: fn(kind, request) with kind "slice" (the
         # request's token stream advanced at a slice/iteration boundary)
         # or "final" (terminal).  Purely additive — the async front end
-        # (repro.serving.aio) hangs its wakeups here; offline runs have
+        # (repro_torch.serving.aio) hangs its wakeups here; offline runs have
         # no observers and pay nothing.
         self._observers: List = []
         #: requests shed by the admission layer before ever reaching the
-        #: scheduler (repro.serving.admission); counted here so metrics()
+        #: scheduler (repro_torch.serving.admission); counted here so metrics()
         #: reports them alongside the work that did run
         self.n_rejected = 0
         #: per-reason-code shed counts (e.g. {"memory": 2, "deadline": 5})
         self.reject_reasons: Dict[str, int] = {}
+        # observability bundle (repro_torch.obs): tracing + metrics + decision
+        # audit.  Every hook call site guards on ``obs.enabled`` so bare
+        # cores (offline paper replays, the goldens) pay one attribute
+        # read per hook point; hooks are observation-only by contract —
+        # the golden dispatch logs stay bit-exact with obs fully on.
+        self.obs = obs if obs is not None else OBS_OFF
+        if self.obs.enabled:
+            self.obs.attach(self)
         # --- accounting (paper figure columns) ---
         self.batch_sizes: List[int] = []
         self.early_returns = 0
@@ -208,7 +225,7 @@ class SchedulerCore:
         """Cancel a submitted request.  Queued requests leave immediately;
         a request inside a dispatched slice or continuous lease leaves at
         the next slice/iteration boundary (its page envelope is released
-        there).  Returns
+        there, and the predictor records the truncated length).  Returns
         False when the request is unknown or already finished."""
         req = self._by_rid.get(rid)
         if req is None:
@@ -273,15 +290,24 @@ class SchedulerCore:
         # real tokens (if any) move to the request; sim runs keep the legacy
         # output_tokens=None (streaming consumers synthesize indices lazily)
         r.output_tokens = self.token_log.pop(r.rid, r.output_tokens)
+        if self.pred is not None and (completed or r.generated > 0):
+            # online-learning feedback; a cancelled request trains on its
+            # truncated realized length (it *is* realized workload) — but a
+            # request cancelled before generating anything carries no
+            # length evidence, and recording it would log a phantom
+            # 1-token completion that biases caps toward zero
+            self.pred.on_complete(r)
         # per-request resources retained across slices (persistent paged
         # prefix pages under kv_retain="request") are freed exactly here —
         # the one place every terminal path goes through
         self.backend.finish_request(r)
         self._finalized.add(r.rid)
+        if self.obs.enabled:
+            self.obs.on_finalize(self, r, completed)
         self._notify("final", r)
 
     # ------------------------------------------------------------------
-    # offline entry point (legacy ClusterSimulator/RealCluster semantics)
+    # offline entry point (a whole trace, run to the end)
     # ------------------------------------------------------------------
     def run(self, requests: Sequence[Request], duration: float) -> RunMetrics:
         for r in requests:
@@ -314,6 +340,8 @@ class SchedulerCore:
             if req.rid not in self._finalized:
                 self._finalize(req, completed=False)
             return
+        if self.obs.enabled:
+            self.obs.on_arrival(self, req)
         if self.s.mode in CENTRAL_MODES:
             self.pool.append(req)
         elif self.s.mode == "perreq":
@@ -354,6 +382,15 @@ class SchedulerCore:
                 wk.pending.append(b.requests[0])
                 if not wk.busy:
                     self._continuous_step(wk)
+        elif reqs and self.s.mode == "pred":
+            # SCLS-PRED / ORACLE: calibrated predicted remaining-length
+            # caps pick the buckets and per-batch slice lengths
+            batches = self.pred.batches(reqs, self.est, self.mem)
+            for w, b in self._assign(batches):
+                wk = self.workers[w]
+                wk.queue.append(b)
+                if not wk.busy:
+                    self._start_batch(wk)
         elif reqs:
             cap = self.s.dp_cap if self.s.dp_cap else None
             batches = dp_batch(reqs, self.s.slice_len, self.est, self.mem,
@@ -372,7 +409,16 @@ class SchedulerCore:
             self._push_tick(self.now + dt)
 
     def _assign(self, batches: List[Batch]) -> List[Tuple[int, Batch]]:
-        return self.offloader.assign(batches)
+        """Offloader placement with decision audit: the pre-assignment
+        load snapshot plus the offloader's documented ``loads[w] +=
+        est_time`` bookkeeping reconstruct the exact Eq. 11 loads each
+        placement saw (``Observability.on_schedule``)."""
+        if not self.obs.enabled:
+            return self.offloader.assign(batches)
+        loads_before = self.offloader.snapshot()
+        assignments = self.offloader.assign(batches)
+        self.obs.on_schedule(self, assignments, loads_before)
+        return assignments
 
     def _more_work_expected(self) -> bool:
         if self.pool:
@@ -387,7 +433,7 @@ class SchedulerCore:
         return False
 
     # ------------------------------------------------------------------
-    # static batch serving (perreq + central)
+    # static batch serving (perreq + central + pred)
     # ------------------------------------------------------------------
     def _start_static_fcfs(self, w: WorkerState) -> None:
         if not w.pending:
@@ -412,6 +458,8 @@ class SchedulerCore:
         prev = [self.token_log.get(r.rid, []) for r in b.requests]
         ex = self.backend.run_batch(w.wid, b, prev)
         w.busy = True
+        if self.obs.enabled:
+            self.obs.on_dispatch(self, w.wid, b, ex.duration, ex.prefill_dur)
         self._push(self.now + ex.duration, "batch_done", (w.wid, b, ex))
 
     def _on_batch_done(self, payload: Tuple[int, Batch, object]) -> None:
@@ -459,7 +507,7 @@ class SchedulerCore:
                 self._notify("slice", r)
         self.offloader.on_batch_complete(wid, b.est_time)
         if unfinished:
-            if self.s.mode == "central":
+            if self.s.mode in ("central", "pred"):
                 self.pool.extend(unfinished)
             else:  # SO: re-send round-robin
                 for r in unfinished:
@@ -468,6 +516,9 @@ class SchedulerCore:
                     tgt.pending.append(r)
                     if not tgt.busy:
                         self._start_static_fcfs(tgt)
+        if self.obs.enabled:
+            self.obs.on_slice_done(self, wid, b, ex.reprefill_tokens,
+                                   ex.prefix_hit_tokens, ex.shared_blocks)
         if self.s.mode == "perreq" and w.pending and not w.busy:
             self._start_static_fcfs(w)
         elif w.queue:
@@ -489,7 +540,7 @@ class SchedulerCore:
 
     def _ils_token_budget_ok(self, w: WorkerState, newreq: Request) -> bool:
         if self.s.kv_layout == "paged":
-            # block-granular admission (repro.kvcache): each running
+            # block-granular admission (repro_torch.kvcache): each running
             # request occupies exactly its reserved envelope rounded up to
             # pages; the join fits iff the worker's pool has free blocks
             assert isinstance(self.mem, PagedMemoryEstimator), \
@@ -546,6 +597,9 @@ class SchedulerCore:
         dur += self.backend.span_time(avg_len, span, N)
         self.batch_log.append(
             [_LOG_CONT, w.wid, sorted(e[0].rid for e in w.running)])
+        if self.obs.enabled:
+            self.obs.on_cont_dispatch(self, w.wid,
+                                      [e[0].rid for e in w.running], dur)
         self._push(self.now + dur, "cont_done", (w.wid, span, N))
 
     def _on_cont_done(self, payload: Tuple[int, int, int]) -> None:
@@ -582,4 +636,6 @@ class SchedulerCore:
         w.running = still
         if expired:
             self.pool.extend(expired)
+        if self.obs.enabled:
+            self.obs.on_cont_done(self, wid)
         self._continuous_step(w)

@@ -10,6 +10,8 @@ name only: the Mamba-2 tree (``layers/mixer/in_proj/w``, ``…/conv_w``,
 ``…/A_log``, ``layers/ln``, ``ln_f``) carries over the same way, because
 the port's module names are the JAX keys; its float32 leaves (``A_log``,
 ``D``, ``dt_bias``) stay float32 because the port declares them so.
+The proxy length predictor's flat dict loads the same way
+(``load_proxy_params``).
 """
 from __future__ import annotations
 
@@ -51,3 +53,12 @@ def params_from_jax(tree: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
         else:
             out[name] = t
     return out
+
+
+def load_proxy_params(predictor: Any, tree: Mapping[str, Any]) -> None:
+    """Load the reference proxy predictor's ``params`` dict (``w1``,
+    ``b1``, ``w2``, ``b2`` as numpy arrays, e.g. ``jax.tree.map(np.asarray,
+    predictor.params)``) into a ``repro_torch.predict.proxy.ProxyPredictor``
+    on its device; ``ProxyMLP`` names and shapes its parameters as the
+    dict does, so keys and shapes are checked strictly."""
+    predictor.mlp.load_state_dict(params_from_jax(tree))

@@ -56,17 +56,6 @@ def test_port_core_matches_golden_batch_compositions(args, want):
     assert core.batch_log == want["batch_log"]
 
 
-def test_pred_mode_is_not_ported_yet():
-    from repro_torch.core.estimator import a100_llama13b_profile
-    from repro_torch.core.memory import RuleBasedMemoryEstimator
-    from repro_torch.core.schedulers import make_strategy
-    from repro_torch.serving import SchedulerCore, SimBackend
-    lat = a100_llama13b_profile()
-    with pytest.raises(NotImplementedError, match="pred"):
-        SchedulerCore(make_strategy("scls-pred"), SimBackend(lat), 1, lat,
-                      RuleBasedMemoryEstimator())
-
-
 LAUNCH_CPU = ["--backend", "real", "--device", "cpu", "--reduced",
               "--rate", "2", "--duration", "3", "--max-input", "48",
               "--max-gen", "12", "--slice-len", "6", "--shared-prefix", "1",
