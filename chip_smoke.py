@@ -36,14 +36,30 @@ fails (nothing is caught):
    query heads over one KV head of 256) every attention kernel and both
    writes (flash_prefill 8 x 512 and 1 x 1280, decode_attention 8 x 768,
    the paged decode kernels 8 x 576, the writes 8 x 512; ``shapes``
-   entries labelled "<arch> heads");
+   entries labelled "<arch> heads"); then at the windowed configs' heads
+   with their windows (``WINDOW_HEADS``): recurrentgemma-9b's (16 query
+   heads over one KV head of 256, local window 2048: B6 at group 16) and
+   mixtral-8x22b's (48/8, head_dim 128, sliding window 4096),
+   flash_prefill on one row of window + 256 tokens and decode_attention
+   over 4 rings of one window (3 wrapped, 1 empty);
 4. reference (run by each transformer slice, phases 5-7 and 13-15, before
    it serves): on a small input, the slice's served path (through its
    kernels) is held against the plain full forward of the same model on
    the card (``transformer.forward``: torch attention, no kernel, no
    cache); then control faults (a wrong slot, swapped KV heads, a lost
    QKV bias) through the same path must move the logits past the
-   tolerance, which the script checks after the last slice;
+   tolerance, which the script checks after the last slice; the MoE and
+   hybrid slices (phases 17-19) hold their family's served functions
+   against its plain ``forward`` the same way (``check_family_logits``;
+   one gate for every path, ``hold_logits``), the MoE families on a
+   float32 model of 4 layers at full width whose capacity drops nothing
+   (``moe_check_model``, to ``F32_REF_TOL``), the hybrid on the slice's
+   own model, with a control fault each (deepseek's shared experts lost,
+   mixtral routed to its 2nd..3rd best experts, the hybrid's recurrent
+   state zeroed after the prefill); each MoE slice's own bf16 model at
+   its served capacity then runs one decode group's MoE layer on the card
+   and on the CPU (``check_served_routing``): the same choices kept and
+   dropped, exactly;
 4b. ILS parity: the reduced float32 llama3.2-1b, one set of weights on the
    card and on the CPU; small dense and paged ``ContinuousEngine``s and
    the dense ``StaticEngine`` give the same token streams on both (near
@@ -51,13 +67,19 @@ fails (nothing is caught):
    step, and dense == paged on the card;
 4c. config parity: the reduced float32 mamba2-130m (per-head parameters
    drawn apart), codeqwen1.5-7b (QKV biases drawn apart), minitron-4b and
-   gemma-2b, and gemma-2b at head_dim 256, one set of weights on the card
-   and on the CPU; the dense ``StaticEngine`` and, for the transformers,
-   the paged unfused and fused ones give the same token streams on both
+   gemma-2b, and gemma-2b at head_dim 256, mixtral-8x22b,
+   deepseek-v2-lite-16b and recurrentgemma-9b (RG-LRU channels drawn
+   apart), and the two MoE configs again at their full configs' capacity
+   factor, which drops routed choices on both devices, one set of
+   weights on the card and on the CPU; the dense ``StaticEngine`` and,
+   for the dense transformers, the paged unfused and fused ones give the
+   same token streams on both
    over two slices, each path's kernels launching once per layer per
    prefill stage / decode step and no other, the CPU engine's plain
    versions as often;
-5. unfused slice: full-width llama3.2-1b in bf16 with random weights,
+5. unfused slice: full-width llama3.2-1b in bf16 with random weights, cut
+   to 8 of its 16 layers (``DEPTH_CUTS``, as in phases 6-8: the script's
+   time limit),
    built by ``repro_torch.launch.serve`` (SCLS, one worker, persistent
    paged KV with ``kv_retain="request"`` and prefix sharing), serves a
    CodeFuse trace plus requests that repeat an earlier prompt's leading
@@ -87,10 +109,11 @@ fails (nothing is caught):
    all return, and only flash_prefill and the layout's decode kernel
    launch, once per layer per join / decode iteration;
 9. Mamba-2 slice: the launcher with ``--arch mamba2-130m --kv-layout dense
-   --kv-retain slice`` at full width and depth (24 layers, bf16, random
-   weights from a seeded ``torch.Generator``) serves the same trace: every
-   request completes, re-prefill is above zero, ssd_scan launches exactly
-   24 times per prefill stage and no other kernel launches, and each
+   --kv-retain slice`` at full width, cut to 12 of its 24 layers (bf16,
+   random weights from a seeded ``torch.Generator``) serves the same
+   trace: every request completes, re-prefill is above zero, ssd_scan
+   launches exactly once per layer per prefill stage and no other kernel
+   launches, and each
    stage's scan shape (rows, tokens, each row's valid tokens) is recorded
    (``StageRecorder``); then a full-width prefill of a 300-token prompt
    (two full 128-token chunks, where the JAX oracle overflows to NaN:
@@ -131,17 +154,34 @@ fails (nothing is caught):
    GeGLU, embeddings scaled by sqrt(d)) on dense SCLS, each checked as
    phases 4-7 check llama's slices (phase 4 first).
 
-One function (``run_slice``) runs phases 5-7, 9 and 13-15, each a
+16. the launcher's serving path (``run_launcher_path``);
+17-19. the MoE and hybrid families through dense SCLS, each built by the
+   launcher's ``build_server`` on the configs' trace (bf16, random
+   weights from a seeded ``torch.Generator``): deepseek-v2-lite-16b at
+   full width and depth (27 layers, MLA, 64 routed + 2 shared experts,
+   top-6; a 30 GB KV budget beside ~31 GB of weights; no kernel launches:
+   MLA attention and the MoE dispatch are plain torch by design),
+   recurrentgemma-9b at full width and depth (38 layers, flash_prefill and
+   decode_attention in its 12 local-attention layers, B6 at group 16)
+   with one more request of 2,100 prompt tokens, so that the local ring
+   of 2048 wraps in prefill and decode, and mixtral-8x22b at full width
+   cut to 4 of its 56 layers (``DEPTH_CUTS``: all 56 hold ~281 GB in
+   bf16) with one request of 4,200 prompt tokens, past the sliding window
+   of 4096; each checked as phases 13-15 (phase 4 first).
+
+One function (``run_slice``) runs phases 5-7, 9, 13-15 and 17-19, each a
 ``SLICES`` entry (launcher arguments and path).
 
 The last line of standard output is ``{"ok": true, "device": {...}}``; the
 line before it is the ``nvidia-smi`` reading and the one before that the
 per-kernel JSON (launches from each kernel's llama3.2-1b or mamba2-130m
 slice, phases 5 to 7 and 9, with every path's beside them, phases 13 to
-15 included; times from phase 3).
+19 included, and decode_attention's at group 16, recurrentgemma-9b's
+slice, as ``group16_launches``; times from phase 3).
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import gc
 import json
@@ -149,6 +189,7 @@ import os
 import subprocess
 import sys
 import time
+from unittest import mock
 
 import torch
 
@@ -162,6 +203,12 @@ REF_TOL = 3.5e-2             # logits, a served path vs the plain forward,
                              # relative to the largest |logit| (bf16): sound
                              # paths read <= 1.85e-2 on the H100, the weakest
                              # control fault 6.98e-2 (a wrong slot, gemma-2b)
+F32_REF_TOL = 1e-3           # the same in float32 (the MoE check models):
+                             # sound 2.8e-6 (deepseek) and 1.1e-5 (mixtral)
+                             # on the H100 (700 W), controls 0.90 and 1.39
+ROUTE_TOL = 2e-2             # a bf16 MoE layer, card vs CPU, relative to
+                             # the CPU's largest |y|
+ROUTE_WEIGHT_TOL = 1e-5      # its renormalised float32 top-k weights
 MAX_ULPS = 1                 # rotated K, fused kernel vs its plain version
 SSD_TOL = 1e-4               # ssd_scan vs its plain version, relative to the
                              # largest |value|: float32 sums of <= 128 terms
@@ -848,22 +895,26 @@ def prefill_inputs(cfg, lengths, T: int, gen: torch.Generator):
     return q, k, v, positions
 
 
-def time_prefill(kmod, q, k, v, pos, flush: torch.Tensor, label: str):
+def time_prefill(kmod, q, k, v, pos, flush: torch.Tensor, label: str,
+                 window=None):
     """(kernel ms, SDPA ms, bound ms, bound_by, shape) of flash_prefill on
-    these inputs, without a window.  The library yardstick is SDPA with
-    the boolean mask (diagonal rule included) over K/V expanded to the
-    query heads beforehand."""
+    these inputs, with ``window`` (none by default).  The library yardstick
+    is SDPA with the boolean mask (window and diagonal rule included) over
+    K/V expanded to the query heads beforehand."""
     B, T, Hq, D = q.shape
     Hkv = k.shape[2]
     G = Hq // Hkv
     pq, pk = pos[:, :, None], pos[:, None, :]
-    mask = ((pk >= 0) & (pk <= pq)) | torch.eye(T, dtype=torch.bool,
-                                                device=q.device)
+    mask = (pk >= 0) & (pk <= pq)
+    if window is not None:
+        mask = mask & (pq - pk < window)
+    mask = mask | torch.eye(T, dtype=torch.bool, device=q.device)
     qt = q.transpose(1, 2).contiguous()
     kt = k.transpose(1, 2).repeat_interleave(G, dim=1).contiguous()
     vt = v.transpose(1, 2).repeat_interleave(G, dim=1).contiguous()
     sdpa = torch.nn.functional.scaled_dot_product_attention
-    t_kernel = time_ms(lambda: kmod.flash_prefill(q, k, v, pos), flush,
+    t_kernel = time_ms(lambda: kmod.flash_prefill(q, k, v, pos,
+                                                  window=window), flush,
                        label=f"flash_prefill {label} kernel")
     t_lib = time_ms(lambda: sdpa(qt, kt, vt, attn_mask=mask[:, None]), flush,
                     label=f"flash_prefill {label} SDPA")
@@ -877,7 +928,7 @@ def time_prefill(kmod, q, k, v, pos, flush: torch.Tensor, label: str):
     log(f"flash_prefill {label}: kernel {t_kernel:.4f} ms, SDPA "
         f"{t_lib:.4f} ms, bound {b_ms:.4f} ms ({b_by}; "
         f"{n_bytes / 1e6:.1f} MB, {n_flops / 1e9:.2f} GFLOP)")
-    shape = dict(B=B, T=T, Hq=Hq, Hkv=Hkv, D=D,
+    shape = dict(B=B, T=T, Hq=Hq, Hkv=Hkv, D=D, window=window,
                  valid_tokens=int((pos >= 0).sum()), attended_pairs=n_pairs,
                  gflop=n_flops / 1e9)
     return t_kernel, t_lib, b_ms, b_by, shape
@@ -959,10 +1010,14 @@ def dense_decode_inputs(cfg, rows, W: int, gen: torch.Generator):
     return q, k_cache, v_cache, slot_pos, q_pos
 
 
-def time_dense_decode(kmod, rows, args, flush: torch.Tensor, label: str):
+def time_dense_decode(kmod, args, flush: torch.Tensor, label: str,
+                      window=None):
     """(kernel ms, SDPA ms, bound ms, bound_by, shape) of decode_attention
-    on these inputs.  The library yardstick is SDPA with the boolean slot
-    mask over caches transposed beforehand."""
+    on these inputs, with ``window`` (none by default).  The library
+    yardstick is SDPA with the boolean slot mask over caches transposed
+    beforehand.  The bound counts this step's live slots (a row with none
+    weighs every slot alike, so all of its V is read)."""
+    from repro_torch.models import attention as attn
     q, k_cache, v_cache, slot_pos, q_pos = args
     B, Hq, D = q.shape
     W, Hkv = k_cache.shape[1], k_cache.shape[2]
@@ -970,14 +1025,15 @@ def time_dense_decode(kmod, rows, args, flush: torch.Tensor, label: str):
     kt = k_cache.transpose(1, 2).contiguous()
     vt = v_cache.transpose(1, 2).contiguous()
     qg = q.reshape(B, Hkv, G, D)
-    mask = ((slot_pos >= 0) & (slot_pos <= q_pos[:, None]))[:, None, None]
+    mask = attn.decode_mask(q_pos, slot_pos, window)
+    live = mask[:, 0, 0]
     sdpa = torch.nn.functional.scaled_dot_product_attention
-    t_kernel = time_ms(lambda: kmod.decode_attention(*args), flush,
-                       label=f"decode_attention {label} kernel")
+    t_kernel = time_ms(lambda: kmod.decode_attention(*args, window=window),
+                       flush, label=f"decode_attention {label} kernel")
     t_lib = time_ms(lambda: sdpa(qg, kt, vt, attn_mask=mask), flush,
                     label=f"decode_attention {label} SDPA")
-    n_live = sum(n for _, n in rows)
-    n_empty = sum(1 for _, n in rows if n == 0)
+    n_live = int(live.sum())
+    n_empty = int((live.sum(dim=1) == 0).sum())
     elt = q.element_size()
     row_bytes = Hkv * D * elt
     n_bytes = (2 * n_live * row_bytes               # live K and V slots
@@ -989,21 +1045,22 @@ def time_dense_decode(kmod, rows, args, flush: torch.Tensor, label: str):
     b_ms, b_by = bound(n_bytes, n_flops)
     log(f"decode_attention {label}: kernel {t_kernel:.4f} ms, SDPA "
         f"{t_lib:.4f} ms, bound {b_ms:.4f} ms")
-    shape = dict(B=B, W=W, Hq=Hq, Hkv=Hkv, D=D, n_live_tokens=n_live,
-                 empty_rows=n_empty)
+    shape = dict(B=B, W=W, Hq=Hq, Hkv=Hkv, D=D, window=window,
+                 n_live_tokens=n_live, empty_rows=n_empty)
     return t_kernel, t_lib, b_ms, b_by, shape
 
 
-def hold_dense_decode(rows, args, flush: torch.Tensor, label: str) -> dict:
-    """B6 on ``args`` (``dense_decode_inputs`` of ``rows``, the last row
-    empty) held against its plain version and the empty row against the
-    mean of its V, then timed beside SDPA: the entry of ``shapes``."""
+def hold_dense_decode(args, flush: torch.Tensor, label: str,
+                      window=None) -> dict:
+    """B6 on ``args`` (the last row empty) with ``window`` held against its
+    plain version and the empty row against the mean of its V, then timed
+    beside SDPA: the entry of ``shapes``."""
     from repro_torch.kernels import decode_attention as kmod
     from repro_torch.kernels import ref
     q, v_cache = args[0], args[2]
     G = q.shape[1] // v_cache.shape[2]
-    out = kmod.decode_attention(*args)
-    want = ref.decode_attention_ref(*args)
+    out = kmod.decode_attention(*args, window=window)
+    want = ref.decode_attention_ref(*args, window=window)
     torch.cuda.synchronize()
     e = (out.float() - want.float()).abs().max().item()
     mean_v = v_cache[-1].float().mean(dim=0).repeat_interleave(G, dim=0)
@@ -1016,7 +1073,7 @@ def hold_dense_decode(rows, args, flush: torch.Tensor, label: str) -> dict:
                          f"plain version")
     del out, want
     t_kernel, t_lib, b_ms, b_by, shape = time_dense_decode(
-        kmod, rows, args, flush, label)
+        kmod, args, flush, label, window)
     return dict(shape=label, ms=t_kernel, library_ms=t_lib, bound_ms=b_ms,
                 bound_by=b_by, max_abs_err=e, **shape)
 
@@ -1031,7 +1088,7 @@ def check_dense_decode(cfg, gen: torch.Generator,
     shapes = []
     for label, rows, W in DECODE_TIMED:
         args = dense_decode_inputs(cfg, rows, W, gen)
-        shapes.append(hold_dense_decode(rows, args, flush, label))
+        shapes.append(hold_dense_decode(args, flush, label))
     err = max(e["max_abs_err"] for e in shapes)
     t_kernel, t_lib, b_ms, b_by = (shapes[-1][k] for k in (
         "ms", "library_ms", "bound_ms", "bound_by"))
@@ -1241,7 +1298,7 @@ def check_config_heads(arch: str, names, rows: dict,
     if "decode_attention" in names:
         label, drows, W = DECODE_TIMED[-1]
         add("decode_attention", hold_dense_decode(
-            drows, dense_decode_inputs(cfg, drows, W, gen), flush,
+            dense_decode_inputs(cfg, drows, W, gen), flush,
             f"{tag} {label}"))
     release_cuda()
 
@@ -1273,6 +1330,76 @@ def check_config_heads(arch: str, names, rows: dict,
             release_cuda()
 
 
+#: phase 3 at the windowed configs' heads: recurrentgemma-9b (MQA 16/1,
+#: head_dim 256, local window 2048; B6 at group 16) and mixtral-8x22b (GQA
+#: 48/8, head_dim 128, sliding window 4096)
+WINDOW_HEADS = ("recurrentgemma-9b", "mixtral-8x22b")
+#: rows of phase 3's ring decode step: three rows whose ring of one window
+#: has wrapped (each row's newest position past the window), one empty
+RING_ROWS = 4
+
+
+def attn_window(cfg):
+    """The window of a config's attention: the hybrid's local window, or
+    the sliding window (None: full causal)."""
+    return cfg.local_window if cfg.family == "hybrid" else cfg.sliding_window
+
+
+def ring_decode_inputs(cfg, n_rows: int, W: int, gen: torch.Generator):
+    """q, k_cache, v_cache, slot_pos, q_pos of a decode step over rings of
+    W slots, as a windowed model's dense cache holds them once it has
+    wrapped: row b's newest position is P = W + 57 + 300 b, and position p
+    in (P - W, P] sits at slot p % W (so slot_pos is out of index order);
+    the last row is empty (every slot masked)."""
+    dev = torch.device("cuda")
+    Hq, Hkv, D = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    slot_pos = torch.full((n_rows, W), -1, dtype=torch.int32, device=dev)
+    q_pos = torch.zeros((n_rows,), dtype=torch.int32, device=dev)
+    for b in range(n_rows - 1):
+        P = W + 57 + 300 * b
+        p = torch.arange(P - W + 1, P + 1, dtype=torch.int32, device=dev)
+        slot_pos[b, p % W] = p
+        q_pos[b] = P
+    q = torch.randn((n_rows, Hq, D), generator=gen, device=dev).to(cfg.dtype)
+    k_cache, v_cache = (torch.randn((n_rows, W, Hkv, D), generator=gen,
+                                    device=dev).to(cfg.dtype)
+                        for _ in range(2))
+    return q, k_cache, v_cache, slot_pos, q_pos
+
+
+def check_window_heads(arch: str, rows: dict, flush: torch.Tensor) -> None:
+    """Phase 3 at ``arch``'s heads with its window (bf16): flash_prefill on
+    one row of window + 256 tokens (the window bites), decode_attention
+    over ``RING_ROWS`` rings of one window each (wrapped, one row empty),
+    each held against its plain version within ``DECODE_TOL`` and timed
+    beside SDPA under the same mask, with its bound.  The entries go to
+    the rows' ``shapes``, labelled "<arch> heads"."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import flash_prefill as pkmod
+    cfg = get_config(arch)
+    window = attn_window(cfg)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(2)
+    T = window + 256
+    label = f"{arch} heads 1x{T} window {window}"
+    e, (q, k, v, pos) = hold_prefill(cfg, [T], T, window, gen, label)
+    t_kernel, t_lib, b_ms, b_by, shape = time_prefill(
+        pkmod, q, k, v, pos, flush, label, window)
+    entry = dict(shape=label, ms=t_kernel, library_ms=t_lib, bound_ms=b_ms,
+                 bound_by=b_by, max_abs_err=e, **shape)
+    del q, k, v, pos
+    release_cuda()
+    label = f"{arch} heads {RING_ROWS}x{window} ring window {window}"
+    entries = {"flash_prefill": entry, "decode_attention": hold_dense_decode(
+        ring_decode_inputs(cfg, RING_ROWS, window, gen), flush, label,
+        window)}
+    for name, entry in entries.items():
+        rows[name]["shapes"].append(entry)
+        rows[name]["max_abs_err"] = max(rows[name]["max_abs_err"],
+                                        entry["max_abs_err"])
+    release_cuda()
+
+
 # ---------------------------------------------------------------------------
 # phase 4: each slice's served path against the plain forward, small input
 # ---------------------------------------------------------------------------
@@ -1286,6 +1413,69 @@ def cache_slot(cache, b: int, p: int, pad: int):
         page = int(cache.block_table[b, p // pg])
         return cache.k_pages[:, page, p % pg], cache.v_pages[:, page, p % pg]
     return cache.k[:, b, pad + p], cache.v[:, b, pad + p]
+
+
+def left_padded(cfg, lens, dev) -> tuple:
+    """(tokens (B, max(lens)), lengths (B,)) on ``dev``: rows of random
+    tokens from a seed, left-padded with zeros to the longest."""
+    import numpy as np
+    rng = np.random.default_rng(1)
+    T = max(lens)
+    toks = np.zeros((len(lens), T), np.int32)
+    for b, n in enumerate(lens):
+        toks[b, T - n:] = rng.integers(2, cfg.vocab_size, size=n)
+    return (torch.from_numpy(toks).to(dev),
+            torch.tensor(lens, dtype=torch.int32, device=dev))
+
+
+@contextlib.contextmanager
+def zeroed(tensors):
+    """Inside ``with``, ``tensors`` hold zeros; their values after."""
+    kept = [t.clone() for t in tensors]
+    for t in tensors:
+        t.zero_()
+    try:
+        yield
+    finally:
+        for t, k in zip(tensors, kept):
+            t.copy_(k)
+
+
+def hold_logits(label: str, served: list, refs: list, serve, faults: dict,
+                tol: float, what: str) -> dict:
+    """Phase 4's gate for every served path: ``served``, each step's
+    last-token logits (B, vocab), within ``tol`` of ``refs`` relative to
+    the reference's largest |logit|.  Then ``serve(cache_fault)`` runs once
+    per control fault of ``faults`` (name: (context, cache_fault): the
+    context held around the serve, ``cache_fault`` applied to the cache
+    after the prefill, or None), and each must move the logits past
+    ``tol``.  Their readings go to the returned ``controls`` beside
+    ``tolerance``; ``main`` fails the run if one is within it."""
+    def gaps(out) -> list:
+        for step, (x, r) in enumerate(zip(out, refs)):
+            if not (bool(torch.isfinite(x).all()) and x.shape == r.shape):
+                raise SystemExit(f"{label}: served logits of step {step} "
+                                 f"not finite or not (B, vocab)")
+        return [(x.float() - r).abs().max().item() / r.abs().max().item()
+                for x, r in zip(out, refs)]
+
+    with torch.no_grad():
+        worst = gaps(served)
+        controls = {}
+        for name, (context, cache_fault) in faults.items():
+            with context:
+                controls[name] = max(gaps(serve(cache_fault)))
+        torch.cuda.synchronize()
+    log(f"{label}: served logits vs the plain forward over {what}, max "
+        f"relative difference {max(worst):.3e} (per step "
+        f"{[f'{w:.2e}' for w in worst]}; tolerance {tol}); control faults "
+        f"{ {k: f'{v:.3e}' for k, v in controls.items()} } (each must "
+        f"exceed {tol})")
+    if max(worst) > tol:
+        raise SystemExit(f"{label}: the served path disagrees with the "
+                         f"plain forward")
+    return dict(max_rel_logit_diff=max(worst), rel_logit_diff_by_step=worst,
+                controls=controls, tolerance=tol)
 
 
 def check_served_logits(model, params, path: str, pg: int) -> dict:
@@ -1302,30 +1492,23 @@ def check_served_logits(model, params, path: str, pg: int) -> dict:
     which moved the logits of these random models by 0.90e-2 (gemma-2b)
     to 1.85e-2 (minitron-4b) of their largest value on the H100, while
     the weakest control fault below moved them by 6.98e-2: the tolerance
-    sits about 2x from each.  The QKV biases, where the config has them (zero at init, as JAX's
-    ``dense_param`` makes them), are drawn first, N(0, 0.5^2) from a
-    seeded generator, and the slice then serves with them.
+    sits about 2x from each.  The QKV biases, where the config has them
+    (zero at init, as JAX's ``dense_param`` makes them), are drawn first,
+    N(0, 0.5^2) from a seeded generator, and the slice then serves with
+    them.
 
-    Then the same path serves once per control fault, which must move the
-    logits past ``REF_TOL``: ``slot`` (after the prefill, each row's last
-    prompt token holds its first token's K and V in every layer: a write
-    to the wrong slot), ``head`` (KV heads 0 and 1 swapped in every layer:
-    a wrong head; where there are two or more), ``bias`` (the QKV biases
-    zeroed; where the config has them).  Their readings go to the returned
-    ``controls``; ``main`` fails the run if one is within ``REF_TOL``."""
-    import numpy as np
+    Control faults (``hold_logits``): ``slot`` (after the prefill, each
+    row's last prompt token holds its first token's K and V in every
+    layer: a write to the wrong slot), ``head`` (KV heads 0 and 1 swapped
+    in every layer: a wrong head; where there are two or more), ``bias``
+    (the QKV biases zeroed; where the config has them)."""
     from repro_torch.kvcache import PagedKVCache, init_page_pools
     from repro_torch.models import transformer as tfm
     cfg = model.cfg
     dev = params.embed.table.device
-    rng = np.random.default_rng(1)
     lens = [40, 33, 17, 48]
-    T, B, n_steps = 48, len(lens), 4
-    toks = np.zeros((B, T), np.int32)
-    for b, n in enumerate(lens):
-        toks[b, T - n:] = rng.integers(2, cfg.vocab_size, size=n)
-    seq = torch.from_numpy(toks).to(dev)
-    lengths = torch.tensor(lens, dtype=torch.int32, device=dev)
+    seq, lengths = left_padded(cfg, lens, dev)
+    (B, T), n_steps = seq.shape, 4
     biased = [d for layer in params.layers if cfg.qkv_bias
               for d in (layer.attn.wq, layer.attn.wk, layer.attn.wv)]
     g = torch.Generator(device=dev)
@@ -1340,12 +1523,10 @@ def check_served_logits(model, params, path: str, pg: int) -> dict:
             cur = torch.argmax(refs[-1], -1).to(torch.int32)
             seq = torch.cat([seq, cur[:, None]], dim=1)
 
-    def serve(fault=None) -> list:
-        """The relative gap of each step's logits, ``fault`` applied to
-        the cache after the prefill."""
-        gaps = []
+    def serve(cache_fault=None) -> list:
+        """Each step's logits, fed the reference's tokens."""
         if path == "dense":
-            served, cache = model.prefill(params, {"tokens": seq[:, :T],
+            logits, cache = model.prefill(params, {"tokens": seq[:, :T],
                                                    "lengths": lengths},
                                           T + n_steps)
         else:
@@ -1357,27 +1538,21 @@ def check_served_logits(model, params, path: str, pg: int) -> dict:
                                                cfg.dtype, dev)
             cache = PagedKVCache(k_pages, v_pages, bt, torch.full(
                 (B, nb * pg), -1, dtype=torch.int32, device=dev), lengths)
-            served, cache = tfm.prefill_paged(params, cfg, seq[:, :T],
+            logits, cache = tfm.prefill_paged(params, cfg, seq[:, :T],
                                               lengths, cache, attn_impl=path)
-        if fault is not None:
-            fault(cache)
-        for step in range(n_steps + 1):
-            if not (bool(torch.isfinite(served).all())
-                    and served.shape == (B, cfg.vocab_size)):
-                raise SystemExit(f"{cfg.name} {path}: served logits of step "
-                                 f"{step} not finite or not (B, vocab)")
-            gaps.append((served.float() - refs[step]).abs().max().item()
-                        / refs[step].abs().max().item())
-            if step == n_steps:
-                break
+        if cache_fault is not None:
+            cache_fault(cache)
+        out = [logits]
+        for step in range(n_steps):
             cur = seq[:, T + step].contiguous()
             q_pos = lengths + step
             if path == "dense":
-                served, cache = model.decode_step(params, cache, cur, step)
+                logits, cache = model.decode_step(params, cache, cur, step)
             else:
-                served, cache = tfm.decode_step_paged(
+                logits, cache = tfm.decode_step_paged(
                     params, cfg, cache, cur, q_pos, q_pos, attn_impl=path)
-        return gaps
+            out.append(logits)
+        return out
 
     def wrong_slot(cache) -> None:
         for b, n in enumerate(lens):
@@ -1392,30 +1567,202 @@ def check_served_logits(model, params, path: str, pg: int) -> dict:
         for x in pools:
             x[..., :2, :] = x[..., [1, 0], :].clone()
 
+    faults = {"slot": (contextlib.nullcontext(), wrong_slot)}
+    if cfg.n_kv_heads > 1:
+        faults["head"] = (contextlib.nullcontext(), wrong_head)
+    if biased:
+        faults["bias"] = (zeroed([d.b for d in biased]), None)
     with torch.no_grad():
-        worst = serve()
-        controls = {"slot": max(serve(wrong_slot))}
-        if cfg.n_kv_heads > 1:
-            controls["head"] = max(serve(wrong_head))
-        if biased:
-            kept = [d.b.clone() for d in biased]
-            for d in biased:
-                d.b.zero_()
-            controls["bias"] = max(serve())
-            for d, b in zip(biased, kept):
-                d.b.copy_(b)
+        served = serve()
+    return hold_logits(f"{cfg.name} {path}", served, refs, serve, faults,
+                       REF_TOL, f"prefill + {n_steps} decode steps")
+
+
+#: phase 4 of the MoE and hybrid slices: each family's served path
+#: (``prefill`` + ``decode_step`` of ``models.moe`` / ``models.rglru``)
+#: against its plain ``forward``.  arch: (left-padded row lengths, decode
+#: steps, depth of the float32 check model or None).  The hybrid's first
+#: row passes its local window of 2048, so the ring wraps in prefill and
+#: in decode; mixtral's passes its sliding window of 4096, and 32 steps
+#: decode over the wrapped ring.
+FAMILY_CHECKS = {"deepseek-v2-lite-16b": ((40, 33, 17, 48), 4, 4),
+                 "mixtral-8x22b": ((4200, 40), 32, 4),
+                 "recurrentgemma-9b": ((2100, 33, 17, 48), 4, None)}
+
+
+def moe_check_model(arch: str, n_layers: int):
+    """Phase 4's model for an MoE family: the full-width config cut to
+    ``n_layers`` (deepseek: its dense first layer and 3 MoE layers), in
+    float32 (TF32 off), with a capacity that drops no choice
+    (capacity_factor (E + 0.5) / top_k, so cap = int(group (E + 0.5) / E)
+    >= group), random weights from a seed on the card.
+
+    Why not the slice's bf16 model: routing is discrete.  The plain
+    forward and the served path round differently in bf16 (the attention
+    kernels against torch, a one-token decode against a whole-sequence
+    product), and a choice whose router probability nearly ties the next
+    expert's flips between them, which moves the logits by a share of the
+    expert's output, not by a rounding.  In float32 those gaps are ~1e-6
+    and no flip was met, so the check holds them to ``F32_REF_TOL``.  A
+    group's drops depend on which tokens share it (prefill's B·T against
+    decode's B), so the capacity must drop nothing for the two to compute
+    one function; the slice's own model at its own capacity is held
+    against the CPU by ``check_served_routing``."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.registry import get_model
+    cfg = get_config(arch)
+    cfg = cfg.replace(n_layers=n_layers, dtype=torch.float32,
+                      capacity_factor=(cfg.n_experts + 0.5) / cfg.top_k)
+    model = get_model(cfg)
+    return model, model.init(3, device="cuda")
+
+
+def check_family_logits(model, params, lens, n_steps: int) -> dict:
+    """Phase 4 for the MoE and hybrid families: one prefill of the
+    left-padded rows ``lens`` and ``n_steps`` greedy decode steps through
+    the served functions (the dense cache, the kernels where the family has
+    them), each step's last-token logits held against the plain
+    ``forward`` of the same tokens on the card (plain torch attention, no
+    cache), to ``REF_TOL`` of the reference's largest |logit| in bf16 and
+    ``F32_REF_TOL`` in float32.  One forward over the final sequence gives
+    every step's reference: it is causal, and at phase 4's capacity no
+    token's routing depends on the others.  Control faults
+    (``hold_logits``), fed the same tokens: ``shared`` (deepseek: the
+    shared experts lost, their down projections zeroed), ``route``
+    (mixtral: every token routed to its 2nd..(k+1)-th best experts, not
+    its k best), ``rec_state`` (the hybrid: every recurrent block's state,
+    its LRU state and its conv tail, zeroed after the prefill, as if it
+    were not carried into decode).  The LRU state alone is too weak a
+    fault at the init recipe: λ = 1 makes a = e^{-8 softplus(1) r} ~ e^{-5}
+    per step, so a decode step forgets it almost whole (2.1e-2 of the
+    largest logit at the reduced size, under REF_TOL), while the conv tail
+    holds 3 of the 4 taps' inputs."""
+    from repro_torch.models import moe, rglru
+    cfg = model.cfg
+    fam = rglru if cfg.family == "hybrid" else moe
+    tokens, lengths = left_padded(cfg, lens, params.embed.table.device)
+    B, T = tokens.shape
+
+    def serve(cache_fault=None, seq=None) -> tuple:
+        """(each step's logits, the tokens fed): greedy, or ``seq``'s."""
+        logits, cache = fam.prefill(params, cfg, tokens, lengths,
+                                    T + n_steps)
+        if cache_fault is not None:
+            cache_fault(cache)
+        out, fed = [logits], []
+        for step in range(n_steps):
+            cur = (seq[:, T + step].contiguous() if seq is not None
+                   else torch.argmax(out[-1].float(), -1).to(torch.int32))
+            fed.append(cur)
+            logits, cache = fam.decode_step(params, cfg, cache, cur, step)
+            out.append(logits)
+        return out, torch.cat([tokens, torch.stack(fed, 1)], dim=1)
+
+    def rec_state(cache) -> None:
+        for x in (cache.h, cache.tail_h, cache.conv, cache.tail_conv):
+            x.zero_()
+
+    with torch.no_grad():
+        served, seq = serve()
+        full = fam.forward(params, cfg, seq, lengths + n_steps)
+        refs = [full[:, T - 1 + step].float() for step in range(n_steps + 1)]
+        del full
+    if cfg.family == "hybrid":
+        faults = {"rec_state": (contextlib.nullcontext(), rec_state)}
+    elif cfg.n_shared_experts:
+        faults = {"shared": (zeroed([layer.moe.shared.down.w
+                                     for layer in params.layers]), None)}
+    else:
+        best = moe.top_k
+        faults = {"route": (mock.patch.object(
+            moe, "top_k",
+            lambda p, k: tuple(x[..., 1:] for x in best(p, k + 1))), None)}
+    tol = F32_REF_TOL if cfg.dtype == torch.float32 else REF_TOL
+    held = hold_logits(
+        f"{cfg.name} ({cfg.n_layers} layers, {str(cfg.dtype)[6:]})", served,
+        refs, lambda cache_fault: serve(cache_fault, seq)[0], faults, tol,
+        f"prefill ({B} rows of up to {T} tokens) + {n_steps} decode steps")
+    return dict(held, check_layers=cfg.n_layers, check_dtype=str(cfg.dtype),
+                check_rows=list(lens))
+
+
+#: the decode group of ``check_served_routing``: at 8 tokens deepseek-v2-lite
+#: holds 1 slot an expert (int(8·6·1.25/64) = 0, raised to 1), mixtral 2
+ROUTE_ROWS = 8
+
+
+def check_served_routing(model, params) -> dict:
+    """Phase 4 of the MoE slices at their served capacity, on the slice's
+    own bf16 model: a prefill of ``ROUTE_ROWS`` random rows and one decode
+    step, whose first MoE layer's input (the decode group, one token a
+    row) is kept.  That layer's routing and ``moe_apply`` run on the card
+    and, with the layer's weights copied, on the CPU.  The routing (each
+    choice's expert, slot and keep flag) must be equal exactly and drop at
+    least one choice; the renormalised weights must lie within
+    ``ROUTE_WEIGHT_TOL``, the outputs within ``ROUTE_TOL`` of the CPU's
+    largest |y|.  Control: the CPU layer at a capacity that drops nothing
+    must move its output past ``ROUTE_TOL``, so that the drops weigh at
+    this input."""
+    import numpy as np
+    from repro_torch.models import moe
+    cfg = model.cfg
+    dev = params.embed.table.device
+    rng = np.random.default_rng(4)
+    T = 16
+    tokens = torch.from_numpy(rng.integers(
+        2, cfg.vocab_size, size=(ROUTE_ROWS, T)).astype(np.int32)).to(dev)
+    lengths = torch.full((ROUTE_ROWS,), T, dtype=torch.int32, device=dev)
+    seen = []
+    apply = moe.moe_apply
+
+    def keep_first(p, x, c):
+        if not seen:
+            seen.append((p, x.clone()))
+        return apply(p, x, c)
+
+    with torch.no_grad():
+        logits, cache = moe.prefill(params, cfg, tokens, lengths, T + 1)
+        with mock.patch.object(moe, "moe_apply", keep_first):
+            moe.decode_step(params, cfg, cache,
+                            torch.argmax(logits.float(), -1).to(torch.int32),
+                            0)
+        del cache
+        card, x = seen[0]
+        group = x.shape[0] * x.shape[1]
+        cap = moe.capacity(cfg, group)
+        cpu = moe.MoELayer(cfg, torch.device("cpu"))
+        cpu.load_state_dict(card.state_dict())
+        xc = x.cpu()
+        on_card = moe.route(card, x.reshape(group, -1), cfg, cap)
+        on_cpu = moe.route(cpu, xc.reshape(group, -1), cfg, cap)
+        y_card = moe.moe_apply(card, x, cfg).float().cpu()
+        y_cpu = moe.moe_apply(cpu, xc, cfg).float()
+        y_all = moe.moe_apply(cpu, xc, cfg.replace(
+            capacity_factor=(cfg.n_experts + 0.5) / cfg.top_k)).float()
         torch.cuda.synchronize()
-    log(f"{cfg.name} {path}: served logits vs the plain forward over "
-        f"prefill + {n_steps} decode steps, max relative difference "
-        f"{max(worst):.3e} (per step {[f'{w:.2e}' for w in worst]}; "
-        f"tolerance {REF_TOL}); control faults "
-        f"{ {k: f'{v:.3e}' for k, v in controls.items()} } (each must "
-        f"exceed {REF_TOL})")
-    if max(worst) > REF_TOL:
-        raise SystemExit(f"{cfg.name}: the {path} path disagrees with the "
-                         f"plain forward")
-    return dict(max_rel_logit_diff=max(worst), rel_logit_diff_by_step=worst,
-                controls=controls)
+    equal = all(torch.equal(getattr(on_card, f).cpu(), getattr(on_cpu, f))
+                for f in ("expert", "slot", "keep"))
+    drops = int((~on_cpu.keep).sum())
+    w_diff = (on_card.weight.cpu() - on_cpu.weight).abs().max().item()
+    scale = y_cpu.abs().max().item()
+    gap = (y_card - y_cpu).abs().max().item() / scale
+    control = (y_all - y_cpu).abs().max().item() / scale
+    del cpu
+    log(f"{cfg.name} served routing, card vs CPU: decode group of {group} "
+        f"tokens at {cap} slot(s) an expert, {drops} of {group * cfg.top_k} "
+        f"choices dropped, (expert, slot, keep) equal: {equal}; weights "
+        f"max |diff| {w_diff:.2e} (tolerance {ROUTE_WEIGHT_TOL}); moe_apply "
+        f"max relative difference {gap:.3e} (tolerance {ROUTE_TOL}); "
+        f"control, nothing dropped on the CPU: {control:.3e} (must exceed "
+        f"{ROUTE_TOL})")
+    if not (equal and drops > 0 and w_diff <= ROUTE_WEIGHT_TOL
+            and gap <= ROUTE_TOL < control):
+        raise SystemExit(f"{cfg.name}: the served MoE routing on the card "
+                         f"disagrees with the CPU's, drops nothing, or its "
+                         f"control does not exceed {ROUTE_TOL}")
+    return dict(route_group=group, route_capacity=cap, route_drops=drops,
+                route_weight_max_diff=w_diff, route_max_rel_diff=gap,
+                route_control_no_drops=control)
 
 
 # ---------------------------------------------------------------------------
@@ -1509,47 +1856,77 @@ def check_ils_parity() -> None:
 #: gemma-2b once more at its published head_dim 256 (the float32 kernels
 #: at D 256)
 CONFIG_PARITY = (("mamba2-130m", None), ("codeqwen1.5-7b", None),
-                 ("minitron-4b", None), ("gemma-2b", None), ("gemma-2b", 256))
+                 ("minitron-4b", None), ("gemma-2b", None), ("gemma-2b", 256),
+                 ("mixtral-8x22b", None), ("deepseek-v2-lite-16b", None),
+                 ("recurrentgemma-9b", None))
+#: the MoE configs of phase 4c once more at their full configs' capacity
+#: factor (1.25), at which the reduced engines drop routed choices
+SERVED_CAPACITY_PARITY = ("mixtral-8x22b", "deepseek-v2-lite-16b")
 
 
 def perturb(params, cfg) -> None:
     """Draw apart, from a seeded generator, the parameters that the
     initialiser makes alike, as the CPU tests' shared weights do: the QKV
-    biases (zero at init) and Mamba-2's A_log, dt_bias, D and conv_b (alike
-    per head and channel)."""
+    biases (zero at init), Mamba-2's A_log, dt_bias, D and conv_b (alike
+    per head and channel) and the RG-LRU's lambda and conv_b (alike per
+    channel)."""
     g = torch.Generator().manual_seed(5)
+    if cfg.family == "hybrid":
+        blocks = [rp for grp in params.groups for rp in grp.rec]
+        blocks += list(params.tail)
+    else:
+        blocks = params.layers
     with torch.no_grad():
-        for layer in params.layers:
+        for layer in blocks:
             if cfg.family == "ssm":
                 m = layer.mixer
                 drawn = ((m.A_log, 0.0, 0.5), (m.dt_bias, 0.0, 0.5),
                          (m.D, 1.0, 0.5), (m.conv_b, 0.0, 0.2))
-            else:
+            elif cfg.family == "hybrid":
+                drawn = ((layer.lam, 1.0, 0.5), (layer.conv_b, 0.0, 0.2))
+            elif cfg.qkv_bias:
                 a = layer.attn
-                drawn = tuple((d.b, 0.0, 0.5) for d in (a.wq, a.wk, a.wv)
-                              if d.b is not None)
+                drawn = tuple((d.b, 0.0, 0.5) for d in (a.wq, a.wk, a.wv))
+            else:
+                drawn = ()
             for p, loc, scale in drawn:
                 p.copy_(loc + scale * torch.randn(p.shape, generator=g))
 
 
-def check_config_parity(arch: str, head_dim=None) -> dict:
-    """The reduced float32 ``arch`` (its head_dim replaced where given)
-    with one set of weights (``perturb``) on the card and on the CPU: the
-    dense ``StaticEngine``, and for a transformer the paged unfused and
-    fused ones, each serve the same prompts over two slices (the dense one
-    re-prefills the second, the paged ones resume their pages).  On the
-    card each runs its path's kernels once per layer per prefill stage /
-    decode step (two stages dense, one paged) and nothing else, on the CPU
-    their plain versions as often; the streams must equal the CPU's but for recorded near-ties."""
+def check_config_parity(arch: str, head_dim=None,
+                        served_capacity: bool = False) -> dict:
+    """The reduced float32 ``arch`` (its head_dim replaced where given; an
+    MoE config at the full config's capacity factor, which drops routed
+    choices, where ``served_capacity``) with one set of weights
+    (``perturb``) on the card and on the CPU: the dense ``StaticEngine``,
+    and for a dense transformer the paged unfused and fused ones, each
+    serve the same prompts over two slices (the dense one re-prefills the
+    second, the paged ones resume their pages).  On the card each runs its
+    path's kernels once per layer per prefill stage / decode step (two
+    stages dense, one paged) and nothing else, on the CPU their plain
+    versions as often; the streams must equal the CPU's but for recorded
+    near-ties.  The MoE dispatch's dropped choices are counted on each
+    device; at the served capacity both must drop some."""
     import numpy as np
     from repro_torch.configs import get_config
     from repro_torch.engine.static_engine import StaticEngine
     from repro_torch.kernels import ops
+    from repro_torch.models import moe
     from repro_torch.models.registry import get_model
     from repro_torch.testing import prefill_logits, stream_tie
     cfg = get_config(arch, reduced=True)
-    model = get_model(cfg if head_dim is None else
-                      cfg.replace(head_dim=head_dim))
+    if head_dim is not None:
+        cfg = cfg.replace(head_dim=head_dim)
+    if served_capacity:
+        cfg = cfg.replace(capacity_factor=get_config(arch).capacity_factor)
+    model = get_model(cfg)
+    drops = {"cpu": 0, "cuda": 0}
+    dispatch = moe._dispatch
+
+    def counting(probs, k, cap):
+        r = dispatch(probs, k, cap)
+        drops[probs.device.type] += int((~r.keep).sum())
+        return r
     cpu = model.init(0, device="cpu")
     perturb(cpu, model.cfg)
     card = model.init(0, device="cuda")
@@ -1559,9 +1936,12 @@ def check_config_parity(arch: str, head_dim=None) -> dict:
     ps = [rng.integers(2, model.cfg.vocab_size, size=n).astype(np.int32)
           for n in (5, 13, 9, 40, 3, 21)]
     forced = [12, 3, 12, 9, 12, 5]
-    L = model.cfg.n_layers
+    L = kernel_layers(model.cfg)
     paged = dict(kv_layout="paged", page_tokens=8, kv_pool_tokens=512)
-    paths = ((("dense", {}, SSM),) if model.cfg.family == "ssm" else
+    family = model.cfg.family
+    paths = ((("dense", {}, SSM),) if family == "ssm" else
+             (("dense", {}, () if model.cfg.use_mla else DENSE),)
+             if family != "dense" else
              (("dense", {}, DENSE),
               ("unfused", paged, PATH_KERNELS["unfused"]),
               ("fused", dict(paged, attn_impl="fused"), FUSED)))
@@ -1574,21 +1954,24 @@ def check_config_parity(arch: str, head_dim=None) -> dict:
         outs = {dev: [[] for _ in ps] for dev in engines}
         counts = dict(prefix_hit_tokens=0, reprefill_tokens=0)
         ops.reset_counts()
-        for _ in range(2):
-            idx = [i for i in range(len(ps))
-                   if len(outs["cpu"][i]) < forced[i]]
-            skw = dict(forced_gen_lens=[forced[i] - len(outs["cpu"][i])
-                                        for i in idx],
-                       already_generated=[outs["cpu"][i] for i in idx])
-            for dev, eng in engines.items():
-                batch = [ps[i] for i in idx]
-                res = (eng.serve_batch(batch, 8, **skw) if path == "dense"
-                       else eng.serve_batch_paged(batch, 8, idx, **skw))
-                for s_, i in enumerate(idx):
-                    outs[dev][i] = outs[dev][i] + res.results[s_]["tokens"]
-                if dev == "card":
-                    for k in counts:
-                        counts[k] += getattr(res, k)
+        with mock.patch.object(moe, "_dispatch", counting):
+            for _ in range(2):
+                idx = [i for i in range(len(ps))
+                       if len(outs["cpu"][i]) < forced[i]]
+                skw = dict(forced_gen_lens=[forced[i] - len(outs["cpu"][i])
+                                            for i in idx],
+                           already_generated=[outs["cpu"][i] for i in idx])
+                for dev, eng in engines.items():
+                    batch = [ps[i] for i in idx]
+                    res = (eng.serve_batch(batch, 8, **skw)
+                           if path == "dense"
+                           else eng.serve_batch_paged(batch, 8, idx, **skw))
+                    for s_, i in enumerate(idx):
+                        outs[dev][i] = (outs[dev][i]
+                                        + res.results[s_]["tokens"])
+                    if dev == "card":
+                        for k in counts:
+                            counts[k] += getattr(res, k)
         torch.cuda.synchronize()
         se = engines["card"]
         launches = ops.launches()
@@ -1613,13 +1996,20 @@ def check_config_parity(arch: str, head_dim=None) -> dict:
             if gap is not None:
                 ties.append(dict(path=path, request=i, gap=gap))
         result[path] = launches
+    if served_capacity and not min(drops.values()) > 0:
+        raise SystemExit(f"{arch} at capacity factor "
+                         f"{cfg.capacity_factor}: dropped choices {drops}, "
+                         f"none on one device")
+    moe_note = (f", capacity factor {cfg.capacity_factor:g}, choices "
+                f"dropped {drops}" if family == "moe" else "")
     log(f"{arch} parity (reduced float32, "
-        f"{'SSM' if model.cfg.family == 'ssm' else 'head_dim %d' % model.cfg.head_dim}): "
-        f"the {', '.join(p for p, _, _ in paths)} StaticEngines on the card "
-        f"match the CPU over {len(ps)} requests and 2 slices; near-ties "
-        f"{ties}")
+        f"{'SSM' if family == 'ssm' else 'head_dim %d' % model.cfg.head_dim}"
+        f"{moe_note}): the {', '.join(p for p, _, _ in paths)} "
+        f"StaticEngines on the card match the CPU over {len(ps)} requests "
+        f"and 2 slices; near-ties {ties}")
     return dict(head_dim=model.cfg.head_dim, requests=len(ps),
-                near_ties=ties, launches=result)
+                near_ties=ties, launches=result,
+                capacity_factor=cfg.capacity_factor, dropped_choices=drops)
 
 
 # ---------------------------------------------------------------------------
@@ -1645,9 +2035,11 @@ FUSED = ("fused_rope_prefill_write", "fused_rope_decode_append")
 UNFUSED = ("paged_prefill_write", "paged_decode_attention")
 DENSE = ("flash_prefill", "decode_attention")
 SSM = ("ssd_scan",)
-#: the kernels of each path
+#: the kernels of each path; "mla" is dense SCLS for deepseek-v2-lite-16b,
+#: whose MLA attention and MoE dispatch are plain torch by design (no
+#: kernel launches on it)
 PATH_KERNELS = {"unfused": UNFUSED + ("flash_prefill",), "fused": FUSED,
-                "dense": DENSE, "ssm": SSM}
+                "dense": DENSE, "ssm": SSM, "mla": ()}
 #: summary label: (launcher arguments, path) of each slice.  Phases 5-7:
 #: llama3.2-1b on the persistent paged unfused path, on fused engines and
 #: on dense SCLS; 9: mamba2-130m on dense SCLS; 13-15: codeqwen1.5-7b (MHA
@@ -1665,7 +2057,41 @@ SLICES = {
                                             "--shared-prefix", "2"]
                              + PAGED_KV, "fused"),
     "gemma_dense_slice": (CONFIG_ARGV + ["--arch", "gemma-2b"] + DENSE_KV,
-                          "dense")}
+                          "dense"),
+    "deepseek_slice": (CONFIG_ARGV + ["--arch", "deepseek-v2-lite-16b",
+                                      "--m-available", "30e9"] + DENSE_KV,
+                       "mla"),
+    "recurrentgemma_slice": (CONFIG_ARGV + ["--arch", "recurrentgemma-9b"]
+                             + DENSE_KV, "dense"),
+    "mixtral_slice": (CONFIG_ARGV + ["--arch", "mixtral-8x22b"] + DENSE_KV,
+                      "dense")}
+#: phases 17-19's slices: deepseek-v2-lite-16b (27 layers, ~31.4 GB in
+#: bf16: a 30 GB KV budget), recurrentgemma-9b (38 layers, ~18.8 GB) and
+#: mixtral-8x22b cut to ``DEPTH_CUTS`` layers (~282 GB in bf16 at its 56)
+FAMILY_SLICES = ("deepseek_slice", "recurrentgemma_slice", "mixtral_slice")
+#: arch: (layers its served models are cut to, at full width; why).  All
+#: 56 of mixtral-8x22b's layers hold ~282 GB in bf16, 4 hold ~20.8 GB; the
+#: llama3.2-1b paths (phases 5-8) and the Mamba-2 slice (9) are cut to
+#: half their depth so that the whole script stays well inside its time
+#: limit (their walls follow the start-up estimator's batch and the host,
+#: and reached 75-138 s a slice at full depth); every kernel keeps its
+#: per-layer shapes
+DEPTH_CUTS = {"mixtral-8x22b": (4, "past one 80 GB card"),
+              "llama3.2-1b": (8, "cut for the script's time limit"),
+              "mamba2-130m": (12, "cut for the script's time limit")}
+
+
+def served_config(arch: str):
+    """``arch``'s full-width config at the depth ``DEPTH_CUTS`` gives it."""
+    from repro_torch.configs import get_config
+    cfg = get_config(arch)
+    return (cfg.replace(n_layers=DEPTH_CUTS[arch][0]) if arch in DEPTH_CUTS
+            else cfg)
+#: a request each slice adds to its trace, whose prompt passes the model's
+#: window (2048 local, 4096 sliding): (prompt tokens, tokens to generate,
+#: two slices of 32)
+LONG_REQUESTS = {"recurrentgemma_slice": (2100, 64),
+                 "mixtral_slice": (4200, 64)}
 #: the least requests a slice's trace serves (shared-prefix pairs included)
 MIN_SLICE_REQUESTS = 12
 #: phase 16: the JAX launcher's serving path in the port (ServingConfig ->
@@ -1735,7 +2161,7 @@ def serve_trace(label: str, engines, drive, extra: dict) -> dict:
                    decode_steps=steps,
                    decode_ms_per_step=decode_s / max(steps, 1) * 1e3,
                    launches=launches, plain_calls=plain,
-                   n_layers=engines[0].model.cfg.n_layers,
+                   n_layers=kernel_layers(engines[0].model.cfg),
                    peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
                    serve_calls=sum(a["calls"] for a in timers),
                    engine_s=sum(a["wall_s"] for a in timers),
@@ -1758,8 +2184,17 @@ def serve_trace(label: str, engines, drive, extra: dict) -> dict:
     return summary
 
 
+def kernel_layers(cfg) -> int:
+    """Layers that launch the path's kernels: every layer, but for the
+    hybrid's attention layers (one in three) and none of MLA's."""
+    if cfg.family == "hybrid":
+        return cfg.n_layers // 3
+    return 0 if cfg.use_mla else cfg.n_layers
+
+
 def check_launches(label: str, summary: dict, used) -> None:
-    """The kernels in ``used`` launched once per layer per prefill stage
+    """The kernels in ``used`` launched once per kernel layer
+    (``kernel_layers``: ``n_layers`` in the summary) per prefill stage
     (the writes, ssd_scan), stage-A prefill (flash_prefill: the tail
     prefills attend over gathered pages) or decode step (the decode
     attentions); every other kernel never launched."""
@@ -1774,7 +2209,7 @@ def check_launches(label: str, summary: dict, used) -> None:
            "decode_attention": summary["decode_steps"]}
     launches = summary["launches"]
     want = {k: n_layers * per[k] if k in used else 0 for k in launches}
-    if launches != want or min(launches[k] for k in used) <= 0:
+    if launches != want or any(launches[k] <= 0 for k in used):
         raise SystemExit(f"{label}: kernel launches {launches} != {want} "
                          f"implied by {summary['prefill_stages']} prefill "
                          f"stages and {summary['decode_steps']} decode steps "
@@ -1794,9 +2229,31 @@ def recorded_writes(label: str, rec: "PrefillRecorder",
     return rec.stages
 
 
+def param_bytes(cfg) -> int:
+    """Bytes of ``cfg``'s weights, counted on the meta device."""
+    from repro_torch.models import mamba2, moe, rglru, transformer
+    cls = {"moe": moe.MoEModel, "hybrid": rglru.RecurrentGemma,
+           "ssm": mamba2.Mamba2}.get(cfg.family, transformer.Transformer)
+    params = cls(cfg, torch.device("meta"))
+    return sum(p.numel() * p.element_size() for p in params.parameters())
+
+
+def long_request(trace, args, vocab: int, n_prompt: int, gen: int):
+    """One more request for a slice's trace, arriving at the start, whose
+    prompt (random tokens from a seed) passes the model's window."""
+    import numpy as np
+    from repro_torch.core.request import Request
+    rng = np.random.default_rng(args.seed + 2)
+    prompt = rng.integers(2, vocab, size=n_prompt).astype(np.int32)
+    return Request(rid=max(r.rid for r in trace) + 1, arrival=0.0,
+                   input_len=n_prompt, gen_len=gen, max_gen=args.max_gen,
+                   prompt=prompt)
+
+
 def run_slice(label: str) -> tuple:
-    """Phases 5-7, 9 and 13-15: the slice ``label`` of ``SLICES``, its
-    model at full width and depth in bf16 with seeded random weights,
+    """Phases 5-7, 9, 13-15 and 17-19: the slice ``label`` of ``SLICES``,
+    its model at full width, at the depth ``DEPTH_CUTS`` gives its arch
+    (else its full depth), in bf16 with seeded random weights,
     built by the launcher's ``build_server`` (weights, the estimator fit,
     the memory model and the core: ``build_s``), whose core serves the
     trace offline (``SchedulerCore.run``).  The fused path swaps the launcher's
@@ -1814,15 +2271,27 @@ def run_slice(label: str) -> tuple:
     (``StageRecorder``) and runs ``check_long_prefill``.  Returns (summary,
     record): ``step`` (the typical decode step) and ``writes``, or
     ``stages``."""
-    import contextlib
     from repro_torch.engine.static_engine import StaticEngine
     from repro_torch.launch import serve
     from repro_torch.serving import RealBackend, SchedulerCore
+    from repro_torch.configs import get_config
     argv, path = SLICES[label]
     paged = path in ("unfused", "fused")
     args, opts = serve.parse_args(argv)
+    family = get_config(args.arch).family
+    rows, n_steps, check_depth = FAMILY_CHECKS.get(args.arch, (None,) * 3)
+    pre = {}
+    if family == "moe":
+        # phase 4 first, on its own float32 model, freed before the build
+        pre = check_family_logits(*moe_check_model(args.arch, check_depth),
+                                  rows, n_steps)
+        release_cuda()
     t0 = time.perf_counter()
-    server, vocab = serve.build_server(args)
+    full_config = serve.get_config
+    with mock.patch.object(serve, "get_config", lambda arch, reduced=False:
+                           full_config(arch, reduced) if reduced
+                           else served_config(arch)):
+        server, vocab = serve.build_server(args)
     core = server.core
     engines = core.backend.engines
     del server
@@ -1846,15 +2315,31 @@ def run_slice(label: str) -> tuple:
     torch.cuda.synchronize()
     t_build = time.perf_counter() - t0
     extra = dict(arch=cfg.name, path=path, build_s=t_build,
+                 n_layers_served=cfg.n_layers, m_available=args.m_available,
                  weights_gib=sum(p.numel() * p.element_size()
                                  for p in params.parameters()) / 2 ** 30)
-    if path != "ssm":
+    if args.arch in DEPTH_CUTS:
+        full = get_config(args.arch)
+        log(f"{label}: {cfg.name} at full width cut to {cfg.n_layers} of "
+            f"{full.n_layers} layers ({extra['weights_gib']:.1f} GiB of "
+            f"weights; all {full.n_layers} would hold "
+            f"{param_bytes(full) / 1e9:.1f} GB in bf16: "
+            f"{DEPTH_CUTS[args.arch][1]})")
+    log(f"{label}: --m-available {args.m_available:g} bytes of KV budget "
+        f"beside {extra['weights_gib']:.1f} GiB of weights")
+    if family == "moe":
+        extra.update(pre, **check_served_routing(model, params))
+    elif family == "hybrid":
+        extra.update(check_family_logits(model, params, rows, n_steps))
+    elif path != "ssm":
         extra.update(check_served_logits(model, params, path,
                                          args.page_tokens))
     if path == "fused":
         extra["engine_parity"] = check_fused_engines(
             model, params, args.page_tokens, vocab)
     trace = serve.make_trace(args, opts, vocab)
+    if label in LONG_REQUESTS:
+        trace.append(long_request(trace, args, vocab, *LONG_REQUESTS[label]))
     if len(trace) < MIN_SLICE_REQUESTS or args.max_gen <= args.slice_len:
         raise SystemExit(f"{label}: {len(trace)} requests of max_gen "
                          f"{args.max_gen} over slices of {args.slice_len}")
@@ -2147,13 +2632,12 @@ def run_ils(scls: dict, steps: dict) -> dict:
     layer per decode iteration) may launch.  Returns the launches of the
     dense and paged runs; the paged run's typical decode iteration goes to
     ``steps["ils"]``."""
-    from repro_torch.configs import get_config
     from repro_torch.engine.continuous_engine import ContinuousEngine
     from repro_torch.kernels import ops
     from repro_torch.launch import serve
     from repro_torch.models.registry import get_model
     args, opts = serve.parse_args(DENSE_ARGV)
-    model = get_model(get_config("llama3.2-1b"))
+    model = get_model(served_config("llama3.2-1b"))
     params = model.init(args.seed, device="cuda")
     trace = serve.make_trace(args, opts, model.cfg.vocab_size)
     prompts = [r.prompt for r in trace]
@@ -2235,7 +2719,7 @@ def check_long_prefill(model, params) -> dict:
     import math
     import numpy as np
     from repro_torch.models import mamba2
-    from repro_torch.models.common import embed_apply, rms_norm
+    from repro_torch.models.common import embed_apply, rms_norm, softplus
     cfg = model.cfg
     dev = params.embed.table.device
     rng = np.random.default_rng(7)
@@ -2254,7 +2738,7 @@ def check_long_prefill(model, params) -> dict:
             cfg.ssm_chunk)
         _, _, dt = mamba2._split_zxbcdt(
             mixer, rms_norm(h, params.layers[0].ln, cfg.norm_eps), cfg)
-        dt = mamba2._softplus(dt.float() + mixer.dt_bias) * valid[..., None]
+        dt = softplus(dt.float() + mixer.dt_bias) * valid[..., None]
         sums = (dt * torch.exp(mixer.A_log)).reshape(
             -1, cfg.ssm_chunk, cfg.ssm_n_heads).sum(1)
     torch.cuda.synchronize()
@@ -2712,12 +3196,16 @@ def main() -> int:
     release_cuda()
     for arch, names in CONFIG_HEADS:
         check_config_heads(arch, names, by_name, flush)
+    for arch in WINDOW_HEADS:
+        check_window_heads(arch, by_name, flush)
     del flush
     release_cuda()
     check_ils_parity()
     release_cuda()
     parity = [dict(arch=arch, **check_config_parity(arch, head_dim))
               for arch, head_dim in CONFIG_PARITY]
+    parity += [dict(arch=arch, **check_config_parity(
+        arch, served_capacity=True)) for arch in SERVED_CAPACITY_PARITY]
     print(json.dumps({"config_parity": parity}), flush=True)
     release_cuda()
 
@@ -2757,13 +3245,16 @@ def main() -> int:
     release_cuda()
     scls["launcher_path"] = run_launcher_path()
     release_cuda()
+    for label in FAMILY_SLICES:  # phases 17-19
+        scls[label], _ = run_slice(label)
+        release_cuda()
     # every control fault of phase 4 must have failed its slice's gate
     weak = {f"{label} {fault}": gap for label, sm in scls.items()
             for fault, gap in sm.get("controls", {}).items()
-            if not gap > REF_TOL}
+            if not gap > sm["tolerance"]}
     if weak:
-        raise SystemExit(f"phase 4: control faults within REF_TOL "
-                         f"{REF_TOL} of the plain forward: {weak}")
+        raise SystemExit(f"phase 4: control faults within their slice's "
+                         f"tolerance of the plain forward: {weak}")
     # each kernel's launches on its own slice's main path, all paths beside
     by_path = {label: sm["launches"] for label, sm in scls.items()}
     by_path.update({f"ils_{k}": v for k, v in ils.items()})
@@ -2775,6 +3266,11 @@ def main() -> int:
         row["launches"] = by_path[main_path[row["name"]]][row["name"]]
         row["launches_by_path"] = {k: v[row["name"]]
                                    for k, v in by_path.items()}
+    # B6 at 16 query heads per KV head: recurrentgemma-9b's slice
+    g16 = by_path["recurrentgemma_slice"]["decode_attention"]
+    if g16 <= 0:
+        raise SystemExit("decode_attention never launched at group 16")
+    by_name["decode_attention"]["group16_launches"] = g16
     print(json.dumps({"kernels": rows}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -199,8 +199,8 @@ def dense_turn(smoke, cfg, gen, flush) -> dict:
                                            bound_ms=b_ms, bound_by=b_by)
     for label, rows, W in smoke.DECODE_TIMED:
         args = smoke.dense_decode_inputs(cfg, rows, W, gen)
-        t, lib, b_ms, b_by, _ = smoke.time_dense_decode(dkmod, rows, args,
-                                                        flush, label)
+        t, lib, b_ms, b_by, _ = smoke.time_dense_decode(dkmod, args, flush,
+                                                        label)
         out["decode_attention"][label] = dict(
             ms=t, library_ms=lib, bound_ms=b_ms, bound_by=b_by,
             profile=profile_calls(smoke, lambda: dkmod.decode_attention(

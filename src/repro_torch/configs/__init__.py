@@ -1,13 +1,17 @@
 """Architecture config registry: ``--arch <id>`` resolution.
 
 The port serves the dense llama3.2-1b, codeqwen1.5-7b, minitron-4b and
-gemma-2b and the Mamba-2 SSM mamba2-130m; the other families of
-``repro.configs`` come with their model code.
+gemma-2b, the Mamba-2 SSM mamba2-130m, the MoE mixtral-8x22b and
+deepseek-v2-lite-16b and the RG-LRU hybrid recurrentgemma-9b; the
+encoder-decoder and VLM families of ``repro.configs`` come with their
+model code.
 """
 from __future__ import annotations
 
-from repro_torch.configs import (codeqwen1_5_7b, gemma_2b, llama3_2_1b,
-                                 mamba2_130m, minitron_4b)
+from repro_torch.configs import (codeqwen1_5_7b, deepseek_v2_lite_16b,
+                                 gemma_2b, llama3_2_1b, mamba2_130m,
+                                 minitron_4b, mixtral_8x22b,
+                                 recurrentgemma_9b)
 from repro_torch.models.common import ModelConfig
 
 _MODULES = {
@@ -16,6 +20,9 @@ _MODULES = {
     "minitron-4b": minitron_4b,
     "gemma-2b": gemma_2b,
     "mamba2-130m": mamba2_130m,
+    "deepseek-v2-lite-16b": deepseek_v2_lite_16b,
+    "mixtral-8x22b": mixtral_8x22b,
+    "recurrentgemma-9b": recurrentgemma_9b,
 }
 
 ARCHS = tuple(_MODULES)

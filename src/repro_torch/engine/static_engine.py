@@ -17,10 +17,13 @@ Dense layout (``serve_batch``, the default): each slice prefills prompt +
 ``already_generated`` into a fresh dense cache of exactly ``L + S`` slots
 (Eq. 5) and decodes in it; a rescheduled request re-prefills everything
 (the paper's §3.3 overhead, counted in ``ServeResult.reprefill_tokens``).
-It takes the model as it is: the dense transformer's prefill and decode
-go through the ``flash_prefill`` / ``decode_attention`` kernels, the
-Mamba-2 model's prefill through ``ssd_scan``.  Only the dense family has
-a paged layout.
+It takes the model as it is, and its cache whatever its type
+(``KVCache``, ``MambaCache``, ``MoECache``, ``RGCache``): the dense
+transformer's prefill and decode go through the ``flash_prefill`` /
+``decode_attention`` kernels, as do mixtral-8x22b's and recurrentgemma-9b's
+attention layers, the Mamba-2 model's prefill through ``ssd_scan``;
+deepseek-v2-lite's MLA attention, every MoE dispatch and the RG-LRU scan
+are plain torch.  Only the dense family has a paged layout.
 
 Persistent paged storage (``kv_layout="paged"``, ``serve_batch_paged``):
 the engine owns a page pool and per-request page

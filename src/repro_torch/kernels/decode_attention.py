@@ -6,7 +6,10 @@ Port of the Pallas kernel ``repro.kernels.decode_attention``.  Source:
 ``csrc/split_attention.cuh`` (host side in ``kernels.split``): each row's
 slots are split over several blocks (pass 1 writes float32 partial
 softmaxes to a workspace that this wrapper allocates, pass 2 merges them);
-one call launches both passes and counts one launch.  The plain version is
+one call launches both passes and counts one launch.  A group above
+``BLOCK_GROUP`` query heads per KV head (recurrentgemma-9b's 16) runs as
+``head_blocks(G)`` blocks of at most ``BLOCK_GROUP`` heads each, every
+one reading its KV head's slots.  The plain version is
 ``kernels.ref.decode_attention_ref``; ``kernels.ops`` dispatches between
 the two by device.
 """
@@ -25,7 +28,10 @@ launches = 0
 
 #: shapes the kernel is compiled for (template instances in the source)
 HEAD_DIMS = (32, 64, 128, 256)
-MAX_GROUP = 8
+#: most query heads one block of the split loop holds (``kMaxG``)
+BLOCK_GROUP = 8
+#: most query heads per KV head a call takes
+MAX_GROUP = 16
 
 _fn = None
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -36,7 +42,7 @@ def _launcher():
     if _fn is None:
         fn = build.load("decode_attention").decode_attention_launch
         fn.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 7 \
-            + [ctypes.c_int] * 7 + [ctypes.c_float, ctypes.c_void_p]
+            + [ctypes.c_int] * 8 + [ctypes.c_float, ctypes.c_void_p]
         fn.restype = ctypes.c_int
         _fn = fn
     return _fn
@@ -45,6 +51,14 @@ def _launcher():
 def reset_launches() -> None:
     global launches
     launches = 0
+
+
+def head_blocks(G: int) -> int:
+    """Blocks that share a KV head's ``G`` query heads: the fewest that
+    divide G into groups of at most ``BLOCK_GROUP`` (1 up to 8, 2 at
+    16)."""
+    return next(r for r in range(1, G + 1)
+                if G % r == 0 and G // r <= BLOCK_GROUP)
 
 
 def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
@@ -92,14 +106,15 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
         raise ValueError("decode_attention kernel: the caches must be "
                          "16-byte aligned")
     out = torch.empty_like(q)
-    chunk = split_slots(B, W, Hkv, sm_count(dev))
-    ws = workspace(B, W, Hq, Hkv, D, chunk, dev)
+    rep = head_blocks(Hq // Hkv)
+    chunk = split_slots(B, W, Hkv * rep, sm_count(dev))
+    ws = workspace(B, W, Hq, Hkv * rep, D, chunk, dev)
     fn = _launcher()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = fn(_DTYPES[q.dtype], q.data_ptr(), k_cache.data_ptr(),
                  v_cache.data_ptr(), slot_pos.data_ptr(), q_pos.data_ptr(),
-                 out.data_ptr(), ws.data_ptr(), B, Hq, Hkv, D, W, chunk,
+                 out.data_ptr(), ws.data_ptr(), B, Hq, Hkv, rep, D, W, chunk,
                  window or 0, D ** -0.5, stream)
         launches += 1
     if err:

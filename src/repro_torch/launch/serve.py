@@ -28,6 +28,12 @@ online ``repro_torch.serving`` API (SliceServer over one SchedulerCore).
   PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-130m \\
       --device cpu --reduced --max-input 64 --max-gen 16 --slice-len 8
 
+  # the MoE and hybrid families through dense SCLS (mixtral-8x22b's and
+  # recurrentgemma-9b's attention on the kernels, deepseek-v2-lite-16b's
+  # MLA and every MoE dispatch and RG-LRU scan in plain torch)
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch mixtral-8x22b \\
+      --device cpu --reduced --max-input 64 --max-gen 16 --slice-len 8
+
   # discrete-event sim backend (no model): the same scheduler code
   PYTHONPATH=src python -m repro_torch.launch.serve --backend sim
 
@@ -155,6 +161,9 @@ def build_server(cfg: ServingConfig) -> Tuple[SliceServer, int]:
                          f"{sorted(ARCHS)}")
     device = resolve_device(cfg.device)
     arch = get_config(cfg.arch, reduced=cfg.reduced)
+    if arch.family not in ("dense", "moe", "ssm", "hybrid"):
+        raise SystemExit(f"serve launcher drives token-only archs; "
+                         f"{cfg.arch} needs frontend embeddings (use examples/)")
     if cfg.kv_retain == "request" and arch.family != "dense":
         raise SystemExit(f"--kv-retain request drives the persistent paged "
                          f"StaticEngine (dense family only); {cfg.arch} is "

@@ -107,6 +107,18 @@ def prefill_mask(positions: torch.Tensor,
     return m[:, None]
 
 
+def decode_mask(q_pos: torch.Tensor, slot_pos: torch.Tensor,
+                window: Optional[int]) -> torch.Tensor:
+    """q_pos (B,), slot_pos (B,W) -> (B,1,1,W): the live slots of a
+    one-token query, for the torch paths that attend without a decode
+    kernel (MLA) and for an SDPA call over a dense or ring cache."""
+    qp = q_pos[:, None]
+    m = (slot_pos >= 0) & (slot_pos <= qp)
+    if window is not None:
+        m = m & (qp - slot_pos < window)
+    return m[:, None, None]
+
+
 def gqa_attend_chunked(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                        scale: float, positions: torch.Tensor,
                        window: Optional[int],

@@ -20,8 +20,13 @@ conventions kept exactly:
   table's type first.
 
 The config carries the fields of the families the port serves: the dense
-transformers (llama3.2-1b, codeqwen1.5-7b, minitron-4b, gemma-2b) and the
-Mamba-2 SSM (``ssm_*``, used by ``models.mamba2``).
+transformers (llama3.2-1b, codeqwen1.5-7b, minitron-4b, gemma-2b), the
+Mamba-2 SSM (``ssm_*``, used by ``models.mamba2``), the MoE models
+(mixtral-8x22b, deepseek-v2-lite-16b: the experts' and MLA's fields, used
+by ``models.moe`` and ``models.mla``) and the RG-LRU hybrid
+(recurrentgemma-9b: ``rg_*`` and ``local_window``, used by
+``models.rglru``).  The training-only ``router_aux_coef`` stays out: only
+the loss reads it.
 """
 from __future__ import annotations
 
@@ -54,6 +59,19 @@ class ModelConfig:
     tie_embeddings: bool = True
     scale_embed: bool = False  # gemma: embeddings * sqrt(d_model)
     sliding_window: Optional[int] = None
+    # --- MoE ---
+    n_experts: int = 0
+    n_shared_experts: int = 0
+    top_k: int = 2
+    d_ff_expert: int = 0
+    capacity_factor: float = 1.25
+    first_dense_layers: int = 0  # deepseek-v2: layer 0 is a dense MLP
+    # --- MLA (deepseek-v2) ---
+    use_mla: bool = False
+    kv_lora_rank: int = 512
+    qk_nope_head_dim: int = 128
+    qk_rope_head_dim: int = 64
+    v_head_dim: int = 128
     # --- SSM (mamba2 / SSD) ---
     ssm_state: int = 128
     ssm_expand: int = 2
@@ -61,7 +79,18 @@ class ModelConfig:
     ssm_conv_width: int = 4
     ssm_chunk: int = 128
     ssm_n_groups: int = 1
+    # --- hybrid (recurrentgemma) ---
+    rg_lru_width: int = 0  # 0 -> d_model
+    local_window: int = 2048
     dtype: torch.dtype = torch.float32
+
+    @property
+    def n_rep(self) -> int:
+        return self.n_heads // max(self.n_kv_heads, 1)
+
+    @property
+    def d_lru(self) -> int:
+        return self.rg_lru_width or self.d_model
 
     @property
     def ssm_d_inner(self) -> int:
@@ -172,6 +201,12 @@ def rms_norm(x: torch.Tensor, weight: torch.Tensor,
     x = x.float()
     var = x.square().mean(dim=-1, keepdim=True)
     return ((x * torch.rsqrt(var + eps)) * (1.0 + weight.float())).to(dt)
+
+
+def softplus(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.softplus`` (log(1 + e^x) with no linear cut-off)."""
+    return torch.logaddexp(x, torch.zeros((), dtype=x.dtype,
+                                          device=x.device))
 
 
 def rope_freqs(head_dim: int, theta: float,

@@ -37,7 +37,7 @@ from torch import nn
 from repro_torch.kernels import ops as kernel_ops
 from repro_torch.models.common import (Dense, Embed, ModelConfig,
                                        embed_apply, normal_, rms_norm,
-                                       rms_weight, unembed_apply)
+                                       rms_weight, softplus, unembed_apply)
 
 
 class MambaCache(NamedTuple):
@@ -147,12 +147,6 @@ def _causal_conv(p: Mixer, xBC: torch.Tensor) -> torch.Tensor:
     return F.silu(out + p.conv_b)
 
 
-def _softplus(x: torch.Tensor) -> torch.Tensor:
-    """``jax.nn.softplus`` (log(1 + e^x) with no linear cut-off)."""
-    return torch.logaddexp(x, torch.zeros((), dtype=x.dtype,
-                                          device=x.device))
-
-
 def mixer_forward(p: Mixer, u: torch.Tensor, valid: torch.Tensor,
                   cfg: ModelConfig
                   ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
@@ -168,7 +162,7 @@ def mixer_forward(p: Mixer, u: torch.Tensor, valid: torch.Tensor,
     x = x.reshape(B_, T, H, P)
     Bmat = Bmat.reshape(B_, T, G, N)
     Cmat = Cmat.reshape(B_, T, G, N)
-    dt = _softplus(dt.float() + p.dt_bias)
+    dt = softplus(dt.float() + p.dt_bias)
     dt = torch.where(valid[..., None], dt, 0.0)  # identity transition at pads
     A = -torch.exp(p.A_log)
     y, final = kernel_ops.ssd_chunked_scan(
@@ -196,7 +190,7 @@ def mixer_decode(p: Mixer, u: torch.Tensor, conv_state: torch.Tensor,
     x = x.reshape(B_, H, P).float()
     Bmat = Bmat.reshape(B_, G, N).repeat_interleave(H // G, dim=1).float()
     Cmat = Cmat.reshape(B_, G, N).repeat_interleave(H // G, dim=1).float()
-    dt = _softplus(dt[:, 0].float() + p.dt_bias)  # (B,H)
+    dt = softplus(dt[:, 0].float() + p.dt_bias)  # (B,H)
     A = -torch.exp(p.A_log)
     a = torch.exp(dt * A)  # (B,H)
     dBx = torch.einsum("bh,bhn,bhp->bhpn", dt, Bmat, x)

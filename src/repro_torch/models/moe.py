@@ -1,0 +1,377 @@
+"""Mixture-of-Experts layers + MoE decoder models.
+
+PyTorch counterpart of ``repro.models.moe``, for both MoE archs:
+
+  * mixtral-8x22b — GQA attention (SWA 4096) + 8 routed experts, top-2;
+  * deepseek-v2-lite — MLA attention (``models.mla``) + (2 shared + 64
+    routed, top-6) experts, the first layer dense (arXiv:2405.04434).
+
+Routing is the JAX package's *dropping* dispatch, kept exactly: the B·T
+tokens of a call (left pads and the engine's batch-bucket rows included)
+are zero-padded to whole groups of ``min(MOE_GROUP, B·T)``; in each group
+the router's float32 softmax picks each token's top-k experts (ties to
+the lower index, as ``jax.lax.top_k``), the k probabilities are
+renormalised (``p / max(sum, 1e-9)``), and token t's k-th choice takes the
+next free slot of its expert in the order (token, k-slot).  An expert
+holds ``cap = max(1, int(group·top_k·capacity_factor / E))`` slots; a
+choice past them is dropped (weighs 0).  The shared experts are added on
+top, to every token.
+
+The JAX package moves tokens with one-hot dispatch/combine einsums; the
+port gathers and scatters the same tokens into the same (E, cap, d)
+slots (``_dispatch`` returns each choice's expert, slot and keep flag),
+and runs the experts as batched products over those buffers.  None of this is a kernel: the JAX
+package computes it with ``jnp`` (no Pallas kernel), and so does the port,
+by design, on every device.
+
+Parameters follow the JAX tree: ``layers.<i>`` (MoE blocks) and
+``dense_layers.<i>`` (the first dense blocks), each with ``attn`` (GQA or
+MLA), ``ln_attn``, ``ln_mlp`` and ``moe`` (``router`` float32 (d, E),
+``experts.{gate,up,down}.w`` stacked (E, d_in, d_out), ``shared``) or
+``mlp``.  The head is the embedding table (``unembed_apply``), as in the
+JAX model, whatever ``tie_embeddings`` says.
+"""
+from __future__ import annotations
+
+from typing import NamedTuple, Optional, Tuple, Union
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from repro_torch.models import attention as attn
+from repro_torch.models import mla
+from repro_torch.models.attention import KVCache
+from repro_torch.models.common import (MLP, Embed, ModelConfig, activate,
+                                       embed_apply, normal_, rms_norm,
+                                       rms_weight, unembed_apply)
+from repro_torch.models.transformer import make_positions
+
+MOE_GROUP = 1024  # dispatch group size (tokens); decode uses one group
+
+
+# ---------------------------------------------------------------------------
+# MoE layer
+# ---------------------------------------------------------------------------
+class StackedDense(nn.Module):
+    """E dense layers ``w`` (E, d_in, d_out), each N(0, 1/d_in) at init."""
+
+    def __init__(self, n: int, d_in: int, d_out: int, dtype: torch.dtype,
+                 device: torch.device):
+        super().__init__()
+        self.w = nn.Parameter(torch.empty(n, d_in, d_out, dtype=dtype,
+                                          device=device), requires_grad=False)
+
+    def reset_parameters(self, generator: torch.Generator) -> None:
+        normal_(self.w, generator, self.w.shape[1] ** -0.5)
+
+
+class Experts(nn.Module):
+    """The routed experts: E gated MLPs stacked on a leading axis."""
+
+    def __init__(self, cfg: ModelConfig, device: torch.device):
+        super().__init__()
+        E, d, dff = cfg.n_experts, cfg.d_model, cfg.d_ff_expert
+        self.act = cfg.act
+        self.gate = StackedDense(E, d, dff, cfg.dtype, device)
+        self.up = StackedDense(E, d, dff, cfg.dtype, device)
+        self.down = StackedDense(E, dff, d, cfg.dtype, device)
+
+    def reset_parameters(self, generator: torch.Generator) -> None:
+        for m in (self.gate, self.up, self.down):
+            m.reset_parameters(generator)
+
+    def forward(self, xe: torch.Tensor) -> torch.Tensor:
+        """xe (E, C, d) -> (E, C, d): expert e's MLP on its C slots."""
+        h = activate(torch.bmm(xe, self.gate.w), self.act) \
+            * torch.bmm(xe, self.up.w)
+        return torch.bmm(h, self.down.w)
+
+
+class MoELayer(nn.Module):
+    def __init__(self, cfg: ModelConfig, device: torch.device):
+        super().__init__()
+        self.router = nn.Parameter(torch.empty(cfg.d_model, cfg.n_experts,
+                                               dtype=torch.float32,
+                                               device=device),
+                                   requires_grad=False)
+        self.experts = Experts(cfg, device)
+        self.shared = (MLP(cfg.d_model, cfg.d_ff_expert * cfg.n_shared_experts,
+                           cfg.dtype, device, act=cfg.act)
+                       if cfg.n_shared_experts else None)
+
+    def reset_parameters(self, generator: torch.Generator) -> None:
+        normal_(self.router, generator, 0.02)
+        self.experts.reset_parameters(generator)
+        if self.shared is not None:
+            self.shared.reset_parameters(generator)
+
+
+class Routing(NamedTuple):
+    """Each token's k choices in a group: all (g, K)."""
+
+    expert: torch.Tensor  # int64 expert index, best first
+    slot: torch.Tensor    # int64 slot within the expert (the choice's rank)
+    keep: torch.Tensor    # bool: slot < capacity (else dropped)
+    weight: torch.Tensor  # float32 renormalised top-k probability
+
+
+def top_k(probs: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(values, indices) of the k largest along the last dim, equal values
+    in index order (``jax.lax.top_k``; ``torch.topk`` promises no order
+    among ties): a stable descending sort."""
+    vals, idx = torch.sort(probs, dim=-1, descending=True, stable=True)
+    return vals[..., :k], idx[..., :k]
+
+
+def _dispatch(probs: torch.Tensor, k: int, capacity: int) -> Routing:
+    """probs (g, E) -> the group's routing: priority by token order, then
+    by k-slot; a choice whose expert already holds ``capacity`` tokens is
+    dropped."""
+    g, E = probs.shape
+    top_p, top_i = top_k(probs, k)
+    top_p = top_p / torch.clamp(top_p.sum(-1, keepdim=True), min=1e-9)
+    flat = F.one_hot(top_i.reshape(-1), E)              # (gK, E)
+    before = torch.cumsum(flat, dim=0) - flat           # earlier choices
+    slot = before.gather(1, top_i.reshape(-1, 1)).reshape(g, k)
+    return Routing(top_i, slot, slot < capacity, top_p)
+
+
+def _group_apply(p: MoELayer, xg: torch.Tensor, r: Routing,
+                 capacity: int) -> torch.Tensor:
+    """One group's routed output: each kept choice's token copied into its
+    expert's slot, the experts run over their (E, C, d) buffers, and each
+    token's outputs summed under its combine weights (rounded to x's type
+    first, as the JAX combine einsum takes them).  A dropped choice writes
+    into a spare slot past the capacity that no expert reads, and weighs 0:
+    no host synchronisation."""
+    g, d = xg.shape
+    k = r.expert.shape[1]
+    E = p.router.shape[1]
+    slot = torch.where(r.keep, r.slot, capacity)
+    tok = torch.arange(g, device=xg.device)[:, None].expand(g, k)
+    xe = xg.new_zeros((E, capacity + 1, d))
+    xe[r.expert, slot] = xg[tok]
+    he = p.experts(xe[:, :capacity])                    # (E, C, d)
+    hk = he[r.expert, slot.clamp(max=capacity - 1)]     # (g, K, d)
+    w = torch.where(r.keep, r.weight, 0.0).to(xg.dtype).float()
+    return (w[..., None] * hk.float()).sum(dim=1).to(xg.dtype)
+
+
+def capacity(cfg: ModelConfig, group: int) -> int:
+    """Slots of each expert in a group of ``group`` tokens, in Python float
+    arithmetic as the JAX package computes it."""
+    return max(1, int(group * cfg.top_k * cfg.capacity_factor
+                      / cfg.n_experts))
+
+
+def route(p: MoELayer, xg: torch.Tensor, cfg: ModelConfig,
+          cap: int) -> Routing:
+    """xg (g, d) -> the group's routing under the router's float32
+    softmax."""
+    probs = torch.softmax(xg.float() @ p.router, dim=-1)
+    return _dispatch(probs, cfg.top_k, cap)
+
+
+def moe_apply(p: MoELayer, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """x (B,T,d) -> y (B,T,d).  The groups run one after another, as JAX's
+    ``lax.map`` runs them, so one group's buffers are live at a time."""
+    B, T, d = x.shape
+    g_total = B * T
+    xf = x.reshape(g_total, d)
+    group = min(MOE_GROUP, g_total)
+    pad = (-g_total) % group
+    if pad:
+        xf = F.pad(xf, (0, 0, 0, pad))
+    cap = capacity(cfg, group)
+    ys = []
+    for xg in xf.split(group):
+        ys.append(_group_apply(p, xg, route(p, xg, cfg, cap), cap))
+    y = torch.cat(ys)[:g_total].reshape(B, T, d)
+    if p.shared is not None:
+        y = y + p.shared(x)
+    return y
+
+
+# ---------------------------------------------------------------------------
+# MoE decoder model (mixtral path: GQA; deepseek path: MLA)
+# ---------------------------------------------------------------------------
+class MoECache(NamedTuple):
+    kv: Union[KVCache, mla.MLACache]
+    dense_kv: Optional[Union[KVCache, mla.MLACache]]  # first dense layers
+
+
+class Block(nn.Module):
+    def __init__(self, cfg: ModelConfig, device: torch.device, moe: bool):
+        super().__init__()
+        self.attn = (mla.MLA(cfg, device) if cfg.use_mla
+                     else attn.Attention(cfg, device))
+        self.ln_attn = rms_weight(cfg.d_model, cfg.dtype, device)
+        self.ln_mlp = rms_weight(cfg.d_model, cfg.dtype, device)
+        if moe:
+            self.moe = MoELayer(cfg, device)
+        else:
+            self.mlp = MLP(cfg.d_model, cfg.d_ff, cfg.dtype, device,
+                           act=cfg.act)
+
+    def reset_parameters(self, generator: torch.Generator) -> None:
+        self.attn.reset_parameters(generator)
+        (self.moe if hasattr(self, "moe") else self.mlp).reset_parameters(
+            generator)
+        with torch.no_grad():
+            self.ln_attn.zero_()
+            self.ln_mlp.zero_()
+
+
+class MoEModel(nn.Module):
+    """Parameters of the MoE LM; names follow the JAX parameter tree."""
+
+    def __init__(self, cfg: ModelConfig, device: torch.device):
+        super().__init__()
+        nf = cfg.first_dense_layers
+        self.embed = Embed(cfg.vocab_size, cfg.d_model, cfg.dtype, device)
+        self.layers = nn.ModuleList([Block(cfg, device, True)
+                                     for _ in range(cfg.n_layers - nf)])
+        self.ln_f = rms_weight(cfg.d_model, cfg.dtype, device)
+        self.dense_layers = nn.ModuleList([Block(cfg, device, False)
+                                           for _ in range(nf)])
+
+    def reset_parameters(self, generator: torch.Generator) -> None:
+        self.embed.reset_parameters(generator)
+        for layer in (*self.dense_layers, *self.layers):
+            layer.reset_parameters(generator)
+        with torch.no_grad():
+            self.ln_f.zero_()
+
+
+def init(generator: torch.Generator, cfg: ModelConfig,
+         device: torch.device) -> MoEModel:
+    """Random weights drawn from ``generator`` (on ``device``) with the
+    JAX package's recipe: N(0, 0.02) embeddings and router, N(0, d_in^-1)
+    dense layers and experts, zero norm gains."""
+    params = MoEModel(cfg, device)
+    params.reset_parameters(generator)
+    return params
+
+
+def _ffn(layer: Block, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    return (moe_apply(layer.moe, x, cfg) if hasattr(layer, "moe")
+            else layer.mlp(x))
+
+
+def _blocks(params: MoEModel):
+    """(dense, index in its stack, layer) of every block in order: the
+    dense layers first (their own cache), then the MoE layers."""
+    return ([(True, l, layer) for l, layer in enumerate(params.dense_layers)]
+            + [(False, l, layer) for l, layer in enumerate(params.layers)])
+
+
+def _logits(params: MoEModel, cfg: ModelConfig,
+            h: torch.Tensor) -> torch.Tensor:
+    return unembed_apply(params.embed, rms_norm(h, params.ln_f, cfg.norm_eps))
+
+
+def forward(params: MoEModel, cfg: ModelConfig, tokens: torch.Tensor,
+            lengths: Optional[torch.Tensor] = None,
+            window: Optional[int] = None) -> torch.Tensor:
+    """Full-sequence forward (no cache) -> logits (B,T,V).  Its attention
+    is plain torch on every device (``attention.attention_forward`` or
+    MLA's), so on the card it is the reference the served paths are held
+    against.  The MoE groups are this call's B·T tokens."""
+    window = window if window is not None else cfg.sliding_window
+    B, T = tokens.shape
+    if lengths is None:
+        lengths = torch.full((B,), T, dtype=torch.int32, device=tokens.device)
+    positions = make_positions(tokens, lengths)
+    h = embed_apply(params.embed, tokens, cfg)
+    for _, _, layer in _blocks(params):
+        x = rms_norm(h, layer.ln_attn, cfg.norm_eps)
+        if cfg.use_mla:
+            a = mla.mla_forward(layer.attn, x, positions, cfg, window)
+        else:
+            a = attn.attention_forward(layer.attn, x, positions, cfg, window)
+        h = h + a
+        h = h + _ffn(layer, rms_norm(h, layer.ln_mlp, cfg.norm_eps), cfg)
+    return _logits(params, cfg, h)
+
+
+def _cache(cfg: ModelConfig, c1: list, c2: list, slot_pos: torch.Tensor,
+           write_idx: int, lengths: torch.Tensor):
+    if cfg.use_mla:
+        return mla.MLACache(ckv=torch.stack(c1), kr=torch.stack(c2),
+                            slot_pos=slot_pos, write_idx=write_idx,
+                            lengths=lengths)
+    return KVCache(k=torch.stack(c1), v=torch.stack(c2), slot_pos=slot_pos,
+                   write_idx=write_idx, lengths=lengths)
+
+
+def prefill(params: MoEModel, cfg: ModelConfig, tokens: torch.Tensor,
+            lengths: torch.Tensor, cache_window: int,
+            window: Optional[int] = None) -> Tuple[torch.Tensor, MoECache]:
+    """Left-padded prefill: the last token's logits and the caches.  A
+    sliding-window model keeps ``min(cache_window, window)`` ring slots.
+    GQA attention goes through ``attention.attention_prefill`` (the
+    flash_prefill kernel on the card), MLA's stays plain torch."""
+    window = window if window is not None else cfg.sliding_window
+    positions = make_positions(tokens, lengths)
+    T = positions.shape[1]
+    h = embed_apply(params.embed, tokens, cfg)
+    Wc = cache_window if window is None else min(cache_window, window)
+    caches = {True: ([], []), False: ([], [])}
+    for dense, _, layer in _blocks(params):
+        x = rms_norm(h, layer.ln_attn, cfg.norm_eps)
+        if cfg.use_mla:
+            a, c1, c2 = mla.mla_prefill(layer.attn, x, positions, cfg, window,
+                                        Wc)
+        else:
+            a, c1, c2 = attn.attention_prefill(layer.attn, x, positions, cfg,
+                                               window, Wc)
+        h = h + a
+        h = h + _ffn(layer, rms_norm(h, layer.ln_mlp, cfg.norm_eps), cfg)
+        caches[dense][0].append(c1)
+        caches[dense][1].append(c2)
+    logits = _logits(params, cfg, h[:, -1:])[:, 0]
+    slot_pos = attn.prefill_slot_pos(positions, Wc)
+    write_idx = T if Wc >= T else Wc
+    lengths = lengths.to(torch.int32)
+    kv = _cache(cfg, *caches[False], slot_pos, write_idx, lengths)
+    dense_kv = (_cache(cfg, *caches[True], slot_pos, write_idx, lengths)
+                if cfg.first_dense_layers else None)
+    return logits, MoECache(kv=kv, dense_kv=dense_kv)
+
+
+def decode_step(params: MoEModel, cfg: ModelConfig, cache: MoECache,
+                tokens: torch.Tensor, step: int,
+                window: Optional[int] = None
+                ) -> Tuple[torch.Tensor, MoECache]:
+    """One decode iteration over the caches (written in place). tokens
+    (B,); step 0-based.  GQA attention goes through
+    ``attention.attention_decode`` (the decode_attention kernel on the
+    card), MLA's stays plain torch.  The MoE group is the step's B
+    tokens."""
+    window = window if window is not None else cfg.sliding_window
+    kvc = cache.kv
+    q_pos = kvc.lengths + step
+    slot = attn.decode_slot(kvc)
+    slot_pos = attn.decode_slot_pos(kvc, q_pos)
+    h = embed_apply(params.embed, tokens[:, None], cfg)
+    for dense, l, layer in _blocks(params):
+        c = cache.dense_kv if dense else kvc
+        x = rms_norm(h, layer.ln_attn, cfg.norm_eps)
+        if cfg.use_mla:
+            a = mla.mla_decode(layer.attn, x, q_pos, c.ckv[l], c.kr[l],
+                               slot_pos, slot, cfg, window)
+        else:
+            a = attn.attention_decode(layer.attn, x, q_pos, c.k[l], c.v[l],
+                                      slot_pos, slot, cfg, window)
+        h = h + a
+        h = h + _ffn(layer, rms_norm(h, layer.ln_mlp, cfg.norm_eps), cfg)
+    logits = _logits(params, cfg, h)[:, 0]
+
+    def advance(c):
+        return c._replace(slot_pos=slot_pos, write_idx=c.write_idx + 1)
+
+    return logits, MoECache(kv=advance(kvc),
+                            dense_kv=(advance(cache.dense_kv)
+                                      if cache.dense_kv is not None
+                                      else None))

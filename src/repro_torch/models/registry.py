@@ -1,6 +1,6 @@
 """Model interface: ``get_model(cfg)`` returns a ``Model`` of functions
 sharing one calling convention (counterpart of ``repro.models.registry``,
-for the dense and ssm families):
+for the dense, ssm, moe and hybrid families):
 
   init(seed_or_generator, device=None)        -> params (nn.Module)
   prefill(params, batch, cache_window)        -> (last_logits, cache)
@@ -16,7 +16,7 @@ from typing import Callable, NamedTuple, Union
 import torch
 
 from repro_torch import DeviceLike, resolve_device
-from repro_torch.models import mamba2, transformer
+from repro_torch.models import mamba2, moe, rglru, transformer
 from repro_torch.models.common import ModelConfig
 
 
@@ -43,6 +43,10 @@ def _initialiser(module, cfg: ModelConfig) -> Callable:
     return init
 
 
+def _itemsize(cfg: ModelConfig) -> int:
+    return torch.empty((), dtype=cfg.dtype).element_size()
+
+
 def _dense(cfg: ModelConfig) -> Model:
     def prefill(params, batch, cache_window, window=None):
         return transformer.prefill(params, cfg, batch["tokens"],
@@ -54,8 +58,8 @@ def _dense(cfg: ModelConfig) -> Model:
                                        window=window)
 
     def kv_bytes(n_shards: int = 1) -> float:
-        itemsize = torch.empty((), dtype=cfg.dtype).element_size()
-        per_tok = 2 * cfg.n_layers * cfg.n_kv_heads * cfg.head_dim * itemsize
+        per_tok = (2 * cfg.n_layers * cfg.n_kv_heads * cfg.head_dim
+                   * _itemsize(cfg))
         return per_tok / min(n_shards, cfg.n_kv_heads)
 
     return Model(cfg, _initialiser(transformer, cfg), prefill, decode_step,
@@ -78,7 +82,45 @@ def _ssm(cfg: ModelConfig) -> Model:
                  kv_bytes)
 
 
-_FAMILIES = {"dense": _dense, "ssm": _ssm}
+def _hybrid(cfg: ModelConfig) -> Model:
+    def prefill(params, batch, cache_window, window=None):
+        return rglru.prefill(params, cfg, batch["tokens"], batch["lengths"],
+                             cache_window)
+
+    def decode_step(params, cache, tokens, step, window=None):
+        return rglru.decode_step(params, cfg, cache, tokens, step)
+
+    def kv_bytes(n_shards: int = 1) -> float:
+        # the n_layers // 3 local-attention layers' rings only
+        n_attn = cfg.n_layers // 3
+        per_tok = (2 * n_attn * cfg.n_kv_heads * cfg.head_dim
+                   * _itemsize(cfg))
+        return per_tok / min(n_shards, cfg.n_kv_heads)
+
+    return Model(cfg, _initialiser(rglru, cfg), prefill, decode_step,
+                 kv_bytes)
+
+
+def _moe(cfg: ModelConfig) -> Model:
+    def prefill(params, batch, cache_window, window=None):
+        return moe.prefill(params, cfg, batch["tokens"], batch["lengths"],
+                           cache_window, window=window)
+
+    def decode_step(params, cache, tokens, step, window=None):
+        return moe.decode_step(params, cfg, cache, tokens, step,
+                               window=window)
+
+    def kv_bytes(n_shards: int = 1) -> float:
+        b = _itemsize(cfg)
+        if cfg.use_mla:  # latent + shared rope key, replicated across heads
+            return cfg.n_layers * (cfg.kv_lora_rank + cfg.qk_rope_head_dim) * b
+        per_tok = 2 * cfg.n_layers * cfg.n_kv_heads * cfg.head_dim * b
+        return per_tok / min(n_shards, cfg.n_kv_heads)
+
+    return Model(cfg, _initialiser(moe, cfg), prefill, decode_step, kv_bytes)
+
+
+_FAMILIES = {"dense": _dense, "ssm": _ssm, "hybrid": _hybrid, "moe": _moe}
 
 
 def get_model(cfg: ModelConfig) -> Model:

@@ -524,6 +524,38 @@ def test_decode_attention_matches_plain(cuda_device, dtype, window, B, W,
         assert (got[-1].float() - mean_v).abs().max().item() <= ATOL[dtype]
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("window", [None, 6, 2048])
+@pytest.mark.parametrize("B,W,Hq,Hkv,D,layout", [
+    # recurrentgemma-9b's heads (MQA 16/1, head_dim 256) on its local ring
+    (4, 300, 16, 1, 256, "ring"),
+    (2, 2048, 16, 1, 256, "ring"),
+    (3, 200, 16, 1, 256, "compact"),
+    (2, 1000, 16, 1, 256, "left"),
+    # group 16 at the other head dims, over two KV heads
+    (3, 130, 32, 2, 64, "ring"),
+    (3, 200, 32, 2, 128, "ring"),
+    (2, 1000, 16, 1, 128, "left"),
+])
+def test_decode_attention_at_group_16_matches_plain(cuda_device, dtype,
+                                                    window, B, W, Hq, Hkv, D,
+                                                    layout):
+    """B6 at 16 query heads per KV head (two 8-head blocks per KV head,
+    each reading its KV head's slots) against its plain version, the
+    empty last row the mean of its V."""
+    test_decode_attention_matches_plain(cuda_device, dtype, window, B, W,
+                                        Hq, Hkv, D, layout)
+
+
+def test_decode_attention_refuses_a_group_above_16(cuda_device):
+    q, kc, vc, sp, qp = _dense_decode_inputs(2, 20, 32, 1, 64,
+                                             torch.bfloat16, cuda_device)
+    before = dense_decode_kernel.launches
+    with pytest.raises(ValueError, match="above 16"):
+        dense_decode_kernel.decode_attention(q, kc, vc, sp, qp)
+    assert dense_decode_kernel.launches == before
+
+
 def test_dense_attention_kernels_refuse_what_they_do_not_take(cuda_device):
     """CPU tensors, unsupported types, non-contiguous inputs and a query
     head count that is not a multiple of the KV heads raise before any
@@ -628,16 +660,30 @@ def test_reduced_model_engines_on_the_card_match_the_cpu(cuda_device):
 @pytest.mark.parametrize("arch,head_dim", [("codeqwen1.5-7b", None),
                                            ("minitron-4b", None),
                                            ("gemma-2b", None),
-                                           ("gemma-2b", 256)])
+                                           ("gemma-2b", 256),
+                                           ("mixtral-8x22b", None),
+                                           ("deepseek-v2-lite-16b", None),
+                                           ("recurrentgemma-9b", None)])
 def test_reduced_dense_configs_on_the_card_match_the_cpu(cuda_device, arch,
                                                          head_dim):
     """chip_smoke.py's phase 4c: the reduced float32 config (codeqwen's
-    QKV biases drawn apart; gemma-2b also at its published head_dim 256)
-    through the dense, paged unfused and fused static engines on the card
+    QKV biases and recurrentgemma's RG-LRU channels drawn apart; gemma-2b
+    also at its published head_dim 256) through the dense static engine
+    and, for the dense configs, the paged unfused and fused ones on the card
     gives the CPU's token streams but for near-ties, each path's kernels
     launching once per layer per prefill stage / decode step.  The phase
     raises SystemExit when it fails."""
     _smoke().check_config_parity(arch, head_dim)
+
+
+@pytest.mark.parametrize("arch", ["mixtral-8x22b", "deepseek-v2-lite-16b"])
+def test_reduced_moe_engines_at_the_served_capacity_match_the_cpu(
+        cuda_device, arch):
+    """chip_smoke.py's phase 4c for the MoE configs at their full configs'
+    capacity factor (1.25): the reduced float32 dense static engine on the
+    card drops routed choices and gives the CPU's token streams but for
+    near-ties."""
+    _smoke().check_config_parity(arch, served_capacity=True)
 
 
 # ---------------------------------------------------------------------------

@@ -37,12 +37,29 @@ def _perturb_bias(tree, seed=8):
     return tree
 
 
+def _perturb_rglru(tree, seed=9):
+    """JAX's RG-LRU init makes every channel alike (``lambda`` 1, conv_b
+    0), which would hide a wrong channel index: give each channel its own
+    values (lambda in [0.1, 2.1], so that a ∈ (e^{-8·2.2}, 1) spans slow
+    and fast channels), in the tree both sides load."""
+    rng = np.random.default_rng(seed)
+    blocks = [tree["groups"]["rec"]] + ([tree["tail"]] if "tail" in tree
+                                        else [])
+    for blk in blocks:
+        blk["lambda"] = (0.1 + 2.0 * rng.random(blk["lambda"].shape)
+                         ).astype(blk["lambda"].dtype)
+        blk["conv_b"] = (0.2 * rng.standard_normal(blk["conv_b"].shape)
+                         ).astype(blk["conv_b"].dtype)
+    return tree
+
+
 @functools.lru_cache(maxsize=None)
-def shared_models(arch="llama3.2-1b", head_dim=None):
+def shared_models(arch="llama3.2-1b", head_dim=None, capacity_factor=None):
     """(jax_model, jax_params, torch_model, torch_params) of the reduced
-    float32 ``arch`` (its ``head_dim`` replaced where given, on both
-    sides), with the JAX ``init(PRNGKey(0))`` weights loaded into the
-    port's module on the CPU (for mamba2-130m with the per-head
+    float32 ``arch`` (its ``head_dim`` or MoE ``capacity_factor`` replaced
+    where given, on both sides), with the JAX ``init(PRNGKey(0))`` weights
+    loaded into the port's module on the CPU (for mamba2-130m with the
+    per-head parameters, for recurrentgemma-9b with the per-channel RG-LRU
     parameters, for a config with QKV biases with the biases, drawn apart
     on both sides)."""
     from repro.configs import get_config as jax_config
@@ -54,12 +71,16 @@ def shared_models(arch="llama3.2-1b", head_dim=None):
                                                               reduced=True)
     if head_dim is not None:
         jcfg, tcfg = (c.replace(head_dim=head_dim) for c in (jcfg, tcfg))
+    if capacity_factor is not None:
+        jcfg, tcfg = (c.replace(capacity_factor=capacity_factor)
+                      for c in (jcfg, tcfg))
     jm = jax_model(jcfg)
     jp = jm.init(jax.random.PRNGKey(0))
     tree = jax.tree.map(np.asarray, jp)
-    if jm.cfg.family == "ssm" or jm.cfg.qkv_bias:
-        tree = (_perturb_ssm if jm.cfg.family == "ssm" else _perturb_bias)(
-            tree)
+    perturb = {"ssm": _perturb_ssm, "hybrid": _perturb_rglru}.get(
+        jm.cfg.family, _perturb_bias if jm.cfg.qkv_bias else None)
+    if perturb is not None:
+        tree = perturb(tree)
         jp = jax.tree.map(jax.numpy.asarray, tree)
     tm = torch_model(tcfg)
     tp = tm.init(0, device="cpu")
@@ -76,12 +97,12 @@ def prompts(vocab, sizes, seed=0):
 near_ties = []
 
 
-def assert_same_stream(prompt, want, got, arch="llama3.2-1b"):
+def assert_same_stream(prompt, want, got, arch="llama3.2-1b", **variant):
     """``got`` equals the JAX stream ``want`` token for token, or parts from
     it only at a near-tie (``repro_torch.testing.stream_tie`` with the JAX
     model's prefill as the reference); the tie is recorded in
     ``near_ties`` and the rest of the stream is not compared."""
-    jm, jp, _, _ = shared_models(arch)
+    jm, jp, _, _ = shared_models(arch, **variant)
 
     def jax_logits(ctx):
         logits, _ = jm.prefill(jp, {"tokens": ctx[None],
