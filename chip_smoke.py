@@ -41,7 +41,9 @@ fails (nothing is caught):
    heads over one KV head of 256, local window 2048: B6 at group 16) and
    mixtral-8x22b's (48/8, head_dim 128, sliding window 4096),
    flash_prefill on one row of window + 256 tokens and decode_attention
-   over 4 rings of one window (3 wrapped, 1 empty);
+   over 4 rings of one window (3 wrapped, 1 empty); paged_decode_attention
+   and fused_rope_decode_append also at pages of 32 and 4 slots
+   (``PAGE_SIZES_TIMED``: looked up once per 8 slots, and once per slot);
 4. reference (run by each transformer slice, phases 5-7 and 13-15, before
    it serves): on a small input, the slice's served path (through its
    kernels) is held against the plain full forward of the same model on
@@ -167,7 +169,27 @@ fails (nothing is caught):
    of 2048 wraps in prefill and decode, and mixtral-8x22b at full width
    cut to 4 of its 56 layers (``DEPTH_CUTS``: all 56 hold ~281 GB in
    bf16) with one request of 4,200 prompt tokens, past the sliding window
-   of 4096; each checked as phases 13-15 (phase 4 first).
+   of 4096; each checked as phases 13-15 (phase 4 first);
+20. a fleet (``run_fleet``): two minitron-4b instances at full width and
+   depth (32 layers, GQA 24/8, bf16, random weights from the seed), each
+   built by the launcher's ``parse_args`` and ``build_server`` on the
+   persistent paged unfused path at pages of 32 slots (B1, B2, stage A on
+   B5), one worker and a 15 GB KV budget each, and fronted by its HTTP
+   front end on an ephemeral port as ``serve_http`` fronts it, both in
+   this process, behind ``python -m repro_torch.launch.route --placer
+   retention_affinity`` (a child process, stopped by SIGINT, whose exit
+   prints its stats); the configs' trace, cut to 5 s of arrivals, through
+   the router (token-id
+   prompts on ``/v1/completions``, every third streamed), one instance
+   drained once half of it is placed, then two two-turn chat sessions,
+   each closed by ``DELETE /v1/sessions/<id>``: every request answered
+   and completed, the streams' chunks equal to the tokens (one chunk a
+   slice at least), no placement on the drained instance after the
+   drain, each turn 2 on its turn 1's instance joining its whole pages,
+   each session's pages given back, the router's count exact with no
+   eviction, and the unfused kernels' launches, summed over the two
+   instances' engines (the counts are taken under a lock: two event
+   loops run on two threads), once per layer per decode step / stage.
 
 One function (``run_slice``) runs phases 5-7, 9, 13-15 and 17-19, each a
 ``SLICES`` entry (launcher arguments and path).
@@ -176,7 +198,8 @@ The last line of standard output is ``{"ok": true, "device": {...}}``; the
 line before it is the ``nvidia-smi`` reading and the one before that the
 per-kernel JSON (launches from each kernel's llama3.2-1b or mamba2-130m
 slice, phases 5 to 7 and 9, with every path's beside them, phases 13 to
-19 included, and decode_attention's at group 16, recurrentgemma-9b's
+20 included, paged_decode_attention's at pg 32, the fleet's, as
+``pg32_launches`` and decode_attention's at group 16, recurrentgemma-9b's
 slice, as ``group16_launches``; times from phase 3).
 """
 from __future__ import annotations
@@ -337,6 +360,10 @@ def pool_pages(cfg, m_available: float, page_tokens: int) -> int:
 PAGED_SMOKE = ("8x576", tuple((n, False) for n in (512, 497, 530, 505, 520,
                                                    489, 515)) + ((0, True),),
                None)
+#: page sizes at which both paged decode kernels are also held and timed
+#: at ``PAGED_SMOKE``, over pools of the same tokens: 32 (phase 20's,
+#: looked up once per 8 slots) and 4 (looked up once per slot)
+PAGE_SIZES_TIMED = (32, 4)
 
 
 def paged_pools(cfg, n_pages: int, pg: int, gen: torch.Generator):
@@ -503,6 +530,15 @@ def check_decode(cfg, n_pages: int, pg: int, gen: torch.Generator,
     shape = {k: v for k, v in own.items()
              if k not in ("shape", "ms", "library_ms", "bound_ms",
                           "bound_by", "max_abs_err")}
+    del k_pages, v_pages
+    shapes = [own]
+    for p in PAGE_SIZES_TIMED:
+        n = n_pages * pg // p
+        pools = paged_pools(cfg, n, p, gen)
+        args = paged_decode_inputs(cfg, n, p, rows, nb, gen)
+        shapes.append(hold_paged_decode(kmod, *pools, args, flush,
+                                        f"{label} pg {p}"))
+        del pools, args
     return dict(name="paged_decode_attention", route="cuda",
                 source="src/repro_torch/kernels/csrc/paged_decode_attention.cu",
                 replaces="src/repro/kernels/paged_decode_attention.py:107",
@@ -511,7 +547,7 @@ def check_decode(cfg, n_pages: int, pg: int, gen: torch.Generator,
                 bound_ms=own["bound_ms"], bound_by=own["bound_by"],
                 library_ms=own["library_ms"],
                 library="scaled_dot_product_attention on the pre-gathered "
-                "window", shape=shape, shapes=[own])
+                "window", shape=shape, shapes=shapes)
 
 
 #: (label, each row's valid tokens, each row's first position, T) of the
@@ -837,6 +873,15 @@ def check_fused_decode(cfg, n_pages: int, pg: int, gen: torch.Generator,
         *args, k_pages, v_pages, theta=theta), flush,
                       label=f"fused_rope_decode_append {label} plain")
     log(f"fused_rope_decode_append {label}: plain {t_plain:.4f} ms")
+    del k_pages, v_pages
+    shapes = [own]
+    for p in PAGE_SIZES_TIMED:
+        n = n_pages * pg // p
+        pools = paged_pools(cfg, n, p, gen)
+        args = paged_decode_inputs(cfg, n, p, rows, nb, gen, fused=True)
+        shapes.append(hold_fused_decode(kmod, unfused_kmod, *pools, args,
+                                        theta, flush, f"{label} pg {p}"))
+        del pools, args
     shape = {k: v for k, v in own.items()
              if k not in ("shape", "ms", "yardstick_a_ms", "yardstick_b_ms",
                           "bound_ms", "bound_by", "max_abs_err", "max_ulps")}
@@ -854,7 +899,7 @@ def check_fused_decode(cfg, n_pages: int, pg: int, gen: torch.Generator,
                     "window": own["yardstick_a_ms"],
                     "unfused chain: torch apply_rope + scatter + "
                     "paged_decode_attention kernel": own["yardstick_b_ms"]},
-                shape=shape, shapes=[own])
+                shape=shape, shapes=shapes)
 
 
 #: flash_prefill's smoke rows: left-padded lengths of 8 rows of 512
@@ -2562,6 +2607,401 @@ def run_launcher_path() -> dict:
     return summary
 
 
+# ---------------------------------------------------------------------------
+# phase 20: a fleet of two instances behind the router launcher
+# ---------------------------------------------------------------------------
+#: phase 20's instances: minitron-4b at full width and depth on the
+#: persistent paged unfused path at pages of 32 slots (B1 at pg 32), one
+#: worker and a 15 GB KV budget each, each fronted by the HTTP front end on
+#: an ephemeral port; the configs' trace cut from 6 s of arrivals to 5
+#: (the script passed 800 s with its 6 s: two instances' loops share the
+#: interpreter lock, so the phase's wall follows the trace's length)
+FLEET_ARGV = (CONFIG_ARGV + ["--arch", "minitron-4b"] + PAGED_KV
+              + ["--page-tokens", "32", "--m-available", "15e9",
+                 "--http-port", "0", "--duration", "5"])
+FLEET_INSTANCES = 2
+#: phase 20's chat conversations: (session id, turn 1's and turn 2's user
+#: text); turn 1 renders to several pages of 32 byte tokens
+FLEET_SESSIONS = (
+    (101, "Explain slice-level scheduling: how does cutting generation "
+          "into fixed slices make a batch's serving time predictable, and "
+          "what does it cost?", "And the memory side?"),
+    (102, "Why does a fleet router place whole requests by the load each "
+          "instance reports, and when should a session stay where its "
+          "pages are?", "What breaks if it moves?"))
+#: tokens each chat turn generates, and how long a client waits for one
+#: response (seconds)
+FLEET_CHAT_TOKENS, FLEET_TIMEOUT = 24, 300
+#: how long the router waits for an instance's ``/healthz`` (seconds): an
+#: instance answers it on the event loop that runs its engine, so a poll
+#: waits out the slice in flight (~1-4 s here, with two instances' loops
+#: sharing one host), past the launcher's default of 2 s
+FLEET_POLL_TIMEOUT = 30
+
+
+def http_call(url: str, body=None, method: str = "GET"):
+    """(status, raw body) of one request; any status but 200 fails the
+    phase."""
+    import urllib.error
+    import urllib.request
+    data = None if body is None else json.dumps(body).encode()
+    headers = {"Content-Type": "application/json"} if data else {}
+    req = urllib.request.Request(url, data=data, headers=headers,
+                                 method=method)
+    try:
+        with urllib.request.urlopen(req, timeout=FLEET_TIMEOUT) as resp:
+            raw = resp.read()
+    except urllib.error.HTTPError as e:
+        raise SystemExit(f"fleet: {method} {url} answered {e.code}: "
+                         f"{e.read()[:300]!r}")
+    return raw
+
+
+def http_json(url: str, body=None, method: str = "GET") -> dict:
+    return json.loads(http_call(url, body, method))
+
+
+def sse_events(raw: bytes) -> list:
+    """The ``data:`` payloads of a Server-Sent Events body."""
+    return [e[len("data: "):] for e in raw.decode().split("\n\n")
+            if e.startswith("data: ")]
+
+
+def spy_submissions(front) -> list:
+    """Record every request ``front`` admits: (wall time, prompt tokens,
+    handle), appended on its scheduler loop."""
+    seen = []
+    submit = front._submit
+
+    async def recorded(kw):
+        handle = await submit(kw)
+        seen.append((time.time(), tuple(int(t) for t in kw["prompt"]),
+                     handle))
+        return handle
+
+    front._submit = recorded
+    return seen
+
+
+def start_router(urls) -> tuple:
+    """``python -m repro_torch.launch.route`` over ``urls`` on an ephemeral
+    port (retention_affinity), as a child process: (process, its URL, the
+    queue of its output lines)."""
+    import queue
+    import re
+    import threading
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    argv = [sys.executable, "-m", "repro_torch.launch.route", "--port", "0",
+            "--placer", "retention_affinity", "--duration", "1800",
+            "--poll-timeout", str(FLEET_POLL_TIMEOUT)]
+    for url in urls:
+        argv += ["--instance", url]
+    proc = subprocess.Popen(argv, cwd=ROOT, env=env, text=True,
+                            stdout=subprocess.PIPE, stderr=subprocess.STDOUT)
+    lines = queue.Queue()
+
+    def pump():
+        for line in proc.stdout:
+            lines.put(line)
+        lines.put(None)
+
+    threading.Thread(target=pump, daemon=True).start()
+    while True:
+        try:
+            line = lines.get(timeout=120)
+        except queue.Empty:
+            proc.kill()
+            raise SystemExit("fleet: the router printed no listening line "
+                             "in 120 s")
+        if line is None:
+            raise SystemExit(f"fleet: the router exited with "
+                             f"{proc.wait()} before listening")
+        found = re.search(r"listening on (http://\S+)", line)
+        if found:
+            log(f"fleet: {line.strip()}")
+            return proc, found.group(1), lines
+
+
+def stop_router(proc, lines) -> dict:
+    """Interrupt the router (it prints its stats as it exits, as at the
+    end of ``--duration``) and return the stats it printed."""
+    import queue
+    import signal
+    proc.send_signal(signal.SIGINT)
+    try:
+        proc.wait(timeout=60)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+    out = []
+    while True:
+        try:
+            line = lines.get(timeout=10)
+        except queue.Empty:
+            break
+        if line is None:
+            break
+        out.append(line)
+    text = "".join(out)
+    if proc.returncode != 0 or "[route] routed" not in text:
+        raise SystemExit(f"fleet: the router exited with {proc.returncode}"
+                         f": {text[-2000:]}")
+    head, _, tail = text.partition("[route] routed")
+    log(f"fleet: [route] routed{tail.splitlines()[0]}")
+    return json.loads(tail[tail.index("\n") + 1:])
+
+
+def find_request(spies, prompt) -> tuple:
+    """(instance index, admission time, handle) of the one request whose
+    prompt is ``prompt``."""
+    key = tuple(int(t) for t in prompt)
+    hits = [(i, t, h) for i, seen in enumerate(spies)
+            for t, p, h in list(seen) if p == key]
+    if len(hits) != 1:
+        raise SystemExit(f"fleet: {len(hits)} instances admitted a "
+                         f"{len(key)}-token prompt, not one")
+    return hits[0]
+
+
+def run_fleet() -> dict:
+    """Phase 20: two minitron-4b instances (``FLEET_ARGV``), each built by
+    the launcher's ``parse_args`` and ``build_server`` and fronted by its
+    HTTP front end as ``serve_http`` fronts it (``serve.start_http``),
+    both in this process, behind ``python -m repro_torch.launch.route``
+    (a child process).  With every kernel count at 0 the configs' trace
+    goes through the router at its arrival times (token-id prompts on
+    ``/v1/completions``, every third one streamed); once half of it is
+    placed one instance is drained (``/fleet/drain``); then two chat
+    conversations of two turns each (``/v1/chat/completions`` with
+    ``session``), each closed with ``DELETE /v1/sessions/<id>``.  Fails
+    unless every request is answered 200 and completes, each streamed
+    request's chunks join to its tokens in at least one chunk a slice,
+    both instances took requests before the drain and the drained one
+    none after it, each turn 2 lands on its turn 1's instance and joins
+    at least its whole pages, closing a session gives back every page it
+    held, the router counts every request with no eviction and no retry,
+    and only the unfused kernels launch, once per layer per decode step /
+    (stage-A) prefill stage, summed over the two instances' engines."""
+    import concurrent.futures
+    import numpy as np
+    from repro_torch.fleet import imbalance
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve
+    from repro_torch.serving.tokenizer import for_vocab, render_chat
+    label = "fleet"
+    t_phase = time.perf_counter()
+    insts = []
+    try:
+        for _ in range(FLEET_INSTANCES):
+            cfg, opts = serve.parse_args(FLEET_ARGV)
+            t0 = time.perf_counter()
+            server, vocab = serve.build_server(cfg)
+            torch.cuda.synchronize()
+            build_s = time.perf_counter() - t0
+            front = serve.start_http(cfg, server, vocab)
+            insts.append(dict(cfg=cfg, server=server, front=front,
+                              url=front.url, build_s=build_s,
+                              spy=spy_submissions(front)))
+        cfg, pg = insts[0]["cfg"], insts[0]["cfg"].page_tokens
+        engines = [e for inst in insts
+                   for e in inst["server"].core.backend.engines]
+        model = engines[0].model
+        trace = serve.make_trace(cfg, opts, vocab)
+        urls = [inst["url"] for inst in insts]
+        router, router_url, router_lines = start_router(urls)
+        try:
+            timers = [time_engine(e) for e in engines]
+            for e in engines:
+                e.n_prefill_stages = e.n_tail_prefill_stages = 0
+                e.n_decode_steps = 0
+            spies = [inst["spy"] for inst in insts]
+            ops.reset_counts()
+            t0 = time.perf_counter()
+
+            def send(i, req):
+                time.sleep(max(0.0, t0 + req.arrival - time.perf_counter()))
+                body = dict(prompt=[int(t) for t in req.prompt],
+                            max_tokens=int(req.gen_len),
+                            stream=i % 3 == 0)
+                return http_call(router_url + "/v1/completions", body,
+                                 "POST")
+
+            with concurrent.futures.ThreadPoolExecutor(len(trace)) as pool:
+                futures = [pool.submit(send, i, r)
+                           for i, r in enumerate(trace)]
+                # the router's own count: an instance admits a request
+                # only between its engine's slices, well after placement
+                half = len(trace) // 2
+                while http_json(router_url + "/metrics.json")[
+                        "n_requests"] < half:
+                    if any(f.done() and f.exception() for f in futures):
+                        break
+                    time.sleep(0.02)
+                drained = urls[-1]
+                t_drain_sent = time.time()
+                http_call(router_url + "/fleet/drain", {"url": drained},
+                          "POST")
+                t_drain = time.time()
+                raws = [f.result() for f in futures]
+            trace_wall = time.perf_counter() - t0
+            n_chunks, n_streamed = [], 0
+            for i, (req, raw) in enumerate(zip(trace, raws)):
+                _, _, h = find_request(spies, req.prompt)
+                if not h.done:
+                    raise SystemExit(f"{label}: request {i} did not "
+                                     f"complete")
+                toks = list(h.output_tokens)
+                if i % 3 == 0:
+                    events = sse_events(raw)
+                    final = json.loads(events[-2])
+                    chunks = [json.loads(e)["choices"][0]["text"].split()
+                              for e in events[:-2]]
+                    got = [int(t) for c in chunks for t in c]
+                    if events[-1] != "[DONE]" or got != toks or \
+                            len(chunks) < -(-len(toks) // cfg.slice_len) or \
+                            final["usage"]["completion_tokens"] != len(toks):
+                        raise SystemExit(
+                            f"{label}: request {i} streamed {len(got)} "
+                            f"tokens in {len(chunks)} chunks, its handle "
+                            f"holds {len(toks)}")
+                    n_chunks.append(len(chunks))
+                    n_streamed += 1
+                else:
+                    body = json.loads(raw)
+                    choice = body["choices"][0]
+                    got = [int(t) for t in choice["text"].split()]
+                    if got != toks or choice["finish_reason"] not in (
+                            "length", "stop") or \
+                            body["usage"]["completion_tokens"] != len(toks):
+                        raise SystemExit(f"{label}: request {i} answered "
+                                         f"{len(got)} tokens, its handle "
+                                         f"holds {len(toks)}")
+                if not toks or len(toks) > req.gen_len:
+                    raise SystemExit(f"{label}: request {i} generated "
+                                     f"{len(toks)} of {req.gen_len} tokens")
+            places = http_json(router_url
+                               + "/debug/placements?kind=fleet_place")
+            places = places["events"]
+            before = {u: sum(1 for e in places if e["instance"] == u
+                             and e["ts"] < t_drain_sent) for u in urls}
+            after = sum(1 for e in places
+                        if e["instance"] == drained and e["ts"] > t_drain)
+            if min(before.values()) < 1 or after:
+                raise SystemExit(f"{label}: placements before the drain "
+                                 f"{before}, {after} on {drained} after it")
+
+            tok = for_vocab(vocab)
+            sessions = []
+            for sid, text1, text2 in FLEET_SESSIONS:
+                free0 = [http_json(u + "/healthz")["free_blocks"]
+                         for u in urls]
+                msgs = [{"role": "user", "content": text1}]
+                r1 = http_json(router_url + "/v1/chat/completions",
+                               dict(messages=msgs, session=sid,
+                                    max_tokens=FLEET_CHAT_TOKENS), "POST")
+                p1 = tok.encode(render_chat(msgs))
+                i1, _, h1 = find_request(spies, p1)
+                hits0 = http_json(urls[i1] + "/metrics.json")[
+                    "prefix_hit_tokens"]
+                msgs += [{"role": "assistant",
+                          "content": r1["choices"][0]["message"]["content"]},
+                         {"role": "user", "content": text2}]
+                http_json(router_url + "/v1/chat/completions",
+                          dict(messages=msgs, session=sid,
+                               max_tokens=FLEET_CHAT_TOKENS), "POST")
+                p2 = tok.encode(render_chat(msgs))
+                i2, _, h2 = find_request(spies, p2)
+                hit = http_json(urls[i2] + "/metrics.json")[
+                    "prefix_hit_tokens"] - hits0
+                held = http_json(urls[i1] + "/healthz")["free_blocks"]
+                released = http_json(router_url + f"/v1/sessions/{sid}",
+                                     method="DELETE")["released"]
+                free1 = [http_json(u + "/healthz")["free_blocks"]
+                         for u in urls]
+                resident = list(p1) + list(h1.output_tokens)[:-1]
+                common = 0
+                while common < min(len(resident), len(p2)) and \
+                        resident[common] == p2[common]:
+                    common += 1
+                whole = min(common, len(p2) - 1) // pg * pg
+                if i2 != i1 or not h1.done or not h2.done or \
+                        hit < whole or whole < len(p1) // pg * pg or \
+                        not whole:
+                    raise SystemExit(
+                        f"{label}: session {sid}: turns on instances {i1} "
+                        f"and {i2}, turn 2 joined {hit} prefix tokens of "
+                        f"{whole} in whole pages ({len(p1)}-token turn 1)")
+                if not released or free1 != free0 or \
+                        sum(held) >= sum(free0[i1]):
+                    raise SystemExit(
+                        f"{label}: session {sid}: free blocks {free0} "
+                        f"before, {held} on instance {i1} with its anchor, "
+                        f"{free1} after DELETE (released {released})")
+                sessions.append(dict(session=sid, instance=i1,
+                                     turn1_tokens=len(p1),
+                                     turn2_tokens=len(p2),
+                                     turn2_hit_tokens=hit, whole=whole,
+                                     free_blocks=[free0[i1], held,
+                                                  free1[i1]]))
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launches = ops.launches()
+            plain = dict(ops.plain_calls)
+            metrics = [http_json(u + "/metrics.json") for u in urls]
+        finally:
+            stats = stop_router(router, router_lines)
+    finally:
+        for inst in insts:
+            inst["front"].shutdown(drain=True)
+    n_posts = len(trace) + 2 * len(FLEET_SESSIONS)
+    if stats["n_requests"] != n_posts or \
+            sum(stats["placements"].values()) != n_posts or \
+            stats["evictions"] or stats["retries"]:
+        raise SystemExit(f"{label}: the router's stats {stats} for "
+                         f"{n_posts} requests")
+    if any(plain.values()):
+        raise SystemExit(f"{label}: plain versions ran on the card: {plain}")
+    steps = sum(e.n_decode_steps for e in engines)
+    decode_s = sum(a["decode_s"] for a in timers)
+    summary = dict(
+        n_requests=n_posts, n_completed=sum(m["n_completed"]
+                                            for m in metrics),
+        wall_s=wall, trace_wall_s=trace_wall,
+        prefill_stages=sum(e.n_prefill_stages for e in engines),
+        tail_prefill_stages=sum(e.n_tail_prefill_stages for e in engines),
+        decode_steps=steps,
+        decode_ms_per_step=decode_s / max(steps, 1) * 1e3,
+        launches=launches, plain_calls=plain,
+        n_layers=kernel_layers(model.cfg),
+        prefix_hit_tokens=sum(m["prefix_hit_tokens"] for m in metrics),
+        reprefill_tokens=sum(m["reprefill_tokens"] for m in metrics),
+        arch=model.cfg.name, path="unfused", page_tokens=pg)
+    if summary["n_completed"] != n_posts:
+        raise SystemExit(f"{label}: {summary['n_completed']} of {n_posts} "
+                         f"requests completed")
+    check_launches(label, summary, PATH_KERNELS["unfused"])
+    served = stats["served_tokens"]
+    reading = dict(
+        card=card_reading(), instances=urls, drained=drained,
+        requests=stats["placements"], served_tokens=served,
+        imbalance=imbalance(served),
+        placed_before_drain=before,
+        throughput=[m["throughput"] for m in metrics],
+        p99_response=[m["p99_response"] for m in metrics],
+        ttft_mean=[m["ttft_mean"] for m in metrics],
+        build_s=[inst["build_s"] for inst in insts],
+        streamed=n_streamed, stream_chunks=n_chunks, sessions=sessions,
+        router=stats, phase_wall_s=time.perf_counter() - t_phase)
+    print(json.dumps({label + "_reading": reading}), flush=True)
+    print(json.dumps({label: summary}), flush=True)
+    log(f"{label}: {n_posts} requests through the router "
+        f"({stats['placements']}), imbalance {reading['imbalance']:.3f}, "
+        f"{steps} decode steps at {summary['decode_ms_per_step']:.2f} ms, "
+        f"phase {reading['phase_wall_s']:.1f} s")
+    summary.update(reading)
+    return summary
+
+
 def check_fused_engines(model, params, pg: int, vocab: int) -> dict:
     """Small fused and unfused engines on the launcher's model serve the
     same batches: three slices with retention, then a prompt that joins
@@ -3248,6 +3688,8 @@ def main() -> int:
     for label in FAMILY_SLICES:  # phases 17-19
         scls[label], _ = run_slice(label)
         release_cuda()
+    scls["fleet"] = run_fleet()  # phase 20
+    release_cuda()
     # every control fault of phase 4 must have failed its slice's gate
     weak = {f"{label} {fault}": gap for label, sm in scls.items()
             for fault, gap in sm.get("controls", {}).items()
@@ -3271,6 +3713,11 @@ def main() -> int:
     if g16 <= 0:
         raise SystemExit("decode_attention never launched at group 16")
     by_name["decode_attention"]["group16_launches"] = g16
+    # B1 at pages of 32 slots: the fleet's instances (phase 20)
+    pg32 = by_path["fleet"]["paged_decode_attention"]
+    if pg32 <= 0:
+        raise SystemExit("paged_decode_attention never launched at pg 32")
+    by_name["paged_decode_attention"]["pg32_launches"] = pg32
     print(json.dumps({"kernels": rows}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -4,7 +4,8 @@ of several source trees on one card, in turns, each beside PyTorch
 yardsticks.
 
     python3 scripts/compare_attention.py
-        [--kernels dense|paged|ssd|write|all] [--steps PATH] ROOT [ROOT ...]
+        [--kernels dense|paged|ssd|write|all] [--steps PATH] [--pages 16,32]
+        ROOT [ROOT ...]
 
 Each ROOT is a checkout (or an unpacked ``git archive``) of this
 repository whose kernels are built from its own sources; each turn runs in
@@ -20,7 +21,10 @@ beforehand, fused_rope_decode_append beside torch RoPE + ``index_put_`` +
 that SDPA call and beside the unfused chain on ROOT's
 paged_decode_attention; both at ``PAGED_SMOKE`` over a pool of the
 slices' size, and with ``--steps`` at the engines' recorded decode steps
-``ENGINE_STEPS``, which ``chip_smoke.py --save-steps PATH`` writes), and
+``ENGINE_STEPS``, which ``chip_smoke.py --save-steps PATH`` writes, and
+with ``--pages`` at each of those page sizes over ``PAGED_SMOKE`` and
+``ILS_LIKE`` at llama3.2-1b's heads and over ``PAGED_SMOKE`` at
+``PAGED_HEADS``; a tree that refuses a page size records the refusal), and
 ``ssd`` (ssd_scan at ``SSD_SMOKE``, and with ``--steps`` at the median
 and largest Mamba-2 prefill stages that the same file holds, beside the
 least time the card could take), and ``write`` (paged_prefill_write and
@@ -53,6 +57,8 @@ import os
 import subprocess
 import sys
 import tempfile
+
+import numpy as np
 
 HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PROFILE_CALLS = 20
@@ -208,10 +214,22 @@ def dense_turn(smoke, cfg, gen, flush) -> dict:
     return out
 
 
-def paged_turn(smoke, cfg, gen, flush, steps_path) -> dict:
+#: a paged ILS step's rows, drawn once (numpy seed 0): 17 rows of 16 to
+#: 1015 tokens beside 47 rows without a page, over 1280 slots a row (the
+#: paged ILS engine's typical step holds 17 own rows of 64, 8,699 live
+#: slots, the longest 1015)
+ILS_LIKE = ("ils-like 64x1280",
+            tuple((int(n), False) for n in np.random.default_rng(0).integers(
+                16, 1016, 17)) + ((0, True),) * 47, 1280)
+#: (arch, paged_decode_attention, fused_rope_decode_append) of the heads
+#: at which ``--pages`` times both kernels: each config's own slice's
+#: heads, over pools of chip_smoke's ``CONFIG_M_AVAILABLE``
+PAGED_HEADS = (("codeqwen1.5-7b", True, False), ("minitron-4b", False, True),
+               ("gemma-2b", True, True))
+
+
+def paged_turn(smoke, cfg, gen, flush, steps_path, pages=()) -> dict:
     import torch
-    from repro_torch.kernels import fused_rope_decode_append as fkmod
-    from repro_torch.kernels import paged_decode_attention as kmod
     pg = 16
     n_pages = smoke.pool_pages(cfg, 48e9, pg)
     label, rows, nb = smoke.PAGED_SMOKE
@@ -229,28 +247,74 @@ def paged_turn(smoke, cfg, gen, flush, steps_path) -> dict:
                                                         fused)
             cases.append((name, f"{run} {shape}", step_pools, args))
     out = {"paged_decode_attention": {}, "fused_rope_decode_append": {}}
+    run_cases(smoke, cfg, cases, flush, out)
+    del cases, pools
+    for p in pages:
+        paged_pages_turn(smoke, cfg, gen, flush, p, out)
+    return out
+
+
+def paged_pages_turn(smoke, cfg, gen, flush, pg: int, out: dict) -> None:
+    """Both paged decode kernels at pages of ``pg`` slots: at llama3.2-1b's
+    heads over ``PAGED_SMOKE`` and ``ILS_LIKE``, and at ``PAGED_HEADS``
+    over ``PAGED_SMOKE``, labelled "pg <pg> ...".  A tree whose wrapper
+    refuses the page size records the refusal."""
+    from repro_torch.configs import get_config
+    label, rows, nb = smoke.PAGED_SMOKE
+    ils_label, ils_rows, ils_slots = ILS_LIKE
+    heads = [(cfg, 48e9, True, True, [(label, rows, nb),
+                                      (ils_label, ils_rows,
+                                       ils_slots // pg)])]
+    heads += [(get_config(arch), smoke.CONFIG_M_AVAILABLE, b1, b4,
+               [(f"{arch} {label}", rows, nb)])
+              for arch, b1, b4 in PAGED_HEADS]
+    for hcfg, budget, b1, b4, shapes in heads:
+        n_pages = smoke.pool_pages(hcfg, budget, pg)
+        pools = smoke.paged_pools(hcfg, n_pages, pg, gen)
+        for tag, srows, snb in shapes:
+            cases = []
+            if b1:
+                cases.append(("paged_decode_attention", f"pg {pg} {tag}",
+                              pools, smoke.paged_decode_inputs(
+                                  hcfg, n_pages, pg, srows, snb, gen)))
+            if b4:
+                cases.append(("fused_rope_decode_append", f"pg {pg} {tag}",
+                              pools, smoke.paged_decode_inputs(
+                                  hcfg, n_pages, pg, srows, snb, gen,
+                                  fused=True)))
+            run_cases(smoke, hcfg, cases, flush, out)
+        del pools, cases
+        smoke.release_cuda()
+
+
+def run_cases(smoke, cfg, cases, flush, out: dict) -> None:
+    from repro_torch.kernels import fused_rope_decode_append as fkmod
+    from repro_torch.kernels import paged_decode_attention as kmod
     for name, label, (k_pages, v_pages), args in cases:
-        if name == "paged_decode_attention":
-            t, lib, b_ms, b_by, _ = smoke.time_paged_decode(
-                kmod, k_pages, v_pages, args, flush, label)
-            entry = dict(ms=t, library_ms=lib)
-            q, bt, slot_pos, q_pos = args
+        try:
+            if name == "paged_decode_attention":
+                t, lib, b_ms, b_by, _ = smoke.time_paged_decode(
+                    kmod, k_pages, v_pages, args, flush, label)
+                entry = dict(ms=t, library_ms=lib)
+                q, bt, slot_pos, q_pos = args
 
-            def fn():
-                kmod.paged_decode_attention(q, k_pages, v_pages, bt,
-                                            slot_pos, q_pos)
-        else:
-            t, t_a, t_b, b_ms, b_by, _ = smoke.time_fused_decode(
-                fkmod, kmod, k_pages, v_pages, args, cfg.rope_theta, flush,
-                label)
-            entry = dict(ms=t, yardstick_a_ms=t_a, yardstick_b_ms=t_b)
+                def fn():
+                    kmod.paged_decode_attention(q, k_pages, v_pages, bt,
+                                                slot_pos, q_pos)
+            else:
+                t, t_a, t_b, b_ms, b_by, _ = smoke.time_fused_decode(
+                    fkmod, kmod, k_pages, v_pages, args, cfg.rope_theta,
+                    flush, label)
+                entry = dict(ms=t, yardstick_a_ms=t_a, yardstick_b_ms=t_b)
 
-            def fn():
-                fkmod.fused_rope_decode_append(*args, k_pages, v_pages,
-                                               theta=cfg.rope_theta)
+                def fn():
+                    fkmod.fused_rope_decode_append(*args, k_pages, v_pages,
+                                                   theta=cfg.rope_theta)
+        except ValueError as e:  # a page size the tree does not take
+            out[name][label] = dict(refused=str(e))
+            continue
         out[name][label] = dict(entry, bound_ms=b_ms, bound_by=b_by,
                                 profile=profile_calls(smoke, fn, flush))
-    return out
 
 
 def ssd_turn(smoke, gen, flush, steps_path) -> dict:
@@ -278,7 +342,7 @@ def ssd_turn(smoke, gen, flush, steps_path) -> dict:
     return {"ssd_scan": out}
 
 
-def one_turn(root: str, kernels: str, steps_path) -> dict:
+def one_turn(root: str, kernels: str, steps_path, pages=()) -> dict:
     import torch
     sys.path.insert(0, os.path.join(root, "src"))
     sys.path.insert(0, HERE)
@@ -294,7 +358,7 @@ def one_turn(root: str, kernels: str, steps_path) -> dict:
     if kernels in ("dense", "all"):
         out.update(dense_turn(smoke, cfg, gen, flush))
     if kernels in ("paged", "all"):
-        out.update(paged_turn(smoke, cfg, gen, flush, steps_path))
+        out.update(paged_turn(smoke, cfg, gen, flush, steps_path, pages))
     if kernels in ("ssd", "all"):
         out.update(ssd_turn(smoke, gen, flush, steps_path))
     if kernels in ("write", "all"):
@@ -309,12 +373,18 @@ def main() -> int:
     ap.add_argument("--steps", default=None,
                     help="decode steps, Mamba-2 and paged prefill stages "
                          "from chip_smoke.py --save-steps")
+    ap.add_argument("--pages", default="",
+                    help="page sizes (comma-separated) at which the paged "
+                         "turn also times both paged decode kernels at "
+                         "PAGED_SMOKE, ILS_LIKE and PAGED_HEADS")
     ap.add_argument("--turn", action="store_true", help=argparse.SUPPRESS)
     ap.add_argument("roots", nargs="+")
     a = ap.parse_args()
     steps = os.path.abspath(a.steps) if a.steps else None
+    pages = tuple(int(p) for p in a.pages.split(",") if p)
     if a.turn:
-        print(json.dumps(one_turn(a.roots[0], a.kernels, steps)), flush=True)
+        print(json.dumps(one_turn(a.roots[0], a.kernels, steps, pages)),
+              flush=True)
         return 0
     missing = [r for r in a.roots if not os.path.isfile(
         os.path.join(r, "src", "repro_torch", "kernels", "build.py"))]
@@ -327,6 +397,8 @@ def main() -> int:
                "--kernels", a.kernels, os.path.abspath(root)]
         if steps:
             cmd[3:3] = ["--steps", steps]
+        if pages:
+            cmd[3:3] = ["--pages", a.pages]
         proc = subprocess.run(cmd, capture_output=True, text=True)
         sys.stderr.write(proc.stdout + proc.stderr)
         if proc.returncode:

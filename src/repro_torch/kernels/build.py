@@ -15,6 +15,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 from pathlib import Path
 from typing import Dict, List, Sequence
 
@@ -27,6 +28,12 @@ KERNELS = ("paged_prefill_write", "paged_decode_attention",
            "flash_prefill", "decode_attention", "ssd_scan")
 
 _loaded: Dict[str, ctypes.CDLL] = {}
+
+#: guards ``load`` and every wrapper's ``launches += 1``: engines whose
+#: event loops run on threads of one process (several serving instances)
+#: share the libraries and the launch counts, and a count must lose no
+#: increment
+LOCK = threading.RLock()
 
 
 def nvcc() -> str:
@@ -84,11 +91,12 @@ def build_all(names: Sequence[str] = KERNELS) -> Dict[str, str]:
 
 def load(name: str) -> ctypes.CDLL:
     """The loaded library of kernel ``name``, built on first use."""
-    lib = _loaded.get(name)
-    if lib is None:
-        path = library_path(name)
-        if not path.exists():
-            build_all([name])
-        lib = ctypes.CDLL(str(path))
-        _loaded[name] = lib
-    return lib
+    with LOCK:
+        lib = _loaded.get(name)
+        if lib is None:
+            path = library_path(name)
+            if not path.exists():
+                build_all([name])
+            lib = ctypes.CDLL(str(path))
+            _loaded[name] = lib
+        return lib

@@ -26,8 +26,10 @@
 // the one angle it needs, and, in the one split whose slot range holds the
 // new slot (after the oracle's clip to [0, nb * pg - 1]), writes the
 // rotated k and the v of its own kv head into the pool.  Only that block
-// reads the new slot's page: chunk is a multiple of 16, so a page of 8 or
-// 16 slots lies in one split.  The writing threads fence at device scope
+// reads the new slot: splits are disjoint ranges of slots (a page cut by
+// a split boundary has its other slots read by the other split, which
+// the append does not touch), for every page size pg.  The writing
+// threads fence at device scope
 // (cp.async.cg reads the page from L2), and a barrier orders the write
 // before the block's copies; the pools are not declared __restrict__.  No
 // other block reads that slot: each block appends only its own kv head,
@@ -85,15 +87,15 @@ struct RopeAppend {
   }
 };
 
-template <typename T, int D, int PG>
+template <typename T, int D, bool kPerSlot>
 __global__ void __launch_bounds__(kSplitThreads) fused_split_kernel(
     const T* __restrict__ q, const T* __restrict__ k_new,
     const T* __restrict__ v_new, T* k_pages, T* v_pages,
     const int32_t* __restrict__ block_table,
     const int32_t* __restrict__ slot_pos, const int32_t* __restrict__ slots,
     const int32_t* __restrict__ q_pos, const float* __restrict__ inv_freq,
-    float* __restrict__ ws, int Hq, int Hkv, int nb, int chunk, int n_split,
-    int window, float scale) {
+    float* __restrict__ ws, int Hq, int Hkv, int nb, int pg, int chunk,
+    int n_split, int window, float scale) {
   using S = SplitSmem<T, D>;
   constexpr int kHalf = D / 2;
   extern __shared__ __align__(16) char smem[];
@@ -101,7 +103,7 @@ __global__ void __launch_bounds__(kSplitThreads) fused_split_kernel(
   asm volatile("griddepcontrol.launch_dependents;\n" ::: "memory");
   const int b = blockIdx.z, h = blockIdx.y, split = blockIdx.x;
   const int G = Hq / Hkv;
-  const int W = nb * PG;
+  const int W = nb * pg;
   const int lo = split * chunk;
   const int hi = min(W, lo + chunk);
   // every load the prologue needs is issued before split_pass's barrier
@@ -123,30 +125,31 @@ __global__ void __launch_bounds__(kSplitThreads) fused_split_kernel(
     post.v2 = to_float(v_new[row + threadIdx.x + kHalf]);
   }
   split_pass<T, D>(smem, k_pages, v_pages,
-                   PagedRows<PG>{block_table + static_cast<int64_t>(b) * nb},
+                   PagedRows<kPerSlot>{block_table + static_cast<int64_t>(b) * nb,
+                                      pg},
                    slot_pos + static_cast<int64_t>(b) * W, W, qp, lo, hi, G,
                    Hkv, h, window, scale,
                    partial(ws, b, h, split, Hkv, n_split, G, D), post);
 }
 
-template <typename T, int D, int PG>
+template <typename T, int D, bool kPerSlot>
 struct Launch {
-  static int run(const void* q, const void* k_new, const void* v_new,
-                 void* k_pages, void* v_pages, const void* block_table,
-                 const void* slot_pos, const void* slots, const void* q_pos,
-                 const void* inv_freq, void* out, void* ws, int B, int Hq,
-                 int Hkv, int nb, int chunk, int window, float scale,
-                 cudaStream_t stream) {
+  static int run(int pg, const void* q, const void* k_new,
+                 const void* v_new, void* k_pages, void* v_pages,
+                 const void* block_table, const void* slot_pos,
+                 const void* slots, const void* q_pos, const void* inv_freq,
+                 void* out, void* ws, int B, int Hq, int Hkv, int nb,
+                 int chunk, int window, float scale, cudaStream_t stream) {
     using S = SplitSmem<T, D>;
-    const int n_split = (nb * PG + chunk - 1) / chunk;
-    const size_t smem = S::bytes(Hq / Hkv, chunk);
+    const int n_split = (nb * pg + chunk - 1) / chunk;
+    const size_t smem = S::bytes(Hq / Hkv, chunk, pg);
     static bool opted_in = false;  // per instance
     const cudaError_t e0 = allow_smem(
-        reinterpret_cast<const void*>(fused_split_kernel<T, D, PG>), smem,
-        S::bytes(kMaxG, kMaxChunk), &opted_in);
+        reinterpret_cast<const void*>(fused_split_kernel<T, D, kPerSlot>),
+        smem, S::bytes(kMaxG, kMaxChunk, 1), &opted_in);
     if (e0 != cudaSuccess) return static_cast<int>(e0);
-    fused_split_kernel<T, D, PG><<<dim3(n_split, Hkv, B), kSplitThreads,
-                                   smem, stream>>>(
+    fused_split_kernel<T, D, kPerSlot><<<dim3(n_split, Hkv, B),
+                                         kSplitThreads, smem, stream>>>(
         static_cast<const T*>(q), static_cast<const T*>(k_new),
         static_cast<const T*>(v_new), static_cast<T*>(k_pages),
         static_cast<T*>(v_pages), static_cast<const int32_t*>(block_table),
@@ -154,7 +157,7 @@ struct Launch {
         static_cast<const int32_t*>(slots),
         static_cast<const int32_t*>(q_pos),
         static_cast<const float*>(inv_freq), static_cast<float*>(ws), Hq,
-        Hkv, nb, chunk, n_split, window, scale);
+        Hkv, nb, pg, chunk, n_split, window, scale);
     const cudaError_t e = cudaGetLastError();
     if (e != cudaSuccess) return static_cast<int>(e);
     return launch_merge<T, D>(static_cast<const float*>(ws),
@@ -169,7 +172,7 @@ struct Launch {
 // in place; block_table (B,nb), slot_pos (B,nb*pg), slots (B,) and q_pos
 // (B,) int32; inv_freq (D/2,) float32; out (B,Hq,D); ws float32 workspace
 // of B * Hkv * ceil(nb * pg / chunk) * (Hq / Hkv) * (D + 2) values.  dtype
-// 0 is float32, 1 is bfloat16; D in {32, 64, 128, 256}, pg in {8, 16},
+// 0 is float32, 1 is bfloat16; D in {32, 64, 128, 256}, pg >= 1,
 // Hq / Hkv <= 8, nb >= 1, chunk a multiple of 16 in [16, 2048] (slots per
 // split) with at most 1024 splits, pools 16-byte aligned; window <= 0
 // means none.

@@ -3,7 +3,7 @@
 // rotation of a pair, the slot mask of decode attention, where a slot's K/V row
 // lies (a page pool through the block table, or a dense cache), the
 // prefill writes' vectors per thread, and the dispatch over the compiled
-// (head dim, page size) instances.  The
+// (head dim, slot-wise lookup) instances.  The
 // decode attention loop itself is split_attention.cuh.
 #pragma once
 
@@ -117,24 +117,32 @@ __device__ __forceinline__ bool slot_live(int sp, int qp, int window) {
 }
 
 // Where logical slot `slot` of a row lies, as a row of the (row, Hkv, D)
-// K/V arrays: through the block table (a pool of PG-slot pages: PagedRows
-// names the row's table, StagedRows reads a block's copy of its entries
-// j0.. in shared memory), or contiguously from the row's first slot (a
-// dense (B, W, Hkv, D) cache).  Slots of an aligned 8-slot group are
-// contiguous in both (PG >= 8).
-template <int PG>
+// K/V arrays: through the block table (a pool of pages of pg slots, pg a
+// run-time value: PagedRows names the row's table, StagedRows reads a
+// block's copy of its entries j0.. in shared memory), or contiguously from
+// the row's first slot (a dense (B, W, Hkv, D) cache).  kSlotwise tells
+// the decode loop how often to ask: false where the slots of every aligned
+// 8-slot group are contiguous (a dense cache, or pg a multiple of 8), so
+// it asks once per group; true for any other page size, where a group may
+// span pages and it asks for every slot.
+template <bool kPerSlot>
 struct PagedRows {
   const int32_t* bt_row;
+  int pg;
 };
-template <int PG>
+template <bool kPerSlot>
 struct StagedRows {
+  static constexpr bool kSlotwise = kPerSlot;
   const int32_t* bt_s;
   int j0;
+  int pg;
   __device__ __forceinline__ int64_t operator()(int slot) const {
-    return static_cast<int64_t>(bt_s[slot / PG - j0]) * PG + slot % PG;
+    const int j = slot / pg;
+    return static_cast<int64_t>(bt_s[j - j0]) * pg + (slot - j * pg);
   }
 };
 struct DenseRows {
+  static constexpr bool kSlotwise = false;
   int64_t first;  // b * W
   __device__ __forceinline__ int64_t operator()(int slot) const {
     return first + slot;
@@ -154,19 +162,23 @@ inline int vectors_per_thread(int64_t n_vecs, int threads) {
              ? 2 : 1;
 }
 
-// Dispatch a launcher template over the compiled (D, PG) instances:
-// launch<T, D, PG>() for D in {32, 64, 128, 256}, PG in {8, 16}, else
-// cudaErrorInvalidValue.
-template <typename T, template <typename, int, int> class L, typename... A>
+// Dispatch a launcher template over the compiled instances:
+// launch<T, D, pg % 8 != 0>::run(pg, args...) for D in {32, 64, 128, 256}
+// and any pg >= 1 (the page size is a run-time argument; the flag picks
+// the loop that looks each slot up), else cudaErrorInvalidValue.
+template <typename T, template <typename, int, bool> class L, int D,
+          typename... A>
+int dispatch_pg(int pg, A... args) {
+  return pg % 8 ? L<T, D, true>::run(pg, args...)
+                : L<T, D, false>::run(pg, args...);
+}
+template <typename T, template <typename, int, bool> class L, typename... A>
 int dispatch(int D, int pg, A... args) {
-  if (D == 32 && pg == 8) return L<T, 32, 8>::run(args...);
-  if (D == 32 && pg == 16) return L<T, 32, 16>::run(args...);
-  if (D == 64 && pg == 8) return L<T, 64, 8>::run(args...);
-  if (D == 64 && pg == 16) return L<T, 64, 16>::run(args...);
-  if (D == 128 && pg == 8) return L<T, 128, 8>::run(args...);
-  if (D == 128 && pg == 16) return L<T, 128, 16>::run(args...);
-  if (D == 256 && pg == 8) return L<T, 256, 8>::run(args...);
-  if (D == 256 && pg == 16) return L<T, 256, 16>::run(args...);
+  if (pg < 1) return static_cast<int>(cudaErrorInvalidValue);
+  if (D == 32) return dispatch_pg<T, L, 32>(pg, args...);
+  if (D == 64) return dispatch_pg<T, L, 64>(pg, args...);
+  if (D == 128) return dispatch_pg<T, L, 128>(pg, args...);
+  if (D == 256) return dispatch_pg<T, L, 256>(pg, args...);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 

@@ -23,8 +23,11 @@
 // slots (chunk from the wrapper, by shapes alone), its warps copying 16
 // slots a step with cp.async from the rows the block table names
 // (PagedRows: the split's entries staged in shared memory with its
-// slot_pos; one pool page per step at pg = 16, two at pg = 8; a page lies
-// in one split since chunk is a multiple of 16).  Each block covers
+// slot_pos; the page size pg is a run-time argument: for pg a multiple of
+// 8 each 8-slot half of a step lies in one page and is looked up once,
+// for any other pg (the kPerSlot instances) each slot is looked up on its
+// own; a page cut by a split boundary is staged by both splits, each
+// reading only its own slots).  Each block covers
 // the whole GQA group, so a K/V page is read once for all G heads.  Pass
 // 2 (merge_kernel) folds the splits' partials, launched as pass 1's
 // programmatic dependent.
@@ -32,20 +35,20 @@
 
 namespace {
 
-template <typename T, int D, int PG>
+template <typename T, int D, bool kPerSlot>
 __global__ void __launch_bounds__(kSplitThreads) paged_split_kernel(
     const T* __restrict__ q, const T* __restrict__ k_pages,
     const T* __restrict__ v_pages, const int32_t* __restrict__ block_table,
     const int32_t* __restrict__ slot_pos, const int32_t* __restrict__ q_pos,
-    float* __restrict__ ws, int Hq, int Hkv, int nb, int chunk, int n_split,
-    int window, float scale) {
+    float* __restrict__ ws, int Hq, int Hkv, int nb, int pg, int chunk,
+    int n_split, int window, float scale) {
   using S = SplitSmem<T, D>;
   extern __shared__ __align__(16) char smem[];
   // the merge may be scheduled now; it waits for this grid's writes
   asm volatile("griddepcontrol.launch_dependents;\n" ::: "memory");
   const int b = blockIdx.z, h = blockIdx.y, split = blockIdx.x;
   const int G = Hq / Hkv;
-  const int W = nb * PG;
+  const int W = nb * pg;
   const int lo = split * chunk;
   const int hi = min(W, lo + chunk);
   float* q_s = reinterpret_cast<float*>(smem + S::kQOff);
@@ -53,35 +56,36 @@ __global__ void __launch_bounds__(kSplitThreads) paged_split_kernel(
   for (int i = threadIdx.x; i < G * D; i += kSplitThreads)
     q_s[i] = to_float(q_row[i]);
   split_pass<T, D>(smem, k_pages, v_pages,
-                   PagedRows<PG>{block_table + static_cast<int64_t>(b) * nb},
+                   PagedRows<kPerSlot>{block_table + static_cast<int64_t>(b) * nb,
+                                      pg},
                    slot_pos + static_cast<int64_t>(b) * W, W, q_pos[b], lo,
                    hi, G, Hkv, h, window, scale,
                    partial(ws, b, h, split, Hkv, n_split, G, D));
 }
 
-template <typename T, int D, int PG>
+template <typename T, int D, bool kPerSlot>
 struct Launch {
-  static int run(const void* q, const void* k_pages, const void* v_pages,
-                 const void* block_table, const void* slot_pos,
-                 const void* q_pos, void* out, void* ws, int B, int Hq,
-                 int Hkv, int nb, int chunk, int window, float scale,
-                 cudaStream_t stream) {
+  static int run(int pg, const void* q, const void* k_pages,
+                 const void* v_pages, const void* block_table,
+                 const void* slot_pos, const void* q_pos, void* out,
+                 void* ws, int B, int Hq, int Hkv, int nb, int chunk,
+                 int window, float scale, cudaStream_t stream) {
     using S = SplitSmem<T, D>;
-    const int n_split = (nb * PG + chunk - 1) / chunk;
-    const size_t smem = S::bytes(Hq / Hkv, chunk);
+    const int n_split = (nb * pg + chunk - 1) / chunk;
+    const size_t smem = S::bytes(Hq / Hkv, chunk, pg);
     static bool opted_in = false;  // per instance
     const cudaError_t e0 = allow_smem(
-        reinterpret_cast<const void*>(paged_split_kernel<T, D, PG>), smem,
-        S::bytes(kMaxG, kMaxChunk), &opted_in);
+        reinterpret_cast<const void*>(paged_split_kernel<T, D, kPerSlot>),
+        smem, S::bytes(kMaxG, kMaxChunk, 1), &opted_in);
     if (e0 != cudaSuccess) return static_cast<int>(e0);
-    paged_split_kernel<T, D, PG><<<dim3(n_split, Hkv, B), kSplitThreads,
-                                   smem, stream>>>(
+    paged_split_kernel<T, D, kPerSlot><<<dim3(n_split, Hkv, B),
+                                         kSplitThreads, smem, stream>>>(
         static_cast<const T*>(q), static_cast<const T*>(k_pages),
         static_cast<const T*>(v_pages),
         static_cast<const int32_t*>(block_table),
         static_cast<const int32_t*>(slot_pos),
         static_cast<const int32_t*>(q_pos), static_cast<float*>(ws), Hq, Hkv,
-        nb, chunk, n_split, window, scale);
+        nb, pg, chunk, n_split, window, scale);
     const cudaError_t e = cudaGetLastError();
     if (e != cudaSuccess) return static_cast<int>(e);
     return launch_merge<T, D>(static_cast<const float*>(ws),
@@ -96,7 +100,7 @@ struct Launch {
 // slot_pos (B,nb*pg) int32; q_pos (B,) int32; out (B,Hq,D); ws float32
 // workspace of B * Hkv * ceil(nb * pg / chunk) * (Hq / Hkv) * (D + 2)
 // values.  dtype 0 is float32, 1 is bfloat16; D in {32, 64, 128, 256}, pg
-// in {8, 16}, Hq / Hkv <= 8, nb >= 1, chunk a multiple of 16 in [16, 2048]
+// >= 1, Hq / Hkv <= 8, nb >= 1, chunk a multiple of 16 in [16, 2048]
 // (slots per split) with at most 1024 splits, pools 16-byte aligned;
 // window <= 0 means none.  Launches both passes on `stream` and returns
 // the launches' error, or cudaErrorInvalidValue for a shape the kernel

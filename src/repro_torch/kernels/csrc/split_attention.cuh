@@ -51,9 +51,16 @@
 //  - W need not divide the split or the step: slots past W are neither
 //    loaded (zero-filled copies) nor weighed (score -inf).
 //  - Where a slot's K/V row lies comes from a functor (paged_attention.cuh:
-//    DenseRows, PagedRows), asked once per 8-slot half of a step: a pool
-//    page of 8 slots is half a step, one of 16 a whole step.  Since chunk
-//    is a multiple of 16, a pool page lies in exactly one split.
+//    DenseRows, PagedRows), asked once per 8-slot half of a step where
+//    the half's slots are contiguous (a dense cache, or pages of any
+//    multiple of 8 slots: a half starts at a multiple of 8, so it lies in
+//    one page), and once per slot for any other page size (1, 2, 4, 12,
+//    ...).  Nothing needs a page to lie in one split: splits are ranges
+//    of slots, a page that straddles two splits has its table entry
+//    staged by both, and each block reads only its own slots.  The
+//    per-slot loop alone would serve every size, but at pg 16 and 32 it
+//    is 4-22 % slower at MHA heads and at rows of many slots (PERF.md),
+//    so the per-half loop stays where it applies.
 // Everything here has internal linkage: each kernel library holds its own
 // instances.
 #pragma once
@@ -100,7 +107,7 @@ __device__ __forceinline__ void cp_async_wait() {
 // rows of an ldmatrix hit distinct banks), the step's weights and each
 // stage's live-slot mask; then q (G, D) as floats, the warps' partials for
 // the in-block merge, the split's slot_pos and its block-table entries
-// (paged rows: at most one per 8 slots).
+// (pages of pg slots: at most chunk / pg + 2, a page cut at either end).
 //
 // Head dim 256 makes a step 16.5 KB in bfloat16 and 32.5 KB in float32.
 // The stages are sized by the step, not the warps: 2 stages a warp in
@@ -126,12 +133,14 @@ struct SplitSmem {
                                     16;                  // live masks
   static constexpr int kQOff = kSplitWarps * kWarpBytes;
   // then the split's slot_pos values (at most chunk) and right after
-  // them its table entries (at most chunk / 8)
+  // them its table entries (at most chunk / pg + 2; a dense cache stages
+  // none and sizes them as pages of 8)
   __host__ __device__ static constexpr size_t sp_off(int G) {
     return kQOff + sizeof(float) * (G * D + kSplitWarps * G * (D + 2));
   }
-  __host__ __device__ static constexpr size_t bytes(int G, int chunk) {
-    return sp_off(G) + sizeof(int32_t) * (chunk + chunk / 8);
+  __host__ __device__ static constexpr size_t bytes(int G, int chunk,
+                                                    int pg = 8) {
+    return sp_off(G) + sizeof(int32_t) * (chunk + chunk / pg + 2);
   }
 };
 
@@ -428,7 +437,8 @@ using WarpOf = std::conditional_t<std::is_same_v<T, __nv_bfloat16>,
 // of the step) for the G query heads of kv head h, with q (G, D) as floats
 // and the range's slot_pos (sp_s[i] for slot lo + i) in shared memory,
 // published by the caller; rows(slot) gives a slot's K/V row in the
-// (row, Hkv, D) arrays, asked for the first slot of each 8-slot half.
+// (row, Hkv, D) arrays, asked for the first slot of each 8-slot half, or
+// for every slot where Rows::kSlotwise.
 // uniform: the row has no live slot, so every slot of the split weighs 1
 // (the oracle's finite NEG_INF) and only V is read; otherwise steps
 // without a live slot are skipped.  Writes the split's partial (m[G],
@@ -475,7 +485,23 @@ __device__ __forceinline__ void attend_split(
                 : __ballot_sync(kFull, slot < hi && slot_live(sp_s[slot - lo],
                                                               qp, window));
     if (lane == 0) masks[st] = mask;
-    if (mask) {
+    if constexpr (Rows::kSlotwise) {
+      // a half may span pages: each copy asks for its own slot's row
+      // (only for a slot of the range: a block table ends at W)
+      if (mask) {
+        char* kb = base + st * S::kPageBytes;
+        char* vb = kb + kPage * S::kPadRow;
+        for (int e = lane; e < kPage * kChunks; e += 32) {
+          const int t = e / kChunks, c = e % kChunks;
+          const bool in = first + t < hi;
+          const int64_t off =
+              in ? (rows(first + t) * Hkv + h) * D + c * kPerChunk : 0;
+          const int at = t * S::kPadRow + c * 16;
+          if (!uniform) cp_async_16(kb + at, k_pages + off, in);
+          cp_async_16(vb + at, v_pages + off, in);
+        }
+      }
+    } else if (mask) {
       // the rows of the step's two 8-slot halves (the second asked only
       // where it holds a slot of the range: a block table ends at W)
       const int64_t r0 = rows(first);
@@ -555,14 +581,13 @@ __device__ __forceinline__ DenseRows stage_rows(DenseRows rows, int32_t*,
                                                 int, int) {
   return rows;
 }
-template <int PG>
-__device__ __forceinline__ StagedRows<PG> stage_rows(PagedRows<PG> rows,
-                                                     int32_t* bt_s, int lo,
-                                                     int hi) {
-  const int j0 = lo / PG, j1 = (hi + PG - 1) / PG;
+template <bool kPerSlot>
+__device__ __forceinline__ StagedRows<kPerSlot> stage_rows(
+    PagedRows<kPerSlot> rows, int32_t* bt_s, int lo, int hi) {
+  const int j0 = lo / rows.pg, j1 = (hi + rows.pg - 1) / rows.pg;
   for (int j = j0 + static_cast<int>(threadIdx.x); j < j1; j += kSplitThreads)
     cp_async_4(bt_s + (j - j0), rows.bt_row + j);
-  return StagedRows<PG>{bt_s, j0};
+  return StagedRows<kPerSlot>{bt_s, j0, rows.pg};
 }
 
 // The work a pass-1 block does after its first barrier and before its
@@ -587,8 +612,8 @@ __device__ __forceinline__ void split_pass(
     int Hkv, int h, int window, float scale, float* __restrict__ part,
     Post post = Post()) {
   using S = SplitSmem<T, D>;
-  static_assert(S::bytes(kMaxG, kMaxChunk) <= 232448,
-                "a block holds at most 227 KB");
+  static_assert(S::bytes(kMaxG, kMaxChunk, 1) <= 232448,
+                "a block holds at most 227 KB (pages of one slot)");
   int32_t* sp_s = reinterpret_cast<int32_t*>(smem + S::sp_off(G));
   for (int i = threadIdx.x; i < hi - lo; i += kSplitThreads)
     cp_async_4(sp_s + i, sp_row + lo + i);

@@ -93,7 +93,8 @@ def flash_prefill(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         err = fn(_DTYPES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
                  positions.data_ptr(), out.data_ptr(), B, T, Hq, Hkv, D,
                  window or 0, D ** -0.5, stream)
-        launches += 1
+        with build.LOCK:
+            launches += 1
     if err:
         raise RuntimeError(f"flash_prefill kernel launch failed: CUDA error "
                            f"{err}")

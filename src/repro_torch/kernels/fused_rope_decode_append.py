@@ -20,8 +20,7 @@ import torch
 
 from repro_torch.kernels import build
 from repro_torch.kernels.fused_rope_prefill_write import inv_freq
-from repro_torch.kernels.paged_decode_attention import (HEAD_DIMS, MAX_GROUP,
-                                                        PAGE_TOKENS)
+from repro_torch.kernels.paged_decode_attention import HEAD_DIMS, MAX_GROUP
 from repro_torch.kernels.split import sm_count, split_slots, workspace
 
 #: launches of the CUDA kernel since the last reset
@@ -94,11 +93,11 @@ def fused_rope_decode_append(q: torch.Tensor, k_new: torch.Tensor,
                          f"block_table {tuple(block_table.shape)}, slot_pos "
                          f"{tuple(slot_pos.shape)}, slots "
                          f"{tuple(slots.shape)}, q_pos {tuple(q_pos.shape)}")
-    if D not in HEAD_DIMS or pg not in PAGE_TOKENS or Hq // Hkv > MAX_GROUP:
+    if D not in HEAD_DIMS or pg < 1 or Hq // Hkv > MAX_GROUP:
         raise ValueError(f"fused_rope_decode_append kernel: head_dim {D} "
-                         f"not in {HEAD_DIMS}, page_tokens {pg} not in "
-                         f"{PAGE_TOKENS} or {Hq // Hkv} query heads per KV "
-                         f"head above {MAX_GROUP}")
+                         f"not in {HEAD_DIMS}, page_tokens {pg} below 1 or "
+                         f"{Hq // Hkv} query heads per KV head above "
+                         f"{MAX_GROUP}")
     if k_pages.data_ptr() % 16 or v_pages.data_ptr() % 16:
         raise ValueError("fused_rope_decode_append kernel: the page pools "
                          "must be 16-byte aligned")
@@ -115,7 +114,8 @@ def fused_rope_decode_append(q: torch.Tensor, k_new: torch.Tensor,
                  slots.data_ptr(), q_pos.data_ptr(), freqs.data_ptr(),
                  out.data_ptr(), ws.data_ptr(), B, Hq, Hkv, D, nb, pg, chunk,
                  window or 0, D ** -0.5, stream)
-        launches += 1
+        with build.LOCK:
+            launches += 1
     if err:
         raise RuntimeError(f"fused_rope_decode_append kernel launch failed: "
                            f"CUDA error {err}")

@@ -12,7 +12,7 @@ from typing import Dict, Optional
 
 import torch
 
-from repro_torch.kernels import ref
+from repro_torch.kernels import build, ref
 from repro_torch.kernels import decode_attention as _dense_decode_kernel
 from repro_torch.kernels import flash_prefill as _prefill_kernel
 from repro_torch.kernels import fused_rope_decode_append as _fdecode_kernel
@@ -39,7 +39,8 @@ def _on_cpu(t: torch.Tensor, name: str) -> bool:
         return False
     if t.device.type != "cpu":
         raise ValueError(f"{name}: no kernel for device {t.device}")
-    plain_calls[name] += 1
+    with build.LOCK:  # engines on several threads share the count
+        plain_calls[name] += 1
     return True
 
 

@@ -24,9 +24,10 @@ from repro_torch.kernels.split import sm_count, split_slots, workspace
 #: launches of the CUDA kernel since the last reset
 launches = 0
 
-#: shapes the kernel is compiled for (template instances in the source)
+#: shapes the kernel is compiled for (template instances in the source);
+#: any page size, a run-time argument (pages of a multiple of 8 slots
+#: looked up once per 8 slots, any other size once per slot)
 HEAD_DIMS = (32, 64, 128, 256)
-PAGE_TOKENS = (8, 16)
 MAX_GROUP = 8
 
 _fn = None
@@ -84,16 +85,16 @@ def paged_decode_attention(q: torch.Tensor, k_pages: torch.Tensor,
                          f"{tuple(v_pages.shape)}, block_table "
                          f"{tuple(block_table.shape)}, slot_pos "
                          f"{tuple(slot_pos.shape)}, q_pos {tuple(q_pos.shape)}")
-    if D not in HEAD_DIMS or pg not in PAGE_TOKENS or Hq // Hkv > MAX_GROUP:
+    if D not in HEAD_DIMS or pg < 1 or Hq // Hkv > MAX_GROUP:
         raise ValueError(f"paged_decode_attention kernel: head_dim {D} not "
-                         f"in {HEAD_DIMS}, page_tokens {pg} not in "
-                         f"{PAGE_TOKENS} or {Hq // Hkv} query heads per KV "
-                         f"head above {MAX_GROUP}")
+                         f"in {HEAD_DIMS}, page_tokens {pg} below 1 or "
+                         f"{Hq // Hkv} query heads per KV head above "
+                         f"{MAX_GROUP}")
     if k_pages.data_ptr() % 16 or v_pages.data_ptr() % 16:
         raise ValueError("paged_decode_attention kernel: the page pools "
                          "must be 16-byte aligned")
     out = torch.empty_like(q)
-    # whole 16-slot steps: a pool page of 8 or 16 slots lies in one split
+    # whole 16-slot steps (a page may straddle two splits)
     chunk = split_slots(B, nb * pg, Hkv, sm_count(dev))
     ws = workspace(B, nb * pg, Hq, Hkv, D, chunk, dev)
     fn = _launcher()
@@ -104,7 +105,8 @@ def paged_decode_attention(q: torch.Tensor, k_pages: torch.Tensor,
                  slot_pos.data_ptr(), q_pos.data_ptr(), out.data_ptr(),
                  ws.data_ptr(), B, Hq, Hkv, D, nb, pg, chunk, window or 0,
                  D ** -0.5, stream)
-        launches += 1
+        with build.LOCK:
+            launches += 1
     if err:
         raise RuntimeError(f"paged_decode_attention kernel launch failed: "
                            f"CUDA error {err}")

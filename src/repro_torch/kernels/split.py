@@ -8,8 +8,8 @@ from __future__ import annotations
 
 import torch
 
-#: slots per step of the kernels' loop; a split covers whole steps (and so
-#: whole pool pages of 8 or 16 slots)
+#: slots per step of the kernels' loop; a split covers whole steps (a pool
+#: page may straddle two splits: each stages its table entry)
 PAGE = 16
 #: fewest and most slots a split takes (the kernels stage a split's
 #: slot_pos in shared memory)

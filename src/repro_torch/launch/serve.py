@@ -37,11 +37,18 @@ online ``repro_torch.serving`` API (SliceServer over one SchedulerCore).
   # discrete-event sim backend (no model): the same scheduler code
   PYTHONPATH=src python -m repro_torch.launch.serve --backend sim
 
-Every flag of ``ServingConfig.add_cli_args`` is accepted (``--http-port``
-is refused: the HTTP front end is not ported), plus the launcher's own
-``--max-input`` (the CodeFuse trace's prompt cap) and ``--shared-prefix``
-(pairs of requests whose prompts share pages).  The model is served at
-full width unless ``--reduced`` is given.
+  # an OpenAI-compatible HTTP endpoint instead of the trace replay
+  # (repro_torch.serving.http; 0 = an ephemeral port, --duration <= 0
+  # serves until interrupted); several such instances behind
+  # ``python -m repro_torch.launch.route`` make a fleet
+  PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \
+      --reduced --kv-layout paged --kv-retain request --http-port 8001 \
+      --duration 0
+
+Every flag of ``ServingConfig.add_cli_args`` is accepted, plus the
+launcher's own ``--max-input`` (the CodeFuse trace's prompt cap) and
+``--shared-prefix`` (pairs of requests whose prompts share pages).  The
+model is served at full width unless ``--reduced`` is given.
 
 The real backend profiles the engine and fits the Eq. 3/4 estimator.
 Its memory model follows ``--kv-layout``: ``AnalyticMemoryEstimator``
@@ -55,7 +62,9 @@ paged layout keeps per-worker page envelopes in the backend.  A
 CodeFuse-shaped Poisson trace is replayed through ``SliceServer`` — plus
 one *interactive* request submitted mid-run and streamed per slice — then
 the server drains, the metrics are printed as JSON, and ``--trace-out``
-writes the trace and the decision audit.
+writes the trace and the decision audit.  With ``--http-port`` the server
+is fronted by :class:`~repro_torch.serving.http.HTTPFrontend` for
+``--duration`` seconds instead, then drains.
 """
 from __future__ import annotations
 
@@ -63,6 +72,7 @@ import argparse
 import dataclasses
 import itertools
 import json
+import time
 from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -71,8 +81,8 @@ from repro_torch.cluster.metrics import RunMetrics
 from repro_torch.cluster.trace import CODEFUSE, generate_trace
 from repro_torch.configs import ARCHS, get_config
 from repro_torch.core.request import Request
-from repro_torch.serving import (RequestHandle, ServingConfig, SliceServer,
-                                 default_sim_environment)
+from repro_torch.serving import (HTTPFrontend, RequestHandle, ServingConfig,
+                                 SliceServer, default_sim_environment)
 
 #: the launcher's defaults for ``ServingConfig.from_cli`` (a flag the user
 #: passes wins): the real backend at full width, one worker, Γ = 0.25 s as
@@ -143,7 +153,6 @@ def make_trace(cfg: ServingConfig, opts: argparse.Namespace,
 def build_server(cfg: ServingConfig) -> Tuple[SliceServer, int]:
     """(server, vocab_size) for the configured backend; the sim backend
     has no vocabulary (0)."""
-    cfg.refuse_http()
     if cfg.backend == "sim":
         # the paper's A100 / LLaMA2-13B testbed with DeepSpeed's memory
         # rules, or its block pool for a paged layout
@@ -229,6 +238,46 @@ def export_trace(cfg: ServingConfig, server: SliceServer) -> List[str]:
     return paths
 
 
+def start_http(cfg: ServingConfig, server: SliceServer,
+               vocab: int) -> HTTPFrontend:
+    """Front ``server`` with the OpenAI-compatible HTTP endpoint on
+    ``--http-host``:``--http-port`` (0 = ephemeral) and start it; the
+    model name is ``--arch`` on the real backend, ``scls-sim`` on the
+    sim one."""
+    model_name = cfg.arch if cfg.backend == "real" else "scls-sim"
+    front = HTTPFrontend(server.aio, host=cfg.http_host,
+                         port=cfg.http_port, model_name=model_name,
+                         vocab_size=vocab)
+    front.start()
+    print(f"[serve] http listening on {front.url} "
+          f"(model={model_name}, slo_ms={cfg.slo_ms}, "
+          f"time_scale={cfg.time_scale})", flush=True)
+    return front
+
+
+def serve_http(cfg: ServingConfig, server: SliceServer, vocab: int) -> None:
+    """--http-port mode: expose the server over the OpenAI-compatible
+    HTTP front end until --duration elapses (<= 0 = forever), then drain
+    it and write --trace-out."""
+    front = start_http(cfg, server, vocab)
+    try:
+        if cfg.duration > 0:
+            time.sleep(cfg.duration)
+        else:
+            while True:
+                time.sleep(3600)
+    except KeyboardInterrupt:
+        pass
+    front.shutdown(drain=True)
+    m = server.metrics()
+    stats = server.admission_stats
+    print(f"[serve] http served {m.n_completed} completions "
+          f"({stats['n_submitted']} submitted, {stats['n_rejected']} "
+          f"rejected, {stats['n_degraded']} degraded); "
+          f"SLO attainment {m.slo_attainment:.2f}", flush=True)
+    export_trace(cfg, server)
+
+
 def main(argv: Optional[Sequence[str]] = None) -> RunMetrics:
     cfg, opts = parse_args(argv)
     print(f"[serve] backend={cfg.backend} strategy={cfg.strategy} "
@@ -236,6 +285,9 @@ def main(argv: Optional[Sequence[str]] = None) -> RunMetrics:
           + (f" arch={cfg.arch} (reduced={cfg.reduced})"
              if cfg.backend == "real" else ""))
     server, vocab = build_server(cfg)
+    if cfg.http_port is not None:
+        serve_http(cfg, server, vocab)
+        return server.metrics()
     trace = make_trace(cfg, opts, vocab)
     handles = server.replay(trace)
 

@@ -27,8 +27,8 @@ a sequence of atomic core transitions, exactly as in the offline runs.
 Wall-clock pacing: with ``time_scale=k`` (sim backend only) the pacer
 sleeps so that virtual second ``t`` occurs at wall second ``t / k`` after
 start, and submissions map the wall clock back to virtual arrival times —
-``k = 1`` serves the simulated cluster in real time (what an HTTP front
-end would use), large ``k`` compresses it.  With ``time_scale=None`` (default)
+``k = 1`` serves the simulated cluster in real time (what the HTTP front
+end uses), large ``k`` compresses it.  With ``time_scale=None`` (default)
 events are processed as fast as possible; on the real backend the engines
 themselves consume wall time inside ``step()``, so no pacing is applied.
 

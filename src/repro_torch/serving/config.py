@@ -14,9 +14,9 @@ combinations, ``from_cli()`` / ``from_dict()`` constructors, and
 
 Beyond the reference's fields it has one, ``device``: where the real
 engines and the proxy predictor's MLP run (``None``: the CUDA card, an
-error without one).  The OpenAI-compatible HTTP front end is not ported:
-``http_port`` stays a field and a flag, and building a server with it set
-raises ``NotImplementedError``.
+error without one).  ``http_port`` / ``http_host`` are read by the
+launcher, which fronts the server with
+:class:`~repro_torch.serving.http.HTTPFrontend`.
 """
 from __future__ import annotations
 
@@ -100,8 +100,7 @@ class ServingConfig:
     # --- workload knobs consumed by launchers (trace replay) ---
     rate: float = 2.0
     duration: float = 15.0
-    # --- online front end (repro_torch.serving.{aio,admission}; the
-    # reference's HTTP endpoint is not ported: a set http_port is refused) ---
+    # --- online front end (repro_torch.serving.{aio,http,admission}) ---
     http_port: Optional[int] = None      # None = no HTTP endpoint
     http_host: str = "127.0.0.1"         # bind host (fleet: several
                                          # instances + router on one box)
@@ -283,9 +282,9 @@ class ServingConfig:
         ap.add_argument("--rate", type=float, default=cls.rate)
         ap.add_argument("--duration", type=float, default=cls.duration)
         ap.add_argument("--http-port", type=int, default=cls.http_port,
-                        help="the reference's OpenAI-compatible HTTP "
-                             "endpoint; not ported: building a server "
-                             "with it set raises NotImplementedError")
+                        help="serve an OpenAI-compatible HTTP endpoint on "
+                             "this port (0 = ephemeral) instead of the "
+                             "trace-replay demo")
         ap.add_argument("--http-host", default=cls.http_host,
                         help="bind host for --http-port (default "
                              "127.0.0.1; several instances plus the fleet "
@@ -362,14 +361,6 @@ class ServingConfig:
         return make_predictor(s.predictor or "histogram", max_gen=s.max_gen,
                               coverage=s.coverage, device=self.device)
 
-    def refuse_http(self) -> None:
-        """Raise for a set ``http_port``: the HTTP front end is not ported."""
-        if self.http_port is not None:
-            raise NotImplementedError(
-                f"http_port={self.http_port}: the OpenAI-compatible HTTP "
-                f"front end (repro.serving.http, with the tokenizer) is not "
-                f"ported yet (ROADMAP A8)")
-
     def strategy_config(self) -> StrategyConfig:
         return make_strategy(self.strategy, slice_len=self.slice_len,
                              max_gen=self.max_gen,
@@ -436,7 +427,6 @@ class ServingConfig:
             if mem is None:
                 mem = self.memory_estimator(LLAMA2_13B_DELTA,
                                             m_available=A100_80GB_AVAILABLE)
-        self.refuse_http()
         backend = SimBackend(true_lat, noise_sigma=self.noise_sigma,
                              seed=self.seed)
         core = SchedulerCore(self.strategy_config(), backend, self.workers,
@@ -451,7 +441,6 @@ class ServingConfig:
                    sched_est: ServingTimeEstimator,
                    mem: MemoryEstimator) -> SliceServer:
         """SliceServer over real StaticEngine workers (one per engine)."""
-        self.refuse_http()
         backend = RealBackend(engines, mem=mem, kv_layout=self.kv_layout,
                               sched_bucket=sched_est.bucket,
                               kv_retain=self.kv_retain)

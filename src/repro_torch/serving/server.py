@@ -19,8 +19,8 @@ submission path — validation, rid allocation, SLO-aware admission
 (``slo_ms=`` raises :class:`~repro_torch.serving.admission.AdmissionRejected`
 before any prefill/page work), handle bookkeeping — lives exactly once in
 the async server, and this class only adds the synchronous drive loop.
-For N concurrent clients or wall-clock pacing, use ``server.aio``
-(``repro_torch.serving.aio``) directly.
+For N concurrent clients, wall-clock pacing, or the OpenAI-compatible
+HTTP endpoint, use ``server.aio`` (``repro_torch.serving.aio``) directly.
 
 Online arrivals enter the exact same batching/offloading algorithms
 (Alg. 1–2) the offline path uses — there is no second scheduler.
@@ -95,7 +95,7 @@ class SliceServer:
                  time_scale: Optional[float] = None):
         self.core = core
         #: the concurrent front end this server adapts; share it with
-        #: asyncio clients for the same scheduler
+        #: asyncio clients or the HTTP endpoint for the same scheduler
         self.aio = AsyncSliceServer(core, admission=admission,
                                     default_slo_ms=default_slo_ms,
                                     time_scale=time_scale)

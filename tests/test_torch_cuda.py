@@ -99,10 +99,54 @@ def test_paged_decode_attention_matches_plain(cuda_device, dtype, window,
     assert (got[-1].float() - mean_v).abs().max().item() <= ATOL[dtype]
 
 
-def test_paged_decode_attention_refuses_uncompiled_shapes(cuda_device):
-    args = _decode_inputs(2, 2, 4, 4, 2, 64, torch.float32, cuda_device)
-    with pytest.raises(ValueError, match="page_tokens 4"):
-        decode_kernel.paged_decode_attention(*args)
+#: every page size class of the paged kernels: one slot, a divisor of 8,
+#: neither a divisor nor a multiple of 8, and multiples of 8 that do and do
+#: not divide the 16-slot step
+PAGE_SIZES = (1, 4, 12, 24, 32, 64, 128)
+#: the rows of the page-size cases: two long rows over several splits,
+#: two short ones, then a pad row
+PG_FILLS = [600, 64, 7, 2]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("D", [64, 128])
+@pytest.mark.parametrize("pg", PAGE_SIZES)
+@pytest.mark.parametrize("window", [None, 6])
+def test_paged_decode_kernels_take_every_page_size(cuda_device, dtype, D,
+                                                   pg, window):
+    """B1 and B4 at every page size class, against their plain versions:
+    rows of 600, 64, 7 and 2 slots (the 64-slot row's first 13 slots
+    masked: a shifted start, its live slots beginning mid-page) and a
+    dead pad row (B1: the mean of its null pages' V); B4 appends each
+    row's new token at its own slot, mid-page for most sizes."""
+    nb = -(-(max(PG_FILLS) + 1) // pg)
+    args = _decode_inputs(len(PG_FILLS) + 1, nb, pg, 16, 4, D, dtype,
+                          cuda_device, fills=PG_FILLS)
+    args[4][1, :13] = -1
+    got = decode_kernel.paged_decode_attention(*args, window=window)
+    want = ref.paged_decode_attention_ref(*args, window=window)
+    torch.cuda.synchronize()
+    assert torch.isfinite(got).all()
+    assert (got.float() - want.float()).abs().max().item() <= ATOL[dtype]
+    vp, bt = args[2], args[3]
+    mean_v = vp[bt[-1].long()].float().mean(dim=(0, 1))
+    mean_v = mean_v.repeat_interleave(4, dim=0)
+    assert (got[-1].float() - mean_v).abs().max().item() <= ATOL[dtype]
+
+    args = _fused_decode_inputs(4, nb, pg, 16, 4, D, [599, 64, 5, 0], dtype,
+                                cuda_device)
+    args[4][1, :13] = -1
+    kp, vp = args[7], args[8]
+    plain = args[:7] + [kp.clone(), vp.clone()]
+    got = fdecode_kernel.fused_rope_decode_append(*args, theta=THETA,
+                                                  window=window)
+    want = ref.fused_rope_decode_append_ref(*plain, theta=THETA,
+                                            window=window)
+    torch.cuda.synchronize()
+    assert torch.isfinite(got).all()
+    assert (got.float() - want.float()).abs().max().item() <= ATOL[dtype]
+    assert torch.equal(vp, plain[8])
+    assert _max_ulps(kp, plain[7]) <= 1
 
 
 def _write_inputs(B, T, pg, Hkv, D, start, dtype, device, seed=2):
@@ -272,6 +316,57 @@ def test_prefill_writes_hold_every_edge_case(cuda_device, dtype, pg, T, Hkv,
     assert torch.equal(va, vb)
     assert torch.equal(ka[~written], pool[~written])
     assert torch.equal(va[~written], pool[~written])
+    assert _max_ulps(ka[written], kb[written]) <= 1
+
+
+def _page_size_write_inputs(pg, D, dtype, device, seed=6):
+    """Rows of 600, 64, 7 and 2 valid tokens, left-padded to 600, then a
+    pad-only row; the 64-token row starts at position 3 * pg + 5 (a tail
+    past a shared prefix that ends mid-page, for pg > 5), the others at 0;
+    pages shuffled."""
+    rng = np.random.default_rng(seed)
+    T, Hkv = 600, 4
+    rows = [(600, 0), (64, 3 * pg + 5), (7, 0), (2, 0), (0, 0)]
+    positions = np.full((len(rows), T), -1, np.int32)
+    for b, (n, start) in enumerate(rows):
+        positions[b, T - n:] = np.arange(start, start + n)
+    nb = -(-max(n + s for n, s in rows) // pg) + 1
+    P = len(rows) * nb + 1
+    bt = rng.permutation(np.arange(1, P))[:len(rows) * nb].reshape(-1, nb)
+    floats = [torch.from_numpy(rng.standard_normal(shape)).to(
+        device=device, dtype=dtype) for shape in
+        ((len(rows), T, Hkv, D), (len(rows), T, Hkv, D), (P, pg, Hkv, D))]
+    ints = [torch.from_numpy(a.astype(np.int32)).to(device)
+            for a in (positions, bt)]
+    return floats[0], floats[1], ints[0], ints[1], floats[2]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("D", [64, 128])
+@pytest.mark.parametrize("pg", PAGE_SIZES)
+def test_prefill_writes_take_every_page_size(cuda_device, dtype, D, pg):
+    """B2 and B3 address each token by ``pos // pg`` and take any page
+    size: paged_prefill_write's pools bit-identical to the plain
+    version's, fused_rope_prefill_write's V bit-identical and K within one
+    unit in the last place; every slot no token names untouched."""
+    k_new, v_new, pos, bt, pool = _page_size_write_inputs(pg, D, dtype,
+                                                          cuda_device)
+    written = _written(pos, bt, pg, pool.shape[0])
+    ka, va, kb, vb = (pool.clone() for _ in range(4))
+    write_kernel.paged_prefill_write(k_new, v_new, pos, bt, ka, va)
+    ref.paged_prefill_write_ref(k_new, v_new, pos, bt, kb, vb)
+    torch.cuda.synchronize()
+    assert torch.equal(ka, kb) and torch.equal(va, vb)
+    assert torch.equal(ka[~written], pool[~written])
+
+    ka, va, kb, vb = (pool.clone() for _ in range(4))
+    fwrite_kernel.fused_rope_prefill_write(k_new, v_new, pos, bt, ka, va,
+                                           theta=THETA)
+    ref.fused_rope_prefill_write_ref(k_new, v_new, pos, bt, kb, vb,
+                                     theta=THETA)
+    torch.cuda.synchronize()
+    assert torch.equal(va, vb)
+    assert torch.equal(ka[~written], pool[~written])
     assert _max_ulps(ka[written], kb[written]) <= 1
 
 

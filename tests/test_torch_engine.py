@@ -6,11 +6,18 @@ and a prefix-sharing tail join, with ``attn_impl="unfused"`` and (for the
 retention and tail-join scenarios) ``"fused"``, whose streams must also
 equal the port's unfused engine's.  Tokens, ``n_valid``, ``finished``,
 ``steps``, re-prefill and prefix-hit counts must agree, and the allocator
-must return to its baseline."""
+must return to its baseline.  The scenarios run at pages of 8 slots, and
+the retention and tail-join scenarios of both engines again at pages of
+4 and 32 (``PAGE_SIZES``): on the card, the paged decode kernels look a
+page of 32 up once per 8 slots and a page of 4 once per slot."""
 import numpy as np
 import pytest
 
 from torch_port import assert_same_stream, prompts, shared_models
+
+
+#: the page sizes the retention and tail-join scenarios run at besides 8
+PAGE_SIZES = (4, 32)
 
 
 @pytest.fixture(scope="module")
@@ -63,10 +70,10 @@ def test_multi_slice_retention_zero_reprefill(models):
     check_multi_slice_retention(models)
 
 
-def check_multi_slice_retention(models, arch="llama3.2-1b"):
+def check_multi_slice_retention(models, arch="llama3.2-1b", page_tokens=8):
     """The retention scenario on ``models`` (the reduced ``arch``)."""
     jm, jp, tm, tp = models
-    jeng, teng = _engines(models)
+    jeng, teng = _engines(models, page_tokens=page_tokens)
     ps = prompts(tm.cfg.vocab_size, [7, 12, 4], seed=0)
     totals = [20, 9, 16]
     outs = [[] for _ in ps]
@@ -128,12 +135,19 @@ def test_prefix_sharing_tail_join(models):
     stage-A prefill and a resumed resident.  The engine counts the two
     stages apart: stage A attends through ``ops.flash_prefill`` (once per
     layer), the tail over its gathered pages."""
+    check_tail_join(models)
+
+
+def check_tail_join(models, pg=8):
+    """The tail-join scenario at pages of ``pg`` slots: the resident
+    prompt holds two whole pages and 5 tokens more."""
     from repro_torch.kernels import ops
     jm, jp, tm, tp = models
-    jeng, teng = _engines(models)
-    src, tail, fresh = prompts(tm.cfg.vocab_size, [21, 7, 11], seed=9)
+    jeng, teng = _engines(models, page_tokens=pg, pool_tokens=64 * pg)
+    src, tail, fresh = prompts(tm.cfg.vocab_size, [2 * pg + 5, 7, 11],
+                               seed=9)
     first, _ = _serve_both(jeng, teng, [src], 8, [1], forced_gen_lens=[24])
-    joiner = np.concatenate([src[:16], tail])
+    joiner = np.concatenate([src[:2 * pg], tail])
     teng.n_prefill_stages = teng.n_tail_prefill_stages = 0
     ops.reset_counts()
     want, got = _serve_both(jeng, teng, [src, joiner, fresh], 8, [1, 2, 3],
@@ -145,9 +159,21 @@ def test_prefix_sharing_tail_join(models):
     assert ops.plain_calls["flash_prefill"] == L
     assert ops.plain_calls["paged_prefill_write"] == 2 * L
     assert got.reprefill_tokens == 0
-    assert got.prefix_hit_tokens == 16 and got.shared_blocks == 2
+    assert got.prefix_hit_tokens == 2 * pg and got.shared_blocks == 2
     assert teng.allocator.shared_blocks == jeng.allocator.shared_blocks > 0
     _release_all(jeng, teng, [1, 2, 3])
+
+
+@pytest.mark.parametrize("pg", PAGE_SIZES)
+def test_multi_slice_retention_at_page_size(models, pg):
+    """The retention scenario at pages of ``pg`` slots."""
+    check_multi_slice_retention(models, page_tokens=pg)
+
+
+@pytest.mark.parametrize("pg", PAGE_SIZES)
+def test_prefix_sharing_tail_join_at_page_size(models, pg):
+    """The tail-join scenario at pages of ``pg`` slots."""
+    check_tail_join(models, pg)
 
 
 # ---------------------------------------------------------------------------
@@ -161,13 +187,14 @@ def test_fused_engine_multi_slice_matches_jax_fused_and_port_unfused(models):
     check_fused_multi_slice(models)
 
 
-def check_fused_multi_slice(models, arch="llama3.2-1b"):
+def check_fused_multi_slice(models, arch="llama3.2-1b", page_tokens=8):
     """The fused retention scenario on ``models`` (the reduced ``arch``)."""
     from repro_torch.engine.static_engine import StaticEngine
     jm, jp, tm, tp = models
-    jeng, teng = _engines(models, attn_impl="fused")
+    jeng, teng = _engines(models, attn_impl="fused", page_tokens=page_tokens)
     ueng = StaticEngine(tm, tp, eos_id=1, len_bucket=8, kv_layout="paged",
-                        page_tokens=8, kv_pool_tokens=512, device="cpu")
+                        page_tokens=page_tokens, kv_pool_tokens=512,
+                        device="cpu")
     ps = prompts(tm.cfg.vocab_size, [7, 12, 4], seed=0)
     totals = [20, 9, 16]
     outs = [[] for _ in ps]
@@ -192,15 +219,23 @@ def test_fused_engine_prefix_sharing_tail_join(models):
     """The tail join through the fused prefill write: stage A (fresh),
     stage A' (tail past two shared pages) and a resumed resident in one
     call, against the JAX fused engine and the port's unfused engine."""
+    check_fused_tail_join(models)
+
+
+def check_fused_tail_join(models, pg=8):
+    """The fused tail-join scenario at pages of ``pg`` slots."""
     from repro_torch.engine.static_engine import StaticEngine
     jm, jp, tm, tp = models
-    jeng, teng = _engines(models, attn_impl="fused")
+    jeng, teng = _engines(models, attn_impl="fused", page_tokens=pg,
+                          pool_tokens=64 * pg)
     ueng = StaticEngine(tm, tp, eos_id=1, len_bucket=8, kv_layout="paged",
-                        page_tokens=8, kv_pool_tokens=512, device="cpu")
-    src, tail, fresh = prompts(tm.cfg.vocab_size, [21, 7, 11], seed=9)
+                        page_tokens=pg, kv_pool_tokens=64 * pg,
+                        device="cpu")
+    src, tail, fresh = prompts(tm.cfg.vocab_size, [2 * pg + 5, 7, 11],
+                               seed=9)
     first, _ = _serve_both(jeng, teng, [src], 8, [1], forced_gen_lens=[24])
     ueng.serve_batch_paged([src], 8, [1], forced_gen_lens=[24])
-    joiner = np.concatenate([src[:16], tail])
+    joiner = np.concatenate([src[:2 * pg], tail])
     batch = [src, joiner, fresh]
     kw = dict(forced_gen_lens=[16, 12, 12],
               already_generated=[first.results[0]["tokens"], [], []])
@@ -208,5 +243,18 @@ def test_fused_engine_prefix_sharing_tail_join(models):
     _assert_same_result(ueng.serve_batch_paged(batch, 8, [1, 2, 3], **kw),
                         got, batch)
     assert got.reprefill_tokens == 0
-    assert got.prefix_hit_tokens == 16 and got.shared_blocks == 2
+    assert got.prefix_hit_tokens == 2 * pg and got.shared_blocks == 2
     _release_all(jeng, teng, [1, 2, 3])
+
+
+@pytest.mark.parametrize("pg", PAGE_SIZES)
+def test_fused_engine_multi_slice_at_page_size(models, pg):
+    """The fused retention scenario at pages of ``pg`` slots, against the
+    JAX fused engine and the port's unfused engine."""
+    check_fused_multi_slice(models, page_tokens=pg)
+
+
+@pytest.mark.parametrize("pg", PAGE_SIZES)
+def test_fused_engine_prefix_sharing_tail_join_at_page_size(models, pg):
+    """The fused tail-join scenario at pages of ``pg`` slots."""
+    check_fused_tail_join(models, pg)

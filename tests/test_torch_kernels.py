@@ -62,6 +62,12 @@ def _torch(*arrays):
     (3, 3, 8, 6, 2, 16),    # non-pow2 batch
     (2, 4, 16, 8, 2, 32),   # the reduced llama3.2-1b heads
     (3, 3, 16, 8, 1, 256),  # gemma-2b's heads: MQA 8/1 at head_dim 256
+    # page sizes the card's kernel takes on its own paths: one lookup per
+    # 8 slots (32), one per slot (1, 4, 12)
+    (3, 2, 32, 8, 2, 32),
+    (2, 9, 4, 8, 2, 32),
+    (3, 4, 12, 6, 2, 16),
+    (2, 20, 1, 4, 2, 16),
 ])
 @pytest.mark.parametrize("window", [None, 6])
 def test_paged_decode_attention_plain_matches_jax(B, nb, pg, Hq, Hkv, D,
@@ -161,6 +167,34 @@ def test_dispatch_counts_plain_calls_and_no_kernel_launch_on_cpu():
     assert ops.launches() == dict.fromkeys(ops.plain_calls, 0)
     ops.reset_counts()
     assert not any(ops.plain_calls.values())
+
+
+def test_counts_lose_no_increment_across_threads(monkeypatch):
+    """Several serving instances' event loops count on one process's
+    counters from their own threads.  The counts here yield the
+    interpreter between an increment's read and its write, so 8 threads
+    of 500 counted calls each lose increments unless the count is taken
+    under the lock."""
+    import threading
+    import time
+
+    class YieldingCounts(dict):
+        def __setitem__(self, key, value):
+            time.sleep(0)  # another thread may run between read and write
+            super().__setitem__(key, value)
+
+    counts = YieldingCounts((k, 0) for k in ops.plain_calls)
+    monkeypatch.setattr(ops, "plain_calls", counts)
+    t = torch.zeros(1)
+    threads = [threading.Thread(target=lambda: [
+        ops._on_cpu(t, "paged_decode_attention") for _ in range(500)])
+        for _ in range(8)]
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join(timeout=60)
+    assert not any(th.is_alive() for th in threads)
+    assert counts["paged_decode_attention"] == 8 * 500
 
 
 def test_kernel_wrappers_refuse_cpu_tensors():

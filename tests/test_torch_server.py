@@ -11,6 +11,7 @@ import importlib
 import importlib.util
 import json
 import pathlib
+import time
 
 import numpy as np
 import pytest
@@ -154,15 +155,45 @@ def test_launcher_accepts_every_reference_flag():
         assert cfg.kv_layout == want_cfg.kv_layout
 
 
-def test_http_port_is_refused_explicitly(capsys):
-    """A set ``http_port`` never serves quietly without its front end:
-    building a server and the launcher both raise, naming ROADMAP A8."""
+def test_http_port_serves_healthz_and_drains():
+    """``serve.main`` with ``--http-port 0`` fronts the sim server with the
+    HTTP front end (``start_http``) for ``--duration`` seconds, answers
+    ``/healthz`` meanwhile, then drains and stops listening."""
+    import threading
+    import urllib.error
+    import urllib.request
     from repro_torch.launch import serve
-    cfg = _serving("repro_torch").ServingConfig(http_port=0)
-    with pytest.raises(NotImplementedError, match="ROADMAP A8"):
-        cfg.build_sim()
-    with pytest.raises(NotImplementedError, match="HTTP"):
-        serve.main(["--backend", "sim", "--http-port", "8000"])
+    fronts, out = [], {}
+    start = serve.start_http
+
+    def recorded(*a, **kw):
+        front = start(*a, **kw)
+        fronts.append(front)
+        return front
+
+    def run():
+        out["metrics"] = serve.main(["--backend", "sim", "--http-port", "0",
+                                     "--duration", "1"])
+
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(serve, "start_http", recorded)
+        t = threading.Thread(target=run, daemon=True)
+        t.start()
+        for _ in range(500):
+            if fronts or not t.is_alive():
+                break
+            time.sleep(0.01)
+        assert fronts, "the launcher never started its front end"
+        url = fronts[0].url
+        with urllib.request.urlopen(url + "/healthz", timeout=30) as resp:
+            snap = json.loads(resp.read())
+        assert snap["status"] == "ok" and snap["model"] == "scls-sim"
+        assert snap["backend"] == "SimBackend"
+        t.join(timeout=60)
+    assert not t.is_alive()
+    assert out["metrics"].n_requests == 0
+    with pytest.raises(urllib.error.URLError):
+        urllib.request.urlopen(url + "/healthz", timeout=5)
 
 
 # ---------------------------------------------------------------------------
