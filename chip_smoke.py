@@ -44,6 +44,12 @@ fails (nothing is caught):
    over 4 rings of one window (3 wrapped, 1 empty); paged_decode_attention
    and fused_rope_decode_append also at pages of 32 and 4 slots
    (``PAGE_SIZES_TIMED``: looked up once per 8 slots, and once per slot);
+   then at the frontend families' heads (``check_frontend_heads``):
+   flash_prefill with paligemma-3b's bidirectional prefix of 256 before
+   128 text slots (8 rows, MQA 8/1, head_dim 256) and as
+   seamless-m4t-large-v2's encoder (8 rows of 1024 frames, some invalid,
+   16/16, head_dim 64, prefix_len 1024), decode_attention as seamless's
+   cross-attention over those frames, each also beside its plain version;
 4. reference (run by each transformer slice, phases 5-7 and 13-15, before
    it serves): on a small input, the slice's served path (through its
    kernels) is held against the plain full forward of the same model on
@@ -70,8 +76,10 @@ fails (nothing is caught):
 4c. config parity: the reduced float32 mamba2-130m (per-head parameters
    drawn apart), codeqwen1.5-7b (QKV biases drawn apart), minitron-4b and
    gemma-2b, and gemma-2b at head_dim 256, mixtral-8x22b,
-   deepseek-v2-lite-16b and recurrentgemma-9b (RG-LRU channels drawn
-   apart), and the two MoE configs again at their full configs' capacity
+   deepseek-v2-lite-16b, recurrentgemma-9b (RG-LRU channels drawn
+   apart), seamless-m4t-large-v2 (norm gains drawn apart) and
+   paligemma-3b (both with seeded frontend embeddings, a dense engine
+   per slice over its batch's rows), and the two MoE configs again at their full configs' capacity
    factor, which drops routed choices on both devices, one set of
    weights on the card and on the CPU; the dense ``StaticEngine`` and,
    for the dense transformers, the paged unfused and fused ones give the
@@ -189,7 +197,24 @@ fails (nothing is caught):
    each session's pages given back, the router's count exact with no
    eviction, and the unfused kernels' launches, summed over the two
    instances' engines (the counts are taken under a lock: two event
-   loops run on two threads), once per layer per decode step / stage.
+   loops run on two threads), once per layer per decode step / stage;
+21. the frontend families (``run_frontend_family``), through the JAX
+   package's entry point for them, ``StaticEngine(model, params,
+   extra_inputs=...).serve_batch``, on dense SCLS (slices of 32, an engine
+   per slice over its batch's rows, prompt + generated re-prefilled):
+   paligemma-3b at full width and depth (18 layers, MQA 8/1, head_dim
+   256, 256 seeded patch embeddings a request, bidirectional in
+   flash_prefill) on 8 requests of 16-96 text tokens, and
+   seamless-m4t-large-v2 at full width and depth (24 + 24 layers, 16/16,
+   head_dim 64; the encoder re-runs at every prefill) on 8 requests of
+   256-1024 seeded frames and 2-8 decoder tokens, then one of 4096 frames
+   alone; each first held against its plain forward (phase 4) with a
+   control fault (the VLM with a causal prefix, the enc-dec model's
+   cross-attention ignoring ``src_valid``); every request gets its
+   forced tokens, and flash_prefill (with the prefix: the VLM's every
+   launch, the encoder's) and decode_attention (the enc-dec model's
+   cross-attention calls counted apart) launch as the stages and steps
+   imply.
 
 One function (``run_slice``) runs phases 5-7, 9, 13-15 and 17-19, each a
 ``SLICES`` entry (launcher arguments and path).
@@ -198,9 +223,11 @@ The last line of standard output is ``{"ok": true, "device": {...}}``; the
 line before it is the ``nvidia-smi`` reading and the one before that the
 per-kernel JSON (launches from each kernel's llama3.2-1b or mamba2-130m
 slice, phases 5 to 7 and 9, with every path's beside them, phases 13 to
-20 included, paged_decode_attention's at pg 32, the fleet's, as
-``pg32_launches`` and decode_attention's at group 16, recurrentgemma-9b's
-slice, as ``group16_launches``; times from phase 3).
+21 included, paged_decode_attention's at pg 32, the fleet's, as
+``pg32_launches``, decode_attention's at group 16, recurrentgemma-9b's
+slice, as ``group16_launches``, flash_prefill's with a prefix, phase
+21's, as ``prefix_launches`` and decode_attention's as cross-attention,
+the seamless slice's, as ``cross_launches``; times from phase 3).
 """
 from __future__ import annotations
 
@@ -941,10 +968,11 @@ def prefill_inputs(cfg, lengths, T: int, gen: torch.Generator):
 
 
 def time_prefill(kmod, q, k, v, pos, flush: torch.Tensor, label: str,
-                 window=None):
+                 window=None, prefix_len: int = 0):
     """(kernel ms, SDPA ms, bound ms, bound_by, shape) of flash_prefill on
-    these inputs, with ``window`` (none by default).  The library yardstick
-    is SDPA with the boolean mask (window and diagonal rule included) over
+    these inputs, with ``window`` (none by default) and ``prefix_len`` (a
+    bidirectional prefix; 0 by default).  The library yardstick is SDPA
+    with the boolean mask (window, prefix and diagonal rule included) over
     K/V expanded to the query heads beforehand."""
     B, T, Hq, D = q.shape
     Hkv = k.shape[2]
@@ -953,14 +981,16 @@ def time_prefill(kmod, q, k, v, pos, flush: torch.Tensor, label: str,
     mask = (pk >= 0) & (pk <= pq)
     if window is not None:
         mask = mask & (pq - pk < window)
+    if prefix_len:
+        mask = mask | ((pk >= 0) & (pk < prefix_len) & (pq >= 0))
     mask = mask | torch.eye(T, dtype=torch.bool, device=q.device)
     qt = q.transpose(1, 2).contiguous()
     kt = k.transpose(1, 2).repeat_interleave(G, dim=1).contiguous()
     vt = v.transpose(1, 2).repeat_interleave(G, dim=1).contiguous()
     sdpa = torch.nn.functional.scaled_dot_product_attention
-    t_kernel = time_ms(lambda: kmod.flash_prefill(q, k, v, pos,
-                                                  window=window), flush,
-                       label=f"flash_prefill {label} kernel")
+    t_kernel = time_ms(lambda: kmod.flash_prefill(
+        q, k, v, pos, window=window, prefix_len=prefix_len), flush,
+        label=f"flash_prefill {label} kernel")
     t_lib = time_ms(lambda: sdpa(qt, kt, vt, attn_mask=mask[:, None]), flush,
                     label=f"flash_prefill {label} SDPA")
     n_pairs = int(mask.sum())                       # (query, key) pairs
@@ -974,8 +1004,8 @@ def time_prefill(kmod, q, k, v, pos, flush: torch.Tensor, label: str,
         f"{t_lib:.4f} ms, bound {b_ms:.4f} ms ({b_by}; "
         f"{n_bytes / 1e6:.1f} MB, {n_flops / 1e9:.2f} GFLOP)")
     shape = dict(B=B, T=T, Hq=Hq, Hkv=Hkv, D=D, window=window,
-                 valid_tokens=int((pos >= 0).sum()), attended_pairs=n_pairs,
-                 gflop=n_flops / 1e9)
+                 prefix_len=prefix_len, valid_tokens=int((pos >= 0).sum()),
+                 attended_pairs=n_pairs, gflop=n_flops / 1e9)
     return t_kernel, t_lib, b_ms, b_by, shape
 
 
@@ -1096,10 +1126,10 @@ def time_dense_decode(kmod, args, flush: torch.Tensor, label: str,
 
 
 def hold_dense_decode(args, flush: torch.Tensor, label: str,
-                      window=None) -> dict:
-    """B6 on ``args`` (the last row empty) with ``window`` held against its
-    plain version and the empty row against the mean of its V, then timed
-    beside SDPA: the entry of ``shapes``."""
+                      window=None, empty_row: bool = True) -> dict:
+    """B6 on ``args`` (the last row empty where ``empty_row``) with
+    ``window`` held against its plain version and the empty row against
+    the mean of its V, then timed beside SDPA: the entry of ``shapes``."""
     from repro_torch.kernels import decode_attention as kmod
     from repro_torch.kernels import ref
     q, v_cache = args[0], args[2]
@@ -1109,7 +1139,8 @@ def hold_dense_decode(args, flush: torch.Tensor, label: str,
     torch.cuda.synchronize()
     e = (out.float() - want.float()).abs().max().item()
     mean_v = v_cache[-1].float().mean(dim=0).repeat_interleave(G, dim=0)
-    e_mean = (out[-1].float() - mean_v).abs().max().item()
+    e_mean = ((out[-1].float() - mean_v).abs().max().item() if empty_row
+              else 0.0)
     log(f"decode_attention {label}: max |kernel - plain| = {e:.3e}, "
         f"empty row vs the mean of its V {e_mean:.3e} (tolerance "
         f"{DECODE_TOL})")
@@ -1442,6 +1473,135 @@ def check_window_heads(arch: str, rows: dict, flush: torch.Tensor) -> None:
         rows[name]["shapes"].append(entry)
         rows[name]["max_abs_err"] = max(rows[name]["max_abs_err"],
                                         entry["max_abs_err"])
+    release_cuda()
+
+
+#: phase 3 at the frontend families' heads (bf16): paligemma-3b's B5 over
+#: its prefix of 256 patches before 128 text slots, 8 rows whose text
+#: lengths these are (left-padded: the pads sit between prefix and text);
+#: seamless-m4t-large-v2's B5 as its encoder and its B6 as cross-attention
+#: over 8 rows of 1024 frames whose valid counts these are (the rest
+#: invalid, right-padded)
+FRONTEND_TEXT = (128, 97, 64, 120, 33, 80, 16, 101)
+FRONTEND_FRAMES = (1024, 1000, 900, 777, 640, 512, 400, 256)
+
+
+def prefix_prefill_inputs(cfg, lens, T: int, gen: torch.Generator):
+    """bf16 q, k, v and positions of a VLM prefill: the prefix of
+    ``cfg.n_prefix_tokens`` at positions 0..P-1, then each row's left pads
+    and ``lens[b]`` text tokens at P.., as ``transformer.prefill`` lays
+    them out."""
+    from repro_torch.models.transformer import make_positions
+    dev = torch.device("cuda")
+    B, P = len(lens), cfg.n_prefix_tokens
+    text = make_positions(torch.zeros((B, T), dtype=torch.int32, device=dev),
+                          torch.tensor(lens, device=dev))
+    prefix = torch.arange(P, dtype=torch.int32, device=dev)[None].expand(B, P)
+    positions = torch.cat([prefix, torch.where(text >= 0, text + P, -1)],
+                          dim=1).to(torch.int32)
+    N = P + T
+    q, k, v = (torch.randn(sh, generator=gen, device=dev).to(cfg.dtype)
+               for sh in ((B, N, cfg.n_heads, cfg.head_dim),
+                          (B, N, cfg.n_kv_heads, cfg.head_dim),
+                          (B, N, cfg.n_kv_heads, cfg.head_dim)))
+    return q, k, v, positions
+
+
+def frame_valid(frames, S: int) -> torch.Tensor:
+    """(B, S) bool on the card: row b's first ``frames[b]`` frames valid."""
+    dev = torch.device("cuda")
+    return (torch.arange(S, device=dev)[None]
+            < torch.tensor(frames, device=dev)[:, None])
+
+
+def encoder_inputs(cfg, frames, S: int, gen: torch.Generator):
+    """bf16 q, k, v of the encoder's self-attention over S frames and its
+    masking positions ``where(valid, arange, -1)`` (``encdec.encode``)."""
+    valid = frame_valid(frames, S)
+    pos = torch.where(valid, torch.arange(S, device=valid.device)[None],
+                      -1).to(torch.int32)
+    B = len(frames)
+    q, k, v = (torch.randn((B, S, h, cfg.head_dim), generator=gen,
+                           device=valid.device).to(cfg.dtype)
+               for h in (cfg.n_heads, cfg.n_kv_heads, cfg.n_kv_heads))
+    return q, k, v, pos
+
+
+def hold_prefix_prefill(args, prefix_len: int, flush: torch.Tensor,
+                        label: str) -> dict:
+    """B5 with ``prefix_len`` on ``args`` (q, k, v, positions) held against
+    its plain version (finite, within ``DECODE_TOL``), then timed beside
+    SDPA under the same boolean mask and beside its plain version, with
+    its bound: the entry of ``shapes``."""
+    from repro_torch.kernels import flash_prefill as kmod
+    from repro_torch.kernels import ref
+    out = kmod.flash_prefill(*args, prefix_len=prefix_len)
+    want = ref.flash_prefill_ref(*args, prefix_len=prefix_len)
+    torch.cuda.synchronize()
+    e = (out.float() - want.float()).abs().max().item()
+    finite = bool(torch.isfinite(out).all())
+    log(f"flash_prefill {label}: max |kernel - plain| = {e:.3e} "
+        f"(tolerance {DECODE_TOL}), finite {finite}")
+    if not (finite and e <= DECODE_TOL):
+        raise SystemExit(f"flash_prefill {label} disagrees with its "
+                         f"plain version")
+    del out, want
+    t_kernel, t_lib, b_ms, b_by, shape = time_prefill(
+        kmod, *args, flush, label, prefix_len=prefix_len)
+    t_plain = time_ms(lambda: ref.flash_prefill_ref(
+        *args, prefix_len=prefix_len), flush, iters=10,
+        label=f"flash_prefill {label} plain")
+    log(f"flash_prefill {label}: plain {t_plain:.4f} ms")
+    return dict(shape=label, ms=t_kernel, library_ms=t_lib,
+                plain_ms=t_plain, bound_ms=b_ms, bound_by=b_by,
+                max_abs_err=e, **shape)
+
+
+def check_frontend_heads(rows: dict, flush: torch.Tensor) -> None:
+    """Phase 3 at the frontend families' heads (bf16): flash_prefill with
+    paligemma-3b's prefix of 256 before 128 text slots (8 x 384, MQA 8/1,
+    head_dim 256), and as seamless-m4t-large-v2's encoder (8 x 1024 frames
+    of ``FRONTEND_FRAMES`` valid, 16/16, head_dim 64, prefix_len 1024);
+    decode_attention as seamless's cross-attention over those frames
+    (slot_pos 0 / -1, q_pos 0; no row empty).  Each held against its
+    plain version within ``DECODE_TOL`` and timed beside SDPA under the
+    same mask and beside its plain version, with its bound; the entries go
+    to the rows' ``shapes``, labelled "<arch> heads"."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ref
+    from repro_torch.models import attention as attn
+    vlm, ed = get_config("paligemma-3b"), get_config("seamless-m4t-large-v2")
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(4)
+    P, T = vlm.n_prefix_tokens, max(FRONTEND_TEXT)
+    S = max(FRONTEND_FRAMES)
+    entries = [("flash_prefill", hold_prefix_prefill(
+        prefix_prefill_inputs(vlm, FRONTEND_TEXT, T, gen), P, flush,
+        f"paligemma-3b heads 8x{P + T} prefix {P}"))]
+    release_cuda()
+    entries.append(("flash_prefill", hold_prefix_prefill(
+        encoder_inputs(ed, FRONTEND_FRAMES, S, gen), S, flush,
+        f"seamless-m4t-large-v2 heads 8x{S} encoder")))
+    release_cuda()
+    valid = frame_valid(FRONTEND_FRAMES, S)
+    B = len(FRONTEND_FRAMES)
+    args = (torch.randn((B, ed.n_heads, ed.head_dim), generator=gen,
+                        device="cuda").to(ed.dtype),
+            *(torch.randn((B, S, ed.n_kv_heads, ed.head_dim), generator=gen,
+                          device="cuda").to(ed.dtype) for _ in range(2)),
+            attn.cross_slot_pos(valid),
+            torch.zeros((B,), dtype=torch.int32, device="cuda"))
+    label = f"seamless-m4t-large-v2 heads 8x{S} cross-attention"
+    entry = hold_dense_decode(args, flush, label, empty_row=False)
+    entry["plain_ms"] = time_ms(lambda: ref.decode_attention_ref(*args),
+                                flush, label=f"decode_attention {label} "
+                                f"plain")
+    entries.append(("decode_attention", entry))
+    for name, entry in entries:
+        rows[name]["shapes"].append(entry)
+        rows[name]["max_abs_err"] = max(rows[name]["max_abs_err"],
+                                        entry["max_abs_err"])
+    del args
     release_cuda()
 
 
@@ -1903,7 +2063,8 @@ def check_ils_parity() -> None:
 CONFIG_PARITY = (("mamba2-130m", None), ("codeqwen1.5-7b", None),
                  ("minitron-4b", None), ("gemma-2b", None), ("gemma-2b", 256),
                  ("mixtral-8x22b", None), ("deepseek-v2-lite-16b", None),
-                 ("recurrentgemma-9b", None))
+                 ("recurrentgemma-9b", None), ("seamless-m4t-large-v2", None),
+                 ("paligemma-3b", None))
 #: the MoE configs of phase 4c once more at their full configs' capacity
 #: factor (1.25), at which the reduced engines drop routed choices
 SERVED_CAPACITY_PARITY = ("mixtral-8x22b", "deepseek-v2-lite-16b")
@@ -1913,9 +2074,19 @@ def perturb(params, cfg) -> None:
     """Draw apart, from a seeded generator, the parameters that the
     initialiser makes alike, as the CPU tests' shared weights do: the QKV
     biases (zero at init), Mamba-2's A_log, dt_bias, D and conv_b (alike
-    per head and channel) and the RG-LRU's lambda and conv_b (alike per
-    channel)."""
+    per head and channel), the RG-LRU's lambda and conv_b (alike per
+    channel) and the encoder-decoder's norm gains (all zero at init)."""
     g = torch.Generator().manual_seed(5)
+    if cfg.family == "encdec":
+        gains = [params.ln_enc, params.ln_f]
+        gains += [w for layer in params.enc_layers
+                  for w in (layer.ln_attn, layer.ln_mlp)]
+        gains += [w for layer in params.dec_layers
+                  for w in (layer.ln_self, layer.ln_cross, layer.ln_mlp)]
+        with torch.no_grad():
+            for w in gains:
+                w.copy_(0.3 * torch.randn(w.shape, generator=g))
+        return
     if cfg.family == "hybrid":
         blocks = [rp for grp in params.groups for rp in grp.rec]
         blocks += list(params.tail)
@@ -1938,6 +2109,26 @@ def perturb(params, cfg) -> None:
                 p.copy_(loc + scale * torch.randn(p.shape, generator=g))
 
 
+def frontend_extra(cfg, n: int, rng, frames=None) -> dict:
+    """The frontend stubs' inputs of ``n`` requests (numpy, float32
+    embeddings N(0, 1) from ``rng``): a VLM's ``prefix_embeds`` (n, P, d);
+    an encoder-decoder's ``src_embeds`` (n, S, d) and ``src_valid`` (row b's
+    first ``frames[b]`` frames of S = max(frames); frames drawn from 4..24
+    where not given); {} for the token-only families."""
+    import numpy as np
+    if cfg.family == "vlm":
+        return {"prefix_embeds": rng.standard_normal(
+            (n, cfg.n_prefix_tokens, cfg.d_model)).astype(np.float32)}
+    if cfg.family != "encdec":
+        return {}
+    frames = (np.asarray(frames) if frames is not None
+              else rng.integers(4, 25, size=n))
+    S = int(frames.max())
+    return {"src_embeds": rng.standard_normal(
+                (n, S, cfg.d_model)).astype(np.float32),
+            "src_valid": np.arange(S)[None] < frames[:, None]}
+
+
 def check_config_parity(arch: str, head_dim=None,
                         served_capacity: bool = False) -> dict:
     """The reduced float32 ``arch`` (its head_dim replaced where given; an
@@ -1946,7 +2137,9 @@ def check_config_parity(arch: str, head_dim=None,
     (``perturb``) on the card and on the CPU: the dense ``StaticEngine``,
     and for a dense transformer the paged unfused and fused ones, each
     serve the same prompts over two slices (the dense one re-prefills the
-    second, the paged ones resume their pages).  On the card each runs its
+    second, the paged ones resume their pages).  The VLM and the
+    encoder-decoder take seeded frontend inputs (``frontend_extra``), and
+    each slice builds its dense engines over its batch's rows of them.  On the card each runs its
     path's kernels once per layer per prefill stage / decode step (two
     stages dense, one paged) and nothing else, on the CPU their plain
     versions as often; the streams must equal the CPU's but for recorded
@@ -1976,11 +2169,14 @@ def check_config_parity(arch: str, head_dim=None,
     perturb(cpu, model.cfg)
     card = model.init(0, device="cuda")
     card.load_state_dict(cpu.state_dict())
-    ref_logits = prefill_logits(model, cpu)
     rng = np.random.default_rng(8)
     ps = [rng.integers(2, model.cfg.vocab_size, size=n).astype(np.int32)
           for n in (5, 13, 9, 40, 3, 21)]
     forced = [12, 3, 12, 9, 12, 5]
+    extra = frontend_extra(model.cfg, len(ps), rng)
+    ref_logits = [prefill_logits(model, cpu, {k: v[i:i + 1]
+                                              for k, v in extra.items()})
+                  for i in range(len(ps))]
     L = kernel_layers(model.cfg)
     paged = dict(kv_layout="paged", page_tokens=8, kv_pool_tokens=512)
     family = model.cfg.family
@@ -1991,23 +2187,34 @@ def check_config_parity(arch: str, head_dim=None,
               ("unfused", paged, PATH_KERNELS["unfused"]),
               ("fused", dict(paged, attn_impl="fused"), FUSED)))
     ties, result = [], {}
+    stat_names = ("n_prefill_stages", "n_tail_prefill_stages",
+                  "n_decode_steps")
     for path, kw, used in paths:
-        engines = {name: StaticEngine(model, params, eos_id=1, len_bucket=8,
-                                      device=dev, **kw)
-                   for name, params, dev in (("cpu", cpu, "cpu"),
-                                             ("card", card, "cuda"))}
-        outs = {dev: [[] for _ in ps] for dev in engines}
+        def build(idx):
+            """CPU and card engines (over the rows ``idx`` of ``extra``)."""
+            rows = {k: v[idx] for k, v in extra.items()} or None
+            return {name: StaticEngine(model, params, eos_id=1,
+                                       len_bucket=8, extra_inputs=rows,
+                                       device=dev, **kw)
+                    for name, params, dev in (("cpu", cpu, "cpu"),
+                                              ("card", card, "cuda"))}
+        engines = None if extra else build(None)
+        outs = {dev: [[] for _ in ps] for dev in ("cpu", "card")}
         counts = dict(prefix_hit_tokens=0, reprefill_tokens=0)
+        stats = dict.fromkeys(stat_names, 0)  # the card engines', summed
         ops.reset_counts()
         with mock.patch.object(moe, "_dispatch", counting):
             for _ in range(2):
                 idx = [i for i in range(len(ps))
                        if len(outs["cpu"][i]) < forced[i]]
+                if extra:
+                    engines = build(idx)
                 skw = dict(forced_gen_lens=[forced[i] - len(outs["cpu"][i])
                                             for i in idx],
                            already_generated=[outs["cpu"][i] for i in idx])
                 for dev, eng in engines.items():
                     batch = [ps[i] for i in idx]
+                    before = {k: getattr(eng, k) for k in stat_names}
                     res = (eng.serve_batch(batch, 8, **skw)
                            if path == "dense"
                            else eng.serve_batch_paged(batch, 8, idx, **skw))
@@ -2017,27 +2224,29 @@ def check_config_parity(arch: str, head_dim=None,
                     if dev == "card":
                         for k in counts:
                             counts[k] += getattr(res, k)
+                        for k in stat_names:
+                            stats[k] += getattr(eng, k) - before[k]
         torch.cuda.synchronize()
-        se = engines["card"]
         launches = ops.launches()
         label = f"{arch} {path} engine (reduced, card)"
         check_launches(label, dict(
-            n_layers=L, prefill_stages=se.n_prefill_stages,
-            tail_prefill_stages=se.n_tail_prefill_stages,
-            decode_steps=se.n_decode_steps, launches=launches,
+            n_layers=L, layers_by_kernel=kernel_layers_by_name(model.cfg),
+            prefill_stages=stats["n_prefill_stages"],
+            tail_prefill_stages=stats["n_tail_prefill_stages"],
+            decode_steps=stats["n_decode_steps"], launches=launches,
             n_completed=len(ps), n_requests=len(ps), **counts), used)
         stages = 2 if path == "dense" else 1
         if dict(ops.plain_calls) != launches or \
-                se.n_prefill_stages != stages:
+                stats["n_prefill_stages"] != stages:
             raise SystemExit(f"{label}: plain calls {ops.plain_calls} (the "
                              f"CPU engine's) != launches {launches}, or "
-                             f"{se.n_prefill_stages} prefill stages, not "
-                             f"{stages}")
+                             f"{stats['n_prefill_stages']} prefill stages, "
+                             f"not {stages}")
         for i, (p, a, b) in enumerate(zip(ps, outs["cpu"], outs["card"])):
             if len(a) != forced[i]:
                 raise SystemExit(f"{arch} {path}: request {i} ended at "
                                  f"{len(a)} of {forced[i]} tokens")
-            gap = stream_tie(ref_logits, p, a, b)
+            gap = stream_tie(ref_logits[i], p, a, b)
             if gap is not None:
                 ties.append(dict(path=path, request=i, gap=gap))
         result[path] = launches
@@ -2237,6 +2446,17 @@ def kernel_layers(cfg) -> int:
     return 0 if cfg.use_mla else cfg.n_layers
 
 
+def kernel_layers_by_name(cfg) -> dict:
+    """Launches a kernel makes per prefill stage / decode step where they
+    are not ``kernel_layers``: the encoder-decoder's flash_prefill runs in
+    every encoder and decoder layer, its decode_attention twice a decoder
+    layer (self-attention, then cross-attention over the frames)."""
+    if cfg.family != "encdec":
+        return {}
+    return {"flash_prefill": cfg.n_enc_layers + cfg.n_dec_layers,
+            "decode_attention": 2 * cfg.n_dec_layers}
+
+
 def check_launches(label: str, summary: dict, used) -> None:
     """The kernels in ``used`` launched once per kernel layer
     (``kernel_layers``: ``n_layers`` in the summary) per prefill stage
@@ -2253,7 +2473,9 @@ def check_launches(label: str, summary: dict, used) -> None:
            "fused_rope_decode_append": summary["decode_steps"],
            "decode_attention": summary["decode_steps"]}
     launches = summary["launches"]
-    want = {k: n_layers * per[k] if k in used else 0 for k in launches}
+    layers = summary.get("layers_by_kernel", {})
+    want = {k: layers.get(k, n_layers) * per[k] if k in used else 0
+            for k in launches}
     if launches != want or any(launches[k] <= 0 for k in used):
         raise SystemExit(f"{label}: kernel launches {launches} != {want} "
                          f"implied by {summary['prefill_stages']} prefill "
@@ -3588,6 +3810,314 @@ def profile_window(engine, vocab: int) -> None:
         flush=True)
 
 
+# ---------------------------------------------------------------------------
+# phase 21: the frontend families through dense SCLS (extra_inputs)
+# ---------------------------------------------------------------------------
+#: the slice length of phase 21 (SCLS re-prefills at every reschedule)
+FRONTEND_SLICE_LEN = 32
+#: phase 21's requests per arch: prompt lengths, forced output lengths
+#: (rows end in different slices of 32), the source frames of each
+#: request (the encoder-decoder; right-padded to the longest in a batch)
+#: and one more request served alone (frames, prompt, forced), the dry
+#: run's serving shape of 4096 frames
+FRONTEND_SERVE = {
+    "paligemma-3b": dict(
+        label="paligemma_slice", prompts=(16, 96, 40, 72, 25, 60, 88, 33),
+        forced=(16, 64, 40, 33, 24, 64, 50, 20)),
+    "seamless-m4t-large-v2": dict(
+        label="seamless_slice", prompts=(2, 8, 5, 3, 7, 4, 6, 2),
+        forced=(16, 96, 40, 70, 33, 64, 90, 25),
+        frames=(1024, 256, 700, 512, 900, 333, 640, 480),
+        alone=(4096, 4, 40))}
+#: phase 21's reference check: left-padded prompt lengths (and the
+#: encoder-decoder's source frames, padded to the longest) and decode steps
+FRONTEND_CHECK = dict(lens=(40, 33, 17, 48), dec_lens=(8, 5, 2, 7),
+                      frames=(300, 256, 120, 40), steps=4)
+
+
+@contextlib.contextmanager
+def swapped(state: dict, key: str, value):
+    """Inside ``with``, ``state[key]`` is ``value``; the old one after."""
+    old = state[key]
+    state[key] = value
+    try:
+        yield
+    finally:
+        state[key] = old
+
+
+def check_vlm_logits(model, params) -> dict:
+    """Phase 4 for the VLM: one prefill of 4 left-padded text prompts
+    behind 256 seeded patch embeddings each, and 4 greedy decode steps,
+    through ``transformer.prefill`` / ``decode_step`` (flash_prefill with
+    the prefix, decode_attention), each step's last-token logits held
+    against ``transformer.forward`` of the same prefix and tokens (plain
+    torch attention under the prefix-LM mask, no cache) to ``REF_TOL``.
+    Control fault (``hold_logits``): ``causal_prefix``, the model served
+    with ``n_prefix_tokens`` 0, so its image prefix attends causally."""
+    import numpy as np
+    from repro_torch.models import transformer as tfm
+    cfg = model.cfg
+    dev = params.embed.table.device
+    lens, n_steps = FRONTEND_CHECK["lens"], FRONTEND_CHECK["steps"]
+    tokens, lengths = left_padded(cfg, lens, dev)
+    B, T = tokens.shape
+    pre = torch.from_numpy(frontend_extra(
+        cfg, B, np.random.default_rng(21))["prefix_embeds"]).to(dev)
+    P = pre.shape[1]
+    state = {"cfg": cfg}
+
+    def serve(cache_fault=None, fed=None) -> tuple:
+        """(each step's logits, the tokens fed): greedy, or ``fed``'s."""
+        c = state["cfg"]
+        logits, cache = tfm.prefill(params, c, tokens, lengths,
+                                    T + P + n_steps, prefix_embeds=pre)
+        out, toks = [logits], []
+        for step in range(n_steps):
+            cur = (fed[:, step].contiguous() if fed is not None
+                   else torch.argmax(out[-1].float(), -1).to(torch.int32))
+            toks.append(cur)
+            logits, cache = tfm.decode_step(params, c, cache, cur, step)
+            out.append(logits)
+        return out, torch.stack(toks, 1)
+
+    with torch.no_grad():
+        served, fed = serve()
+        seq = torch.cat([tokens, fed], dim=1)
+        text = tfm.make_positions(seq, lengths + n_steps)
+        pos = torch.cat([torch.arange(P, dtype=torch.int32,
+                                      device=dev)[None].expand(B, P),
+                         torch.where(text >= 0, text + P, -1)],
+                        dim=1).to(torch.int32)
+        full = tfm.forward(params, cfg, seq, pos, prefix_embeds=pre)
+        refs = [full[:, P + T - 1 + j].float() for j in range(n_steps + 1)]
+        del full
+    faults = {"causal_prefix": (swapped(state, "cfg", cfg.replace(
+        n_prefix_tokens=0)), None)}
+    return hold_logits(
+        f"{cfg.name} (prefix {P})", served, refs,
+        lambda cache_fault: serve(cache_fault, fed)[0], faults, REF_TOL,
+        f"prefill ({B} rows of a {P}-patch prefix and up to {T} text "
+        f"tokens) + {n_steps} decode steps")
+
+
+def check_encdec_logits(model, params) -> dict:
+    """Phase 4 for the encoder-decoder: one prefill of 4 left-padded
+    decoder prompts over sources of ``FRONTEND_CHECK["frames"]`` valid
+    frames (right-padded with invalid, still random, frames), and 4 greedy
+    decode steps, through ``encdec.prefill`` / ``decode_step`` (the
+    encoder and decoder self-attention on flash_prefill, decode_attention
+    for self- and cross-attention), each step's last-token logits held
+    against ``encdec.forward`` (plain torch, no cache) of each row alone,
+    its own source and unpadded tokens, to ``REF_TOL``.  Control fault
+    (``hold_logits``): ``cross_mask``, cross-attention that ignores
+    ``src_valid`` (every frame seen, at prefill and at decode)."""
+    import numpy as np
+    from repro_torch.models import attention as attn
+    from repro_torch.models import encdec
+    cfg = model.cfg
+    dev = params.embed.table.device
+    lens, n_steps = FRONTEND_CHECK["dec_lens"], FRONTEND_CHECK["steps"]
+    tokens, lengths = left_padded(cfg, lens, dev)
+    B, T = tokens.shape
+    src = {k: torch.from_numpy(v).to(dev) for k, v in frontend_extra(
+        cfg, B, np.random.default_rng(22), FRONTEND_CHECK["frames"]).items()}
+
+    def serve(cache_fault=None, fed=None) -> tuple:
+        logits, cache = model.prefill(params, dict(
+            tokens=tokens, lengths=lengths, **src), T + n_steps)
+        out, toks = [logits], []
+        for step in range(n_steps):
+            cur = (fed[:, step].contiguous() if fed is not None
+                   else torch.argmax(out[-1].float(), -1).to(torch.int32))
+            toks.append(cur)
+            logits, cache = model.decode_step(params, cache, cur, step)
+            out.append(logits)
+        return out, torch.stack(toks, 1)
+
+    with torch.no_grad():
+        served, fed = serve()
+        seq = torch.cat([tokens, fed], dim=1)
+        rows = []
+        for b, n in enumerate(lens):
+            full = encdec.forward(params, cfg, src["src_embeds"][b:b + 1],
+                                  seq[b:b + 1, T - n:],
+                                  src["src_valid"][b:b + 1])
+            rows.append(full[0, n - 1:].float())
+            del full
+        refs = [torch.stack([r[j] for r in rows]) for j in range(n_steps + 1)]
+    cross = encdec._cross_attend
+
+    @contextlib.contextmanager
+    def ignoring_src_valid():
+        with mock.patch.object(
+                encdec, "_cross_attend", lambda layer, x, ck, cv, valid, c:
+                cross(layer, x, ck, cv, torch.ones_like(valid), c)), \
+                mock.patch.object(attn, "cross_slot_pos", lambda valid:
+                                  torch.zeros(valid.shape, dtype=torch.int32,
+                                              device=valid.device)):
+            yield
+
+    faults = {"cross_mask": (ignoring_src_valid(), None)}
+    return hold_logits(
+        f"{cfg.name} (frames {list(FRONTEND_CHECK['frames'])})", served,
+        refs, lambda cache_fault: serve(cache_fault, fed)[0], faults,
+        REF_TOL, f"encoder + prefill ({B} rows of up to {T} tokens) + "
+        f"{n_steps} decode steps")
+
+
+def serve_frontend(model, params, ps, forced, extra: dict,
+                   counts: dict) -> tuple:
+    """SCLS over slices of ``FRONTEND_SLICE_LEN`` through the JAX
+    package's entry point for these families, ``StaticEngine(model,
+    params, extra_inputs=...).serve_batch``: each slice batches the
+    unfinished requests, builds a dense engine over their rows of
+    ``extra`` and re-prefills prompt + generated (the encoder re-runs).
+    Adds the engines' prefill stages, decode steps, re-prefill tokens,
+    slices, wall seconds and decode-loop seconds (``time_engine``) to
+    ``counts``; returns the streams."""
+    from repro_torch.engine.static_engine import StaticEngine
+    outs = [[] for _ in ps]
+    while True:
+        idx = [i for i in range(len(ps)) if len(outs[i]) < forced[i]]
+        if not idx:
+            return outs
+        if counts["slices"] > 16:
+            raise SystemExit(f"{model.cfg.name}: requests unfinished after "
+                             f"{counts['slices']} slices")
+        eng = StaticEngine(model, params, eos_id=1, len_bucket=8,
+                           extra_inputs={k: v[idx] for k, v in extra.items()},
+                           device="cuda")
+        timer = time_engine(eng)
+        res = eng.serve_batch(
+            [ps[i] for i in idx], FRONTEND_SLICE_LEN,
+            forced_gen_lens=[forced[i] - len(outs[i]) for i in idx],
+            already_generated=[outs[i] for i in idx])
+        for s_, i in enumerate(idx):
+            outs[i] = outs[i] + res.results[s_]["tokens"]
+        counts["prefill_stages"] += eng.n_prefill_stages
+        counts["decode_steps"] += eng.n_decode_steps
+        counts["reprefill_tokens"] += res.reprefill_tokens
+        counts["slices"] += 1
+        counts["engine_s"] += res.wall_time
+        counts["decode_s"] += timer["decode_s"]
+
+
+def run_frontend_family(arch: str) -> dict:
+    """Phase 21 for ``arch`` (paligemma-3b or seamless-m4t-large-v2) at
+    full width and depth, bf16, random weights from a seeded
+    ``torch.Generator``: its served path held against its plain forward
+    with a control fault (``check_vlm_logits`` / ``check_encdec_logits``),
+    then ``FRONTEND_SERVE[arch]``'s requests with seeded frontend
+    embeddings through dense SCLS (``serve_frontend``), and the enc-dec
+    model's request of 4096 frames alone.  Every request must get its
+    forced tokens (ids in the vocabulary), re-prefill must be above 0,
+    and the kernels launch as the stages and steps imply: flash_prefill
+    once a layer per prefill stage (the enc-dec model's encoder layers
+    too, with its prefix), decode_attention once a layer per decode step
+    (twice a decoder layer in the enc-dec model: its cross-attention
+    calls counted apart), no plain version; the launches with a prefix
+    and the cross-attention launches must be above 0."""
+    import numpy as np
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import flash_prefill as pkmod
+    from repro_torch.kernels import ops
+    from repro_torch.models import attention as attn
+    from repro_torch.models.registry import get_model
+    cfg = get_config(arch)
+    spec = FRONTEND_SERVE[arch]
+    label = spec["label"]
+    t0 = time.perf_counter()
+    model = get_model(cfg)
+    params = model.init(0, device="cuda")
+    torch.cuda.synchronize()
+    t_build = time.perf_counter() - t0
+    weights_gib = sum(p.numel() * p.element_size()
+                      for p in params.parameters()) / 2 ** 30
+    log(f"{label}: {cfg.name} at full width and depth ({weights_gib:.2f} "
+        f"GiB of bf16 weights) built in {t_build:.1f} s")
+    held = (check_encdec_logits if cfg.family == "encdec"
+            else check_vlm_logits)(model, params)
+    release_cuda()
+    rng = np.random.default_rng(23)
+    ps = [rng.integers(2, cfg.vocab_size, size=n).astype(np.int32)
+          for n in spec["prompts"]]
+    jobs = [(ps, list(spec["forced"]),
+             frontend_extra(cfg, len(ps), rng, spec.get("frames")))]
+    if "alone" in spec:
+        frames, n_prompt, n_gen = spec["alone"]
+        jobs.append(([rng.integers(2, cfg.vocab_size, size=n_prompt)
+                      .astype(np.int32)], [n_gen],
+                     frontend_extra(cfg, 1, rng, [frames])))
+    counts = dict(prefill_stages=0, decode_steps=0, reprefill_tokens=0,
+                  slices=0, engine_s=0.0, decode_s=0.0)
+    cross = {"calls": 0}
+    cross_attend = attn.cross_decode_attend
+
+    def counted(*a, **kw):
+        cross["calls"] += 1  # each call on the card launches B6 once
+        return cross_attend(*a, **kw)
+
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_counts()
+    t0 = time.perf_counter()
+    with torch.no_grad(), mock.patch.object(attn, "cross_decode_attend",
+                                            counted):
+        outs = [serve_frontend(model, params, p, f, x, counts)
+                for p, f, x in jobs]
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches, prefix = ops.launches(), pkmod.prefix_launches
+    plain = dict(ops.plain_calls)
+    for (p, f, _), out in zip(jobs, outs):
+        for i, toks in enumerate(out):
+            if len(toks) != f[i] or not all(0 <= t < cfg.vocab_size
+                                            for t in toks):
+                raise SystemExit(f"{label}: request {i} of {len(p)} gave "
+                                 f"{len(toks)} of {f[i]} tokens, or ids "
+                                 f"outside the vocabulary")
+    stages, steps = counts["prefill_stages"], counts["decode_steps"]
+    if cfg.family == "encdec":
+        want = {"flash_prefill": (cfg.n_enc_layers + cfg.n_dec_layers)
+                * stages, "decode_attention": 2 * cfg.n_dec_layers * steps}
+        want_prefix = cfg.n_enc_layers * stages
+        want_cross = cfg.n_dec_layers * steps
+    else:
+        want = {"flash_prefill": cfg.n_layers * stages,
+                "decode_attention": cfg.n_layers * steps}
+        want_prefix, want_cross = cfg.n_layers * stages, 0
+    want = {k: want.get(k, 0) for k in launches}
+    n_req = sum(len(p) for p, _, _ in jobs)
+    summary = dict(arch=cfg.name, path="dense", n_requests=n_req,
+                   n_completed=n_req, build_s=t_build,
+                   weights_gib=weights_gib, wall_s=wall,
+                   decode_ms_per_step=counts["decode_s"] / max(
+                       counts["decode_steps"], 1) * 1e3,
+                   peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
+                   launches=launches, plain_calls=plain,
+                   prefix_launches=prefix, cross_launches=cross["calls"],
+                   prompt_tokens=sum(len(x) for p, _, _ in jobs for x in p),
+                   **counts, **held)
+    print(json.dumps({label: summary}), flush=True)
+    if launches != want or prefix != want_prefix or \
+            cross["calls"] != want_cross or any(plain.values()):
+        raise SystemExit(f"{label}: launches {launches} (with a prefix "
+                         f"{prefix}, cross-attention {cross['calls']}) != "
+                         f"{want} ({want_prefix}, {want_cross}) implied by "
+                         f"{stages} prefill stages and {steps} decode steps, "
+                         f"or plain versions ran: {plain}")
+    if counts["reprefill_tokens"] <= 0:
+        raise SystemExit(f"{label}: nothing re-prefilled over "
+                         f"{counts['slices']} slices")
+    log(f"{label}: {n_req}/{n_req} requests over {counts['slices']} slices "
+        f"of {FRONTEND_SLICE_LEN} in {wall:.1f} s, "
+        f"{summary['decode_ms_per_step']:.2f} ms a decode step, re-prefill "
+        f"{counts['reprefill_tokens']} tokens, launches {launches} as "
+        f"implied (with a prefix {prefix}, cross-attention "
+        f"{cross['calls']})")
+    return summary
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the card",
@@ -3638,6 +4168,7 @@ def main() -> int:
         check_config_heads(arch, names, by_name, flush)
     for arch in WINDOW_HEADS:
         check_window_heads(arch, by_name, flush)
+    check_frontend_heads(by_name, flush)
     del flush
     release_cuda()
     check_ils_parity()
@@ -3690,6 +4221,9 @@ def main() -> int:
         release_cuda()
     scls["fleet"] = run_fleet()  # phase 20
     release_cuda()
+    for arch, spec in FRONTEND_SERVE.items():  # phase 21
+        scls[spec["label"]] = run_frontend_family(arch)
+        release_cuda()
     # every control fault of phase 4 must have failed its slice's gate
     weak = {f"{label} {fault}": gap for label, sm in scls.items()
             for fault, gap in sm.get("controls", {}).items()
@@ -3718,6 +4252,16 @@ def main() -> int:
     if pg32 <= 0:
         raise SystemExit("paged_decode_attention never launched at pg 32")
     by_name["paged_decode_attention"]["pg32_launches"] = pg32
+    # B5 with a bidirectional prefix and B6 as cross-attention: phase 21
+    prefix = sum(scls[spec["label"]]["prefix_launches"]
+                 for spec in FRONTEND_SERVE.values())
+    cross = scls["seamless_slice"]["cross_launches"]
+    if prefix <= 0 or cross <= 0:
+        raise SystemExit(f"flash_prefill launched {prefix} times with a "
+                         f"prefix, decode_attention {cross} times as "
+                         f"cross-attention")
+    by_name["flash_prefill"]["prefix_launches"] = prefix
+    by_name["decode_attention"]["cross_launches"] = cross
     print(json.dumps({"kernels": rows}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

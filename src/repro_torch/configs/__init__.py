@@ -1,17 +1,19 @@
 """Architecture config registry: ``--arch <id>`` resolution.
 
-The port serves the dense llama3.2-1b, codeqwen1.5-7b, minitron-4b and
-gemma-2b, the Mamba-2 SSM mamba2-130m, the MoE mixtral-8x22b and
-deepseek-v2-lite-16b and the RG-LRU hybrid recurrentgemma-9b; the
-encoder-decoder and VLM families of ``repro.configs`` come with their
-model code.
+The port serves every config of ``repro.configs``: the dense
+llama3.2-1b, codeqwen1.5-7b, minitron-4b and gemma-2b, the Mamba-2 SSM
+mamba2-130m, the MoE mixtral-8x22b and deepseek-v2-lite-16b, the RG-LRU
+hybrid recurrentgemma-9b, the encoder-decoder seamless-m4t-large-v2 and
+the prefix-LM VLM paligemma-3b (these two take their frontends'
+embeddings as the engine's ``extra_inputs``, so the serve launcher
+refuses them, as the JAX one does).
 """
 from __future__ import annotations
 
 from repro_torch.configs import (codeqwen1_5_7b, deepseek_v2_lite_16b,
                                  gemma_2b, llama3_2_1b, mamba2_130m,
-                                 minitron_4b, mixtral_8x22b,
-                                 recurrentgemma_9b)
+                                 minitron_4b, mixtral_8x22b, paligemma_3b,
+                                 recurrentgemma_9b, seamless_m4t_large_v2)
 from repro_torch.models.common import ModelConfig
 
 _MODULES = {
@@ -23,6 +25,8 @@ _MODULES = {
     "deepseek-v2-lite-16b": deepseek_v2_lite_16b,
     "mixtral-8x22b": mixtral_8x22b,
     "recurrentgemma-9b": recurrentgemma_9b,
+    "seamless-m4t-large-v2": seamless_m4t_large_v2,
+    "paligemma-3b": paligemma_3b,
 }
 
 ARCHS = tuple(_MODULES)

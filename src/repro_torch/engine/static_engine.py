@@ -18,12 +18,25 @@ Dense layout (``serve_batch``, the default): each slice prefills prompt +
 (Eq. 5) and decodes in it; a rescheduled request re-prefills everything
 (the paper's §3.3 overhead, counted in ``ServeResult.reprefill_tokens``).
 It takes the model as it is, and its cache whatever its type
-(``KVCache``, ``MambaCache``, ``MoECache``, ``RGCache``): the dense
-transformer's prefill and decode go through the ``flash_prefill`` /
-``decode_attention`` kernels, as do mixtral-8x22b's and recurrentgemma-9b's
-attention layers, the Mamba-2 model's prefill through ``ssd_scan``;
-deepseek-v2-lite's MLA attention, every MoE dispatch and the RG-LRU scan
-are plain torch.  Only the dense family has a paged layout.
+(``KVCache``, ``MambaCache``, ``MoECache``, ``RGCache``, ``EncDecCache``):
+the dense transformer's prefill and decode go through the
+``flash_prefill`` / ``decode_attention`` kernels, as do mixtral-8x22b's
+and recurrentgemma-9b's attention layers, the VLM's (its image prefix
+bidirectional in ``flash_prefill``) and the encoder-decoder's encoder,
+decoder self-attention and cross-attention decode, the Mamba-2 model's
+prefill through ``ssd_scan``; deepseek-v2-lite's MLA attention, every MoE
+dispatch, the RG-LRU scan and the encoder-decoder's cross-attention at
+prefill are plain torch.  Only the dense family has a paged layout.
+
+``extra_inputs`` (dense layout only) are the frontend stubs' embeddings,
+one row per prompt of every batch the engine serves (``B_raw`` rows, or
+the bucketed ``B``; pad rows repeat the last): ``prefix_embeds`` (B, P, d)
+for the VLM, whose cache then holds ``L + P + slice_len`` slots, or
+``src_embeds`` (B, S, d) and ``src_valid`` (B, S) for the
+encoder-decoder, whose every prefill, a re-prefill included, re-runs the
+encoder (``reprefill_tokens`` counts decoder tokens only).  So a slice
+loop over a shrinking batch builds an engine per slice, over that
+batch's rows.
 
 Persistent paged storage (``kv_layout="paged"``, ``serve_batch_paged``):
 the engine owns a page pool and per-request page
@@ -107,11 +120,8 @@ class StaticEngine:
                  kv_pool_tokens: Optional[int] = None,
                  prefix_sharing: bool = True, attn_impl: str = "unfused",
                  device: DeviceLike = None):
-        if extra_inputs:
-            raise NotImplementedError(
-                "extra_inputs (the frontend embeddings of the VLM family) "
-                "are not ported yet: ROADMAP A8")
         check_impl(attn_impl)
+        self.extra_inputs = extra_inputs or {}
         if kv_layout not in ("dense", "paged"):
             raise ValueError(f"unknown kv_layout {kv_layout!r}")
         cfg = model.cfg
@@ -119,6 +129,9 @@ class StaticEngine:
             if cfg.family != "dense":
                 raise ValueError("persistent paged StaticEngine: dense "
                                  f"family only, got {cfg.family!r}")
+            if self.extra_inputs:
+                raise ValueError("persistent paged StaticEngine does not "
+                                 "take frontend extra_inputs")
             if kv_pool_tokens is None or kv_pool_tokens <= 0:
                 raise ValueError("kv_layout='paged' needs kv_pool_tokens "
                                  "(the engine-owned page pool size)")
@@ -234,13 +247,18 @@ class StaticEngine:
                                  step_fn)
 
     def _serve_dense(self, tokens: np.ndarray, lengths: np.ndarray,
-                     forced: np.ndarray, slice_len: int):
-        """Prefill into a dense cache of ``L + slice_len`` slots, then the
-        decode loop (the JAX ``_serve_fn``); returns (out, steps, done)."""
+                     forced: np.ndarray, slice_len: int,
+                     extra: Dict[str, np.ndarray]):
+        """Prefill into a dense cache of ``L + slice_len`` slots (``+ P``
+        for the VLM's prefix), then the decode loop (the JAX
+        ``_serve_fn``); returns (out, steps, done)."""
         batch = {"tokens": self._tensor(tokens),
-                 "lengths": self._tensor(lengths)}
-        logits, cache = self.model.prefill(self.params, batch,
-                                           tokens.shape[1] + slice_len)
+                 "lengths": self._tensor(lengths),
+                 **{k: self._tensor(v) for k, v in extra.items()}}
+        cache_window = tokens.shape[1] + slice_len
+        if self.model.cfg.family == "vlm" and "prefix_embeds" in extra:
+            cache_window += extra["prefix_embeds"].shape[1]
+        logits, cache = self.model.prefill(self.params, batch, cache_window)
         self.n_prefill_stages += 1
 
         def step_fn(cur: torch.Tensor, step: int) -> torch.Tensor:
@@ -526,9 +544,11 @@ class StaticEngine:
             tokens[i, L - len(e):] = e  # left padding
         lengths_p = np.concatenate([lengths, np.ones(B - B_raw, np.int32)])
         forced = self._forced_array(forced_gen_lens, B, B_raw)
+        extra = {k: self._pad_extra(v, B, B_raw)
+                 for k, v in self.extra_inputs.items()}
         t0 = time.perf_counter()
         out, steps, done = self._serve_dense(tokens, lengths_p, forced,
-                                             slice_len)
+                                             slice_len, extra)
         wall = time.perf_counter() - t0
         results = self._assemble_results(
             out, steps, done, forced_gen_lens,
@@ -537,6 +557,16 @@ class StaticEngine:
                            batch_input_len=L, batch_size=B_raw,
                            early_return=steps < slice_len,
                            reprefill_tokens=reprefill)
+
+    @staticmethod
+    def _pad_extra(v: np.ndarray, B: int, B_raw: int) -> np.ndarray:
+        """An extra input of ``B`` or ``B_raw`` rows as ``B`` rows: the
+        batch's pad rows repeat the last row."""
+        v = np.asarray(v)
+        if v.shape[0] == B:
+            return v
+        return np.concatenate([v, np.repeat(v[-1:], B - B_raw, axis=0)],
+                              axis=0)
 
     def _forced_array(self, forced_gen_lens: Optional[Sequence[int]],
                       B: int, B_raw: int) -> np.ndarray:

@@ -1,12 +1,19 @@
-// Causal, left-pad-masked GQA prefill attention for Hopper (sm_90a).
+// Causal, left-pad-masked GQA prefill attention for Hopper (sm_90a), with
+// an optional bidirectional prefix.
 //
 // Replaces the Pallas TPU kernel repro/kernels/flash_prefill.py
 // (flash_prefill, pallas_call at :96) and computes what
 // repro/kernels/ref.py:flash_prefill_ref computes: query token i of row b
 // and head j attends to key token k of the same row where
-//   (pk >= 0) & (pk <= pq) [& (pq - pk < window)]   or   i == k,
-// pq, pk the tokens' positions (pads < 0).  The diagonal rule keeps the
-// left pads' query rows finite: each takes exactly its own V.  Scores are
+//   (pk >= 0) & (pk <= pq) [& (pq - pk < window)]
+//   or (pk >= 0) & (pk < prefix_len) & (pq >= 0)   or   i == k,
+// pq, pk the tokens' positions (pads < 0).  The prefix term is the JAX
+// package's prefix-LM mask (repro/models/transformer.py:_mask_with_prefix:
+// a VLM's image tokens see each other both ways, and it overrides the
+// window); prefix_len 0 is the causal kernel.  The encoder of an
+// encoder-decoder model runs with prefix_len = T: every valid query sees
+// every valid key.  The diagonal rule keeps the pad query rows finite:
+// each takes exactly its own V.  Scores are
 // q . k * scale in float32 with masked scores at the oracle's finite
 // NEG_INF; the online softmax and the accumulator are float32; the output
 // is written in q's type.
@@ -55,13 +62,17 @@
 // Where the trouble lies, and what the kernels do:
 //  - Tile skipping: a K/V tile is skipped only when no key in it can be
 //    unmasked for any query of the block by position (pk >= 0, pk <= max pq,
-//    pk > min valid pq - window) AND the tile does not overlap the block's
-//    diagonal (by index): the pad rows' diagonal tile is always computed.
+//    pk > min valid pq - window; or pk < prefix_len in a block with a valid
+//    query: prefix keys above the diagonal are still read by the prefix's
+//    queries) AND the tile does not overlap the block's diagonal (by
+//    index): the pad rows' diagonal tile is always computed.
 //  - Masking only where needed (bf16): a tile whose keys all lie at
 //    positions >= 0, <= the block's smallest query position and inside the
 //    window of its largest, in a block without pad queries, is unmasked
 //    for every pair and takes no per-element mask; the others (the
 //    diagonal, pads, window edges) are masked pair by pair as the oracle.
+//    The test ignores the prefix: it stays conservative, since a prefix
+//    pair that it leaves to the masked path is unmasked there pair by pair.
 //  - Fully masked tiles: masked scores are the finite NEG_INF.  In float32
 //    a tile met while the running max is still NEG_INF adds weights that
 //    the first live key scales by exp(NEG_INF - m) = 0; in bf16 such keys
@@ -83,9 +94,20 @@ using paged::kMinusInf;
 using paged::kNegInf;
 
 __device__ __forceinline__ bool pair_live(int pk, int pq, int ki, int qi,
-                                          int window) {
-  return (pk >= 0 && pk <= pq && (window <= 0 || pq - pk < window)) ||
+                                          int window, int prefix_len) {
+  return (pk >= 0 && ((pk <= pq && (window <= 0 || pq - pk < window)) ||
+                      (pk < prefix_len && pq >= 0))) ||
          qi == ki;
+}
+
+// Whether key position pk may be unmasked for some query of a block whose
+// largest position is q_max and smallest valid one q_min (q_max < 0: the
+// block holds pads only).
+__device__ __forceinline__ bool key_maybe(int pk, int q_max, int q_min,
+                                          int window, int prefix_len) {
+  return pk >= 0 &&
+         ((pk <= q_max && (window <= 0 || pk > q_min - window)) ||
+          (pk < prefix_len && q_max >= 0));
 }
 
 // The largest position and the smallest valid (>= 0) one of the block's
@@ -117,13 +139,14 @@ __device__ __forceinline__ void query_span(const int32_t* pos_row, int q0,
 __device__ __forceinline__ bool tile_needed(const int32_t* pos_row, int k0,
                                             int n, int T_len, int q0,
                                             int q_end, int q_max, int q_min,
-                                            int window, int* pos_s) {
+                                            int window, int prefix_len,
+                                            int* pos_s) {
   int maybe = 0;
   if (threadIdx.x < n) {
     const int ki = k0 + threadIdx.x;
     const int pk = ki < T_len ? pos_row[ki] : -1;
     pos_s[threadIdx.x] = pk;
-    maybe = pk >= 0 && pk <= q_max && (window <= 0 || pk > q_min - window);
+    maybe = key_maybe(pk, q_max, q_min, window, prefix_len);
   }
   const int any = __syncthreads_or(maybe);  // every thread reaches it
   return any || (k0 < q_end && q0 < k0 + n);
@@ -149,7 +172,7 @@ __global__ void __launch_bounds__(kThreads) flash_prefill_kernel(
     const float* __restrict__ q, const float* __restrict__ k,
     const float* __restrict__ v, const int32_t* __restrict__ positions,
     float* __restrict__ out, int T_len, int Hq, int Hkv, int bq, int n_qt,
-    int window, float scale) {
+    int window, int prefix_len, float scale) {
   using Cfg = Tile<D>;
   constexpr int kTpr = Cfg::kTpr, kBK = Cfg::kBK;
   constexpr int kPerRow = D / 4;
@@ -197,7 +220,7 @@ __global__ void __launch_bounds__(kThreads) flash_prefill_kernel(
   for (int kt = 0; kt < n_kt; ++kt) {
     const int k0 = kt * kBK;
     if (!tile_needed(pos_row, k0, kBK, T_len, q0, q_end, q_max, q_min,
-                     window, pos_s))
+                     window, prefix_len, pos_s))
       continue;  // uniform
 
     for (int i = tid; i < kBK * kPerRow; i += kThreads) {
@@ -235,8 +258,9 @@ __global__ void __launch_bounds__(kThreads) flash_prefill_kernel(
         s[kk] += __shfl_xor_sync(kFull, s[kk], o);
       const int ki = k0 + kk;
       s[kk] = ki >= T_len ? kMinusInf
-              : (pair_live(pos_s[kk], pq, ki, qi, window) ? s[kk] * scale
-                                                          : kNegInf);
+              : (pair_live(pos_s[kk], pq, ki, qi, window, prefix_len)
+                     ? s[kk] * scale
+                     : kNegInf);
       mt = fmaxf(mt, s[kk]);
     }
     const float m_new = fmaxf(m, mt);
@@ -275,7 +299,7 @@ __global__ void __launch_bounds__(kThreads) flash_prefill_kernel(
 template <int D>
 int launch(const void* q, const void* k, const void* v, const void* positions,
            void* out, int B, int T_len, int Hq, int Hkv, int window,
-           float scale, cudaStream_t stream) {
+           int prefix_len, float scale, cudaStream_t stream) {
   const int bq = Tile<D>::kRows / (Hq / Hkv);  // query tokens per block
   const int n_qt = (T_len + bq - 1) / bq;
   const int64_t blocks = (int64_t)B * Hkv * n_qt;
@@ -284,7 +308,8 @@ int launch(const void* q, const void* k, const void* v, const void* positions,
   flash_prefill_kernel<D><<<static_cast<int>(blocks), kThreads, 0, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
       static_cast<const float*>(v), static_cast<const int32_t*>(positions),
-      static_cast<float*>(out), T_len, Hq, Hkv, bq, n_qt, window, scale);
+      static_cast<float*>(out), T_len, Hq, Hkv, bq, n_qt, window, prefix_len,
+      scale);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -560,7 +585,7 @@ __global__ void __launch_bounds__(kThreads, 1) flash_prefill_kernel(
     const __grid_constant__ CUtensorMap v_map,
     const int32_t* __restrict__ positions, __nv_bfloat16* __restrict__ out,
     int B, int T_len, int Hq, int Hkv, int bq, int n_qt, int window,
-    float scale) {
+    int prefix_len, float scale) {
   using C = Cfg<D>;
   extern __shared__ __align__(1024) uint8_t smem_raw[];
   // tiles at a 1024-byte boundary: the swizzle repeats every 8 rows
@@ -641,8 +666,7 @@ __global__ void __launch_bounds__(kThreads, 1) flash_prefill_kernel(
         for (int j = 0; j < kBK / 32; ++j) {
           const int ki = k0 + 32 * j + lane;
           pk[j] = ki < T_len ? pos_row[ki] : -1;
-          maybe |= pk[j] >= 0 && pk[j] <= q_max &&
-                   (window <= 0 || pk[j] > q_min - window);
+          maybe |= key_maybe(pk[j], q_max, q_min, window, prefix_len);
           live &= ki < T_len && pk[j] >= 0 && pk[j] <= q_min &&
                   (window <= 0 || pk[j] > q_max - window);
         }
@@ -772,7 +796,8 @@ __global__ void __launch_bounds__(kThreads, 1) flash_prefill_kernel(
 #pragma unroll
             for (int hh = 0; hh < 2; ++hh) {
               float& x = s[4 * j + 2 * hh + e];
-              x = ki < T_len && pair_live(pk, pq[hh], ki, qi[hh], window)
+              x = ki < T_len &&
+                          pair_live(pk, pq[hh], ki, qi[hh], window, prefix_len)
                       ? x
                       : kNegInf;
             }
@@ -935,7 +960,7 @@ int sm_count() {
 template <int D>
 int launch(const void* q, const void* k, const void* v, const void* positions,
            void* out, int B, int T_len, int Hq, int Hkv, int window,
-           float scale, cudaStream_t stream) {
+           int prefix_len, float scale, cudaStream_t stream) {
   const int G = Hq / Hkv;
   const int bq = kRows / G;  // query tokens per q tile
   const int n_qt = (T_len + bq - 1) / bq;
@@ -960,7 +985,7 @@ int launch(const void* q, const void* k, const void* v, const void* positions,
   flash_prefill_kernel<D><<<grid, kThreads, Cfg<D>::kBytes, stream>>>(
       q_map, k_map, v_map, static_cast<const int32_t*>(positions),
       static_cast<__nv_bfloat16*>(out), B, T_len, Hq, Hkv, bq, n_qt, window,
-      scale);
+      prefix_len, scale);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -969,13 +994,14 @@ int launch(const void* q, const void* k, const void* v, const void* positions,
 template <int D>
 int launch(int dtype, const void* q, const void* k, const void* v,
            const void* positions, void* out, int B, int T_len, int Hq,
-           int Hkv, int window, float scale, cudaStream_t stream) {
+           int Hkv, int window, int prefix_len, float scale,
+           cudaStream_t stream) {
   if (dtype == 0)
     return simt::launch<D>(q, k, v, positions, out, B, T_len, Hq, Hkv,
-                           window, scale, stream);
+                           window, prefix_len, scale, stream);
   if (dtype == 1)
     return tc::launch<D>(q, k, v, positions, out, B, T_len, Hq, Hkv, window,
-                         scale, stream);
+                         prefix_len, scale, stream);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
@@ -985,13 +1011,15 @@ int launch(int dtype, const void* q, const void* k, const void* v,
 // (B,T,Hq,D).  dtype 0 is float32, 1 is bfloat16; D in {32, 64, 128, 256};
 // Hq a multiple of Hkv with Hq / Hkv <= 64 (<= 8192 / D in float32); any
 // T >= 1; q, k, v and out 16-byte
-// aligned; window <= 0 means none.  Launches on `stream` and returns
+// aligned; window <= 0 means none; keys at positions [0, prefix_len) are
+// seen by every valid query (0: none).  Launches on `stream` and returns
 // cudaGetLastError(), or cudaErrorInvalidValue for a shape the kernel does
 // not take.
 extern "C" int flash_prefill_launch(int dtype, const void* q, const void* k,
                                     const void* v, const void* positions,
                                     void* out, int B, int T_len, int Hq,
-                                    int Hkv, int D, int window, float scale,
+                                    int Hkv, int D, int window,
+                                    int prefix_len, float scale,
                                     void* stream) {
   if (B == 0 || T_len == 0 || Hkv == 0) return 0;
   if (Hq % Hkv || Hq / Hkv > 64)
@@ -999,15 +1027,15 @@ extern "C" int flash_prefill_launch(int dtype, const void* q, const void* k,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (D == 32)
     return launch<32>(dtype, q, k, v, positions, out, B, T_len, Hq, Hkv,
-                      window, scale, s);
+                      window, prefix_len, scale, s);
   if (D == 64)
     return launch<64>(dtype, q, k, v, positions, out, B, T_len, Hq, Hkv,
-                      window, scale, s);
+                      window, prefix_len, scale, s);
   if (D == 128)
     return launch<128>(dtype, q, k, v, positions, out, B, T_len, Hq, Hkv,
-                       window, scale, s);
+                       window, prefix_len, scale, s);
   if (D == 256)
     return launch<256>(dtype, q, k, v, positions, out, B, T_len, Hq, Hkv,
-                       window, scale, s);
+                       window, prefix_len, scale, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -1,8 +1,10 @@
-"""Causal, left-pad-masked GQA prefill attention — the CUDA kernel's
-Python wrapper.
+"""Causal, left-pad-masked GQA prefill attention, with an optional
+bidirectional prefix — the CUDA kernel's Python wrapper.
 
 Port of the Pallas kernel ``repro.kernels.flash_prefill``.  Source:
-``csrc/flash_prefill.cu``.  The plain version is
+``csrc/flash_prefill.cu``.  ``prefix_len`` adds the JAX package's
+prefix-LM term (keys at positions below it are seen by every valid
+query): a VLM's image prefix, or a whole encoder (``prefix_len = T``).  The plain version is
 ``kernels.ref.flash_prefill_ref``; ``kernels.ops`` dispatches between the
 two by device.
 """
@@ -17,6 +19,8 @@ from repro_torch.kernels import build
 
 #: launches of the CUDA kernel since the last reset
 launches = 0
+#: those of them with a bidirectional prefix (``prefix_len > 0``)
+prefix_launches = 0
 
 #: head dims the kernel is compiled for (template instances in the source)
 HEAD_DIMS = (32, 64, 128, 256)
@@ -38,24 +42,24 @@ def _launcher():
     if _fn is None:
         fn = build.load("flash_prefill").flash_prefill_launch
         fn.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 5 \
-            + [ctypes.c_int] * 6 + [ctypes.c_float, ctypes.c_void_p]
+            + [ctypes.c_int] * 7 + [ctypes.c_float, ctypes.c_void_p]
         fn.restype = ctypes.c_int
         _fn = fn
     return _fn
 
 
 def reset_launches() -> None:
-    global launches
-    launches = 0
+    global launches, prefix_launches
+    launches = prefix_launches = 0
 
 
 def flash_prefill(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                  positions: torch.Tensor,
-                  window: Optional[int] = None) -> torch.Tensor:
-    """q (B,T,Hq,D); k/v (B,T,Hkv,D); positions (B,T) int32, pads < 0.
-    Returns (B,T,Hq,D) in q's type.  Every tensor must be contiguous and
-    on one CUDA device."""
-    global launches
+                  positions: torch.Tensor, window: Optional[int] = None,
+                  prefix_len: int = 0) -> torch.Tensor:
+    """q (B,T,Hq,D); k/v (B,T,Hkv,D); positions (B,T) int32, pads < 0;
+    ``prefix_len`` >= 0 (0: causal).  Returns (B,T,Hq,D) in q's type.
+    Every tensor must be contiguous and on one CUDA device."""
+    global launches, prefix_launches
     tensors = (q, k, v, positions)
     dev = q.device
     if dev.type != "cuda" or any(t.device != dev for t in tensors):
@@ -67,6 +71,9 @@ def flash_prefill(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         f"{v.dtype}")
     if positions.dtype != torch.int32:
         raise TypeError("flash_prefill kernel: positions must be int32")
+    if prefix_len < 0:
+        raise ValueError(f"flash_prefill kernel: prefix_len {prefix_len} "
+                         f"< 0")
     if not all(t.is_contiguous() for t in tensors):
         raise ValueError("flash_prefill kernel: tensors must be contiguous")
     if q.dim() != 4 or k.dim() != 4:
@@ -92,9 +99,10 @@ def flash_prefill(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = fn(_DTYPES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
                  positions.data_ptr(), out.data_ptr(), B, T, Hq, Hkv, D,
-                 window or 0, D ** -0.5, stream)
+                 window or 0, prefix_len, D ** -0.5, stream)
         with build.LOCK:
             launches += 1
+            prefix_launches += prefix_len > 0
     if err:
         raise RuntimeError(f"flash_prefill kernel launch failed: CUDA error "
                            f"{err}")

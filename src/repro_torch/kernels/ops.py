@@ -136,13 +136,17 @@ def fused_rope_decode_append(q: torch.Tensor, k_new: torch.Tensor,
 
 
 def flash_prefill(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                  positions: torch.Tensor,
-                  window: Optional[int] = None) -> torch.Tensor:
-    """Causal, left-pad-masked GQA prefill attention. q (B,T,Hq,D), k/v
-    (B,T,Hkv,D), positions (B,T) int32 with pads < 0 -> (B,T,Hq,D)."""
+                  positions: torch.Tensor, window: Optional[int] = None,
+                  prefix_len: int = 0) -> torch.Tensor:
+    """Causal, left-pad-masked GQA prefill attention; keys at positions
+    below ``prefix_len`` are seen by every valid query (a bidirectional
+    prefix; 0: none). q (B,T,Hq,D), k/v (B,T,Hkv,D), positions (B,T) int32
+    with pads < 0 -> (B,T,Hq,D)."""
     if _on_cpu(q, "flash_prefill"):
-        return ref.flash_prefill_ref(q, k, v, positions, window=window)
-    return _prefill_kernel.flash_prefill(q, k, v, positions, window=window)
+        return ref.flash_prefill_ref(q, k, v, positions, window=window,
+                                     prefix_len=prefix_len)
+    return _prefill_kernel.flash_prefill(q, k, v, positions, window=window,
+                                         prefix_len=prefix_len)
 
 
 def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,

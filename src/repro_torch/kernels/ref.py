@@ -18,12 +18,17 @@ NEG_INF = -0.7 * float(torch.finfo(torch.float32).max)
 
 def flash_prefill_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                       positions: torch.Tensor, window: Optional[int] = None,
-                      scale: Optional[float] = None) -> torch.Tensor:
-    """Causal + left-pad-masked GQA attention.
+                      scale: Optional[float] = None,
+                      prefix_len: int = 0) -> torch.Tensor:
+    """Causal + left-pad-masked GQA attention with an optional
+    bidirectional prefix.
 
     q (B,T,Hq,D); k/v (B,T,Hkv,D); positions (B,T) with pads < 0.  Query
-    token i attends to key token j where the positions allow it, and always
-    to itself (the diagonal by index keeps the pad rows finite).  Scores
+    token i attends to key token j where the positions allow it: causally
+    (within ``window``), or, for a valid query, to every valid key at a
+    position below ``prefix_len`` (the JAX package's prefix-LM mask, which
+    overrides the window); and always to itself (the diagonal by index
+    keeps the pad rows finite).  Scores
     and the softmax are float32; the probabilities are rounded to V's type
     before the PV product, as in the JAX oracle.  Returns (B,T,Hq,D) in q's
     type.
@@ -37,6 +42,8 @@ def flash_prefill_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     mask = (pk >= 0) & (pk <= pq)
     if window is not None:
         mask = mask & (pq - pk < window)
+    if prefix_len:
+        mask = mask | ((pk >= 0) & (pk < prefix_len) & (pq >= 0))
     mask = mask | torch.eye(T, dtype=torch.bool, device=q.device)[None]
     qr = q.reshape(B, T, Hkv, G, D).float()
     s = torch.einsum("bthgd,bshd->bhgts", qr, k.float()) * scale

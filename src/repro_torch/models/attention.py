@@ -12,9 +12,12 @@ tensors it is given and returns only the layer output.
 
 Dense attention goes through ``kernels.ops``: ``flash_prefill`` for every
 prefill (the JAX package's ``prefill_attention`` switch, whose Pallas
-kernel is meant to carry this path on a chip) and ``decode_attention`` for
-every dense decode step.  ``ops`` launches the kernel for CUDA tensors and
-runs its plain version for CPU tensors.
+kernel is meant to carry this path on a chip; a VLM's bidirectional image
+prefix and an encoder's bidirectional frames by its ``prefix_len``) and
+``decode_attention`` for every dense decode step, and for an
+encoder-decoder model's cross-attention decode over the source frames
+(``cross_decode_attend``).  ``ops`` launches the kernel for CUDA tensors
+and runs its plain version for CPU tensors.
 """
 from __future__ import annotations
 
@@ -93,14 +96,19 @@ def gqa_attend_blocked(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                                  scale) for s in range(0, T, bq)], dim=1)
 
 
-def prefill_mask(positions: torch.Tensor,
-                 window: Optional[int]) -> torch.Tensor:
-    """Causal mask over left-padded prefill. positions (B,T) with pads < 0."""
+def prefill_mask(positions: torch.Tensor, window: Optional[int],
+                 prefix_len: int = 0) -> torch.Tensor:
+    """Causal mask over left-padded prefill. positions (B,T) with pads < 0.
+    With ``prefix_len``, every valid query also sees the valid keys at
+    positions below it (the JAX package's ``_mask_with_prefix``: a VLM's
+    bidirectional image prefix, which overrides the window)."""
     pq = positions[:, :, None]
     pk = positions[:, None, :]
     m = (pk >= 0) & (pk <= pq)
     if window is not None:
         m = m & (pq - pk < window)
+    if prefix_len:
+        m = m | ((pk >= 0) & (pk < prefix_len) & (pq >= 0))
     # pad query rows would be fully masked -> allow the diagonal
     T = positions.shape[1]
     m = m | torch.eye(T, dtype=torch.bool, device=positions.device)[None]
@@ -121,10 +129,12 @@ def decode_mask(q_pos: torch.Tensor, slot_pos: torch.Tensor,
 
 def gqa_attend_chunked(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                        scale: float, positions: torch.Tensor,
-                       window: Optional[int],
+                       window: Optional[int], prefix_len: int = 0,
                        block_q: int = _DEFAULT_BLOCK_Q) -> torch.Tensor:
     """Causal, left-pad-masked attention over blocks of queries, so the
-    (T, S) score matrix is never built whole.  Shapes as ``gqa_attend``."""
+    (T, S) score matrix is never built whole; with ``prefix_len`` the JAX
+    ``_chunk_mask``'s bidirectional prefix term.  Shapes as
+    ``gqa_attend``."""
     B, T, Hq, _ = q.shape
     bq = max(1, min(block_q, _SCORE_BUDGET // (B * Hq * k.shape[1])))
     pk = positions[:, None, :]
@@ -134,6 +144,8 @@ def gqa_attend_chunked(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         m = (pk >= 0) & (pk <= pq)
         if window is not None:
             m = m & (pq - pk < window)
+        if prefix_len:
+            m = m | ((pk >= 0) & (pk < prefix_len) & (pq >= 0))
         m = m | ((pq < 0) & (pk < 0))  # pads attend pads (NaN guard)
         outs.append(gqa_attend(q[:, s:s + bq], k, v, m[:, None], scale))
     return torch.cat(outs, dim=1)
@@ -186,30 +198,24 @@ def _gather_window(pages: torch.Tensor, block_table: torch.Tensor
 
 def prefill_attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                    positions: torch.Tensor, window: Optional[int],
-                   scale: float,
-                   mask: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """Causal, left-pad-masked prefill attention. q (B,T,Hq,D), k/v
-    (B,T,Hkv,D), positions (B,T) int32 with pads < 0 -> (B,T,Hq,D).
+                   scale: float, prefix_len: int = 0) -> torch.Tensor:
+    """Causal, left-pad-masked prefill attention; valid queries also see
+    the valid keys at positions below ``prefix_len`` (a bidirectional
+    prefix; 0: none). q (B,T,Hq,D), k/v (B,T,Hkv,D), positions (B,T) int32
+    with pads < 0 -> (B,T,Hq,D).
 
     Goes through ``kernels.ops.flash_prefill`` (the kernel on the card, its
     plain version on the CPU) for every T, with one CPU exception: from
     ``CHUNK_THRESHOLD`` tokens the CPU takes the chunked path, so that it
     never builds (B,Hq,T,T) scores.  That path's pad-row rule (pads attend
     pads) differs from the kernel's diagonal only on pad query rows, which
-    no real token reads.  A caller-supplied ``mask`` (prefix-LM) has no
-    kernel: the CPU attends under it, the card raises."""
+    no real token reads."""
     T = q.shape[1]
-    if mask is None and (q.is_cuda or T < CHUNK_THRESHOLD):
+    if q.is_cuda or T < CHUNK_THRESHOLD:
         return kernel_ops.flash_prefill(q.contiguous(), k.contiguous(),
                                         v.contiguous(), positions,
-                                        window=window)
-    if q.is_cuda:
-        raise ValueError("prefill attention on the card: a caller-"
-                         "supplied mask has no kernel (flash_prefill "
-                         "takes positions and a window only)")
-    if T >= CHUNK_THRESHOLD:
-        return gqa_attend_chunked(q, k, v, scale, positions, window)
-    return gqa_attend_blocked(q, k, v, mask, scale)
+                                        window=window, prefix_len=prefix_len)
+    return gqa_attend_chunked(q, k, v, scale, positions, window, prefix_len)
 
 
 def dense_decode_attend(q: torch.Tensor, k_cache: torch.Tensor,
@@ -224,12 +230,13 @@ def dense_decode_attend(q: torch.Tensor, k_cache: torch.Tensor,
 
 
 def attention_forward(p: Attention, x: torch.Tensor, positions: torch.Tensor,
-                      cfg: ModelConfig,
-                      window: Optional[int]) -> torch.Tensor:
+                      cfg: ModelConfig, window: Optional[int],
+                      prefix_len: int = 0) -> torch.Tensor:
     """Full-sequence attention without a cache, in plain torch: no kernel
     runs here on any device (``transformer.forward``, the reference the
     serving paths' kernels are held against).  x (B,T,d), positions (B,T)
-    with pads < 0; from ``CHUNK_THRESHOLD`` tokens the q-blocked path."""
+    with pads < 0; ``prefix_len`` as ``prefill_mask``; from
+    ``CHUNK_THRESHOLD`` tokens the q-blocked path."""
     B, T, _ = x.shape
     q, k, v = _qkv(p, x, cfg)
     rp = positions.clamp(min=0)
@@ -237,27 +244,26 @@ def attention_forward(p: Attention, x: torch.Tensor, positions: torch.Tensor,
     k = apply_rope(k, rp, cfg.rope_theta)
     scale = cfg.head_dim ** -0.5
     if T >= CHUNK_THRESHOLD:
-        o = gqa_attend_chunked(q, k, v, scale, positions, window)
+        o = gqa_attend_chunked(q, k, v, scale, positions, window, prefix_len)
     else:
-        o = gqa_attend_blocked(q, k, v, prefill_mask(positions, window),
-                               scale)
+        o = gqa_attend_blocked(
+            q, k, v, prefill_mask(positions, window, prefix_len), scale)
     return p.wo(o.reshape(B, T, -1))
 
 
 def attention_prefill(p: Attention, x: torch.Tensor, positions: torch.Tensor,
                       cfg: ModelConfig, window: Optional[int],
-                      cache_window: int,
-                      mask: Optional[torch.Tensor] = None
+                      cache_window: int, prefix_len: int = 0
                       ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Prefill that also returns the layer's (k_cache, v_cache) of width W.
-    The attention is ``prefill_attend``'s."""
+    The attention is ``prefill_attend``'s (``prefix_len`` as there)."""
     B, T, _ = x.shape
     q, k, v = _qkv(p, x, cfg)
     rp = positions.clamp(min=0)
     q = apply_rope(q, rp, cfg.rope_theta)
     k = apply_rope(k, rp, cfg.rope_theta)
     o = prefill_attend(q, k, v, positions, window, cfg.head_dim ** -0.5,
-                       mask=mask)
+                       prefix_len=prefix_len)
     out = p.wo(o.reshape(B, T, -1))
     W = cache_window
     if W >= T:
@@ -365,6 +371,28 @@ def attention_prefill_tail_paged(p: Attention, x: torch.Tensor,
     m = m | ((pq < 0) & first)
     o = gqa_attend_blocked(q, kw, vw, m[:, None], cfg.head_dim ** -0.5)
     return p.wo(o.reshape(B, T, -1))
+
+
+def cross_slot_pos(src_valid: torch.Tensor) -> torch.Tensor:
+    """(B,S) int32 ``slot_pos`` of a cross-attention over source frames
+    for ``cross_decode_attend``: 0 for a valid frame, -1 for an invalid
+    one."""
+    return torch.where(src_valid, 0, -1).to(torch.int32)
+
+
+def cross_decode_attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        slot_pos: torch.Tensor) -> torch.Tensor:
+    """One query token per row over the source frames: q (B,1,Hq,D), k/v
+    (B,S,Hkv,D) contiguous, slot_pos (B,S) from ``cross_slot_pos`` ->
+    (B,1,Hq,D).  Through ``kernels.ops.decode_attention`` (B6) with every
+    query at position 0 and no window, so a frame is seen exactly where
+    it is valid: JAX's mask ``src_valid[:, None, None, :]``
+    (``repro.models.encdec._cross_attend``); a row without a valid frame
+    weighs every frame alike, as JAX's fully masked softmax does."""
+    B = q.shape[0]
+    q_pos = torch.zeros((B,), dtype=torch.int32, device=q.device)
+    return kernel_ops.decode_attention(q[:, 0].contiguous(), k, v, slot_pos,
+                                       q_pos)[:, None]
 
 
 def attention_decode(p: Attention, x: torch.Tensor, q_pos: torch.Tensor,

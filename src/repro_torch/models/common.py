@@ -23,10 +23,13 @@ The config carries the fields of the families the port serves: the dense
 transformers (llama3.2-1b, codeqwen1.5-7b, minitron-4b, gemma-2b), the
 Mamba-2 SSM (``ssm_*``, used by ``models.mamba2``), the MoE models
 (mixtral-8x22b, deepseek-v2-lite-16b: the experts' and MLA's fields, used
-by ``models.moe`` and ``models.mla``) and the RG-LRU hybrid
+by ``models.moe`` and ``models.mla``), the RG-LRU hybrid
 (recurrentgemma-9b: ``rg_*`` and ``local_window``, used by
-``models.rglru``).  The training-only ``router_aux_coef`` stays out: only
-the loss reads it.
+``models.rglru``), the encoder-decoder (seamless-m4t-large-v2:
+``n_enc_layers`` and ``n_dec_layers``, used by ``models.encdec``) and the
+prefix-LM VLM (paligemma-3b: ``n_prefix_tokens``, the bidirectional image
+prefix of ``models.transformer``).  The training-only ``router_aux_coef``
+and ``remat`` stay out: only the loss and the trainer read them.
 """
 from __future__ import annotations
 
@@ -82,6 +85,11 @@ class ModelConfig:
     # --- hybrid (recurrentgemma) ---
     rg_lru_width: int = 0  # 0 -> d_model
     local_window: int = 2048
+    # --- encoder-decoder (seamless) ---
+    n_enc_layers: int = 0
+    n_dec_layers: int = 0
+    # --- VLM prefix-LM (paligemma) ---
+    n_prefix_tokens: int = 0  # image patches; embeddings come pre-computed
     dtype: torch.dtype = torch.float32
 
     @property

@@ -1,13 +1,16 @@
 """Model interface: ``get_model(cfg)`` returns a ``Model`` of functions
 sharing one calling convention (counterpart of ``repro.models.registry``,
-for the dense, ssm, moe and hybrid families):
+for every family: dense, vlm, ssm, hybrid, moe and encdec):
 
   init(seed_or_generator, device=None)        -> params (nn.Module)
   prefill(params, batch, cache_window)        -> (last_logits, cache)
   decode_step(params, cache, tokens, step)    -> (logits, cache)
   kv_bytes_per_token(n_model_shards)          -> float  (Δ in Eq. 5)
 
-``batch`` is a dict with tokens (B,T) and lengths (B,) tensors.
+``batch`` is a dict with tokens (B,T) and lengths (B,) tensors, and the
+frontend stubs' embeddings where the family takes them: prefix_embeds
+(B,P,d) for the VLM, src_embeds (B,S,d) and src_valid (B,S) bool for the
+encoder-decoder.
 """
 from __future__ import annotations
 
@@ -16,7 +19,7 @@ from typing import Callable, NamedTuple, Union
 import torch
 
 from repro_torch import DeviceLike, resolve_device
-from repro_torch.models import mamba2, moe, rglru, transformer
+from repro_torch.models import encdec, mamba2, moe, rglru, transformer
 from repro_torch.models.common import ModelConfig
 
 
@@ -51,6 +54,7 @@ def _dense(cfg: ModelConfig) -> Model:
     def prefill(params, batch, cache_window, window=None):
         return transformer.prefill(params, cfg, batch["tokens"],
                                    batch["lengths"], cache_window,
+                                   prefix_embeds=batch.get("prefix_embeds"),
                                    window=window)
 
     def decode_step(params, cache, tokens, step, window=None):
@@ -120,7 +124,35 @@ def _moe(cfg: ModelConfig) -> Model:
     return Model(cfg, _initialiser(moe, cfg), prefill, decode_step, kv_bytes)
 
 
-_FAMILIES = {"dense": _dense, "ssm": _ssm, "hybrid": _hybrid, "moe": _moe}
+def _encdec(cfg: ModelConfig) -> Model:
+    def prefill(params, batch, cache_window, window=None):
+        return encdec.prefill(params, cfg, batch["src_embeds"],
+                              batch["tokens"], batch["lengths"], cache_window,
+                              batch.get("src_valid"), window=window)
+
+    def decode_step(params, cache, tokens, step, window=None):
+        return encdec.decode_step(params, cfg, cache, tokens, step,
+                                  window=window)
+
+    def kv_bytes(n_shards: int = 1) -> float:
+        # decoder self-attention cache only (the cross-KV is constant over
+        # a schedule)
+        per_tok = (2 * cfg.n_dec_layers * cfg.n_kv_heads * cfg.head_dim
+                   * _itemsize(cfg))
+        return per_tok / min(n_shards, cfg.n_kv_heads)
+
+    return Model(cfg, _initialiser(encdec, cfg), prefill, decode_step,
+                 kv_bytes)
+
+
+_FAMILIES = {
+    "dense": _dense,
+    "vlm": _dense,  # prefix-LM rides the dense path (prefix_embeds in batch)
+    "ssm": _ssm,
+    "hybrid": _hybrid,
+    "moe": _moe,
+    "encdec": _encdec,
+}
 
 
 def get_model(cfg: ModelConfig) -> Model:

@@ -1,4 +1,4 @@
-"""Decoder-only transformer LM (dense archs).
+"""Decoder-only transformer LM (dense archs + PaliGemma-style prefix VLM).
 
 PyTorch counterpart of ``repro.models.transformer``.  The parameters are
 an ``nn.Module`` (``Transformer``) with one ``Block`` per layer; the JAX
@@ -6,8 +6,9 @@ package's stacked leading layer axis becomes a loop over ``layers``.  The
 functions keep the JAX signatures (``forward``, without a cache, is the
 plain reference; the others serve):
 
-  forward(params, cfg, tokens, positions)                  -> logits
-  prefill(params, cfg, tokens, lengths, cache_window)      -> (logits, KVCache)
+  forward(params, cfg, tokens, positions, prefix_embeds)   -> logits
+  prefill(params, cfg, tokens, lengths, cache_window, prefix_embeds)
+                                                           -> (logits, KVCache)
   decode_step(params, cfg, cache, tokens, step)            -> (logits, KVCache)
   decode_step_rowslots(params, cfg, cache, tokens, q_pos, slots)
   prefill_paged(params, cfg, tokens, lengths, cache)       -> (logits, PagedKVCache)
@@ -17,6 +18,13 @@ plain reference; the others serve):
 Left-padding convention: ``positions[b, t] < 0`` marks pad tokens.  KV
 caches and page pools are written in place; the returned cache carries
 the refreshed ``slot_pos``/``lengths``.
+
+The VLM (``n_prefix_tokens``) takes its image's patch embeddings
+``prefix_embeds`` (B, P, d) ahead of the text, unscaled by
+``scale_embed``, at positions 0..P-1; the left-padded text follows at
+positions + P (its pads stay -1, between the prefix and the text), and
+every valid token sees the whole prefix both ways (``flash_prefill``'s
+``prefix_len``).  Decode is the dense model's.
 """
 from __future__ import annotations
 
@@ -114,21 +122,28 @@ def _compact_slot_pos(lengths: torch.Tensor, W: int) -> torch.Tensor:
 
 def forward(params: Transformer, cfg: ModelConfig, tokens: torch.Tensor,
             positions: Optional[torch.Tensor] = None,
+            prefix_embeds: Optional[torch.Tensor] = None,
             window: Optional[int] = None) -> torch.Tensor:
     """Full-sequence forward (no cache) -> logits (B,T,V).  Its attention
     is plain torch (``attention.attention_forward``) on every device, so
     on the card it is the reference that the serving paths, whose
-    attention runs the kernels, are held against.  ``positions`` default
-    to 0..T-1; left pads carry positions < 0."""
+    attention runs the kernels, are held against.  For the VLM,
+    ``prefix_embeds`` (B,P,d) is prepended (the logits then cover P + T
+    tokens) and ``tokens`` holds the text only.  ``positions`` cover the
+    whole sequence and default to 0..P+T-1; left pads carry positions
+    < 0."""
     window = window if window is not None else cfg.sliding_window
-    B, T = tokens.shape
+    h = embed_apply(params.embed, tokens, cfg)
+    if prefix_embeds is not None:
+        h = torch.cat([prefix_embeds.to(h.dtype), h], dim=1)
+    B, T, _ = h.shape
     if positions is None:
         positions = torch.arange(T, dtype=torch.int32,
                                  device=tokens.device)[None].expand(B, T)
-    h = embed_apply(params.embed, tokens, cfg)
     for layer in params.layers:
         x = rms_norm(h, layer.ln_attn, cfg.norm_eps)
-        a = attn.attention_forward(layer.attn, x, positions, cfg, window)
+        a = attn.attention_forward(layer.attn, x, positions, cfg, window,
+                                   cfg.n_prefix_tokens)
         h = _mlp_residual(layer, h + a, cfg)
     return _logits(params, cfg, h)
 
@@ -138,18 +153,31 @@ def forward(params: Transformer, cfg: ModelConfig, tokens: torch.Tensor,
 # ---------------------------------------------------------------------------
 def prefill(params: Transformer, cfg: ModelConfig, tokens: torch.Tensor,
             lengths: torch.Tensor, cache_window: int,
+            prefix_embeds: Optional[torch.Tensor] = None,
             window: Optional[int] = None) -> Tuple[torch.Tensor, KVCache]:
     """Run the prefill phase and build a dense KV cache of width
-    ``cache_window``."""
+    ``cache_window`` (for the VLM, which prepends ``prefix_embeds``
+    (B,P,d), the caller counts the prefix in it; the cache's lengths then
+    include the P prefix tokens)."""
     window = window if window is not None else cfg.sliding_window
     positions = make_positions(tokens, lengths)
     h = embed_apply(params.embed, tokens, cfg)
+    if prefix_embeds is not None:
+        B, P = prefix_embeds.shape[:2]
+        h = torch.cat([prefix_embeds.to(h.dtype), h], dim=1)
+        prefix = torch.arange(P, dtype=torch.int32, device=h.device)
+        positions = torch.cat(
+            [prefix[None].expand(B, P),
+             torch.where(positions >= 0, positions + P, -1)],
+            dim=1).to(torch.int32)
+        lengths = lengths + P
     T = positions.shape[1]
     ks, vs = [], []
     for layer in params.layers:
         x = rms_norm(h, layer.ln_attn, cfg.norm_eps)
         a, kc, vc = attn.attention_prefill(layer.attn, x, positions, cfg,
-                                           window, cache_window)
+                                           window, cache_window,
+                                           cfg.n_prefix_tokens)
         h = _mlp_residual(layer, h + a, cfg)
         ks.append(kc)
         vs.append(vc)

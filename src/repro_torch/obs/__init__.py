@@ -5,8 +5,8 @@ Three pillars (see ``docs/observability.md``):
   1. **Tracing** (:mod:`repro_torch.obs.trace`) — Chrome trace-event spans /
      instants / counter tracks, exported as Perfetto-loadable JSON;
   2. **Metrics** (:mod:`repro_torch.obs.metrics`) — dependency-free
-     Prometheus-style registry (the reference's HTTP front end serves
-     it at ``GET /metrics``; not ported);
+     Prometheus-style registry (the HTTP front end,
+     :mod:`repro_torch.serving.http`, serves it at ``GET /metrics``);
   3. **Decision audit** (:mod:`repro_torch.obs.audit`) — ring-buffered
      structured records of every admission / batching / offload decision,
      queryable through ``DecisionLog.query`` and dumped by ``--trace-out``.

@@ -8,7 +8,7 @@ conditioned on different contexts and are no longer comparable.
 """
 from __future__ import annotations
 
-from typing import Callable, Optional, Sequence
+from typing import Callable, Dict, Optional, Sequence
 
 import numpy as np
 import torch
@@ -17,11 +17,20 @@ import torch
 NEAR_TIE = 1e-4
 
 
-def prefill_logits(model, params) -> Callable[[np.ndarray], np.ndarray]:
+def prefill_logits(model, params,
+                   extra: Optional[Dict[str, np.ndarray]] = None
+                   ) -> Callable[[np.ndarray], np.ndarray]:
     """The reference ``stream_tie`` takes for the port's ``model`` with
     ``params`` (e.g. the CPU copy): the last-token logits of a prefill of
-    one context, as a float32 numpy vector."""
+    one context, as a float32 numpy vector.  ``extra`` holds one
+    request's frontend inputs (a leading axis of 1: a VLM's
+    ``prefix_embeds``, whose tokens the cache also holds, or an
+    encoder-decoder's ``src_embeds`` and ``src_valid``)."""
     dev = params.embed.table.device
+    extra = {k: torch.from_numpy(np.ascontiguousarray(v)).to(dev)
+             for k, v in (extra or {}).items()}
+    n_prefix = (extra["prefix_embeds"].shape[1] if "prefix_embeds" in extra
+                else 0)
 
     def logits_of(ctx: np.ndarray) -> np.ndarray:
         with torch.no_grad():
@@ -29,8 +38,8 @@ def prefill_logits(model, params) -> Callable[[np.ndarray], np.ndarray]:
                 params, {"tokens": torch.from_numpy(ctx[None]).to(dev),
                          "lengths": torch.tensor([len(ctx)],
                                                  dtype=torch.int32,
-                                                 device=dev)},
-                len(ctx) + 1)
+                                                 device=dev), **extra},
+                len(ctx) + n_prefix + 1)
         return logits[0].float().cpu().numpy()
 
     return logits_of

@@ -1,13 +1,14 @@
 """Weights across frameworks: the JAX parameter tree as a PyTorch
 ``state_dict`` of the port's model modules (``models.transformer.
 Transformer``, ``models.mamba2.Mamba2``, ``models.moe.MoEModel``,
-``models.rglru.RecurrentGemma``).
+``models.rglru.RecurrentGemma``, ``models.encdec.EncDecModel``).
 
 The JAX tree stacks every per-layer leaf along a leading axis
 (``layers/attn/wq/w`` is ``(n_layers, d_in, d_out)``); the port has one
 module per layer (``layers.<i>.attn.wq.w``).  The stacks are the keys of
 ``STACKED``: ``layers`` and, in the MoE tree, ``dense_layers``; in the
-hybrid's, ``groups`` (each holding a stack of two ``rec`` blocks, so
+encoder-decoder's, ``enc_layers`` and ``dec_layers``; in the hybrid's,
+``groups`` (each holding a stack of two ``rec`` blocks, so
 ``groups/rec/lru_a/w`` is ``(G, 2, d, d)`` and lands on
 ``groups.<g>.rec.<j>.lru_a.w``) and ``tail``.  Both keep dense weights as
 ``(d_in, d_out)``, so a leaf maps over unchanged; the stacked experts
@@ -36,7 +37,8 @@ def _to_tensor(a: Any) -> torch.Tensor:
 
 #: keys of the JAX tree whose leaves stack one module a layer (or a block)
 #: along their leading axis
-STACKED = ("layers", "dense_layers", "groups", "rec", "tail")
+STACKED = ("layers", "dense_layers", "enc_layers", "dec_layers", "groups",
+           "rec", "tail")
 
 
 def _unstack(parts, t: torch.Tensor):

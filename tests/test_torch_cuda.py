@@ -719,14 +719,134 @@ def test_ops_dispatch_dense_attention_to_the_kernels(cuda_device):
 
 
 def test_prefill_attention_refuses_a_mask_on_the_card(cuda_device):
-    """A caller-supplied mask (prefix-LM) has no kernel: on the card it
-    raises instead of falling back to the plain maths."""
+    """``prefill_attend`` takes no caller-supplied mask (a keyword it
+    does not have), so nothing on the card falls back to the plain maths:
+    the prefix-LM mask is the kernel's ``prefix_len``, which launches
+    flash_prefill (counted, with the prefix) and no plain version."""
+    from repro_torch.kernels import ops
     from repro_torch.models import attention as tattn
     q, k, v, pos = _prefill_inputs(2, 16, 8, 2, 64, torch.bfloat16,
                                    cuda_device)
     mask = tattn.prefill_mask(pos, None)
-    with pytest.raises(ValueError, match="mask"):
+    with pytest.raises(TypeError, match="mask"):
         tattn.prefill_attend(q, k, v, pos, None, 64 ** -0.5, mask=mask)
+    ops.reset_counts()
+    got = tattn.prefill_attend(q, k, v, pos, None, 64 ** -0.5, prefix_len=5)
+    want = ref.flash_prefill_ref(q, k, v, pos, prefix_len=5)
+    torch.cuda.synchronize()
+    assert ops.launches()["flash_prefill"] == 1
+    assert prefill_kernel.prefix_launches == 1
+    assert not any(ops.plain_calls.values())
+    assert (got.float() - want.float()).abs().max().item() <= \
+        ATOL[torch.bfloat16]
+
+
+def _prefix_inputs(P, lens, T, Hq, Hkv, D, dtype, device, seed=7):
+    """The VLM prefill's layout: a prefix of P at positions 0..P-1, then
+    each row's left pads (mid-row, between the prefix and the text) and
+    its ``lens[b]`` text tokens at P + 0.., T text slots a row."""
+    rng = np.random.default_rng(seed)
+    B = len(lens)
+    text = np.full((B, T), -1, np.int32)
+    for b, n in enumerate(lens):
+        text[b, T - n:] = P + np.arange(n)
+    positions = np.concatenate(
+        [np.broadcast_to(np.arange(P, dtype=np.int32), (B, P)), text], 1)
+    N = P + T
+    floats = [torch.from_numpy(rng.standard_normal(shape)).to(
+        device=device, dtype=dtype)
+        for shape in ((B, N, Hq, D), (B, N, Hkv, D), (B, N, Hkv, D))]
+    return floats + [torch.from_numpy(positions).to(device)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("window", [None, 7])
+@pytest.mark.parametrize("P,lens,T,Hq,Hkv,D", [
+    # paligemma-3b's heads (MQA 8/1, head_dim 256): a prefix of 256 over
+    # four 64-key tiles, so the prefix's first queries read tiles above
+    # their diagonal; text rows full and left-padded
+    (256, (128, 70), 128, 8, 1, 256),
+    (200, (60, 1), 60, 8, 1, 256),
+    # head_dim 64 (seamless's heads, MHA 16/16): a prefix not a tile
+    # multiple, mid-row pads, one row of text pads only
+    (100, (40, 17, 0), 40, 16, 16, 64),
+    (130, (200, 150), 200, 32, 8, 64),
+])
+def test_flash_prefill_with_prefix_matches_plain(cuda_device, dtype, window,
+                                                 P, lens, T, Hq, Hkv, D):
+    """B5 with ``prefix_len = P`` against its plain version: prefix keys
+    above the diagonal are read (tile skipping includes them), the
+    prefix overrides the window, pads between prefix and text attend
+    their diagonal only."""
+    args = _prefix_inputs(P, lens, T, Hq, Hkv, D, dtype, cuda_device)
+    got = prefill_kernel.flash_prefill(*args, window=window, prefix_len=P)
+    want = ref.flash_prefill_ref(*args, window=window, prefix_len=P)
+    causal = ref.flash_prefill_ref(*args, window=window)
+    torch.cuda.synchronize()
+    assert torch.isfinite(got).all()
+    assert (got.float() - want.float()).abs().max().item() <= ATOL[dtype]
+    assert (causal.float() - want.float()).abs().max().item() > \
+        10 * ATOL[dtype]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("S,lens,H,D", [
+    (300, (300, 217), 16, 64),      # seamless's heads, frames invalid
+    (1024, (1024, 700, 256), 16, 64),
+    (130, (130, 3), 8, 256),
+])
+def test_flash_prefill_as_encoder_matches_plain(cuda_device, dtype, S, lens,
+                                                H, D):
+    """B5 as the encoder runs it: masking positions ``where(valid,
+    arange, -1)`` (right-padded invalid frames) and ``prefix_len = S``,
+    every valid frame seeing every valid frame, each invalid frame only
+    itself."""
+    rng = np.random.default_rng(8)
+    valid = np.arange(S)[None] < np.asarray(lens)[:, None]
+    pos = torch.from_numpy(np.where(valid, np.arange(S)[None], -1).astype(
+        np.int32)).to(cuda_device)
+    q, k, v = (torch.from_numpy(rng.standard_normal((len(lens), S, H, D))
+                                ).to(device=cuda_device, dtype=dtype)
+               for _ in range(3))
+    got = prefill_kernel.flash_prefill(q, k, v, pos, prefix_len=S)
+    want = ref.flash_prefill_ref(q, k, v, pos, prefix_len=S)
+    torch.cuda.synchronize()
+    assert torch.isfinite(got).all()
+    assert (got.float() - want.float()).abs().max().item() <= ATOL[dtype]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("S,lens,H,D", [
+    (1024, (1024, 700, 256, 0), 16, 64),   # seamless's heads; a row
+    (300, (300, 17), 16, 64),              # without a valid frame
+])
+def test_decode_attention_as_cross_attention_matches_plain(cuda_device,
+                                                           dtype, S, lens,
+                                                           H, D):
+    """B6 unchanged as cross-attention (``attention.cross_decode_attend``:
+    slot_pos 0 on valid frames, -1 on invalid ones, q_pos 0) against its
+    plain version and against the masked softmax over the valid frames;
+    a row without a valid frame weighs every frame alike."""
+    from repro_torch.models import attention as tattn
+    rng = np.random.default_rng(9)
+    B = len(lens)
+    valid = torch.from_numpy(np.arange(S)[None] < np.asarray(lens)[:, None]
+                             ).to(cuda_device)
+    q = torch.from_numpy(rng.standard_normal((B, 1, H, D))).to(
+        device=cuda_device, dtype=dtype)
+    k, v = (torch.from_numpy(rng.standard_normal((B, S, H, D))).to(
+        device=cuda_device, dtype=dtype) for _ in range(2))
+    sp = tattn.cross_slot_pos(valid)
+    got = tattn.cross_decode_attend(q, k, v, sp)
+    want = ref.decode_attention_ref(q[:, 0], k, v, sp,
+                                    torch.zeros(B, dtype=torch.int32,
+                                                device=cuda_device))
+    masked = tattn.gqa_attend(q, k, v, valid[:, None, None, :]
+                              .expand(B, 1, 1, S), D ** -0.5)
+    torch.cuda.synchronize()
+    assert (got[:, 0].float() - want.float()).abs().max().item() <= \
+        ATOL[dtype]
+    assert (got.float() - masked.float()).abs().max().item() <= ATOL[dtype]
 
 
 # ---------------------------------------------------------------------------
@@ -758,12 +878,15 @@ def test_reduced_model_engines_on_the_card_match_the_cpu(cuda_device):
                                            ("gemma-2b", 256),
                                            ("mixtral-8x22b", None),
                                            ("deepseek-v2-lite-16b", None),
-                                           ("recurrentgemma-9b", None)])
+                                           ("recurrentgemma-9b", None),
+                                           ("seamless-m4t-large-v2", None),
+                                           ("paligemma-3b", None)])
 def test_reduced_dense_configs_on_the_card_match_the_cpu(cuda_device, arch,
                                                          head_dim):
     """chip_smoke.py's phase 4c: the reduced float32 config (codeqwen's
-    QKV biases and recurrentgemma's RG-LRU channels drawn apart; gemma-2b
-    also at its published head_dim 256) through the dense static engine
+    QKV biases, recurrentgemma's RG-LRU channels and seamless's norm gains
+    drawn apart; gemma-2b also at its published head_dim 256; the VLM and
+    the encoder-decoder with seeded frontend embeddings) through the dense static engine
     and, for the dense configs, the paged unfused and fused ones on the card
     gives the CPU's token streams but for near-ties, each path's kernels
     launching once per layer per prefill stage / decode step.  The phase

@@ -182,8 +182,9 @@ def test_real_backend_tokens_match_jax_real_backend():
 
 
 def test_fused_engines_behind_the_core_stream_unfused_tokens():
-    """``tests/test_retain.py``'s server-level fused sweep without
-    ``SliceServer`` (not ported yet): ``SchedulerCore`` + ``RealBackend``
+    """``tests/test_retain.py``'s server-level fused sweep below
+    ``SliceServer`` (``tests/test_torch_server.py`` drives that layer):
+    ``SchedulerCore`` + ``RealBackend``
     over fused persistent paged engines gives every request the tokens of
     the same run over unfused engines, and only the fused plain versions
     run."""

@@ -2,9 +2,11 @@
 reduced model on both sides (llama3.2-1b by default, or any arch of
 ``repro_torch.configs``), the port's weights carried over from the JAX
 initialisation, and inputs made with numpy from a seed."""
+import dataclasses
 import functools
 
 import jax
+import jax.numpy as jnp
 import numpy as np
 
 from repro_torch.testing import stream_tie
@@ -53,6 +55,22 @@ def _perturb_rglru(tree, seed=9):
     return tree
 
 
+def _perturb_norms(tree, seed=10):
+    """JAX's ``init_rms`` is zero, so every norm gain of the
+    encoder-decoder starts alike and a swapped ``ln_self``, ``ln_cross``
+    or ``ln_enc`` would pass unseen: give each gain its own values, in the
+    tree both sides load."""
+    rng = np.random.default_rng(seed)
+    stacks = ((tree["enc_layers"], ("ln_attn", "ln_mlp")),
+              (tree["dec_layers"], ("ln_self", "ln_cross", "ln_mlp")),
+              (tree, ("ln_enc", "ln_f")))
+    for node, names in stacks:
+        for name in names:
+            node[name] = (0.3 * rng.standard_normal(node[name].shape)
+                          ).astype(node[name].dtype)
+    return tree
+
+
 @functools.lru_cache(maxsize=None)
 def shared_models(arch="llama3.2-1b", head_dim=None, capacity_factor=None):
     """(jax_model, jax_params, torch_model, torch_params) of the reduced
@@ -60,8 +78,8 @@ def shared_models(arch="llama3.2-1b", head_dim=None, capacity_factor=None):
     where given, on both sides), with the JAX ``init(PRNGKey(0))`` weights
     loaded into the port's module on the CPU (for mamba2-130m with the
     per-head parameters, for recurrentgemma-9b with the per-channel RG-LRU
-    parameters, for a config with QKV biases with the biases, drawn apart
-    on both sides)."""
+    parameters, for a config with QKV biases with the biases, for the
+    encoder-decoder with the norm gains, drawn apart on both sides)."""
     from repro.configs import get_config as jax_config
     from repro.models.registry import get_model as jax_model
     from repro_torch.configs import get_config as torch_config
@@ -77,7 +95,8 @@ def shared_models(arch="llama3.2-1b", head_dim=None, capacity_factor=None):
     jm = jax_model(jcfg)
     jp = jm.init(jax.random.PRNGKey(0))
     tree = jax.tree.map(np.asarray, jp)
-    perturb = {"ssm": _perturb_ssm, "hybrid": _perturb_rglru}.get(
+    perturb = {"ssm": _perturb_ssm, "hybrid": _perturb_rglru,
+               "encdec": _perturb_norms}.get(
         jm.cfg.family, _perturb_bias if jm.cfg.qkv_bias else None)
     if perturb is not None:
         tree = perturb(tree)
@@ -114,3 +133,51 @@ def assert_same_stream(prompt, want, got, arch="llama3.2-1b", **variant):
     gap = stream_tie(jax_logits, prompt, want, got)
     if gap is not None:
         near_ties.append((arch, len(prompt), gap))
+
+
+def check_config_fields(arch, reduced):
+    """Every field the port's config of ``arch`` has equals the JAX
+    config's, the dtype by name (the port keeps its own copy of each
+    config)."""
+    from repro.configs import get_config as jax_config
+    from repro_torch.configs import get_config as torch_config
+    tcfg, jcfg = torch_config(arch, reduced), jax_config(arch, reduced)
+    for f in dataclasses.fields(tcfg):
+        got, want = getattr(tcfg, f.name), getattr(jcfg, f.name)
+        if f.name == "dtype":
+            got, want = str(got).split(".")[-1], jnp.dtype(want).name
+        assert got == want, f.name
+
+
+def serve_slices(models, ps, extra, forced, slice_len=4, n_slices=3):
+    """SCLS over ``n_slices`` slices of ``slice_len`` on the JAX and the
+    port's dense ``StaticEngine`` (``models`` from ``shared_models``):
+    each slice batches the unfinished requests, builds an engine over
+    their rows of the frontend inputs ``extra`` (name: array with a row
+    per request) and re-prefills prompt + generated.  Returns each side's
+    streams and each slice's ``reprefill_tokens``, keyed "jax" and
+    "torch"."""
+    from repro.engine.static_engine import StaticEngine as JaxEngine
+    from repro_torch.engine.static_engine import StaticEngine
+    jm, jp, tm, tp = models
+    outs = {"jax": [[] for _ in ps], "torch": [[] for _ in ps]}
+    reprefill = {"jax": [], "torch": []}
+    for _ in range(n_slices):
+        idx = [i for i in range(len(ps)) if len(outs["jax"][i]) < forced[i]]
+        if not idx:
+            break
+        rows = {k: v[idx] for k, v in extra.items()}
+        for side, eng in (("jax", JaxEngine(jm, jp, eos_id=1, len_bucket=8,
+                                            extra_inputs=rows)),
+                          ("torch", StaticEngine(tm, tp, eos_id=1,
+                                                 len_bucket=8,
+                                                 extra_inputs=rows,
+                                                 device="cpu"))):
+            res = eng.serve_batch(
+                [ps[i] for i in idx], slice_len,
+                forced_gen_lens=[forced[i] - len(outs[side][i]) for i in idx],
+                already_generated=[outs[side][i] for i in idx])
+            for s, i in enumerate(idx):
+                outs[side][i] = outs[side][i] + res.results[s]["tokens"]
+            reprefill[side].append(res.reprefill_tokens)
+    return outs, reprefill
