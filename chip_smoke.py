@@ -152,19 +152,21 @@ fails (nothing is caught):
    of the engine's size and random K/V, are held against their plain
    versions and timed as in phase 3, beside an empty launch timed the
    same way (``shapes`` entries with the run's statistics);
-13-15. the other dense configs at full width and depth (bf16, random
-   weights from a seeded ``torch.Generator``), each built by the
-   launcher's ``build_server`` (its wall time, weights and estimator fit
-   included, is reported as ``build_s``) and serving a CodeFuse trace
-   (rate 2/s over 6 s, ``max_gen`` 128 over slices of 32, a 40 GB KV
-   budget): codeqwen1.5-7b (32 layers, MHA 32/32, QKV bias, untied head)
-   on the persistent paged unfused path with two shared-prefix pairs,
-   minitron-4b (32 layers, GQA 24/8, untied head) on fused engines built
-   as phase 6 builds them, gemma-2b (18 layers, MQA 8/1, head_dim 256,
-   GeGLU, embeddings scaled by sqrt(d)) on dense SCLS, each checked as
-   phases 4-7 check llama's slices (phase 4 first).
+13-15. the other dense configs at full width (bf16, random weights from
+   a seeded ``torch.Generator``), each built by the launcher's
+   ``build_server`` (its wall time, weights and estimator fit included,
+   is reported as ``build_s``) and serving a CodeFuse trace (rate 2/s over
+   6 s, ``max_gen`` 128 over slices of 32, a 40 GB KV budget):
+   codeqwen1.5-7b (MHA 32/32, QKV bias, untied head) cut to 16 of its 32
+   layers (``DEPTH_CUTS``: the script's time limit) on the persistent
+   paged unfused path with two shared-prefix pairs, minitron-4b (GQA
+   24/8, untied head) cut to 16 of its 32 layers on fused engines built
+   as phase 6 builds them, gemma-2b at full depth (18 layers, MQA 8/1,
+   head_dim 256, GeGLU, embeddings scaled by sqrt(d)) on dense SCLS, each
+   checked as phases 4-7 check llama's slices (phase 4 first).
 
-16. the launcher's serving path (``run_launcher_path``);
+16. the launcher's serving path (``run_launcher_path``; codeqwen1.5-7b
+   cut to 16 of its 32 layers, ``DEPTH_CUTS``);
 17-19. the MoE and hybrid families through dense SCLS, each built by the
    launcher's ``build_server`` on the configs' trace (bf16, random
    weights from a seeded ``torch.Generator``): deepseek-v2-lite-16b at
@@ -214,10 +216,34 @@ fails (nothing is caught):
    forced tokens, and flash_prefill (with the prefix: the VLM's every
    launch, the encoder's) and decode_attention (the enc-dec model's
    cross-attention calls counted apart) launch as the stages and steps
-   imply.
+   imply;
+22. training (``run_training``), which launches no kernel (checked: the
+   training forwards are the families' plain ``forward``s): one
+   ``launch.steps.make_train_step`` of each family's reduced float32
+   model (llama3.2-1b, mamba2-130m, deepseek-v2-lite-16b, mixtral-8x22b,
+   recurrentgemma-9b, seamless-m4t-large-v2, paligemma-3b; weights drawn
+   apart as phase 4c's) on the card and on the CPU from one set of
+   weights and one batch, TF32 off: the loss and every updated leaf
+   within ``TRAIN_TOL`` 1e-4 (the leaf's largest |value|), and the card's
+   step without AdamW's bias correction (control) past it; then
+   llama3.2-1b and mamba2-130m at full width and depth (bf16, seeded
+   random weights) through the launcher's loop (``launch.train.train``)
+   for 20 steps of 8 x 128 tokens of ``SyntheticCorpus`` at lr 1e-3 with
+   its warm-up: every loss and parameter finite, the mean of the last 5
+   losses below the first 5's, ms a step (AdamW's update between CUDA
+   events, with no host wait), tokens/s and ``max_memory_allocated``
+   printed beside the card; llama's trained weights and AdamW state saved
+   (``checkpoint.store``, the JAX package's npz format, under ``build/``,
+   removed after) and loaded into a fresh model on the card, every leaf
+   and the plain forward's logits bit-equal; one more step of each under
+   ``torch.profiler`` for the device's busy share; and every kernel
+   wrapper, called on the card with an input that requires grad, raises
+   and launches nothing.
 
 One function (``run_slice``) runs phases 5-7, 9, 13-15 and 17-19, each a
-``SLICES`` entry (launcher arguments and path).
+``SLICES`` entry (launcher arguments and path).  Phase 22 alone:
+``PYTHONPATH=src python3 -c "import chip_smoke as c;
+c.run_training(c.card_reading())"``.
 
 The last line of standard output is ``{"ok": true, "device": {...}}``; the
 line before it is the ``nvidia-smi`` reading and the one before that the
@@ -2325,14 +2351,18 @@ SLICES = {
 FAMILY_SLICES = ("deepseek_slice", "recurrentgemma_slice", "mixtral_slice")
 #: arch: (layers its served models are cut to, at full width; why).  All
 #: 56 of mixtral-8x22b's layers hold ~282 GB in bf16, 4 hold ~20.8 GB; the
-#: llama3.2-1b paths (phases 5-8) and the Mamba-2 slice (9) are cut to
-#: half their depth so that the whole script stays well inside its time
-#: limit (their walls follow the start-up estimator's batch and the host,
-#: and reached 75-138 s a slice at full depth); every kernel keeps its
-#: per-layer shapes
+#: llama3.2-1b paths (phases 5-8), the Mamba-2 slice (9), the
+#: codeqwen1.5-7b and minitron-4b slices (13-14) and the launcher's path
+#: (16, codeqwen1.5-7b) are cut to half their depth so that the whole
+#: script stays well inside its time limit (their walls follow the
+#: start-up estimator's batch and the host, and reached 75-138 s a slice
+#: at full depth; phase 20 still serves minitron-4b at full depth); every
+#: kernel keeps its per-layer shapes
 DEPTH_CUTS = {"mixtral-8x22b": (4, "past one 80 GB card"),
               "llama3.2-1b": (8, "cut for the script's time limit"),
-              "mamba2-130m": (12, "cut for the script's time limit")}
+              "mamba2-130m": (12, "cut for the script's time limit"),
+              "codeqwen1.5-7b": (16, "cut for the script's time limit"),
+              "minitron-4b": (16, "cut for the script's time limit")}
 
 
 def served_config(arch: str):
@@ -2341,6 +2371,18 @@ def served_config(arch: str):
     cfg = get_config(arch)
     return (cfg.replace(n_layers=DEPTH_CUTS[arch][0]) if arch in DEPTH_CUTS
             else cfg)
+
+
+def served_depth(serve):
+    """A patch of the launcher module ``serve``'s ``get_config`` under
+    which ``build_server`` builds a full config at the depth
+    ``DEPTH_CUTS`` gives its arch (reduced configs as they are)."""
+    full_config = serve.get_config
+    return mock.patch.object(serve, "get_config", lambda arch, reduced=False:
+                             full_config(arch, reduced) if reduced
+                             else served_config(arch))
+
+
 #: a request each slice adds to its trace, whose prompt passes the model's
 #: window (2048 local, 4096 sliding): (prompt tokens, tokens to generate,
 #: two slices of 32)
@@ -2554,10 +2596,7 @@ def run_slice(label: str) -> tuple:
                                   rows, n_steps)
         release_cuda()
     t0 = time.perf_counter()
-    full_config = serve.get_config
-    with mock.patch.object(serve, "get_config", lambda arch, reduced=False:
-                           full_config(arch, reduced) if reduced
-                           else served_config(arch)):
+    with served_depth(serve):
         server, vocab = serve.build_server(args)
     core = server.core
     engines = core.backend.engines
@@ -2682,7 +2721,8 @@ def stream_chunks(handle, core) -> list:
 def run_launcher_path() -> dict:
     """Phase 16: the launcher's serving path at full width.  The
     launcher's ``parse_args`` and ``build_server`` build codeqwen1.5-7b
-    (bf16, random weights, 32 layers) behind ``SliceServer`` with
+    (bf16, random weights, cut to 16 of its 32 layers: ``DEPTH_CUTS``)
+    behind ``SliceServer`` with
     ``scls-pred``, the proxy predictor's MLP on the card, metrics, the
     decision audit and a Chrome trace (``--trace-out``).  With every kernel
     count at 0 the server replays the CodeFuse trace (two shared-prefix
@@ -2706,7 +2746,8 @@ def run_launcher_path() -> dict:
                                  + ["--trace-out", LAUNCHER_TRACE])
     os.makedirs(os.path.dirname(LAUNCHER_TRACE), exist_ok=True)
     t0 = time.perf_counter()
-    server, vocab = serve.build_server(cfg)
+    with served_depth(serve):
+        server, vocab = serve.build_server(cfg)
     core = server.core
     engines = core.backend.engines
     pred = core.predictor
@@ -3771,6 +3812,13 @@ def release_cuda() -> None:
     torch.cuda.empty_cache()
 
 
+def dev_us(event) -> float:
+    """An event of ``torch.profiler``'s ``key_averages`` -> its own device
+    time in microseconds (the attribute's name differs across versions)."""
+    return getattr(event, "self_device_time_total",
+                   getattr(event, "self_cuda_time_total", 0.0))
+
+
 def profile_window(engine, vocab: int) -> None:
     """One slice of 8 fresh 256-token requests, 32 decode steps, under
     ``torch.profiler``: the device's busy share of the window's wall time
@@ -3793,11 +3841,6 @@ def profile_window(engine, vocab: int) -> None:
         for rid in rids:
             engine.release_request(rid)
     events = prof.key_averages()
-
-    def dev_us(e):
-        return getattr(e, "self_device_time_total",
-                       getattr(e, "self_cuda_time_total", 0.0))
-
     busy = sum(dev_us(e) for e in events) / 1e6
     top = sorted(events, key=dev_us, reverse=True)[:8]
     print(json.dumps({"profile": dict(
@@ -4118,6 +4161,345 @@ def run_frontend_family(arch: str) -> dict:
     return summary
 
 
+# ---------------------------------------------------------------------------
+# phase 22: the training path (Model.loss, AdamW, the launcher's loop)
+# ---------------------------------------------------------------------------
+#: phase 22's families at their reduced float32 configs, card against CPU
+TRAIN_PARITY = ("llama3.2-1b", "mamba2-130m", "deepseek-v2-lite-16b",
+                "mixtral-8x22b", "recurrentgemma-9b",
+                "seamless-m4t-large-v2", "paligemma-3b")
+TRAIN_TOL = 1e-4             # one train step, card vs CPU (float32, TF32
+                             # off): the loss relative, each updated leaf
+                             # relative to its largest |value|
+#: the step's AdamW: eps 1e-3, not 1e-8, so that an element whose gradient
+#: lies within float32 rounding of zero does not move by ±lr on either
+#: device's rounding (the update g / (|g| + eps) has slope 1/eps at 0)
+TRAIN_PARITY_OPT = dict(lr=1e-2, warmup_steps=1, total_steps=3, eps=1e-3)
+#: the full-width runs through the launcher's loop (bf16, full depth)
+TRAIN_FULL = ("llama3.2-1b", "mamba2-130m")
+TRAIN_STEPS, TRAIN_BATCH, TRAIN_SEQ, TRAIN_LR = 20, 8, 128, 1e-3
+#: where the llama run's checkpoint goes (removed after the round trip)
+TRAIN_CKPT = os.path.join(ROOT, "build", "smoke_ckpt")
+
+
+def train_parity_batch(cfg, dev) -> dict:
+    """Two rows of 12 seeded tokens, with the family's frontend inputs
+    (the encoder-decoder's with invalid frames in its last row)."""
+    import numpy as np
+    rng = np.random.default_rng(12)
+    b = {"tokens": rng.integers(2, cfg.vocab_size,
+                                size=(2, 12)).astype(np.int32)}
+    if cfg.family == "encdec":
+        b["src_embeds"] = rng.standard_normal((2, 16, cfg.d_model)).astype(
+            np.float32)
+        valid = np.ones((2, 16), bool)
+        valid[-1, 10:] = False
+        b["src_valid"] = valid
+    if cfg.family == "vlm":
+        b["prefix_embeds"] = rng.standard_normal(
+            (2, cfg.n_prefix_tokens, cfg.d_model)).astype(np.float32)
+    return {k: torch.from_numpy(v).to(dev) for k, v in b.items()}
+
+
+def leaf_gap(got, want) -> tuple:
+    """(largest gap of a parameter of ``got`` from ``want``'s, relative to
+    that leaf's largest |value|, and the parameter's name)."""
+    ref = dict(want.named_parameters())
+    return max(((p.detach().float().cpu() - ref[n].float()).abs().max().item()
+                / max(ref[n].abs().max().item(), 1e-30), n)
+               for n, p in got.named_parameters())
+
+
+def check_train_parity(arch: str) -> dict:
+    """One ``make_train_step`` of the reduced float32 ``arch`` on the card
+    and on the CPU from one set of weights (drawn apart as phase 4c's) and
+    one batch: the loss and every updated leaf within ``TRAIN_TOL``; then
+    the card's step with AdamW's bias correction dropped (control) must
+    part from the CPU's by more."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models.registry import get_model
+    from repro_torch.optim import adamw
+    torch.backends.cuda.matmul.allow_tf32 = False  # as main sets it
+    model = get_model(get_config(arch, reduced=True))
+    opt_cfg = adamw.AdamWConfig(**TRAIN_PARITY_OPT)
+    step = make_train_step(model, opt_cfg)
+    cpu = model.init(0, device="cpu")
+    perturb(cpu, model.cfg)
+    start = {k: v.clone() for k, v in cpu.state_dict().items()}
+
+    def on_card():
+        card = model.init(0, device="cuda")
+        card.load_state_dict(start)
+        card, _, loss = step(card, adamw.init_adamw(card),
+                             train_parity_batch(model.cfg, "cuda"))
+        return card, float(loss)
+
+    cpu, _, cpu_loss = step(cpu, adamw.init_adamw(cpu),
+                            train_parity_batch(model.cfg, "cpu"))
+    card, card_loss = on_card()
+    loss_gap = abs(card_loss - float(cpu_loss)) / abs(float(cpu_loss))
+    gap, worst = leaf_gap(card, cpu)
+    with mock.patch.object(adamw, "bias_corrections",
+                           lambda cfg, t: (1.0, 1.0)):
+        faulty, _ = on_card()
+    control, _ = leaf_gap(faulty, cpu)
+    log(f"train step {arch} (reduced, float32), card vs CPU: loss "
+        f"{card_loss:.6f} vs {float(cpu_loss):.6f} (relative "
+        f"{loss_gap:.2e}), largest leaf gap {gap:.2e} ({worst}; tolerance "
+        f"{TRAIN_TOL}); control, no bias correction: {control:.2e}")
+    if not (loss_gap <= TRAIN_TOL and gap <= TRAIN_TOL < control):
+        raise SystemExit(f"phase 22: {arch}'s train step on the card parts "
+                         f"from the CPU's ({loss_gap:.2e}, {gap:.2e}) or "
+                         f"its control ({control:.2e}) stays within "
+                         f"{TRAIN_TOL}")
+    return dict(arch=arch, loss_rel_gap=loss_gap, leaf_gap=gap,
+                worst_leaf=worst, control_no_bias_correction=control)
+
+
+def train_full(arch: str, card: str) -> tuple:
+    """``launch.train.train`` at ``arch``'s full config (bf16, full width
+    and depth) for ``TRAIN_STEPS`` steps of ``TRAIN_BATCH`` x
+    ``TRAIN_SEQ`` on the card: every loss finite, every parameter finite
+    after, and the mean of the last 5 losses below that of the first 5.
+    Returns the run (for the checkpoint round trip) and its reading."""
+    import math
+    from repro_torch.configs import get_config
+    from repro_torch.launch import steps
+    from repro_torch.launch.train import train
+    cfg = get_config(arch)
+    update_events = []
+    update = steps.adamw_update
+
+    def timed_update(*args):
+        """The step's AdamW update between two CUDA events, with no host
+        wait, so the step runs as the launcher's own; the events are read
+        after the run."""
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = update(*args)
+        end.record()
+        update_events.append((start, end))
+        return out
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    with mock.patch.object(steps, "adamw_update", timed_update):
+        run = train(cfg, steps=TRAIN_STEPS, batch=TRAIN_BATCH,
+                    seq=TRAIN_SEQ, lr=TRAIN_LR, log_every=5, device="cuda")
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    losses, ms = run["losses"], run["step_ms"]
+    warm = sorted(ms[1:])
+    median = warm[len(warm) // 2]
+    median_update = sorted(start.elapsed_time(end) for start, end
+                           in update_events[1:])[len(warm) // 2]
+    first, last = sum(losses[:5]) / 5, sum(losses[-5:]) / 5
+    finite = all(math.isfinite(x) for x in losses) and all(
+        bool(torch.isfinite(p).all()) for p in run["params"].parameters())
+    reading = dict(arch=arch, n_params=run["n_params"], steps=TRAIN_STEPS,
+                   batch=TRAIN_BATCH, seq=TRAIN_SEQ, lr=TRAIN_LR,
+                   dtype=str(cfg.dtype).split(".")[-1],
+                   first_step_ms=ms[0], median_step_ms=median,
+                   median_update_ms=median_update,
+                   tokens_per_s=TRAIN_BATCH * TRAIN_SEQ / (median / 1e3),
+                   max_memory_allocated=peak, loss_first5=first,
+                   loss_last5=last, losses=losses, card=card)
+    log(f"train {arch} (full width and depth, {reading['dtype']}, "
+        f"{run['n_params'] / 1e6:.1f}M params): {TRAIN_STEPS} steps of "
+        f"{TRAIN_BATCH} x {TRAIN_SEQ}, loss {first:.4f} -> {last:.4f} "
+        f"(means of the first and last 5), {median:.2f} ms a step (median "
+        f"after the first, {ms[0]:.1f} ms; AdamW's update {median_update:.2f}"
+        f" ms on the card's clock), {reading['tokens_per_s']:,.0f} tokens/s, "
+        f"max_memory_allocated {peak / 2 ** 30:.2f} GiB; {card}")
+    if not (finite and last < first):
+        raise SystemExit(f"phase 22: {arch} at full width: non-finite "
+                         f"losses or parameters ({finite}), or no "
+                         f"improvement ({first:.4f} -> {last:.4f})")
+    return run, reading
+
+
+def profile_train_step(run: dict) -> dict:
+    """Two more launcher steps of ``run`` on a seeded batch of
+    ``TRAIN_BATCH`` x ``TRAIN_SEQ``, the second under ``torch.profiler``
+    (CUDA activity only): the kernels' device time over the step's wall
+    time (the device's busy share), and the kernel time by name."""
+    import numpy as np
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.optim.adamw import AdamWConfig
+    model, params, opt = run["model"], run["params"], run["opt"]
+    step = make_train_step(model, AdamWConfig(lr=TRAIN_LR))
+    rng = np.random.default_rng(14)
+    batch = {"tokens": torch.from_numpy(rng.integers(
+        2, model.cfg.vocab_size,
+        size=(TRAIN_BATCH, TRAIN_SEQ)).astype(np.int32)).cuda()}
+    params, opt, loss = step(params, opt, batch)
+    float(loss)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params, opt, loss = step(params, opt, batch)
+        float(loss)
+        wall = time.perf_counter() - t0
+    events = prof.key_averages()
+    busy = sum(dev_us(e) for e in events) / 1e6
+    top = sorted(events, key=dev_us, reverse=True)[:6]
+    reading = dict(profiled_step_ms=wall * 1e3, device_busy_ms=busy * 1e3,
+                   device_busy_share=busy / wall,
+                   kernels=sum(e.count for e in events),
+                   top_kernels_ms={e.key[:80]: dev_us(e) / 1e3 for e in top})
+    log(f"train {model.cfg.name}: one step under the profiler "
+        f"{reading['profiled_step_ms']:.2f} ms, kernels busy "
+        f"{reading['device_busy_ms']:.2f} ms ({busy / wall:.1%}) over "
+        f"{reading['kernels']} kernel launches")
+    return reading
+
+
+def check_checkpoint_round_trip(run: dict, path: str) -> dict:
+    """The trained model and optimiser state of ``run``, saved to ``path``,
+    load into a fresh model on the card: every leaf and the plain
+    forward's logits on a fixed batch bit-equal."""
+    import shutil
+
+    import numpy as np
+    from repro_torch.checkpoint.store import load_checkpoint, save_checkpoint
+    from repro_torch.optim.adamw import init_adamw
+    model, params, opt = run["model"], run["params"], run["opt"]
+    t0 = time.perf_counter()
+    save_checkpoint(path, params, opt, step=TRAIN_STEPS)
+    save_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    fresh = model.init(1, device="cuda")
+    fresh, fresh_opt, step, _ = load_checkpoint(path, fresh,
+                                                init_adamw(fresh))
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    size = sum(os.path.getsize(os.path.join(path, f))
+               for f in os.listdir(path))
+    shutil.rmtree(path)
+    trained = dict(params.named_parameters())
+    equal = all(torch.equal(p, trained[n])
+                for n, p in fresh.named_parameters())
+    equal &= torch.equal(fresh_opt.step, opt.step) and step == TRAIN_STEPS
+    for moment in ("mu", "nu"):
+        a, b = getattr(fresh_opt, moment), getattr(opt, moment)
+        stack = [(a, b)]
+        while stack:
+            x, y = stack.pop()
+            if isinstance(x, dict):
+                equal &= set(x) == set(y)
+                stack += [(x[k], y[k]) for k in x]
+            else:
+                equal &= torch.equal(x, y)
+    rng = np.random.default_rng(13)
+    tokens = torch.from_numpy(rng.integers(
+        2, model.cfg.vocab_size, size=(2, 64)).astype(np.int32)).cuda()
+    from repro_torch.models import transformer
+    with torch.no_grad():
+        same = torch.equal(transformer.forward(params, model.cfg, tokens),
+                           transformer.forward(fresh, model.cfg, tokens))
+    log(f"checkpoint round trip ({model.cfg.name}, {size / 2 ** 30:.2f} "
+        f"GiB on disk, saved in {save_s:.1f} s, loaded in {load_s:.1f} s): "
+        f"every leaf bit-equal: {equal}; plain forward logits bit-equal: "
+        f"{same}")
+    if not (equal and same):
+        raise SystemExit("phase 22: the checkpoint round trip changed a "
+                         "leaf or the logits")
+    return dict(checkpoint_bytes=size, save_s=save_s, load_s=load_s)
+
+
+def kernel_guard_cases(dev):
+    """(name, call) of every kernel wrapper of ``kernels.ops`` on tiny
+    CUDA inputs, one of which requires grad."""
+    from repro_torch.kernels import ops
+
+    def f(*shape, grad=False):
+        return torch.zeros(shape, device=dev, requires_grad=grad)
+
+    def i(*shape):
+        return torch.zeros(shape, dtype=torch.int32, device=dev)
+
+    pages = (f(2, 4, 1, 8), f(2, 4, 1, 8))
+    return (
+        ("paged_prefill_write", lambda: ops.paged_prefill_write(
+            f(1, 4, 1, 8, grad=True), f(1, 4, 1, 8), i(1, 4), i(1, 1),
+            *pages)),
+        ("paged_decode_attention", lambda: ops.paged_decode_attention(
+            f(1, 2, 8, grad=True), *pages, i(1, 1), i(1, 4), i(1))),
+        ("fused_rope_prefill_write", lambda: ops.fused_rope_prefill_write(
+            f(1, 4, 1, 8, grad=True), f(1, 4, 1, 8), i(1, 4), i(1, 1),
+            *pages)),
+        ("fused_rope_decode_append", lambda: ops.fused_rope_decode_append(
+            f(1, 2, 8, grad=True), f(1, 1, 8), f(1, 1, 8), i(1, 1), i(1, 4),
+            i(1), i(1), *pages)),
+        ("flash_prefill", lambda: ops.flash_prefill(
+            f(1, 4, 2, 8, grad=True), f(1, 4, 1, 8), f(1, 4, 1, 8),
+            i(1, 4))),
+        ("decode_attention", lambda: ops.decode_attention(
+            f(1, 2, 8, grad=True), f(1, 4, 1, 8), f(1, 4, 1, 8), i(1, 4),
+            i(1))),
+        ("ssd_scan", lambda: ops.ssd_chunked_scan(
+            f(1, 8, 2, 4, grad=True), f(1, 8, 2), f(2), f(1, 8, 1, 4),
+            f(1, 8, 1, 4), chunk=8)),
+    )
+
+
+def check_kernel_guard() -> list:
+    """Every kernel wrapper, called on the card with grad mode on and an
+    input that requires grad, raises (the kernels have no backward) and
+    launches nothing."""
+    from repro_torch.kernels import ops
+    refused = []
+    ops.reset_counts()
+    for name, call in kernel_guard_cases("cuda"):
+        try:
+            call()
+        except RuntimeError as e:
+            if "no backward" in str(e):
+                refused.append(name)
+    launched = {k: v for k, v in ops.launches().items() if v}
+    log(f"kernel guard: {len(refused)} of {len(ops.launches())} wrappers "
+        f"refuse inputs that require grad ({', '.join(refused)}); "
+        f"launched: {launched or 'nothing'}")
+    if len(refused) != len(ops.launches()) or launched:
+        raise SystemExit(f"phase 22: wrappers that did not refuse a grad "
+                         f"input, or launches: {refused}, {launched}")
+    return refused
+
+
+def run_training(card: str) -> dict:
+    """Phase 22: each family's train step card against CPU, the full-width
+    runs through the launcher's loop, llama's checkpoint round trip, a
+    profiled step of each full-width run and the kernel guard.  Launches
+    no kernel (checked)."""
+    from repro_torch.kernels import ops
+    t0 = time.perf_counter()
+    ops.reset_counts()
+    parity = [check_train_parity(arch) for arch in TRAIN_PARITY]
+    release_cuda()
+    full, trip = [], None
+    for arch in TRAIN_FULL:
+        run, reading = train_full(arch, card)
+        full.append(reading)
+        if arch == "llama3.2-1b":
+            trip = check_checkpoint_round_trip(run, TRAIN_CKPT)
+        reading["profile"] = profile_train_step(run)
+        del run
+        release_cuda()
+    ran = {k: (n, ops.plain_calls[k]) for k, n in ops.launches().items()
+           if n or ops.plain_calls[k]}
+    if ran:
+        raise SystemExit(f"phase 22: training reached kernel wrappers: "
+                         f"{ran}")
+    guard = check_kernel_guard()
+    summary = dict(parity=parity, full=full, checkpoint=trip,
+                   guard_refused=guard, wall_s=time.perf_counter() - t0)
+    print(json.dumps({"training": summary}), flush=True)
+    log(f"phase 22: {summary['wall_s']:.1f} s")
+    return summary
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the card",
@@ -4224,6 +4606,8 @@ def main() -> int:
     for arch, spec in FRONTEND_SERVE.items():  # phase 21
         scls[spec["label"]] = run_frontend_family(arch)
         release_cuda()
+    run_training(card)  # phase 22
+    release_cuda()
     # every control fault of phase 4 must have failed its slice's gate
     weak = {f"{label} {fault}": gap for label, sm in scls.items()
             for fault, gap in sm.get("controls", {}).items()

@@ -5,6 +5,12 @@ a CPU tensor takes the kernel's plain version in ``kernels.ref``.  There
 is no switch that sends a CUDA tensor to the plain version.  The engines
 and models call through these functions, so the serving stack runs the
 kernels whenever its pools live on the card.
+
+No kernel has a backward.  A CUDA call with grad mode on and an input
+that requires grad raises (``_refuse_grad``) rather than return a result
+cut from the autograd graph, which would leave everything upstream of
+the kernel untrained without a word: the training forwards (``Model.
+loss``) run the plain torch versions and reach none of these functions.
 """
 from __future__ import annotations
 
@@ -44,6 +50,16 @@ def _on_cpu(t: torch.Tensor, name: str) -> bool:
     return True
 
 
+def _refuse_grad(name: str, *tensors: torch.Tensor) -> None:
+    """Raise when the kernel ``name`` would run under autograd: grad mode
+    on and an input that requires grad."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        raise RuntimeError(f"{name}: the CUDA kernel has no backward, and "
+                           f"an input requires grad; train through the "
+                           f"model's plain forward (Model.loss), or call "
+                           f"under torch.no_grad()")
+
+
 def launches() -> Dict[str, int]:
     """Kernel launches since the last ``reset_counts``."""
     return {name: mod.launches for name, mod in _KERNELS.items()}
@@ -70,6 +86,7 @@ def paged_prefill_write(k_new: torch.Tensor, v_new: torch.Tensor,
         ref.paged_prefill_write_ref(k_new, v_new, positions, block_table,
                                     k_pages, v_pages)
         return
+    _refuse_grad("paged_prefill_write", k_new, v_new, k_pages, v_pages)
     _write_kernel.paged_prefill_write(k_new, v_new, positions, block_table,
                                       k_pages, v_pages)
 
@@ -84,6 +101,7 @@ def paged_decode_attention(q: torch.Tensor, k_pages: torch.Tensor,
         return ref.paged_decode_attention_ref(q, k_pages, v_pages,
                                               block_table, slot_pos, q_pos,
                                               window=window)
+    _refuse_grad("paged_decode_attention", q, k_pages, v_pages)
     return _decode_kernel.paged_decode_attention(q, k_pages, v_pages,
                                                  block_table, slot_pos,
                                                  q_pos, window=window)
@@ -108,6 +126,7 @@ def fused_rope_prefill_write(k_new: torch.Tensor, v_new: torch.Tensor,
                                          block_table, k_pages, v_pages,
                                          theta=theta)
         return
+    _refuse_grad("fused_rope_prefill_write", k_new, v_new, k_pages, v_pages)
     _fwrite_kernel.fused_rope_prefill_write(k_new, v_new, positions,
                                             block_table, k_pages, v_pages,
                                             theta=theta)
@@ -130,6 +149,8 @@ def fused_rope_decode_append(q: torch.Tensor, k_new: torch.Tensor,
         return ref.fused_rope_decode_append_ref(
             q, k_new, v_new, block_table, slot_pos, slots, q_pos, k_pages,
             v_pages, theta=theta, window=window)
+    _refuse_grad("fused_rope_decode_append", q, k_new, v_new, k_pages,
+                 v_pages)
     return _fdecode_kernel.fused_rope_decode_append(
         q, k_new, v_new, block_table, slot_pos, slots, q_pos, k_pages,
         v_pages, theta=theta, window=window)
@@ -145,6 +166,7 @@ def flash_prefill(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if _on_cpu(q, "flash_prefill"):
         return ref.flash_prefill_ref(q, k, v, positions, window=window,
                                      prefix_len=prefix_len)
+    _refuse_grad("flash_prefill", q, k, v)
     return _prefill_kernel.flash_prefill(q, k, v, positions, window=window,
                                          prefix_len=prefix_len)
 
@@ -158,6 +180,7 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
     if _on_cpu(q, "decode_attention"):
         return ref.decode_attention_ref(q, k_cache, v_cache, slot_pos, q_pos,
                                         window=window)
+    _refuse_grad("decode_attention", q, k_cache, v_cache)
     return _dense_decode_kernel.decode_attention(q, k_cache, v_cache,
                                                  slot_pos, q_pos,
                                                  window=window)
@@ -173,4 +196,5 @@ def ssd_chunked_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
                          f"multiple of the chunk {chunk}")
     if _on_cpu(x, "ssd_scan"):
         return ref.ssd_scan_ref(x, dt, A, B, C, chunk)
+    _refuse_grad("ssd_scan", x, dt, A, B, C)
     return _ssd_kernel.ssd_scan(x, dt, A, B, C, chunk)

@@ -28,17 +28,21 @@ by ``models.moe`` and ``models.mla``), the RG-LRU hybrid
 ``models.rglru``), the encoder-decoder (seamless-m4t-large-v2:
 ``n_enc_layers`` and ``n_dec_layers``, used by ``models.encdec``) and the
 prefix-LM VLM (paligemma-3b: ``n_prefix_tokens``, the bidirectional image
-prefix of ``models.transformer``).  The training-only ``router_aux_coef``
-and ``remat`` stay out: only the loss and the trainer read them.
+prefix of ``models.transformer``), and the training fields
+``router_aux_coef`` (the MoE loss's weight of the load-balance term) and
+``remat`` (each layer of a training forward recomputed in the backward
+pass, ``remat_layer``: JAX's ``scan_layers(remat=...)``).  The loss is
+``softmax_xent``, JAX's.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+from typing import Callable, Optional
 
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 
 @dataclasses.dataclass(frozen=True)
@@ -69,6 +73,7 @@ class ModelConfig:
     d_ff_expert: int = 0
     capacity_factor: float = 1.25
     first_dense_layers: int = 0  # deepseek-v2: layer 0 is a dense MLP
+    router_aux_coef: float = 0.01
     # --- MLA (deepseek-v2) ---
     use_mla: bool = False
     kv_lora_rank: int = 512
@@ -90,6 +95,8 @@ class ModelConfig:
     n_dec_layers: int = 0
     # --- VLM prefix-LM (paligemma) ---
     n_prefix_tokens: int = 0  # image patches; embeddings come pre-computed
+    # --- training memory policy ---
+    remat: bool = False  # per-layer activation checkpointing (remat_layer)
     dtype: torch.dtype = torch.float32
 
     @property
@@ -253,3 +260,31 @@ def embed_apply(embed: Embed, tokens: torch.Tensor,
 
 def unembed_apply(embed: Embed, h: torch.Tensor) -> torch.Tensor:
     return h @ embed.table.T
+
+
+# ---------------------------------------------------------------------------
+# training
+# ---------------------------------------------------------------------------
+def remat_layer(cfg: ModelConfig, fn: Callable, *args):
+    """``fn(*args)``, one layer of a training forward; with ``cfg.remat``
+    and grad mode on, under ``torch.utils.checkpoint`` (non-reentrant), so
+    that the backward pass recomputes the layer's activations instead of
+    keeping them (``scan_layers(remat=True)``'s ``jax.checkpoint``)."""
+    if cfg.remat and torch.is_grad_enabled():
+        return checkpoint(fn, *args, use_reentrant=False)
+    return fn(*args)
+
+
+def softmax_xent(logits: torch.Tensor, labels: torch.Tensor,
+                 mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Mean next-token cross entropy in float32. logits (B,T,V); labels
+    (B,T) int; ``mask`` (B,T) weighs each token, the mean taken over
+    ``max(sum(mask), 1)``."""
+    logits = logits.float()
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = logits.gather(-1, labels.long()[..., None])[..., 0]
+    nll = logz - gold
+    if mask is None:
+        return nll.mean()
+    mask = mask.float()
+    return (nll * mask).sum() / torch.clamp(mask.sum(), min=1.0)

@@ -47,8 +47,8 @@ from torch import nn
 from repro_torch.models import attention as attn
 from repro_torch.models.attention import KVCache
 from repro_torch.models.common import (MLP, Embed, ModelConfig, apply_rope,
-                                       embed_apply, rms_norm, rms_weight,
-                                       unembed_apply)
+                                       embed_apply, remat_layer, rms_norm,
+                                       rms_weight, unembed_apply)
 from repro_torch.models.transformer import Block, _mlp_residual, make_positions
 
 
@@ -135,20 +135,29 @@ def _encode(params: EncDecModel, cfg: ModelConfig, src_embeds: torch.Tensor,
     mask_pos = torch.where(src_valid, rope_pos, -1).to(torch.int32)
     mask = ((src_valid[:, None, :] & src_valid[:, :, None])[:, None]
             if plain else None)
-    scale = cfg.head_dim ** -0.5
     h = src_embeds.to(cfg.dtype)
     for layer in params.enc_layers:
-        x = rms_norm(h, layer.ln_attn, cfg.norm_eps)
-        q, k, v = attn._qkv(layer.attn, x, cfg)
-        q = apply_rope(q, rope_pos, cfg.rope_theta)
-        k = apply_rope(k, rope_pos, cfg.rope_theta)
-        if plain:
-            o = attn.gqa_attend_blocked(q, k, v, mask, scale)
-        else:
-            o = attn.prefill_attend(q, k, v, mask_pos, None, scale,
-                                    prefix_len=S)
-        h = _mlp_residual(layer, h + layer.attn.wo(o.reshape(B, S, -1)), cfg)
+        h = remat_layer(cfg, _enc_block, layer, h, rope_pos, mask, mask_pos,
+                        cfg)
     return rms_norm(h, params.ln_enc, cfg.norm_eps)
+
+
+def _enc_block(layer: Block, h: torch.Tensor, rope_pos: torch.Tensor,
+               mask: Optional[torch.Tensor], mask_pos: torch.Tensor,
+               cfg: ModelConfig) -> torch.Tensor:
+    """One encoder layer: plain torch attention under ``mask`` where it
+    is given, else ``flash_prefill`` over ``mask_pos``."""
+    B, S, _ = h.shape
+    scale = cfg.head_dim ** -0.5
+    x = rms_norm(h, layer.ln_attn, cfg.norm_eps)
+    q, k, v = attn._qkv(layer.attn, x, cfg)
+    q = apply_rope(q, rope_pos, cfg.rope_theta)
+    k = apply_rope(k, rope_pos, cfg.rope_theta)
+    if mask is not None:
+        o = attn.gqa_attend_blocked(q, k, v, mask, scale)
+    else:
+        o = attn.prefill_attend(q, k, v, mask_pos, None, scale, prefix_len=S)
+    return _mlp_residual(layer, h + layer.attn.wo(o.reshape(B, S, -1)), cfg)
 
 
 def encode(params: EncDecModel, cfg: ModelConfig, src_embeds: torch.Tensor,
@@ -198,7 +207,9 @@ def forward(params: EncDecModel, cfg: ModelConfig, src_embeds: torch.Tensor,
             tokens: torch.Tensor,
             src_valid: Optional[torch.Tensor] = None) -> torch.Tensor:
     """(B,S,d) source embeddings + (B,T) target tokens -> logits
-    (B,T,V), in plain torch on every device (no kernel, no cache)."""
+    (B,T,V), in plain torch on every device (no kernel, no cache).  It is
+    also the training loss's forward: it carries gradients, each encoder
+    and decoder layer under ``remat_layer``."""
     src_valid = _valid(src_embeds, src_valid)
     enc_out = _encode(params, cfg, src_embeds, src_valid, plain=True)
     B, T = tokens.shape
@@ -206,15 +217,20 @@ def forward(params: EncDecModel, cfg: ModelConfig, src_embeds: torch.Tensor,
                              device=tokens.device)[None].expand(B, T)
     h = embed_apply(params.embed, tokens, cfg)
     for layer in params.dec_layers:
-        x = rms_norm(h, layer.ln_self, cfg.norm_eps)
-        h = h + attn.attention_forward(layer.self_attn, x, positions, cfg,
-                                       None)
-        ck, cv = _cross_kv(layer, enc_out, cfg)
-        h = h + _cross_attend(layer, rms_norm(h, layer.ln_cross,
-                                              cfg.norm_eps),
-                              ck, cv, src_valid, cfg)
-        h = _mlp_residual(layer, h, cfg)
+        h = remat_layer(cfg, _dec_block, layer, h, positions, enc_out,
+                        src_valid, cfg)
     return unembed_apply(params.embed, rms_norm(h, params.ln_f, cfg.norm_eps))
+
+
+def _dec_block(layer: DecBlock, h: torch.Tensor, positions: torch.Tensor,
+               enc_out: torch.Tensor, src_valid: torch.Tensor,
+               cfg: ModelConfig) -> torch.Tensor:
+    x = rms_norm(h, layer.ln_self, cfg.norm_eps)
+    h = h + attn.attention_forward(layer.self_attn, x, positions, cfg, None)
+    ck, cv = _cross_kv(layer, enc_out, cfg)
+    h = h + _cross_attend(layer, rms_norm(h, layer.ln_cross, cfg.norm_eps),
+                          ck, cv, src_valid, cfg)
+    return _mlp_residual(layer, h, cfg)
 
 
 def prefill(params: EncDecModel, cfg: ModelConfig, src_embeds: torch.Tensor,

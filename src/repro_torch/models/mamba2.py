@@ -9,10 +9,13 @@ names follow the JAX parameter tree (``layers.<i>.mixer.in_proj.w``,
 ``…mixer.A_log``, ``layers.<i>.ln``, ``ln_f``), so
 ``repro_torch.weights.params_from_jax`` maps one onto the other.
 
-The chunked scan goes through ``kernels.ops.ssd_chunked_scan``: the
-``ssd_scan`` kernel for CUDA tensors, its plain version for CPU tensors.
-It computes the Pallas kernel's function, which equals the JAX model's
-oracle wherever the oracle is finite (ROADMAP C2).
+The serving paths' chunked scan (``prefill``) goes through
+``kernels.ops.ssd_chunked_scan``: the ``ssd_scan`` kernel for CUDA
+tensors, its plain version for CPU tensors.  ``forward`` (the training
+loss's) calls the plain version ``kernels.ref.ssd_scan_ref`` directly on
+every device, as the JAX forward calls its oracle: the kernel has no
+backward.  Both compute the Pallas kernel's function, which equals the
+JAX model's oracle wherever the oracle is finite (ROADMAP C2).
 
 Casts and roundings sit where the JAX model puts them: x, B, C and dt
 enter the scan in float32, ``y + x·D`` is float32 and is cast to the
@@ -35,9 +38,11 @@ import torch.nn.functional as F
 from torch import nn
 
 from repro_torch.kernels import ops as kernel_ops
+from repro_torch.kernels.ref import ssd_scan_ref
 from repro_torch.models.common import (Dense, Embed, ModelConfig,
-                                       embed_apply, normal_, rms_norm,
-                                       rms_weight, softplus, unembed_apply)
+                                       embed_apply, normal_, remat_layer,
+                                       rms_norm, rms_weight, softplus,
+                                       unembed_apply)
 
 
 class MambaCache(NamedTuple):
@@ -148,10 +153,13 @@ def _causal_conv(p: Mixer, xBC: torch.Tensor) -> torch.Tensor:
 
 
 def mixer_forward(p: Mixer, u: torch.Tensor, valid: torch.Tensor,
-                  cfg: ModelConfig
+                  cfg: ModelConfig, plain: bool = False
                   ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """u (B,T,d_model) with T a multiple of ``cfg.ssm_chunk``; valid (B,T)
-    bool.  Returns (out, final_state, conv_tail)."""
+    bool.  Returns (out, final_state, conv_tail).  The scan is
+    ``kernels.ops.ssd_chunked_scan`` (the kernel on the card: prefill's),
+    or with ``plain`` its plain version ``kernels.ref.ssd_scan_ref`` on
+    every device (``forward``'s, which carries gradients)."""
     d_in, H, P, N, G, conv_dim = _dims(cfg)
     B_, T, _ = u.shape
     z, xBC, dt = _split_zxbcdt(p, u, cfg)
@@ -165,9 +173,10 @@ def mixer_forward(p: Mixer, u: torch.Tensor, valid: torch.Tensor,
     dt = softplus(dt.float() + p.dt_bias)
     dt = torch.where(valid[..., None], dt, 0.0)  # identity transition at pads
     A = -torch.exp(p.A_log)
-    y, final = kernel_ops.ssd_chunked_scan(
-        x.float().contiguous(), dt.contiguous(), A.contiguous(),
-        Bmat.float().contiguous(), Cmat.float().contiguous(), cfg.ssm_chunk)
+    scan = ssd_scan_ref if plain else kernel_ops.ssd_chunked_scan
+    y, final = scan(x.float().contiguous(), dt.contiguous(), A.contiguous(),
+                    Bmat.float().contiguous(), Cmat.float().contiguous(),
+                    cfg.ssm_chunk)
     y = y + x.float() * p.D[None, None, :, None]
     y = y.reshape(B_, T, d_in).to(u.dtype)
     y = rms_norm(y * F.silu(z), p.norm, cfg.norm_eps)
@@ -212,6 +221,38 @@ def _pad_to_chunk(h: torch.Tensor, valid: torch.Tensor, Q: int):
     return h, valid, lead
 
 
+def _zero_pads(h: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
+    return torch.where(valid[..., None], h, torch.zeros((), dtype=h.dtype,
+                                                        device=h.device))
+
+
+def forward(params: Mamba2, cfg: ModelConfig, tokens: torch.Tensor,
+            valid: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Full-sequence forward (no cache) -> logits (B,T,V), the training
+    loss's: pads (``valid`` false; default none) are zeroed, the sequence
+    is left-padded to a whole chunk, the mixers run with ``valid`` and the
+    lead is dropped before ``ln_f`` and the head.  The scan is the plain
+    ``ssd_scan_ref`` on every device, as JAX's forward calls its oracle,
+    so no kernel runs and gradients flow through it; each layer runs under
+    ``remat_layer``."""
+    B, T = tokens.shape
+    if valid is None:
+        valid = torch.ones((B, T), dtype=torch.bool, device=tokens.device)
+    h = _zero_pads(embed_apply(params.embed, tokens, cfg), valid)
+    h, valid_p, lead = _pad_to_chunk(h, valid, cfg.ssm_chunk)
+    for layer in params.layers:
+        h = remat_layer(cfg, _block_forward, layer, h, valid_p, cfg)
+    h = h[:, lead:]
+    return unembed_apply(params.embed, rms_norm(h, params.ln_f, cfg.norm_eps))
+
+
+def _block_forward(layer: Block, h: torch.Tensor, valid: torch.Tensor,
+                   cfg: ModelConfig) -> torch.Tensor:
+    o, _, _ = mixer_forward(layer.mixer, rms_norm(h, layer.ln, cfg.norm_eps),
+                            valid, cfg, plain=True)
+    return h + o
+
+
 def prefill(params: Mamba2, cfg: ModelConfig, tokens: torch.Tensor,
             lengths: torch.Tensor, cache_window: int = 0,
             ) -> Tuple[torch.Tensor, MambaCache]:
@@ -221,9 +262,7 @@ def prefill(params: Mamba2, cfg: ModelConfig, tokens: torch.Tensor,
     B, T = tokens.shape
     idx = torch.arange(T, device=tokens.device)[None]
     valid = idx >= (T - lengths.to(idx.dtype)[:, None])
-    h = embed_apply(params.embed, tokens, cfg)
-    h = torch.where(valid[..., None], h, torch.zeros((), dtype=h.dtype,
-                                                     device=h.device))
+    h = _zero_pads(embed_apply(params.embed, tokens, cfg), valid)
     h, valid_p, _ = _pad_to_chunk(h, valid, cfg.ssm_chunk)
     states, tails = [], []
     for layer in params.layers:

@@ -43,8 +43,8 @@ from repro_torch.models import attention as attn
 from repro_torch.models import mla
 from repro_torch.models.attention import KVCache
 from repro_torch.models.common import (MLP, Embed, ModelConfig, activate,
-                                       embed_apply, normal_, rms_norm,
-                                       rms_weight, unembed_apply)
+                                       embed_apply, normal_, remat_layer,
+                                       rms_norm, rms_weight, unembed_apply)
 from repro_torch.models.transformer import make_positions
 
 MOE_GROUP = 1024  # dispatch group size (tokens); decode uses one group
@@ -165,16 +165,33 @@ def capacity(cfg: ModelConfig, group: int) -> int:
                       / cfg.n_experts))
 
 
+def _router_probs(p: MoELayer, xg: torch.Tensor) -> torch.Tensor:
+    return torch.softmax(xg.float() @ p.router, dim=-1)
+
+
 def route(p: MoELayer, xg: torch.Tensor, cfg: ModelConfig,
           cap: int) -> Routing:
     """xg (g, d) -> the group's routing under the router's float32
     softmax."""
-    probs = torch.softmax(xg.float() @ p.router, dim=-1)
-    return _dispatch(probs, cfg.top_k, cap)
+    return _dispatch(_router_probs(p, xg), cfg.top_k, cap)
 
 
-def moe_apply(p: MoELayer, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
-    """x (B,T,d) -> y (B,T,d).  The groups run one after another, as JAX's
+def _balance(probs: torch.Tensor, r: Routing) -> torch.Tensor:
+    """One group's ``sum_e f_e * P_e``: f_e the share of the group's g·K
+    choices that expert e kept (no gradient, as JAX's dispatch mask),
+    P_e the mean router probability of e over the group's tokens (pad
+    rows included, as in JAX)."""
+    g, E = probs.shape
+    kept = F.one_hot(r.expert, E).float() * r.keep[..., None]
+    frac = kept.sum(dim=(0, 1)) / (g * r.expert.shape[1])
+    return (frac * probs.mean(dim=0)).sum()
+
+
+def moe_apply(p: MoELayer, x: torch.Tensor, cfg: ModelConfig,
+              with_aux: bool = False):
+    """x (B,T,d) -> y (B,T,d), or (y, aux) ``with_aux``: the Switch-style
+    load-balance loss ``E · mean over groups of sum_e f_e · P_e`` of JAX's
+    ``moe_apply``.  The groups run one after another, as JAX's
     ``lax.map`` runs them, so one group's buffers are live at a time."""
     B, T, d = x.shape
     g_total = B * T
@@ -184,13 +201,19 @@ def moe_apply(p: MoELayer, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     if pad:
         xf = F.pad(xf, (0, 0, 0, pad))
     cap = capacity(cfg, group)
-    ys = []
+    ys, balance = [], []
     for xg in xf.split(group):
-        ys.append(_group_apply(p, xg, route(p, xg, cfg, cap), cap))
+        probs = _router_probs(p, xg)
+        r = _dispatch(probs, cfg.top_k, cap)
+        ys.append(_group_apply(p, xg, r, cap))
+        if with_aux:
+            balance.append(_balance(probs, r))
     y = torch.cat(ys)[:g_total].reshape(B, T, d)
     if p.shared is not None:
         y = y + p.shared(x)
-    return y
+    if not with_aux:
+        return y
+    return y, cfg.n_experts * torch.stack(balance).mean()
 
 
 # ---------------------------------------------------------------------------
@@ -254,9 +277,15 @@ def init(generator: torch.Generator, cfg: ModelConfig,
     return params
 
 
-def _ffn(layer: Block, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
-    return (moe_apply(layer.moe, x, cfg) if hasattr(layer, "moe")
-            else layer.mlp(x))
+def _ffn(layer: Block, x: torch.Tensor, cfg: ModelConfig,
+         with_aux: bool = False):
+    """The block's dense MLP or MoE layer on x: (y, the MoE layer's aux
+    loss ``with_aux``, else None)."""
+    if not hasattr(layer, "moe"):
+        return layer.mlp(x), None
+    if not with_aux:
+        return moe_apply(layer.moe, x, cfg), None
+    return moe_apply(layer.moe, x, cfg, with_aux=True)
 
 
 def _blocks(params: MoEModel):
@@ -271,28 +300,46 @@ def _logits(params: MoEModel, cfg: ModelConfig,
     return unembed_apply(params.embed, rms_norm(h, params.ln_f, cfg.norm_eps))
 
 
+def _block_forward(layer: Block, h: torch.Tensor, positions: torch.Tensor,
+                   cfg: ModelConfig, window: Optional[int], with_aux: bool):
+    """One block of ``forward``: (new h, ``_ffn``'s aux loss)."""
+    x = rms_norm(h, layer.ln_attn, cfg.norm_eps)
+    if cfg.use_mla:
+        a = mla.mla_forward(layer.attn, x, positions, cfg, window)
+    else:
+        a = attn.attention_forward(layer.attn, x, positions, cfg, window)
+    h = h + a
+    m, aux = _ffn(layer, rms_norm(h, layer.ln_mlp, cfg.norm_eps), cfg,
+                  with_aux)
+    return h + m, aux
+
+
 def forward(params: MoEModel, cfg: ModelConfig, tokens: torch.Tensor,
             lengths: Optional[torch.Tensor] = None,
-            window: Optional[int] = None) -> torch.Tensor:
-    """Full-sequence forward (no cache) -> logits (B,T,V).  Its attention
-    is plain torch on every device (``attention.attention_forward`` or
-    MLA's), so on the card it is the reference the served paths are held
-    against.  The MoE groups are this call's B·T tokens."""
+            window: Optional[int] = None, with_aux: bool = False):
+    """Full-sequence forward (no cache) -> logits (B,T,V), or (logits,
+    aux) ``with_aux``: the MoE layers' mean load-balance loss, which the
+    training loss adds (JAX's ``forward`` returns the pair always).  Its
+    attention is plain torch on every device (``attention.
+    attention_forward`` or MLA's), so on the card it is the reference the
+    served paths are held against; it carries gradients, each block under
+    ``remat_layer``.  The MoE groups are this call's B·T tokens."""
     window = window if window is not None else cfg.sliding_window
     B, T = tokens.shape
     if lengths is None:
         lengths = torch.full((B,), T, dtype=torch.int32, device=tokens.device)
     positions = make_positions(tokens, lengths)
     h = embed_apply(params.embed, tokens, cfg)
+    auxs = []
     for _, _, layer in _blocks(params):
-        x = rms_norm(h, layer.ln_attn, cfg.norm_eps)
-        if cfg.use_mla:
-            a = mla.mla_forward(layer.attn, x, positions, cfg, window)
-        else:
-            a = attn.attention_forward(layer.attn, x, positions, cfg, window)
-        h = h + a
-        h = h + _ffn(layer, rms_norm(h, layer.ln_mlp, cfg.norm_eps), cfg)
-    return _logits(params, cfg, h)
+        h, aux = remat_layer(cfg, _block_forward, layer, h, positions, cfg,
+                             window, with_aux)
+        if aux is not None:
+            auxs.append(aux)
+    logits = _logits(params, cfg, h)
+    if not with_aux:
+        return logits
+    return logits, torch.stack(auxs).mean()
 
 
 def _cache(cfg: ModelConfig, c1: list, c2: list, slot_pos: torch.Tensor,
@@ -327,7 +374,8 @@ def prefill(params: MoEModel, cfg: ModelConfig, tokens: torch.Tensor,
             a, c1, c2 = attn.attention_prefill(layer.attn, x, positions, cfg,
                                                window, Wc)
         h = h + a
-        h = h + _ffn(layer, rms_norm(h, layer.ln_mlp, cfg.norm_eps), cfg)
+        m, _ = _ffn(layer, rms_norm(h, layer.ln_mlp, cfg.norm_eps), cfg)
+        h = h + m
         caches[dense][0].append(c1)
         caches[dense][1].append(c2)
     logits = _logits(params, cfg, h[:, -1:])[:, 0]
@@ -365,7 +413,8 @@ def decode_step(params: MoEModel, cfg: ModelConfig, cache: MoECache,
             a = attn.attention_decode(layer.attn, x, q_pos, c.k[l], c.v[l],
                                       slot_pos, slot, cfg, window)
         h = h + a
-        h = h + _ffn(layer, rms_norm(h, layer.ln_mlp, cfg.norm_eps), cfg)
+        m, _ = _ffn(layer, rms_norm(h, layer.ln_mlp, cfg.norm_eps), cfg)
+        h = h + m
     logits = _logits(params, cfg, h)[:, 0]
 
     def advance(c):

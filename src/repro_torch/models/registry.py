@@ -3,6 +3,7 @@ sharing one calling convention (counterpart of ``repro.models.registry``,
 for every family: dense, vlm, ssm, hybrid, moe and encdec):
 
   init(seed_or_generator, device=None)        -> params (nn.Module)
+  loss(params, batch)                         -> scalar tensor
   prefill(params, batch, cache_window)        -> (last_logits, cache)
   decode_step(params, cache, tokens, step)    -> (logits, cache)
   kv_bytes_per_token(n_model_shards)          -> float  (Δ in Eq. 5)
@@ -10,22 +11,26 @@ for every family: dense, vlm, ssm, hybrid, moe and encdec):
 ``batch`` is a dict with tokens (B,T) and lengths (B,) tensors, and the
 frontend stubs' embeddings where the family takes them: prefix_embeds
 (B,P,d) for the VLM, src_embeds (B,S,d) and src_valid (B,S) bool for the
-encoder-decoder.
+encoder-decoder.  The loss's batch is tokens (B,T) alone, with an
+optional loss_mask (B,T-1), window_override (dense and VLM, MoE) and the
+frontend embeddings; the loss runs the family's plain ``forward``, which
+carries gradients and launches no kernel.
 """
 from __future__ import annotations
 
-from typing import Callable, NamedTuple, Union
+from typing import Any, Callable, Dict, NamedTuple, Union
 
 import torch
 
 from repro_torch import DeviceLike, resolve_device
 from repro_torch.models import encdec, mamba2, moe, rglru, transformer
-from repro_torch.models.common import ModelConfig
+from repro_torch.models.common import ModelConfig, softmax_xent
 
 
 class Model(NamedTuple):
     cfg: ModelConfig
     init: Callable
+    loss: Callable
     prefill: Callable
     decode_step: Callable
     kv_bytes_per_token: Callable
@@ -50,7 +55,22 @@ def _itemsize(cfg: ModelConfig) -> int:
     return torch.empty((), dtype=cfg.dtype).element_size()
 
 
+def _next_token_xent(logits: torch.Tensor,
+                     batch: Dict[str, Any]) -> torch.Tensor:
+    return softmax_xent(logits[:, :-1], batch["tokens"][:, 1:],
+                        batch.get("loss_mask"))
+
+
 def _dense(cfg: ModelConfig) -> Model:
+    def loss(params, batch):
+        window = batch.get("window_override", cfg.sliding_window)
+        logits = transformer.forward(params, cfg, batch["tokens"],
+                                     prefix_embeds=batch.get("prefix_embeds"),
+                                     window=window)
+        if cfg.n_prefix_tokens and "prefix_embeds" in batch:
+            logits = logits[:, batch["prefix_embeds"].shape[1]:]
+        return _next_token_xent(logits, batch)
+
     def prefill(params, batch, cache_window, window=None):
         return transformer.prefill(params, cfg, batch["tokens"],
                                    batch["lengths"], cache_window,
@@ -66,11 +86,15 @@ def _dense(cfg: ModelConfig) -> Model:
                    * _itemsize(cfg))
         return per_tok / min(n_shards, cfg.n_kv_heads)
 
-    return Model(cfg, _initialiser(transformer, cfg), prefill, decode_step,
-                 kv_bytes)
+    return Model(cfg, _initialiser(transformer, cfg), loss, prefill,
+                 decode_step, kv_bytes)
 
 
 def _ssm(cfg: ModelConfig) -> Model:
+    def loss(params, batch):
+        return _next_token_xent(mamba2.forward(params, cfg, batch["tokens"]),
+                                batch)
+
     def prefill(params, batch, cache_window, window=None):
         return mamba2.prefill(params, cfg, batch["tokens"], batch["lengths"])
 
@@ -82,11 +106,15 @@ def _ssm(cfg: ModelConfig) -> Model:
         # per-token cost is 0
         return 0.0
 
-    return Model(cfg, _initialiser(mamba2, cfg), prefill, decode_step,
+    return Model(cfg, _initialiser(mamba2, cfg), loss, prefill, decode_step,
                  kv_bytes)
 
 
 def _hybrid(cfg: ModelConfig) -> Model:
+    def loss(params, batch):
+        return _next_token_xent(rglru.forward(params, cfg, batch["tokens"]),
+                                batch)
+
     def prefill(params, batch, cache_window, window=None):
         return rglru.prefill(params, cfg, batch["tokens"], batch["lengths"],
                              cache_window)
@@ -101,11 +129,18 @@ def _hybrid(cfg: ModelConfig) -> Model:
                    * _itemsize(cfg))
         return per_tok / min(n_shards, cfg.n_kv_heads)
 
-    return Model(cfg, _initialiser(rglru, cfg), prefill, decode_step,
+    return Model(cfg, _initialiser(rglru, cfg), loss, prefill, decode_step,
                  kv_bytes)
 
 
 def _moe(cfg: ModelConfig) -> Model:
+    def loss(params, batch):
+        window = batch.get("window_override", cfg.sliding_window)
+        logits, aux = moe.forward(params, cfg, batch["tokens"],
+                                  batch.get("lengths"), window=window,
+                                  with_aux=True)
+        return _next_token_xent(logits, batch) + cfg.router_aux_coef * aux
+
     def prefill(params, batch, cache_window, window=None):
         return moe.prefill(params, cfg, batch["tokens"], batch["lengths"],
                            cache_window, window=window)
@@ -121,10 +156,16 @@ def _moe(cfg: ModelConfig) -> Model:
         per_tok = 2 * cfg.n_layers * cfg.n_kv_heads * cfg.head_dim * b
         return per_tok / min(n_shards, cfg.n_kv_heads)
 
-    return Model(cfg, _initialiser(moe, cfg), prefill, decode_step, kv_bytes)
+    return Model(cfg, _initialiser(moe, cfg), loss, prefill, decode_step,
+                 kv_bytes)
 
 
 def _encdec(cfg: ModelConfig) -> Model:
+    def loss(params, batch):
+        logits = encdec.forward(params, cfg, batch["src_embeds"],
+                                batch["tokens"], batch.get("src_valid"))
+        return _next_token_xent(logits, batch)
+
     def prefill(params, batch, cache_window, window=None):
         return encdec.prefill(params, cfg, batch["src_embeds"],
                               batch["tokens"], batch["lengths"], cache_window,
@@ -141,7 +182,7 @@ def _encdec(cfg: ModelConfig) -> Model:
                    * _itemsize(cfg))
         return per_tok / min(n_shards, cfg.n_kv_heads)
 
-    return Model(cfg, _initialiser(encdec, cfg), prefill, decode_step,
+    return Model(cfg, _initialiser(encdec, cfg), loss, prefill, decode_step,
                  kv_bytes)
 
 

@@ -37,8 +37,9 @@ from torch import nn
 from repro_torch.models import attention as attn
 from repro_torch.models.attention import KVCache
 from repro_torch.models.common import (MLP, Dense, Embed, ModelConfig,
-                                       embed_apply, normal_, rms_norm,
-                                       rms_weight, softplus, unembed_apply)
+                                       embed_apply, normal_, remat_layer,
+                                       rms_norm, rms_weight, softplus,
+                                       unembed_apply)
 from repro_torch.models.transformer import make_positions
 
 _RG_C = 8.0  # Griffin's fixed recurrence sharpness constant
@@ -277,7 +278,10 @@ def forward(params: RecurrentGemma, cfg: ModelConfig, tokens: torch.Tensor,
             lengths: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Full-sequence forward (no cache) -> logits (B,T,V); its attention
     is plain torch on every device (the reference the served paths are
-    held against on the card)."""
+    held against on the card).  It is also the training loss's forward:
+    it carries gradients, each group under ``remat_layer`` (the tail's
+    blocks outside it, as JAX's ``scan_layers`` remats the groups
+    only)."""
     B, T = tokens.shape
     if lengths is None:
         lengths = torch.full((B,), T, dtype=torch.int32, device=tokens.device)
@@ -285,15 +289,20 @@ def forward(params: RecurrentGemma, cfg: ModelConfig, tokens: torch.Tensor,
     valid = positions >= 0
     h = _embed(params, cfg, tokens, valid)
     for grp in params.groups:
-        for rp in grp.rec:
-            h, _, _ = rec_block_forward(rp, h, valid, cfg)
-        ab = grp.attn
-        a = attn.attention_forward(ab.attn, rms_norm(h, ab.ln, cfg.norm_eps),
-                                   positions, cfg, cfg.local_window)
-        h = _attn_mlp(ab, h, a, cfg)
+        h = remat_layer(cfg, _group_forward, grp, h, valid, positions, cfg)
     for rp in params.tail:
         h, _, _ = rec_block_forward(rp, h, valid, cfg)
     return _logits(params, cfg, h)
+
+
+def _group_forward(grp: Group, h: torch.Tensor, valid: torch.Tensor,
+                   positions: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    for rp in grp.rec:
+        h, _, _ = rec_block_forward(rp, h, valid, cfg)
+    ab = grp.attn
+    a = attn.attention_forward(ab.attn, rms_norm(h, ab.ln, cfg.norm_eps),
+                               positions, cfg, cfg.local_window)
+    return _attn_mlp(ab, h, a, cfg)
 
 
 def prefill(params: RecurrentGemma, cfg: ModelConfig, tokens: torch.Tensor,

@@ -37,8 +37,8 @@ from repro_torch.kvcache.paged import PagedKVCache
 from repro_torch.models import attention as attn
 from repro_torch.models.attention import KVCache
 from repro_torch.models.common import (MLP, Dense, Embed, ModelConfig,
-                                       embed_apply, rms_norm, rms_weight,
-                                       unembed_apply)
+                                       embed_apply, remat_layer, rms_norm,
+                                       rms_weight, unembed_apply)
 
 
 class Block(nn.Module):
@@ -131,7 +131,8 @@ def forward(params: Transformer, cfg: ModelConfig, tokens: torch.Tensor,
     ``prefix_embeds`` (B,P,d) is prepended (the logits then cover P + T
     tokens) and ``tokens`` holds the text only.  ``positions`` cover the
     whole sequence and default to 0..P+T-1; left pads carry positions
-    < 0."""
+    < 0.  It is also the training loss's forward: it carries gradients,
+    each layer under ``remat_layer``."""
     window = window if window is not None else cfg.sliding_window
     h = embed_apply(params.embed, tokens, cfg)
     if prefix_embeds is not None:
@@ -141,11 +142,16 @@ def forward(params: Transformer, cfg: ModelConfig, tokens: torch.Tensor,
         positions = torch.arange(T, dtype=torch.int32,
                                  device=tokens.device)[None].expand(B, T)
     for layer in params.layers:
-        x = rms_norm(h, layer.ln_attn, cfg.norm_eps)
-        a = attn.attention_forward(layer.attn, x, positions, cfg, window,
-                                   cfg.n_prefix_tokens)
-        h = _mlp_residual(layer, h + a, cfg)
+        h = remat_layer(cfg, _block_forward, layer, h, positions, cfg, window)
     return _logits(params, cfg, h)
+
+
+def _block_forward(layer: Block, h: torch.Tensor, positions: torch.Tensor,
+                   cfg: ModelConfig, window: Optional[int]) -> torch.Tensor:
+    x = rms_norm(h, layer.ln_attn, cfg.norm_eps)
+    a = attn.attention_forward(layer.attn, x, positions, cfg, window,
+                               cfg.n_prefix_tokens)
+    return _mlp_residual(layer, h + a, cfg)
 
 
 # ---------------------------------------------------------------------------

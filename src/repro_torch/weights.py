@@ -18,13 +18,26 @@ module names are the JAX keys; float32 leaves (Mamba-2's ``A_log``, ``D``,
 ``dt_bias``, the MoE ``router``, the RG-LRU ``lambda``) stay float32
 because the port declares them so.  The proxy length predictor's flat
 dict loads the same way (``load_proxy_params``).
+
+The reverse, ``params_to_jax``, restacks the port's modules into the JAX
+tree of numpy arrays (what ``jax.tree.map(np.asarray, params)`` gives,
+which ``checkpoint.store`` writes).  numpy has no bfloat16 without
+``ml_dtypes``, so a bfloat16 leaf comes out as a 2-byte void array
+(``|V2``) holding its bits: the bytes, and the dtype, that ``np.savez``
+writes for a JAX bfloat16 array.  ``jax_path`` maps a parameter's name to
+its leaf's key path and its index along the stacked axes, which the
+optimiser uses to keep its moments in the JAX tree's layout.
 """
 from __future__ import annotations
 
-from typing import Any, Dict, Mapping
+from typing import Any, Dict, Mapping, Tuple
 
 import numpy as np
 import torch
+from torch import nn
+
+#: numpy's dtype for a bfloat16 leaf: 2 raw bytes (``np.savez``'s ``|V2``)
+BF16_VOID = np.dtype("V2")
 
 
 def _to_tensor(a: Any) -> torch.Tensor:
@@ -33,6 +46,14 @@ def _to_tensor(a: Any) -> torch.Tensor:
         # torch.from_numpy refuses ml_dtypes' bfloat16: reinterpret the bits
         return torch.from_numpy(a.view(np.int16)).view(torch.bfloat16)
     return torch.from_numpy(a)
+
+
+def to_numpy(t: torch.Tensor) -> np.ndarray:
+    """A tensor as a numpy array on the host; bfloat16 as ``|V2`` bits."""
+    t = t.detach().cpu()
+    if t.dtype == torch.bfloat16:
+        return t.view(torch.int16).numpy().view(BF16_VOID)
+    return t.numpy()
 
 
 #: keys of the JAX tree whose leaves stack one module a layer (or a block)
@@ -86,3 +107,56 @@ def load_proxy_params(predictor: Any, tree: Mapping[str, Any]) -> None:
     on its device; ``ProxyMLP`` names and shapes its parameters as the
     dict does, so keys and shapes are checked strictly."""
     predictor.mlp.load_state_dict(params_from_jax(tree))
+
+
+def jax_path(name: str) -> Tuple[Tuple[str, ...], Tuple[int, ...]]:
+    """(key path of the JAX leaf, index along its stacked axes) of the
+    port's parameter ``name``: ``groups.3.rec.1.lru_a.w`` is
+    ``(("groups", "rec", "lru_a", "w"), (3, 1))``."""
+    parts = name.split(".")
+    path, index = [], []
+    i = 0
+    while i < len(parts):
+        path.append(parts[i])
+        if (parts[i] in STACKED and i + 1 < len(parts)
+                and parts[i + 1].isdigit()):
+            index.append(int(parts[i + 1]))
+            i += 2
+        else:
+            i += 1
+    return tuple(path), tuple(index)
+
+
+def stack_tree(params: nn.Module, leaf=lambda t: t) -> Dict[str, Any]:
+    """The JAX tree (nested dicts) of the model ``params``: each leaf the
+    parameters of its key path stacked along their indices, in the
+    stacked order, and passed through ``leaf``."""
+    groups: Dict[Tuple[str, ...], Dict[Tuple[int, ...], torch.Tensor]] = {}
+    for name, t in params.named_parameters():
+        path, index = jax_path(name)
+        groups.setdefault(path, {})[index] = t.detach()
+    tree: Dict[str, Any] = {}
+    for path, parts in groups.items():
+        node = tree
+        for key in path[:-1]:
+            node = node.setdefault(key, {})
+        node[path[-1]] = leaf(_stack(parts))
+    return tree
+
+
+def _stack(parts: Dict[Tuple[int, ...], torch.Tensor]) -> torch.Tensor:
+    """Tensors keyed by their index along k stacked axes -> one tensor
+    with those k leading axes."""
+    if list(parts) == [()]:
+        return parts[()]
+    heads = sorted({i[0] for i in parts})
+    if heads != list(range(len(heads))):
+        raise ValueError(f"stacked indices {heads} are not 0..n-1")
+    return torch.stack([_stack({i[1:]: t for i, t in parts.items()
+                                if i[0] == h}) for h in heads])
+
+
+def params_to_jax(params: nn.Module) -> Dict[str, Any]:
+    """The JAX parameter tree (nested dicts of numpy arrays, bfloat16 as
+    ``|V2``) of the port's model: the reverse of ``params_from_jax``."""
+    return stack_tree(params, to_numpy)

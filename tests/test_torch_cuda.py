@@ -1017,3 +1017,38 @@ def test_reduced_mamba_engine_on_the_card_matches_the_cpu(cuda_device):
     prefill, no other kernel) gives the CPU's token streams over two
     slices but for near-ties.  The phase raises when it fails."""
     _smoke().check_config_parity("mamba2-130m")
+
+
+#: every kernel wrapper of ``kernels.ops`` (chip_smoke.kernel_guard_cases)
+GUARDED = ("paged_prefill_write", "paged_decode_attention",
+           "fused_rope_prefill_write", "fused_rope_decode_append",
+           "flash_prefill", "decode_attention", "ssd_scan")
+
+
+@pytest.mark.parametrize("name", GUARDED)
+def test_wrapper_refuses_an_input_that_requires_grad(cuda_device, name):
+    """The kernels have no backward: a CUDA call with grad mode on and an
+    input that requires grad raises before it launches, rather than
+    return a result cut from the autograd graph."""
+    from repro_torch.kernels import ops
+    call = dict(_smoke().kernel_guard_cases(cuda_device))[name]
+    ops.reset_counts()
+    with pytest.raises(RuntimeError, match="no backward"):
+        call()
+    assert not any(ops.launches().values())
+
+
+@pytest.mark.parametrize("arch", ("llama3.2-1b", "mamba2-130m",
+                                  "deepseek-v2-lite-16b", "mixtral-8x22b",
+                                  "recurrentgemma-9b",
+                                  "seamless-m4t-large-v2", "paligemma-3b"))
+def test_train_step_on_the_card_matches_the_cpu(cuda_device, arch):
+    """chip_smoke.py's phase 22 for one family: one train step of the
+    reduced float32 model on the card and on the CPU agree within 1e-4,
+    and the step without AdamW's bias correction does not.  The phase
+    raises when it fails."""
+    allow = torch.backends.cuda.matmul.allow_tf32
+    try:
+        _smoke().check_train_parity(arch)  # turns TF32 off
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = allow

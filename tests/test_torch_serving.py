@@ -228,3 +228,248 @@ def test_fused_engines_behind_the_core_stream_unfused_tokens():
     assert calls["fused"]["paged_decode_attention"] == 0
     assert calls["fused"]["fused_rope_prefill_write"] > 0
     assert calls["fused"]["fused_rope_decode_append"] > 0
+
+
+# ---------------------------------------------------------------------------
+# sessions and persistent retention (tests/test_sessions.py,
+# tests/test_retain.py): the cases the port had no counterpart of
+# ---------------------------------------------------------------------------
+SESSION_POOL_TOKENS = 512
+SESSION_PG = 8
+
+
+def _fixed_estimator(pkg):
+    """The paper testbed's fitted estimator: fixed, where the reference's
+    session tests fit one from wall-clock timings (ROADMAP C5)."""
+    import importlib
+    serving = importlib.import_module(f"{pkg}.serving")
+    estimator = importlib.import_module(f"{pkg}.core.estimator")
+    return serving.fitted_estimator(estimator.a100_llama13b_profile())
+
+
+def _session_server(pkg, model, params, prefix_sharing=True, workers=1):
+    """``pkg``'s SliceServer over ``workers`` persistent paged engines of
+    512 tokens in pages of 8 (retain mode), as ``tests/test_sessions.py``
+    builds it, with the fixed estimator."""
+    import importlib
+    serving = importlib.import_module(f"{pkg}.serving")
+    engine = importlib.import_module(f"{pkg}.engine.static_engine")
+    dev = {"device": "cpu"} if pkg == "repro_torch" else {}
+    cfg = serving.ServingConfig(
+        strategy="scls", backend="real", workers=workers, kv_layout="paged",
+        kv_retain="request", page_tokens=SESSION_PG, slice_len=8, max_gen=8,
+        gamma=0.25, mem_bucket=8, prefix_sharing=prefix_sharing, **dev)
+    delta = model.kv_bytes_per_token()
+    pool_pages = SESSION_POOL_TOKENS // SESSION_PG
+    mem = cfg.memory_estimator(
+        delta, m_available=pool_pages * SESSION_PG * delta / cfg.zeta + 1)
+    assert mem.total_blocks == pool_pages
+    engines = [engine.StaticEngine(model, params, eos_id=1, len_bucket=8,
+                                   kv_layout="paged", page_tokens=SESSION_PG,
+                                   kv_pool_tokens=SESSION_POOL_TOKENS,
+                                   prefix_sharing=prefix_sharing, **dev)
+               for _ in range(workers)]
+    return cfg.build_real(engines, _fixed_estimator(pkg), mem)
+
+
+def _turn_prompts(vocab, seed):
+    rng = np.random.default_rng(seed)
+    return [rng.integers(2, vocab, size=n).astype(np.int32)
+            for n in (24, 12, 9)]
+
+
+def _mid_slice_turn(pkg, model, params, turns):
+    import asyncio
+
+    async def main():
+        server = _session_server(pkg, model, params).aio
+        async with server:
+            s = server.session(max_gen=6)
+            h1 = await s.submit_turn(turns[0], gen_len=4)
+            # h1 not awaited: turn 2 goes in while turn 1 is in flight
+            h2 = await s.submit_turn(turns[1], gen_len=4)
+            await h2.result()
+            assert h1.done
+            expected = np.concatenate(
+                [turns[0], np.asarray(h1.output_tokens, np.int32), turns[1]])
+            np.testing.assert_array_equal(np.asarray(h2.request.prompt),
+                                          expected)
+            out = (list(h1.output_tokens), list(h2.output_tokens),
+                   np.asarray(h2.request.prompt))
+            await s.close()
+            m = await server.close()
+        return out, m
+
+    return asyncio.run(main())
+
+
+def test_session_turn_submitted_mid_slice_matches_jax():
+    """``tests/test_sessions.py:231`` on the port: a turn submitted while
+    the previous one is mid-slice awaits it, joins its prefix and serves
+    JAX's tokens (near-tie rule), history intact."""
+    jm, jp, tm, tp = shared_models()
+    turns = _turn_prompts(tm.cfg.vocab_size, seed=1)
+    (w1, w2, _), wm = _mid_slice_turn("repro", jm, jp, turns)
+    (g1, g2, prompt2), gm = _mid_slice_turn("repro_torch", tm, tp, turns)
+    assert len(g2) == 4
+    assert_same_stream(turns[0], w1, g1)
+    if g1 == w1:
+        assert_same_stream(prompt2, w2, g2)
+    assert gm.prefix_hit_tokens == wm.prefix_hit_tokens > 0
+
+
+def test_session_cancel_mid_conversation_restores_baseline():
+    """``tests/test_sessions.py:261`` on the port: a turn cancelled
+    mid-conversation leaves history; the anchor holds turn 1's pages
+    while the session lives, and on close every page returns."""
+    import asyncio
+    _, _, tm, tp = shared_models()
+    turns = _turn_prompts(tm.cfg.vocab_size, seed=2)
+
+    async def main():
+        server = _session_server("repro_torch", tm, tp).aio
+        alloc = server.core.backend.allocators[0]
+        baseline = alloc.free_blocks
+        async with server:
+            s = server.session(max_gen=8)
+            h1 = await s.submit_turn(turns[0], gen_len=6)
+            await h1.result()
+            h2 = await s.submit_turn(turns[1], gen_len=8)
+            h2.cancel()
+            await h2.result()
+            assert h2.cancelled
+            assert alloc.used_blocks > 0    # the anchor holds turn 1
+            h3 = await s.submit_turn(turns[2], gen_len=2)
+            await h3.result()
+            assert h3.request.input_len == len(turns[0]) + 6 + len(turns[2])
+            await s.close()
+            assert alloc.free_blocks == baseline
+            assert not alloc.owners()
+            await server.close()
+
+    asyncio.run(main())
+
+
+def test_real_affinity_keeps_turns_on_anchor_worker():
+    """``tests/test_sessions.py:294`` on the port, with a fixed estimator
+    (ROADMAP C5): two workers, the Eq. 11 minimum nudged away from the
+    anchor worker; ``RealBackend.batch_affinity`` keeps turn 2 where its
+    pages live (a prefix hit), the plain policy moves it (a full
+    prefill), and the tokens are the same either way."""
+    import asyncio
+    _, _, tm, tp = shared_models()
+    turns = _turn_prompts(tm.cfg.vocab_size, seed=3)
+
+    async def run(affinity):
+        server = _session_server("repro_torch", tm, tp, workers=2).aio
+        async with server:
+            off = server.core.offloader
+            assert off.affinity_fn is not None
+            if not affinity:
+                off.affinity_fn = None
+            s = server.session(max_gen=6)
+            h1 = await s.submit_turn(turns[0], gen_len=4)
+            await h1.result()
+            anchor, _ = server.core.backend._session_anchor[s.session_id]
+            off.loads = {w: (0.005 if w == anchor else 0.0)
+                         for w in off.loads}
+            h2 = await s.submit_turn(turns[1], gen_len=4)
+            await h2.result()
+            outs = (list(h1.output_tokens), list(h2.output_tokens))
+            await s.close()
+            m = await server.close()
+        return outs, m
+
+    outs_on, m_on = asyncio.run(run(True))
+    outs_off, m_off = asyncio.run(run(False))
+    assert outs_on == outs_off
+    assert m_on.prefix_hit_tokens > 0
+    assert m_off.prefix_hit_tokens == 0
+
+
+def _retain_server(model, params, slice_len=8, max_gen=32, pg=16,
+                   m_available=64e6):
+    """``tests/test_retain.py``'s retain-mode server on the port (one
+    persistent paged engine, the fixed estimator)."""
+    from repro_torch.engine.static_engine import StaticEngine
+    from repro_torch.serving import ServingConfig
+    cfg = ServingConfig(strategy="scls", backend="real", kv_layout="paged",
+                        page_tokens=pg, kv_retain="request",
+                        slice_len=slice_len, max_gen=max_gen, gamma=0.25,
+                        m_available=m_available, mem_bucket=8, device="cpu")
+    mem = cfg.memory_estimator(model.kv_bytes_per_token())
+    eng = StaticEngine(model, params, eos_id=1, len_bucket=8,
+                       kv_layout="paged", page_tokens=pg,
+                       kv_pool_tokens=mem.total_blocks * pg, device="cpu")
+    return cfg.build_real([eng], _fixed_estimator("repro_torch"), mem)
+
+
+def test_retain_request_cancel_mid_flight_returns_pool_to_baseline():
+    """``tests/test_retain.py:192`` on the port: cancelling a request whose
+    prefix pages are retained mid-flight releases them at the slice
+    boundary; the other requests complete and the pool is back at its
+    baseline."""
+    _, _, tm, tp = shared_models()
+    server = _retain_server(tm, tp)
+    allocators = server.core.backend.allocators
+    baseline = [a.free_blocks for a in allocators]
+    victim = server.submit(prompts(tm.cfg.vocab_size, [16], seed=3)[0],
+                           gen_len=24, max_gen=32, arrival=0.0)
+    others = [server.submit(p, gen_len=6 + i, max_gen=32, arrival=0.1 * i)
+              for i, p in enumerate(prompts(tm.cfg.vocab_size, [8, 9],
+                                            seed=4))]
+    while not victim.finished and victim.request.generated == 0:
+        server.step()
+    assert not victim.finished
+    assert any(a.used_blocks > 0 for a in allocators)
+    assert victim.cancel()
+    m = server.drain()
+    assert victim.cancelled and not victim.done
+    assert all(h.done for h in others)
+    assert m.n_completed == 2
+    assert [a.free_blocks for a in allocators] == baseline
+    assert all(not a.owners() for a in allocators)
+    assert server.core.mem.retained_blocks == 0
+
+
+def test_retain_request_streaming_matches_one_shot():
+    """``tests/test_retain.py:235`` on the port: tokens streamed slice by
+    slice through a retained request's handle equal one-shot generation
+    by a dense engine, and JAX's one-shot stream (near-tie rule)."""
+    import itertools
+
+    from repro.engine.static_engine import StaticEngine as JaxEngine
+    from repro_torch.engine.static_engine import StaticEngine
+    jm, jp, tm, tp = shared_models()
+    server = _retain_server(tm, tp)
+    p = prompts(tm.cfg.vocab_size, [14], seed=6)[0]
+    h = server.submit(p, gen_len=18, max_gen=32)
+    got = list(itertools.islice(h.tokens(), 18))
+    server.drain()
+    assert h.request.n_schedules >= 3
+    one_shot = StaticEngine(tm, tp, eos_id=1, len_bucket=8, device="cpu")
+    want = one_shot.serve_batch([p], slice_len=32,
+                                forced_gen_lens=[18]).results[0]["tokens"]
+    assert got == want
+    jax_want = JaxEngine(jm, jp, eos_id=1, len_bucket=8).serve_batch(
+        [p], slice_len=32, forced_gen_lens=[18]).results[0]["tokens"]
+    assert_same_stream(p, jax_want, got)
+
+
+def test_unsatisfiable_batch_unwinds_partial_reservations():
+    """``tests/test_retain.py:251`` on the port: a batch that cannot fit
+    after evicting every parked resident unwinds the rows it had granted,
+    so the pool is not wedged and each rid serves alone afterwards."""
+    from repro_torch.engine.static_engine import StaticEngine
+    _, _, tm, tp = shared_models()
+    p1, p2 = prompts(tm.cfg.vocab_size, [10, 10], seed=8)
+    eng = StaticEngine(tm, tp, eos_id=1, len_bucket=8, kv_layout="paged",
+                       page_tokens=8, kv_pool_tokens=32, device="cpu")
+    with pytest.raises(MemoryError):
+        eng.serve_batch_paged([p1, p2], 8, [1, 2], forced_gen_lens=[4, 4])
+    assert eng.allocator.free_blocks == eng.allocator.n_pages
+    assert not eng.allocator.owners()
+    res = eng.serve_batch_paged([p1], 8, [1], forced_gen_lens=[4])
+    assert res.results[0]["n_valid"] == 4
+    eng.release_request(1)
+    assert eng.allocator.free_blocks == eng.allocator.n_pages
