@@ -238,12 +238,35 @@ fails (nothing is caught):
    and the plain forward's logits bit-equal; one more step of each under
    ``torch.profiler`` for the device's busy share; and every kernel
    wrapper, called on the card with an input that requires grad, raises
-   and launches nothing.
+   and launches nothing;
+23. scale-out (``run_scale_out``, within about 90 s): (a) the dry-run
+   (``repro_torch.launch.dryrun``, CPU only, the card hidden from it) of
+   paligemma-3b x train_4k and codeqwen1.5-7b x decode_32k on the fake
+   (16, 16) production mesh, in two child processes that run while (b)
+   and (c) do: each ``status`` ok, FLOPs > 0 and a collective, its
+   roofline line printed (H100 SXM datasheet figures); (b) a real
+   one-card mesh (``launch.mesh.make_mesh((1, 1), ...)``: an NCCL group
+   of one rank over a ``FileStore`` under ``build/``): full-width
+   llama3.2-1b at ``DEPTH_CUTS``' depth, params and cache placed by
+   ``launch.sharding``, runs ``make_prefill_step`` and 32
+   ``make_decode_step``s greedily, its tokens equal to the unsharded
+   steps' on the card (a ``stream_tie`` allowed), B5 once a layer and B6
+   once a layer a step launched on the DTensor shards (no plain call);
+   one sharded ``make_train_step`` of the reduced float32 llama gives
+   the loss and every leaf within ``TRAIN_TOL`` of the unsharded step;
+   (c) a fake (1, 8) mesh with real CUDA tensors: codeqwen1.5-7b at full
+   width (32/32 heads, 4 a rank) placed with a dense cache of 8 x 2048
+   (decode): the bytes allocated for the arguments equal the dry-run's
+   ``argument_bytes`` on the same mesh, and one decode step launches B6
+   once a layer at 4 heads (the fake group's collectives move nothing,
+   so (c) checks shapes, launches and bytes, not values).
 
 One function (``run_slice``) runs phases 5-7, 9, 13-15 and 17-19, each a
 ``SLICES`` entry (launcher arguments and path).  Phase 22 alone:
 ``PYTHONPATH=src python3 -c "import chip_smoke as c;
-c.run_training(c.card_reading())"``.
+c.run_training(c.card_reading())"``; phase 23 alone: the same with
+``c.run_scale_out(c.card_reading())`` (it needs the kernels built:
+``from repro_torch.kernels import build; build.build_all()`` first).
 
 The last line of standard output is ``{"ok": true, "device": {...}}``; the
 line before it is the ``nvidia-smi`` reading and the one before that the
@@ -252,8 +275,10 @@ slice, phases 5 to 7 and 9, with every path's beside them, phases 13 to
 21 included, paged_decode_attention's at pg 32, the fleet's, as
 ``pg32_launches``, decode_attention's at group 16, recurrentgemma-9b's
 slice, as ``group16_launches``, flash_prefill's with a prefix, phase
-21's, as ``prefix_launches`` and decode_attention's as cross-attention,
-the seamless slice's, as ``cross_launches``; times from phase 3).
+21's, as ``prefix_launches``, decode_attention's as cross-attention,
+the seamless slice's, as ``cross_launches``, and B5's and B6's on
+DTensor shards, phase 23's, as ``sharded_launches``; times from phase
+3).
 """
 from __future__ import annotations
 
@@ -4500,6 +4525,338 @@ def run_training(card: str) -> dict:
     return summary
 
 
+# ---------------------------------------------------------------------------
+# phase 23: scale-out (the dry-run, a real one-card mesh, bytes at a shard)
+# ---------------------------------------------------------------------------
+#: (a): the dry-run's combinations on the (16, 16) production mesh
+SCALE_DRYRUNS = (("paligemma-3b", "train_4k"),
+                 ("codeqwen1.5-7b", "decode_32k"))
+SCALE_DRYRUN_DIR = os.path.join(ROOT, "build", "smoke_dryrun")
+#: (b): the one-card mesh's group store, and the sharded serve's shape:
+#: prompt lengths (left-padded to the longest) and greedy decode steps
+SCALE_STORE = os.path.join(ROOT, "build", "smoke_nccl_store")
+SCALE_PROMPTS, SCALE_STEPS = (96, 160, 224, 256), 32
+#: (c): the production shard: arch, mesh, decode batch x cache length
+SCALE_SHARD = ("codeqwen1.5-7b", (1, 8), 8, 2048)
+
+
+def start_dryruns() -> list:
+    """Phase 23 (a): one ``python -m repro_torch.launch.dryrun`` process a
+    combination, the card hidden from it (it allocates nothing)."""
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"),
+               CUDA_VISIBLE_DEVICES="", OMP_NUM_THREADS="1")
+    return [(arch, shape, subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", arch,
+         "--shape", shape, "--out", SCALE_DRYRUN_DIR], env=env, cwd=ROOT,
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+        for arch, shape in SCALE_DRYRUNS]
+
+
+def finish_dryruns(procs, card: str) -> list:
+    """Wait for phase 23 (a)'s processes; each record must be ok, with
+    FLOPs and at least one collective."""
+    recs = []
+    for arch, shape, proc in procs:
+        out = proc.communicate(timeout=600)[0]
+        if proc.returncode != 0:
+            raise SystemExit(f"phase 23: the dry-run of {arch} x {shape} "
+                             f"failed:\n{out[-4000:]}")
+        with open(os.path.join(SCALE_DRYRUN_DIR,
+                               f"{arch}_{shape}_pod1.json")) as f:
+            rec = json.load(f)
+        if not (rec["status"] == "ok" and rec["flops_per_device"] > 0
+                and rec["collectives"]):
+            raise SystemExit(f"phase 23: dry-run record of {arch} x {shape}:"
+                             f" {rec}")
+        ok = [ln for ln in out.splitlines() if ln.startswith("OK")]
+        log(f"dry-run (CPU, fake (16, 16) mesh; {rec['hardware']}; run on "
+            f"{card}): {ok[0] if ok else rec['roofline']}")
+        recs.append({k: rec[k] for k in (
+            "arch", "shape", "status", "dominant", "roofline",
+            "flops_per_device", "bytes_per_device",
+            "collective_bytes_per_device", "collectives", "memory",
+            "useful_flop_ratio", "trace_s", "hardware")})
+    return recs
+
+
+def greedy_steps(model, params, batch, steps: int, cache_window: int,
+                 place=None) -> tuple:
+    """``make_prefill_step`` then ``steps`` greedy ``make_decode_step``s;
+    ``place`` maps the prefill's cache (the sharded run's placements).
+    Returns (each row's tokens, ms a decode step: the host clock over the
+    steps, synchronised at both ends)."""
+    from torch.distributed.tensor import DTensor
+    from repro_torch.launch.steps import make_decode_step, make_prefill_step
+    logits, cache = make_prefill_step(model, cache_window)(params, batch)
+    if place is not None:
+        cache = place(cache)
+    decode = make_decode_step(model)
+    toks = []
+    sync = torch.cuda.synchronize if logits.is_cuda else (lambda: None)
+    sync()
+    t0 = time.perf_counter()
+    for s in range(steps):
+        tok = logits.argmax(-1).to(torch.int32)
+        toks.append(tok.full_tensor() if isinstance(tok, DTensor) else tok)
+        logits, cache = decode(params, cache, tok, s)
+    sync()
+    ms = (time.perf_counter() - t0) * 1e3 / steps
+    return torch.stack(toks, 1).cpu().tolist(), ms
+
+
+def check_sharded_serve(dev: str, mesh) -> dict:
+    """Phase 23 (b), serving: full-width llama3.2-1b (``DEPTH_CUTS``' depth)
+    through the prefill and decode steps unsharded, then with params,
+    batch and cache DTensors on ``mesh``; greedy tokens equal but for a
+    ``stream_tie``, B5 and B6 launched on the shards as the steps imply."""
+    import numpy as np
+    from torch.distributed.tensor.experimental import implicit_replication
+    from repro_torch.kernels import ops
+    from repro_torch.launch import sharding as shr
+    from repro_torch.models.registry import get_model
+    from repro_torch.testing import prefill_logits, stream_tie
+    cfg = served_config("llama3.2-1b")
+    model = get_model(cfg)
+    plain = model.init(0, device=dev)
+    rng = np.random.default_rng(23)
+    T = max(SCALE_PROMPTS)
+    ps = [rng.integers(2, cfg.vocab_size, size=n).astype(np.int32)
+          for n in SCALE_PROMPTS]
+    tokens = np.zeros((len(ps), T), np.int32)
+    for i, p in enumerate(ps):
+        tokens[i, T - len(p):] = p
+    batch = {"tokens": torch.from_numpy(tokens).to(dev),
+             "lengths": torch.tensor(SCALE_PROMPTS, dtype=torch.int32,
+                                     device=dev)}
+    W = T + SCALE_STEPS
+    want, plain_ms = greedy_steps(model, plain, batch, SCALE_STEPS, W)
+    sharded = model.init(0, device=dev)
+    sharded.load_state_dict(plain.state_dict())
+    shr.shard_params(sharded, shr.param_specs(sharded, mesh, cfg), mesh)
+    placed = shr.named(batch, shr.batch_spec(batch, mesh, len(ps)), mesh)
+    ops.reset_counts()
+    with implicit_replication():
+        got, sharded_ms = greedy_steps(
+            model, sharded, placed, SCALE_STEPS, W,
+            place=lambda c: shr.named(c, shr.cache_spec(c, mesh, cfg,
+                                                        len(ps)), mesh))
+    if dev == "cuda":
+        torch.cuda.synchronize()
+    launches = ops.launches() if dev == "cuda" else dict(ops.plain_calls)
+    L = cfg.n_layers
+    expect = {k: 0 for k in launches}
+    expect.update(flash_prefill=L, decode_attention=L * SCALE_STEPS)
+    if launches != expect or (dev == "cuda" and any(
+            ops.plain_calls.values())):
+        raise SystemExit(f"phase 23: sharded serve launches {launches} != "
+                         f"{expect}, plain calls {ops.plain_calls}")
+    ref = prefill_logits(model, plain)
+    ties = []
+    for i, (p, a, b) in enumerate(zip(ps, want, got)):
+        gap = stream_tie(ref, p, a, b)
+        if gap is not None:
+            ties.append(dict(request=i, gap=gap))
+    log(f"sharded serve (llama3.2-1b, {L} layers, full width, mesh "
+        f"{dict(zip(mesh.mesh_dim_names, mesh.shape))}): {len(ps)} x "
+        f"{SCALE_STEPS} greedy tokens equal to the unsharded steps' "
+        f"(near-ties {ties}); launches {launches}; ms a decode step "
+        f"{sharded_ms:.2f} sharded vs {plain_ms:.2f} plain (host clock, "
+        f"the DTensor dispatch included)")
+    return dict(launches=launches, near_ties=ties, rows=len(ps),
+                steps=SCALE_STEPS, layers=L, ms_decode_step=sharded_ms,
+                ms_decode_step_plain=plain_ms)
+
+
+def check_sharded_train(dev: str, mesh) -> dict:
+    """Phase 23 (b), training: one ``make_train_step`` of the reduced
+    float32 llama3.2-1b unsharded and with params, AdamW state and batch
+    DTensors on ``mesh``: the loss and every leaf within ``TRAIN_TOL``."""
+    from torch.distributed.tensor import DTensor
+    from torch.distributed.tensor.experimental import implicit_replication
+    from repro_torch.configs import get_config
+    from repro_torch.launch import sharding as shr
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models.registry import get_model
+    from repro_torch.optim import adamw
+    model = get_model(get_config("llama3.2-1b", reduced=True))
+    cfg = model.cfg
+    step = make_train_step(model, adamw.AdamWConfig(**TRAIN_PARITY_OPT))
+    plain = model.init(0, device=dev)
+    perturb(plain, cfg)
+    start = {k: v.clone() for k, v in plain.state_dict().items()}
+    batch = {"tokens": train_parity_batch(cfg, dev)["tokens"]}
+    plain, _, loss = step(plain, adamw.init_adamw(plain), batch)
+    sharded = model.init(0, device=dev)
+    sharded.load_state_dict(start)
+    opt = adamw.init_adamw(sharded)
+    shr.shard_params(sharded, shr.param_specs(sharded, mesh, cfg), mesh)
+    ospecs = shr.opt_state_specs(opt, sharded, mesh, cfg)
+    opt = adamw.AdamWState(step=opt.step,
+                           mu=shr.named(opt.mu, ospecs.mu, mesh),
+                           nu=shr.named(opt.nu, ospecs.nu, mesh))
+    placed = shr.named(batch, shr.batch_spec(batch, mesh, 2), mesh)
+    with implicit_replication():
+        sharded, _, sloss = step(sharded, opt, placed)
+    sloss = float(sloss.full_tensor() if isinstance(sloss, DTensor)
+                  else sloss)
+    loss_gap = abs(sloss - float(loss)) / abs(float(loss))
+    ref = dict(plain.named_parameters())
+    gap, worst = max((((p.full_tensor() if isinstance(p, DTensor) else p)
+                       .detach().float() - ref[n].detach().float()).abs()
+                      .max().item() / max(ref[n].abs().max().item(), 1e-30),
+                      n) for n, p in sharded.named_parameters())
+    log(f"sharded train step (reduced float32 llama3.2-1b): loss {sloss:.6f}"
+        f" vs {float(loss):.6f} (relative {loss_gap:.2e}), largest leaf "
+        f"gap {gap:.2e} ({worst}; tolerance {TRAIN_TOL})")
+    if not (loss_gap <= TRAIN_TOL and gap <= TRAIN_TOL):
+        raise SystemExit(f"phase 23: the sharded train step parts from the "
+                         f"unsharded one ({loss_gap:.2e}, {gap:.2e})")
+    return dict(loss_rel_gap=loss_gap, leaf_gap=gap, worst_leaf=worst)
+
+
+def check_shard_bytes(dev: str) -> dict:
+    """Phase 23 (c): ``SCALE_SHARD``'s arch at full width on a fake mesh
+    (this process rank 0) with real tensors on ``dev``: params, a dense
+    decode cache and the tokens allocated as ``launch.sharding`` places
+    them hold the dry-run's ``argument_bytes`` for the same arch, shape
+    and mesh; one decode step launches B6 once a layer at the local
+    heads.  The fake group's collectives move nothing: shapes, launches
+    and bytes are checked, not values."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    from torch.distributed.tensor import DTensor
+    from torch.distributed.tensor.experimental import implicit_replication
+    from repro_torch.configs import get_config
+    from repro_torch.configs.shapes import InputShape
+    from repro_torch.kernels import decode_attention as b6
+    from repro_torch.kernels import ops
+    from repro_torch.launch import dryrun
+    from repro_torch.launch import sharding as shr
+    from repro_torch.launch.mesh import fake_mesh
+    from repro_torch.launch.steps import make_decode_step
+    from repro_torch.models.registry import get_model, skeleton
+    arch, mesh_shape, B, W = SCALE_SHARD
+    names = ("data", "model")
+    cfg = get_config(arch)
+    shape = InputShape(f"decode_{B}x{W}", W, B, "decode")
+    with fake_mesh(mesh_shape, names) as mesh:
+        rec = dryrun.run_one(arch, shape, False, None, mesh=mesh)
+    want = rec["memory"]["argument_bytes"]
+    model = get_model(cfg)
+    with FakeTensorMode(allow_non_fake_inputs=True):
+        template = dryrun._cache_template(model, cfg, shape, W, None)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(23)
+    with fake_mesh(mesh_shape, names, device_type=dev) as mesh:
+        base = torch.cuda.memory_allocated() if dev == "cuda" else 0
+
+        def local(_name, p, spec):
+            return (torch.randn(shr.local_shape(p.shape, spec, mesh),
+                                generator=gen, device=dev) * 0.02
+                    ).to(p.dtype)
+
+        params = skeleton(cfg)
+        params = shr.shard_params(params, shr.param_specs(params, mesh, cfg),
+                                  mesh, make=local)
+
+        def fill(node, spec):
+            if not hasattr(node, "shape"):
+                if hasattr(node, "_fields"):
+                    return type(node)(*(fill(getattr(node, f),
+                                             getattr(spec, f))
+                                        for f in node._fields))
+                return node
+            t = torch.zeros(shr.local_shape(node.shape, spec, mesh),
+                            dtype=node.dtype, device=dev)
+            if len(node.shape) == 2:  # slot_pos: a full prefill of W
+                t.copy_(torch.arange(W, dtype=node.dtype))
+            elif len(node.shape) == 1:  # lengths
+                t.fill_(W)
+            return shr.from_local(t, node.shape, spec, mesh)
+
+        cache = fill(template, shr.cache_spec(template, mesh, cfg, B))
+        tok = shr.place(torch.full((B,), 7, dtype=torch.int32, device=dev),
+                        (None,), mesh)
+        locals_ = [t._local_tensor for t in
+                   [p for p in params.parameters()]
+                   + [getattr(cache, f) for f in cache._fields
+                      if isinstance(getattr(cache, f), DTensor)] + [tok]]
+        got = sum(t.untyped_storage().nbytes() for t in locals_)
+        allocated = (torch.cuda.memory_allocated() - base if dev == "cuda"
+                     else got)
+        if got != want:
+            raise SystemExit(f"phase 23: placed arguments hold {got} bytes,"
+                             f" the dry-run's argument_bytes {want}")
+        heads = []
+        real = b6.decode_attention
+
+        def spy(q, *a, **kw):
+            heads.append(q.shape[1])
+            return real(q, *a, **kw)
+
+        ops.reset_counts()
+        with mock.patch.object(b6, "decode_attention", spy), \
+                implicit_replication():
+            logits, _ = make_decode_step(model)(params, cache, tok, 0)
+        if dev == "cuda":
+            torch.cuda.synchronize()
+        launches = ops.launches() if dev == "cuda" else dict(ops.plain_calls)
+        local_heads = cfg.n_heads // mesh_shape[1]
+        if launches["decode_attention"] != cfg.n_layers or (
+                dev == "cuda" and set(heads) != {local_heads}):
+            raise SystemExit(f"phase 23: decode step on the {mesh_shape} "
+                             f"mesh launched {launches} at heads "
+                             f"{sorted(set(heads))}")
+        del params, cache, tok, locals_
+    log(f"bytes at a shard ({arch}, fake {mesh_shape} mesh, decode {B} x "
+        f"{W}; values not checked: the fake group moves nothing): placed "
+        f"arguments {got} bytes == the dry-run's argument_bytes {want} "
+        f"(allocator: {allocated}); B6 launched {launches['decode_attention']}"
+        f" times at {sorted(set(heads))} heads a rank")
+    return dict(argument_bytes=want, placed_bytes=got,
+                allocated_bytes=allocated, launches=launches,
+                b6_local_heads=sorted(set(heads)), dryrun=rec)
+
+
+def run_scale_out(card: str, dev: str = "cuda") -> dict:
+    """Phase 23: (a) the dry-run in two child processes while (b) the real
+    one-card mesh serves and trains and (c) a fake (1, 8) mesh places
+    codeqwen1.5-7b's arguments.  Returns ``scls``-style entries (each
+    path's launches) for the kernel line."""
+    from repro_torch.launch import mesh as meshes
+    t0 = time.perf_counter()
+    procs = start_dryruns()
+    try:
+        if os.path.exists(SCALE_STORE):
+            os.remove(SCALE_STORE)
+        os.makedirs(os.path.dirname(SCALE_STORE), exist_ok=True)
+        mesh = meshes.make_mesh((1, 1), ("data", "model"), dev,
+                                init_method=f"file://{SCALE_STORE}")
+        try:
+            serve = check_sharded_serve(dev, mesh)
+            train = check_sharded_train(dev, mesh)
+        finally:
+            meshes.teardown()
+        if dev == "cuda":
+            release_cuda()
+        shard = check_shard_bytes(dev)
+        if dev == "cuda":
+            release_cuda()
+        dry = finish_dryruns(procs, card)
+    finally:
+        for _, _, proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    summary = dict(dryrun=dry, serve=serve, train=train,
+                   shard_bytes={k: v for k, v in shard.items()
+                                if k != "dryrun"},
+                   card=card, wall_s=time.perf_counter() - t0)
+    print(json.dumps({"scale_out": summary}), flush=True)
+    log(f"phase 23: {summary['wall_s']:.1f} s ({card})")
+    return {"sharded_slice": dict(launches=serve["launches"]),
+            "shard_bytes": dict(launches=shard["launches"])}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the card",
@@ -4608,6 +4965,8 @@ def main() -> int:
         release_cuda()
     run_training(card)  # phase 22
     release_cuda()
+    scls.update(run_scale_out(card))  # phase 23
+    release_cuda()
     # every control fault of phase 4 must have failed its slice's gate
     weak = {f"{label} {fault}": gap for label, sm in scls.items()
             for fault, gap in sm.get("controls", {}).items()
@@ -4646,6 +5005,12 @@ def main() -> int:
                          f"cross-attention")
     by_name["flash_prefill"]["prefix_launches"] = prefix
     by_name["decode_attention"]["cross_launches"] = cross
+    # B5 and B6 on DTensor shards: phase 23's one-card mesh
+    for name in ("flash_prefill", "decode_attention"):
+        n = by_path["sharded_slice"][name]
+        if n <= 0:
+            raise SystemExit(f"{name} never launched on DTensor shards")
+        by_name[name]["sharded_launches"] = n
     print(json.dumps({"kernels": rows}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

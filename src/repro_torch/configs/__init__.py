@@ -14,6 +14,8 @@ from repro_torch.configs import (codeqwen1_5_7b, deepseek_v2_lite_16b,
                                  gemma_2b, llama3_2_1b, mamba2_130m,
                                  minitron_4b, mixtral_8x22b, paligemma_3b,
                                  recurrentgemma_9b, seamless_m4t_large_v2)
+from repro_torch.configs.shapes import (SHAPES, InputShape, TensorSpec,
+                                        effective_window, token_specs)
 from repro_torch.models.common import ModelConfig
 
 _MODULES = {

@@ -11,12 +11,25 @@ that requires grad raises (``_refuse_grad``) rather than return a result
 cut from the autograd graph, which would leave everything upstream of
 the kernel untrained without a word: the training forwards (``Model.
 loss``) run the plain torch versions and reach none of these functions.
+
+**Shards.**  ``flash_prefill`` and ``decode_attention`` (B5 and B6, the
+kernels of the dense prefill and decode steps) also take DTensors on a
+``DeviceMesh``: ``on_local_heads`` runs the call on each rank's local
+shard (``local_map``'s work) -- rows over the mesh's "pod" / "data" axes
+where the batch divides, heads over "model" where both the query and the
+KV head counts divide (a rank then holds whole GQA groups) -- after
+redistributing the inputs to those placements, so that no kernel is
+launched on a mismatched head group.  The local call is the plain-tensor
+dispatch above: the kernel for CUDA shards, the plain version for CPU
+shards, never the plain version for a CUDA shard.
 """
 from __future__ import annotations
 
-from typing import Dict, Optional
+import math
+from typing import Callable, Dict, Optional, Sequence
 
 import torch
+from torch.distributed.tensor import DTensor, Replicate, Shard
 
 from repro_torch.kernels import build, ref
 from repro_torch.kernels import decode_attention as _dense_decode_kernel
@@ -42,6 +55,9 @@ plain_calls: Dict[str, int] = {name: 0 for name in _KERNELS}
 
 def _on_cpu(t: torch.Tensor, name: str) -> bool:
     if t.is_cuda:
+        if isinstance(t, DTensor):
+            raise NotImplementedError(f"{name}: the kernel takes no DTensor "
+                                      f"shards yet (ROADMAP)")
         return False
     if t.device.type != "cpu":
         raise ValueError(f"{name}: no kernel for device {t.device}")
@@ -70,6 +86,108 @@ def reset_counts() -> None:
         mod.reset_launches()
     for k in plain_calls:
         plain_calls[k] = 0
+
+
+def _as_dtensor(t: torch.Tensor, mesh) -> DTensor:
+    if isinstance(t, DTensor):
+        return t
+    return DTensor.from_local(t, mesh, [Replicate()] * mesh.ndim,
+                              run_check=False)
+
+
+class _ContiguousGrad(torch.autograd.Function):
+    """Identity whose backward makes the gradient contiguous: a local
+    shard's gradient becomes a DTensor's local tensor, which DTensor's
+    later views expect in its own (contiguous) layout."""
+
+    @staticmethod
+    def forward(ctx, t):
+        return t.view_as(t)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g.contiguous()
+
+
+def _placed(out: torch.Tensor, mesh, placements, shape) -> DTensor:
+    """A local result (made contiguous: contiguous gradients too) as the
+    DTensor of global ``shape`` under ``placements``."""
+    return DTensor.from_local(out.contiguous(), mesh, placements,
+                              run_check=False, shape=torch.Size(shape),
+                              stride=torch.empty(shape, device="meta")
+                              .stride())
+
+
+def head_placements(mesh, batch: int, n_heads: Sequence[int]):
+    """(placements of a tensor whose dim 0 is the batch and whose heads sit
+    at dim ``h``, as a function of ``h`` (None: no heads)): rows over the
+    "pod" / "data" axes where ``batch`` divides their product, heads over
+    "model" where every count of ``n_heads`` divides its size."""
+    names = mesh.mesh_dim_names or ()
+    sizes = dict(zip(names, mesh.shape))
+    dp = math.prod(sizes[n] for n in names if n in ("pod", "data"))
+    rows = dp > 1 and batch % dp == 0
+    m = sizes.get("model", 1)
+    heads = m > 1 and all(h % m == 0 for h in n_heads)
+
+    def of(head_dim: Optional[int]):
+        out = []
+        for n in names:
+            if n in ("pod", "data") and rows:
+                out.append(Shard(0))
+            elif n == "model" and heads and head_dim is not None:
+                out.append(Shard(head_dim))
+            else:
+                out.append(Replicate())
+        return out
+
+    return of
+
+
+def on_local_heads(fn: Callable, q: torch.Tensor,
+                   kv: Sequence[torch.Tensor], rows: Sequence[torch.Tensor],
+                   q_head_dim: int, kv_head_dim: int) -> DTensor:
+    """``fn(q, *kv, *rows)`` on each rank's local shard of DTensor inputs:
+    q's heads at ``q_head_dim``, each of ``kv``'s at ``kv_head_dim``,
+    ``rows`` (positions, slot tables) sharded by batch only; plain tensors
+    among them count as replicated.  The output has q's leading dims and
+    q's placements.
+
+    ``local_map``'s work, written out (redistribute, ``to_local``, the
+    call, ``from_local``; each step carries gradients): its reading of
+    ``out_placements`` differs between PyTorch releases (2.11 takes a
+    list of placements for one output as one placement an output)."""
+    mesh = next(t for t in (q, *kv, *rows)
+                if isinstance(t, DTensor)).device_mesh
+    of = head_placements(mesh, q.shape[0],
+                         (q.shape[q_head_dim], kv[0].shape[kv_head_dim]))
+    q_pl, kv_pl = of(q_head_dim), of(kv_head_dim)
+    # a row tensor broadcast over the batch (leading dim 1) stays whole
+    row_pls = [of(None) if t.shape[0] == q.shape[0] else
+               [Replicate()] * mesh.ndim for t in rows]
+    local = ([_as_dtensor(q, mesh).redistribute(mesh, q_pl).to_local()]
+             + [_as_dtensor(t, mesh).redistribute(mesh, kv_pl).to_local()
+                for t in kv]
+             + [_as_dtensor(t, mesh).redistribute(mesh, pl).to_local()
+                for t, pl in zip(rows, row_pls)])
+    out = fn(*(_ContiguousGrad.apply(t.contiguous()) for t in local))
+    return _placed(out, mesh, q_pl, tuple(q.shape[:-1]) + (out.shape[-1],))
+
+
+def on_local_rows(fn: Callable, batch: int, *tensors: torch.Tensor):
+    """``fn(*tensors)`` on each rank's local rows of DTensor inputs (rows
+    over the "pod" / "data" axes where ``batch`` divides; a tensor whose
+    leading dim is not the batch, and every other dim, whole).  Each
+    output has the batch leading and is placed by rows."""
+    mesh = next(t for t in tensors if isinstance(t, DTensor)).device_mesh
+    rows = head_placements(mesh, batch, ())(None)
+    whole = [Replicate()] * mesh.ndim
+    local = [_as_dtensor(t, mesh).redistribute(
+        mesh, rows if t.shape[0] == batch else whole).to_local()
+        for t in tensors]
+    outs = fn(*(_ContiguousGrad.apply(t.contiguous()) for t in local))
+    return tuple(_placed(o, mesh, rows, (batch,) + tuple(o.shape[1:]))
+                 for o in outs)
 
 
 def paged_prefill_write(k_new: torch.Tensor, v_new: torch.Tensor,
@@ -162,7 +280,13 @@ def flash_prefill(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """Causal, left-pad-masked GQA prefill attention; keys at positions
     below ``prefix_len`` are seen by every valid query (a bidirectional
     prefix; 0: none). q (B,T,Hq,D), k/v (B,T,Hkv,D), positions (B,T) int32
-    with pads < 0 -> (B,T,Hq,D)."""
+    with pads < 0 -> (B,T,Hq,D).  DTensors run on their local shards
+    (``on_local_heads``)."""
+    if isinstance(q, DTensor) or isinstance(k, DTensor):
+        return on_local_heads(
+            lambda q, k, v, p: flash_prefill(q, k, v, p, window=window,
+                                             prefix_len=prefix_len),
+            q, (k, v), (positions,), 2, 2)
     if _on_cpu(q, "flash_prefill"):
         return ref.flash_prefill_ref(q, k, v, positions, window=window,
                                      prefix_len=prefix_len)
@@ -176,7 +300,13 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
                      q_pos: torch.Tensor,
                      window: Optional[int] = None) -> torch.Tensor:
     """Single-token GQA decode over a dense KV cache. q (B,Hq,D), k/v_cache
-    (B,W,Hkv,D), slot_pos (B,W) and q_pos (B,) int32 -> (B,Hq,D)."""
+    (B,W,Hkv,D), slot_pos (B,W) and q_pos (B,) int32 -> (B,Hq,D).
+    DTensors run on their local shards (``on_local_heads``)."""
+    if isinstance(q, DTensor) or isinstance(k_cache, DTensor):
+        return on_local_heads(
+            lambda q, k, v, s, p: decode_attention(q, k, v, s, p,
+                                                   window=window),
+            q, (k_cache, v_cache), (slot_pos, q_pos), 1, 2)
     if _on_cpu(q, "decode_attention"):
         return ref.decode_attention_ref(q, k_cache, v_cache, slot_pos, q_pos,
                                         window=window)
@@ -194,6 +324,10 @@ def ssd_chunked_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     if x.shape[1] % chunk:
         raise ValueError(f"ssd_chunked_scan: T {x.shape[1]} is not a "
                          f"multiple of the chunk {chunk}")
+    if isinstance(x, DTensor) and not x.is_cuda:  # the plain version's rows
+        return on_local_rows(
+            lambda *t: ssd_chunked_scan(*t, chunk=chunk), x.shape[0], x, dt,
+            A, B, C)
     if _on_cpu(x, "ssd_scan"):
         return ref.ssd_scan_ref(x, dt, A, B, C, chunk)
     _refuse_grad("ssd_scan", x, dt, A, B, C)

@@ -25,9 +25,11 @@ from typing import NamedTuple, Optional, Tuple
 
 import torch
 from torch import nn
+from torch.distributed.tensor import DTensor
 
 from repro_torch.kernels import ops as kernel_ops
-from repro_torch.models.common import Dense, ModelConfig, apply_rope
+from repro_torch.models.common import (Dense, ModelConfig, apply_rope,
+                                       pad, split_heads)
 
 NEG_INF = -0.7 * float(torch.finfo(torch.float32).max)
 
@@ -64,7 +66,12 @@ def gqa_attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """q (B,T,Hq,D), k/v (B,S,Hkv,D), mask (B,1,T,S) bool -> (B,T,Hq,D).
 
     Scores and softmax in float32; the probabilities are rounded to V's
-    type before the PV product, as in the JAX reference."""
+    type before the PV product, as in the JAX reference.  DTensors attend
+    on each rank's local rows and heads (``kernels.ops.on_local_heads``)."""
+    if isinstance(q, DTensor) or isinstance(k, DTensor):
+        return kernel_ops.on_local_heads(
+            lambda q, k, v, m: gqa_attend(q, k, v, m, scale), q, (k, v),
+            (mask,), 2, 2)
     B, T, Hq, D = q.shape
     Hkv = k.shape[2]
     G = Hq // Hkv
@@ -87,7 +94,11 @@ def gqa_attend_blocked(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                        mask: torch.Tensor, scale: float) -> torch.Tensor:
     """``gqa_attend`` over blocks of queries whose scores fit
     ``_SCORE_BUDGET``; each query row's maths is unchanged.  mask
-    (B,1,T,S)."""
+    (B,1,T,S); DTensors as ``gqa_attend``."""
+    if isinstance(q, DTensor) or isinstance(k, DTensor):
+        return kernel_ops.on_local_heads(
+            lambda q, k, v, m: gqa_attend_blocked(q, k, v, m, scale), q,
+            (k, v), (mask,), 2, 2)
     B, T, Hq, _ = q.shape
     bq = max(1, _SCORE_BUDGET // (B * Hq * k.shape[1]))
     if bq >= T:
@@ -134,7 +145,12 @@ def gqa_attend_chunked(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """Causal, left-pad-masked attention over blocks of queries, so the
     (T, S) score matrix is never built whole; with ``prefix_len`` the JAX
     ``_chunk_mask``'s bidirectional prefix term.  Shapes as
-    ``gqa_attend``."""
+    ``gqa_attend``; DTensors as there."""
+    if isinstance(q, DTensor) or isinstance(k, DTensor):
+        return kernel_ops.on_local_heads(
+            lambda q, k, v, pos: gqa_attend_chunked(
+                q, k, v, scale, pos, window, prefix_len, block_q),
+            q, (k, v), (positions,), 2, 2)
     B, T, Hq, _ = q.shape
     bq = max(1, min(block_q, _SCORE_BUDGET // (B * Hq * k.shape[1])))
     pk = positions[:, None, :]
@@ -174,9 +190,9 @@ def _qkv(p: Attention, x: torch.Tensor, cfg: ModelConfig):
     one, unrotated: every path rotates q and k (or hands them to a fused
     kernel that does) after this."""
     B, T, _ = x.shape
-    q = p.wq(x).reshape(B, T, cfg.n_heads, cfg.head_dim)
-    k = p.wk(x).reshape(B, T, cfg.n_kv_heads, cfg.head_dim)
-    v = p.wv(x).reshape(B, T, cfg.n_kv_heads, cfg.head_dim)
+    q = split_heads(p.wq(x), B, T, cfg.n_heads, cfg.head_dim)
+    k = split_heads(p.wk(x), B, T, cfg.n_kv_heads, cfg.head_dim)
+    v = split_heads(p.wv(x), B, T, cfg.n_kv_heads, cfg.head_dim)
     return q, k, v
 
 
@@ -209,7 +225,13 @@ def prefill_attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     ``CHUNK_THRESHOLD`` tokens the CPU takes the chunked path, so that it
     never builds (B,Hq,T,T) scores.  That path's pad-row rule (pads attend
     pads) differs from the kernel's diagonal only on pad query rows, which
-    no real token reads."""
+    no real token reads.  DTensors take the same path on each rank's
+    local rows and heads (``kernels.ops.on_local_heads``)."""
+    if isinstance(q, DTensor):
+        return kernel_ops.on_local_heads(
+            lambda q, k, v, pos: prefill_attend(q, k, v, pos, window, scale,
+                                                prefix_len),
+            q, (k, v), (positions,), 2, 2)
     T = q.shape[1]
     if q.is_cuda or T < CHUNK_THRESHOLD:
         return kernel_ops.flash_prefill(q.contiguous(), k.contiguous(),
@@ -236,18 +258,26 @@ def attention_forward(p: Attention, x: torch.Tensor, positions: torch.Tensor,
     runs here on any device (``transformer.forward``, the reference the
     serving paths' kernels are held against).  x (B,T,d), positions (B,T)
     with pads < 0; ``prefix_len`` as ``prefill_mask``; from
-    ``CHUNK_THRESHOLD`` tokens the q-blocked path."""
+    ``CHUNK_THRESHOLD`` tokens the q-blocked path.  DTensors attend on
+    each rank's local rows and heads."""
     B, T, _ = x.shape
     q, k, v = _qkv(p, x, cfg)
     rp = positions.clamp(min=0)
     q = apply_rope(q, rp, cfg.rope_theta)
     k = apply_rope(k, rp, cfg.rope_theta)
     scale = cfg.head_dim ** -0.5
-    if T >= CHUNK_THRESHOLD:
-        o = gqa_attend_chunked(q, k, v, scale, positions, window, prefix_len)
-    else:
-        o = gqa_attend_blocked(
+
+    def attend(q, k, v, positions):
+        if T >= CHUNK_THRESHOLD:
+            return gqa_attend_chunked(q, k, v, scale, positions, window,
+                                      prefix_len)
+        return gqa_attend_blocked(
             q, k, v, prefill_mask(positions, window, prefix_len), scale)
+
+    if isinstance(q, DTensor):
+        o = kernel_ops.on_local_heads(attend, q, (k, v), (positions,), 2, 2)
+    else:
+        o = attend(q, k, v, positions)
     return p.wo(o.reshape(B, T, -1))
 
 
@@ -267,9 +297,8 @@ def attention_prefill(p: Attention, x: torch.Tensor, positions: torch.Tensor,
     out = p.wo(o.reshape(B, T, -1))
     W = cache_window
     if W >= T:
-        pad = (0, 0, 0, 0, 0, W - T)
-        kc = torch.nn.functional.pad(k, pad)
-        vc = torch.nn.functional.pad(v, pad)
+        widths = (0, 0, 0, 0, 0, W - T)
+        kc, vc = pad(k, widths), pad(v, widths)
     else:  # ring: keep the last W entries (window-limited decode)
         kc, vc = k[:, T - W:], v[:, T - W:]
     return out, kc, vc

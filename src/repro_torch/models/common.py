@@ -42,6 +42,7 @@ from typing import Callable, Optional
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.distributed.tensor import DTensor, Replicate, Shard
 from torch.utils.checkpoint import checkpoint
 
 
@@ -66,6 +67,9 @@ class ModelConfig:
     tie_embeddings: bool = True
     scale_embed: bool = False  # gemma: embeddings * sqrt(d_model)
     sliding_window: Optional[int] = None
+    # the window the long_500k shape substitutes on a full-attention arch
+    # (configs.shapes.effective_window)
+    long_context_window: int = 8192
     # --- MoE ---
     n_experts: int = 0
     n_shared_experts: int = 0
@@ -152,7 +156,11 @@ class Dense(nn.Module):
                 self.b.zero_()
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        y = x @ self.w
+        if isinstance(x, DTensor):
+            x = whole_rows(x)
+            y = _WholeRowsGrad.apply(settle(x @ self.w))
+        else:
+            y = x @ self.w
         return y if self.b is None else y + self.b
 
 
@@ -252,14 +260,153 @@ def embed_scale(cfg: ModelConfig, dtype: torch.dtype) -> float:
 
 def embed_apply(embed: Embed, tokens: torch.Tensor,
                 cfg: ModelConfig) -> torch.Tensor:
-    h = embed.table[tokens]
+    if isinstance(embed.table, DTensor):
+        # DTensor's embedding rule (PyTorch 2.11's rule for the indexing's
+        # backward, index_put, fails on a batch-sharded index); a
+        # vocab-sharded lookup leaves a partial sum: settle it on the
+        # tokens' own placements
+        h = F.embedding(tokens, _GradAsParam.apply(embed.table))
+        if isinstance(tokens, DTensor):
+            h = h.redistribute(h.device_mesh, tokens.placements)
+    else:
+        h = embed.table[tokens]
     if cfg.scale_embed:
         h = h * embed_scale(cfg, h.dtype)
     return h
 
 
 def unembed_apply(embed: Embed, h: torch.Tensor) -> torch.Tensor:
+    if isinstance(embed.table, DTensor):
+        return h @ _GradAsParam.apply(embed.table).T
     return h @ embed.table.T
+
+
+class _GradAsParam(torch.autograd.Function):
+    """Identity on a DTensor parameter whose backward places the gradient
+    as the parameter: a tied table's two gradients (the lookup's and the
+    head's) then add on one placement (PyTorch 2.11 cannot add a
+    ``Partial`` to a ``Shard`` that it would first turn partial)."""
+
+    @staticmethod
+    def forward(ctx, t):
+        ctx.mesh, ctx.placements = t.device_mesh, t.placements
+        return t.view_as(t)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g.redistribute(ctx.mesh, ctx.placements)
+
+
+# ---------------------------------------------------------------------------
+# activation sharding
+# ---------------------------------------------------------------------------
+# Megatron-SP-style sequence sharding of the residual stream (the JAX
+# package's ``set_activation_sharding`` / ``_constrain``).  When set -- to
+# DTensor placements, one a mesh dim, e.g. (Shard(0), Shard(1)) over
+# ("data", "model") -- the residual stream a family carries between
+# layers is redistributed to them where the reference constrains its
+# scan's carry; plain tensors are never touched.
+_ACTIVATION_PLACEMENTS = None
+
+
+def set_activation_sharding(placements) -> None:
+    global _ACTIVATION_PLACEMENTS
+    _ACTIVATION_PLACEMENTS = placements
+
+
+def constrain(h):
+    """``h`` redistributed to the activation placements, where they are
+    set, ``h`` is a 3-D DTensor and each sharded dim divides evenly (a
+    decode step's one token is left whole); else ``h`` unchanged.  The
+    families call it on the residual stream at each layer's input."""
+    if (_ACTIVATION_PLACEMENTS is None or not isinstance(h, DTensor)
+            or h.ndim != 3):
+        return h
+    ways = [1] * h.ndim
+    for i, p in enumerate(_ACTIVATION_PLACEMENTS):
+        if isinstance(p, Shard):
+            ways[p.dim] *= h.device_mesh.size(i)
+    if any(n % w for n, w in zip(h.shape, ways)):
+        return h
+    return h.redistribute(h.device_mesh, _ACTIVATION_PLACEMENTS)
+
+
+def whole_rows(x: DTensor) -> DTensor:
+    """``x`` with its middle dims (between the batch and the features)
+    unsharded: a sequence-sharded residual stream is gathered before a
+    dense layer, as Megatron-SP does, and DTensor never has to flatten a
+    batch and a sequence sharded together."""
+    last = x.ndim - 1
+    pl = [Replicate() if isinstance(p, Shard) and 0 < p.dim < last else p
+          for p in x.placements]
+    return x if pl == list(x.placements) else x.redistribute(
+        x.device_mesh, pl)
+
+
+class _WholeRowsGrad(torch.autograd.Function):
+    """Identity whose backward gives the gradient ``whole_rows``: a dense
+    layer's weight gradient flattens its output's gradient as its forward
+    flattens its input."""
+
+    @staticmethod
+    def forward(ctx, y):
+        return y.view_as(y)
+
+    @staticmethod
+    def backward(ctx, g):
+        return whole_rows(g) if isinstance(g, DTensor) else g
+
+
+def settle(y: DTensor) -> DTensor:
+    """``y`` with its partial sums reduced (to replicated): a
+    row-parallel product's all-reduce, where Megatron's TP has it."""
+    pl = [Replicate() if p.is_partial() else p for p in y.placements]
+    return y if pl == list(y.placements) else y.redistribute(
+        y.device_mesh, pl)
+
+
+def pad(x: torch.Tensor, widths, value=0) -> torch.Tensor:
+    """``F.pad(x, widths, value=value)`` (constant padding; ``widths`` as
+    F.pad's, last dim first).  A DTensor is padded by concatenating
+    filled blocks (``new_full`` and ``cat``): PyTorch 2.11's DTensor rule
+    for ``constant_pad_nd`` leaves its output one placement on a mesh of
+    several dims."""
+    if not isinstance(x, DTensor):
+        return F.pad(x, widths, value=value)
+    for i in range(len(widths) // 2):
+        dim = x.ndim - 1 - i
+        before, after = widths[2 * i], widths[2 * i + 1]
+        parts = []
+        for n in (before, None, after):
+            if n is None:
+                parts.append(x)
+            elif n:
+                shape = list(x.shape)
+                shape[dim] = n
+                parts.append(x.new_full(shape, value))
+        if len(parts) > 1:
+            x = torch.cat(parts, dim=dim)
+    return x
+
+
+def split_heads(x: torch.Tensor, *shape: int) -> torch.Tensor:
+    """``x.reshape(*shape)``, the last dim of ``x`` split into (heads,
+    head_dim) = ``shape[-2:]``.  A DTensor whose last dim is sharded over
+    mesh dims whose sizes' product does not divide the head count is
+    first replicated on them (DTensor cannot split a shard across a head
+    boundary); plain tensors are reshaped as they are."""
+    if isinstance(x, DTensor):
+        last = x.ndim - 1
+        on_last = [i for i, p in enumerate(x.placements)
+                   if isinstance(p, Shard) and p.dim == last]
+        n = 1
+        for i in on_last:
+            n *= x.device_mesh.size(i)
+        if shape[-2] % n:
+            x = x.redistribute(x.device_mesh, [
+                Replicate() if i in on_last else p
+                for i, p in enumerate(x.placements)])
+    return x.reshape(*shape)
 
 
 # ---------------------------------------------------------------------------
@@ -281,6 +428,13 @@ def softmax_xent(logits: torch.Tensor, labels: torch.Tensor,
     (B,T) int; ``mask`` (B,T) weighs each token, the mean taken over
     ``max(sum(mask), 1)``."""
     logits = logits.float()
+    if isinstance(logits, DTensor):
+        # the gather below reads whole rows of the vocab
+        last = logits.ndim - 1
+        logits = logits.redistribute(logits.device_mesh, [
+            Replicate() if p.is_partial() or (isinstance(p, Shard)
+                                              and p.dim == last) else p
+            for p in logits.placements])
     logz = torch.logsumexp(logits, dim=-1)
     gold = logits.gather(-1, labels.long()[..., None])[..., 0]
     nll = logz - gold

@@ -46,9 +46,10 @@ from torch import nn
 
 from repro_torch.models import attention as attn
 from repro_torch.models.attention import KVCache
-from repro_torch.models.common import (MLP, Embed, ModelConfig, apply_rope,
-                                       embed_apply, remat_layer, rms_norm,
-                                       rms_weight, unembed_apply)
+from repro_torch.models.common import (Embed, MLP, ModelConfig, apply_rope,
+                                       constrain, embed_apply, remat_layer,
+                                       rms_norm, rms_weight, split_heads,
+                                       unembed_apply)
 from repro_torch.models.transformer import Block, _mlp_residual, make_positions
 
 
@@ -137,6 +138,7 @@ def _encode(params: EncDecModel, cfg: ModelConfig, src_embeds: torch.Tensor,
             if plain else None)
     h = src_embeds.to(cfg.dtype)
     for layer in params.enc_layers:
+        h = constrain(h)
         h = remat_layer(cfg, _enc_block, layer, h, rope_pos, mask, mask_pos,
                         cfg)
     return rms_norm(h, params.ln_enc, cfg.norm_eps)
@@ -170,10 +172,10 @@ def encode(params: EncDecModel, cfg: ModelConfig, src_embeds: torch.Tensor,
 
 def _cross_kv(layer: DecBlock, enc_out: torch.Tensor, cfg: ModelConfig):
     B, S, _ = enc_out.shape
-    k = layer.cross_attn.wk(enc_out).reshape(B, S, cfg.n_kv_heads,
-                                             cfg.head_dim)
-    v = layer.cross_attn.wv(enc_out).reshape(B, S, cfg.n_kv_heads,
-                                             cfg.head_dim)
+    k = split_heads(layer.cross_attn.wk(enc_out), B, S, cfg.n_kv_heads,
+                    cfg.head_dim)
+    v = split_heads(layer.cross_attn.wv(enc_out), B, S, cfg.n_kv_heads,
+                    cfg.head_dim)
     return k, v
 
 
@@ -183,7 +185,8 @@ def _cross_attend(layer: DecBlock, x: torch.Tensor, ck: torch.Tensor,
     """Cross-attention of T queries over the S frames in plain torch (the
     prefill's and ``forward``'s): a frame is seen where it is valid."""
     B, T, _ = x.shape
-    q = layer.cross_attn.wq(x).reshape(B, T, cfg.n_heads, cfg.head_dim)
+    q = split_heads(layer.cross_attn.wq(x), B, T, cfg.n_heads,
+                    cfg.head_dim)
     mask = src_valid[:, None, None, :].expand(B, 1, T, src_valid.shape[1])
     o = attn.gqa_attend_blocked(q, ck, cv, mask, cfg.head_dim ** -0.5)
     return layer.cross_attn.wo(o.reshape(B, T, -1))
@@ -195,7 +198,8 @@ def _cross_decode(layer: DecBlock, x: torch.Tensor, ck: torch.Tensor,
     """Cross-attention of one token per row over the frames, through
     ``decode_attention`` (``attention.cross_decode_attend``)."""
     B = x.shape[0]
-    q = layer.cross_attn.wq(x).reshape(B, 1, cfg.n_heads, cfg.head_dim)
+    q = split_heads(layer.cross_attn.wq(x), B, 1, cfg.n_heads,
+                    cfg.head_dim)
     o = attn.cross_decode_attend(q, ck, cv, slot_pos)
     return layer.cross_attn.wo(o.reshape(B, 1, -1))
 
@@ -217,6 +221,7 @@ def forward(params: EncDecModel, cfg: ModelConfig, src_embeds: torch.Tensor,
                              device=tokens.device)[None].expand(B, T)
     h = embed_apply(params.embed, tokens, cfg)
     for layer in params.dec_layers:
+        h = constrain(h)
         h = remat_layer(cfg, _dec_block, layer, h, positions, enc_out,
                         src_valid, cfg)
     return unembed_apply(params.embed, rms_norm(h, params.ln_f, cfg.norm_eps))
@@ -248,6 +253,7 @@ def prefill(params: EncDecModel, cfg: ModelConfig, src_embeds: torch.Tensor,
     h = embed_apply(params.embed, tokens, cfg)
     ks, vs, cks, cvs = [], [], [], []
     for layer in params.dec_layers:
+        h = constrain(h)
         x = rms_norm(h, layer.ln_self, cfg.norm_eps)
         a, kc, vc = attn.attention_prefill(layer.self_attn, x, positions, cfg,
                                            window, cache_window)
@@ -287,6 +293,7 @@ def decode_step(params: EncDecModel, cfg: ModelConfig, cache: EncDecCache,
     cross_pos = attn.cross_slot_pos(cache.src_valid)
     h = embed_apply(params.embed, tokens[:, None], cfg)
     for l, layer in enumerate(params.dec_layers):
+        h = constrain(h)
         x = rms_norm(h, layer.ln_self, cfg.norm_eps)
         h = h + attn.attention_decode(layer.self_attn, x, q_pos, sc.k[l],
                                       sc.v[l], slot_pos, slot, cfg, window)

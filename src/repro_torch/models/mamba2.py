@@ -35,12 +35,13 @@ from typing import NamedTuple, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor
 from torch import nn
 
 from repro_torch.kernels import ops as kernel_ops
 from repro_torch.kernels.ref import ssd_scan_ref
-from repro_torch.models.common import (Dense, Embed, ModelConfig,
-                                       embed_apply, normal_, remat_layer,
+from repro_torch.models.common import (Dense, Embed, ModelConfig, constrain,
+                                       embed_apply, normal_, pad, remat_layer,
                                        rms_norm, rms_weight, softplus,
                                        unembed_apply)
 
@@ -147,7 +148,7 @@ def _causal_conv(p: Mixer, xBC: torch.Tensor) -> torch.Tensor:
     in JAX's order (no cuDNN). xBC (B,T,C) with pads already zeroed."""
     W = p.conv_w.shape[0]
     T = xBC.shape[1]
-    x = F.pad(xBC, (0, 0, W - 1, 0))
+    x = pad(xBC, (0, 0, W - 1, 0))
     out = sum(x[:, i:i + T, :] * p.conv_w[i][None, None] for i in range(W))
     return F.silu(out + p.conv_b)
 
@@ -173,10 +174,15 @@ def mixer_forward(p: Mixer, u: torch.Tensor, valid: torch.Tensor,
     dt = softplus(dt.float() + p.dt_bias)
     dt = torch.where(valid[..., None], dt, 0.0)  # identity transition at pads
     A = -torch.exp(p.A_log)
-    scan = ssd_scan_ref if plain else kernel_ops.ssd_chunked_scan
-    y, final = scan(x.float().contiguous(), dt.contiguous(), A.contiguous(),
-                    Bmat.float().contiguous(), Cmat.float().contiguous(),
-                    cfg.ssm_chunk)
+    args = (x.float().contiguous(), dt.contiguous(), A.contiguous(),
+            Bmat.float().contiguous(), Cmat.float().contiguous())
+    if plain and isinstance(u, DTensor):  # the plain scan on local rows
+        y, final = kernel_ops.on_local_rows(
+            lambda *t: ssd_scan_ref(*t, cfg.ssm_chunk), B_, *args)
+    elif plain:
+        y, final = ssd_scan_ref(*args, cfg.ssm_chunk)
+    else:
+        y, final = kernel_ops.ssd_chunked_scan(*args, cfg.ssm_chunk)
     y = y + x.float() * p.D[None, None, :, None]
     y = y.reshape(B_, T, d_in).to(u.dtype)
     y = rms_norm(y * F.silu(z), p.norm, cfg.norm_eps)
@@ -216,8 +222,8 @@ def _pad_to_chunk(h: torch.Tensor, valid: torch.Tensor, Q: int):
     T = h.shape[1]
     lead = (-T) % Q
     if lead:
-        h = F.pad(h, (0, 0, lead, 0))
-        valid = F.pad(valid, (lead, 0))
+        h = pad(h, (0, 0, lead, 0))
+        valid = pad(valid, (lead, 0))
     return h, valid, lead
 
 
@@ -241,6 +247,7 @@ def forward(params: Mamba2, cfg: ModelConfig, tokens: torch.Tensor,
     h = _zero_pads(embed_apply(params.embed, tokens, cfg), valid)
     h, valid_p, lead = _pad_to_chunk(h, valid, cfg.ssm_chunk)
     for layer in params.layers:
+        h = constrain(h)
         h = remat_layer(cfg, _block_forward, layer, h, valid_p, cfg)
     h = h[:, lead:]
     return unembed_apply(params.embed, rms_norm(h, params.ln_f, cfg.norm_eps))
@@ -266,6 +273,7 @@ def prefill(params: Mamba2, cfg: ModelConfig, tokens: torch.Tensor,
     h, valid_p, _ = _pad_to_chunk(h, valid, cfg.ssm_chunk)
     states, tails = [], []
     for layer in params.layers:
+        h = constrain(h)
         o, st, conv_tail = mixer_forward(
             layer.mixer, rms_norm(h, layer.ln, cfg.norm_eps), valid_p, cfg)
         h = h + o
@@ -286,6 +294,7 @@ def decode_step(params: Mamba2, cfg: ModelConfig, cache: MambaCache,
     h = embed_apply(params.embed, tokens[:, None], cfg)
     convs, states = [], []
     for l, layer in enumerate(params.layers):
+        h = constrain(h)
         o, conv, state = mixer_decode(
             layer.mixer, rms_norm(h, layer.ln, cfg.norm_eps), cache.conv[l],
             cache.state[l], cfg)

@@ -22,12 +22,11 @@ from __future__ import annotations
 from typing import NamedTuple, Optional, Tuple
 
 import torch
-import torch.nn.functional as F
 from torch import nn
 
 from repro_torch.models import attention as attn
-from repro_torch.models.common import (Dense, ModelConfig, apply_rope,
-                                       rms_norm, rms_weight)
+from repro_torch.models.common import (Dense, ModelConfig, apply_rope, pad,
+                                       rms_norm, rms_weight, split_heads)
 
 
 class MLACache(NamedTuple):
@@ -69,7 +68,7 @@ def _q_proj(p: MLA, x: torch.Tensor, positions: torch.Tensor,
             cfg: ModelConfig) -> torch.Tensor:
     B, T, _ = x.shape
     H, dn, dr = cfg.n_heads, cfg.qk_nope_head_dim, cfg.qk_rope_head_dim
-    q = p.wq(x).reshape(B, T, H, dn + dr)
+    q = split_heads(p.wq(x), B, T, H, dn + dr)
     qn, qr = q[..., :dn], q[..., dn:]
     qr = apply_rope(qr, positions.clamp(min=0), cfg.rope_theta)
     return torch.cat([qn, qr], dim=-1)  # (B,T,H,dn+dr)
@@ -95,8 +94,8 @@ def _expand_attend(p: MLA, q: torch.Tensor, ckv: torch.Tensor,
     B, T, H, _ = q.shape
     S = ckv.shape[1]
     dn, dv = cfg.qk_nope_head_dim, cfg.v_head_dim
-    kn = p.k_up(ckv).reshape(B, S, H, dn)
-    v = p.v_up(ckv).reshape(B, S, H, dv)
+    kn = split_heads(p.k_up(ckv), B, S, H, dn)
+    v = split_heads(p.v_up(ckv), B, S, H, dv)
     k = torch.cat([kn, kr[:, :, None, :].expand(B, S, H, kr.shape[-1])],
                   dim=-1)
     scale = (dn + cfg.qk_rope_head_dim) ** -0.5
@@ -137,8 +136,8 @@ def mla_prefill(p: MLA, x: torch.Tensor, positions: torch.Tensor,
                          cfg, positions, window)
     W = cache_window
     if W >= T:
-        ckv_c = F.pad(ckv, (0, 0, 0, W - T))
-        kr_c = F.pad(kr, (0, 0, 0, W - T))
+        ckv_c = pad(ckv, (0, 0, 0, W - T))
+        kr_c = pad(kr, (0, 0, 0, W - T))
     else:
         ckv_c, kr_c = ckv[:, T - W:], kr[:, T - W:]
     return out, ckv_c, kr_c

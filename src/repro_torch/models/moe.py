@@ -38,13 +38,16 @@ from typing import NamedTuple, Optional, Tuple, Union
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 
+from repro_torch.kernels import ops as kernel_ops
 from repro_torch.models import attention as attn
 from repro_torch.models import mla
 from repro_torch.models.attention import KVCache
-from repro_torch.models.common import (MLP, Embed, ModelConfig, activate,
-                                       embed_apply, normal_, remat_layer,
-                                       rms_norm, rms_weight, unembed_apply)
+from repro_torch.models.common import (Embed, MLP, ModelConfig, activate,
+                                       constrain, embed_apply, normal_,
+                                       remat_layer, rms_norm, rms_weight,
+                                       unembed_apply)
 from repro_torch.models.transformer import make_positions
 
 MOE_GROUP = 1024  # dispatch group size (tokens); decode uses one group
@@ -192,7 +195,11 @@ def moe_apply(p: MoELayer, x: torch.Tensor, cfg: ModelConfig,
     """x (B,T,d) -> y (B,T,d), or (y, aux) ``with_aux``: the Switch-style
     load-balance loss ``E · mean over groups of sum_e f_e · P_e`` of JAX's
     ``moe_apply``.  The groups run one after another, as JAX's
-    ``lax.map`` runs them, so one group's buffers are live at a time."""
+    ``lax.map`` runs them, so one group's buffers are live at a time.
+
+    A DTensor ``x`` runs on each rank's local rows (``_moe_local``)."""
+    if isinstance(x, DTensor):
+        return _moe_local(p, x, cfg, with_aux)
     B, T, d = x.shape
     g_total = B * T
     xf = x.reshape(g_total, d)
@@ -214,6 +221,41 @@ def moe_apply(p: MoELayer, x: torch.Tensor, cfg: ModelConfig,
     if not with_aux:
         return y
     return y, cfg.n_experts * torch.stack(balance).mean()
+
+
+class _Apply(nn.Module):
+    """``moe_apply`` over a layer, for ``functional_call``."""
+
+    def __init__(self, p: MoELayer, cfg: ModelConfig, with_aux: bool):
+        super().__init__()
+        self.p, self.cfg, self.with_aux = p, cfg, with_aux
+
+    def forward(self, x):
+        return moe_apply(self.p, x, self.cfg, self.with_aux)
+
+
+def _moe_local(p: MoELayer, x: DTensor, cfg: ModelConfig, with_aux: bool):
+    """``moe_apply`` of a DTensor ``x`` (B,T,d): each rank routes its local
+    rows (batch over the "pod" / "data" axes where it divides) through the
+    layer's weights gathered whole, and its groups are its local rows'.
+    The expert-parallel all-to-all of the reference's GSPMD program is not
+    reproduced: the experts are all-gathered instead, and a group never
+    straddles two ranks' rows (so where the unsharded model's would, the
+    capacity drops differ).  The load-balance term is averaged over the
+    ranks (a ``Partial("avg")``)."""
+    mesh = x.device_mesh
+    rows = kernel_ops.head_placements(mesh, x.shape[0], ())(None)
+    xl = x.redistribute(mesh, rows).to_local()
+    full = {f"p.{n}": (t.full_tensor() if isinstance(t, DTensor) else t)
+            for n, t in p.named_parameters()}
+    out = torch.func.functional_call(_Apply(p, cfg, with_aux), full, (xl,))
+    y, aux = out if with_aux else (out, None)
+    y = DTensor.from_local(y, mesh, rows, run_check=False)
+    if not with_aux:
+        return y
+    aux_pl = [Partial("avg") if isinstance(pl, Shard) else Replicate()
+              for pl in rows]
+    return y, DTensor.from_local(aux, mesh, aux_pl, run_check=False)
 
 
 # ---------------------------------------------------------------------------
@@ -332,6 +374,7 @@ def forward(params: MoEModel, cfg: ModelConfig, tokens: torch.Tensor,
     h = embed_apply(params.embed, tokens, cfg)
     auxs = []
     for _, _, layer in _blocks(params):
+        h = constrain(h)
         h, aux = remat_layer(cfg, _block_forward, layer, h, positions, cfg,
                              window, with_aux)
         if aux is not None:
@@ -366,6 +409,7 @@ def prefill(params: MoEModel, cfg: ModelConfig, tokens: torch.Tensor,
     Wc = cache_window if window is None else min(cache_window, window)
     caches = {True: ([], []), False: ([], [])}
     for dense, _, layer in _blocks(params):
+        h = constrain(h)
         x = rms_norm(h, layer.ln_attn, cfg.norm_eps)
         if cfg.use_mla:
             a, c1, c2 = mla.mla_prefill(layer.attn, x, positions, cfg, window,
@@ -404,6 +448,7 @@ def decode_step(params: MoEModel, cfg: ModelConfig, cache: MoECache,
     slot_pos = attn.decode_slot_pos(kvc, q_pos)
     h = embed_apply(params.embed, tokens[:, None], cfg)
     for dense, l, layer in _blocks(params):
+        h = constrain(h)
         c = cache.dense_kv if dense else kvc
         x = rms_norm(h, layer.ln_attn, cfg.norm_eps)
         if cfg.use_mla:

@@ -196,6 +196,20 @@ _FAMILIES = {
 }
 
 
+#: each family's parameter module, by family
+_PARAMS = {"dense": transformer.Transformer, "vlm": transformer.Transformer,
+           "ssm": mamba2.Mamba2, "hybrid": rglru.RecurrentGemma,
+           "moe": moe.MoEModel, "encdec": encdec.EncDecModel}
+
+
+def skeleton(cfg: ModelConfig, device: DeviceLike = "meta") -> torch.nn.Module:
+    """The family's parameter module with uninitialised parameters (on
+    the meta device by default: shapes and dtypes, no storage), as the
+    dry-run places it (``jax.eval_shape(model.init, ...)``'s
+    counterpart)."""
+    return _PARAMS[cfg.family](cfg, torch.device(device))
+
+
 def get_model(cfg: ModelConfig) -> Model:
     if cfg.family not in _FAMILIES:
         raise NotImplementedError(f"model family {cfg.family!r} is not "

@@ -36,10 +36,10 @@ from torch import nn
 
 from repro_torch.models import attention as attn
 from repro_torch.models.attention import KVCache
-from repro_torch.models.common import (MLP, Dense, Embed, ModelConfig,
-                                       embed_apply, normal_, remat_layer,
-                                       rms_norm, rms_weight, softplus,
-                                       unembed_apply)
+from repro_torch.models.common import (Dense, Embed, MLP, ModelConfig,
+                                       constrain, embed_apply, normal_, pad,
+                                       remat_layer, rms_norm, rms_weight,
+                                       softplus, unembed_apply)
 from repro_torch.models.transformer import make_positions
 
 _RG_C = 8.0  # Griffin's fixed recurrence sharpness constant
@@ -144,7 +144,7 @@ def _conv(p: RecBlock, u: torch.Tensor,
     in JAX's order; ``tail`` (B,W-1,dl) the inputs before u, else zeros."""
     W = p.conv_w.shape[0]
     if tail is None:
-        x = F.pad(u, (0, 0, W - 1, 0))
+        x = pad(u, (0, 0, W - 1, 0))
     else:
         x = torch.cat([tail, u], dim=1)
     T = u.shape[1]
@@ -289,8 +289,10 @@ def forward(params: RecurrentGemma, cfg: ModelConfig, tokens: torch.Tensor,
     valid = positions >= 0
     h = _embed(params, cfg, tokens, valid)
     for grp in params.groups:
+        h = constrain(h)
         h = remat_layer(cfg, _group_forward, grp, h, valid, positions, cfg)
     for rp in params.tail:
+        h = constrain(h)
         h, _, _ = rec_block_forward(rp, h, valid, cfg)
     return _logits(params, cfg, h)
 
@@ -320,6 +322,7 @@ def prefill(params: RecurrentGemma, cfg: ModelConfig, tokens: torch.Tensor,
     h = _embed(params, cfg, tokens, valid)
     hs, convs, ks, vs = [], [], [], []
     for grp in params.groups:
+        h = constrain(h)
         st, ct = [], []
         for rp in grp.rec:
             h, s, c = rec_block_forward(rp, h, valid, cfg)
@@ -336,6 +339,7 @@ def prefill(params: RecurrentGemma, cfg: ModelConfig, tokens: torch.Tensor,
         vs.append(vc)
     tail_h, tail_conv = [], []
     for rp in params.tail:
+        h = constrain(h)
         h, s, c = rec_block_forward(rp, h, valid, cfg)
         tail_h.append(s)
         tail_conv.append(c)
@@ -367,6 +371,7 @@ def decode_step(params: RecurrentGemma, cfg: ModelConfig, cache: RGCache,
     slot_pos = attn.decode_slot_pos(ring, q_pos)
     h = embed_apply(params.embed, tokens[:, None], cfg)
     for gi, grp in enumerate(params.groups):
+        h = constrain(h)
         for j, rp in enumerate(grp.rec):
             h, conv, lru = rec_block_decode(rp, h, cache.conv[gi, j],
                                             cache.h[gi, j], cfg)
@@ -378,6 +383,7 @@ def decode_step(params: RecurrentGemma, cfg: ModelConfig, cache: RGCache,
                                   slot_pos, slot, cfg, cfg.local_window)
         h = _attn_mlp(ab, h, a, cfg)
     for i, rp in enumerate(params.tail):
+        h = constrain(h)
         h, conv, lru = rec_block_decode(rp, h, cache.tail_conv[i],
                                         cache.tail_h[i], cfg)
         cache.tail_conv[i] = conv

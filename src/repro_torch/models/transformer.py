@@ -36,9 +36,9 @@ from torch import nn
 from repro_torch.kvcache.paged import PagedKVCache
 from repro_torch.models import attention as attn
 from repro_torch.models.attention import KVCache
-from repro_torch.models.common import (MLP, Dense, Embed, ModelConfig,
-                                       embed_apply, remat_layer, rms_norm,
-                                       rms_weight, unembed_apply)
+from repro_torch.models.common import (Dense, Embed, MLP, ModelConfig,
+                                       constrain, embed_apply, remat_layer,
+                                       rms_norm, rms_weight, unembed_apply)
 
 
 class Block(nn.Module):
@@ -142,6 +142,7 @@ def forward(params: Transformer, cfg: ModelConfig, tokens: torch.Tensor,
         positions = torch.arange(T, dtype=torch.int32,
                                  device=tokens.device)[None].expand(B, T)
     for layer in params.layers:
+        h = constrain(h)
         h = remat_layer(cfg, _block_forward, layer, h, positions, cfg, window)
     return _logits(params, cfg, h)
 
@@ -180,6 +181,7 @@ def prefill(params: Transformer, cfg: ModelConfig, tokens: torch.Tensor,
     T = positions.shape[1]
     ks, vs = [], []
     for layer in params.layers:
+        h = constrain(h)
         x = rms_norm(h, layer.ln_attn, cfg.norm_eps)
         a, kc, vc = attn.attention_prefill(layer.attn, x, positions, cfg,
                                            window, cache_window,
@@ -206,6 +208,7 @@ def decode_step(params: Transformer, cfg: ModelConfig, cache: KVCache,
     slot_pos = attn.decode_slot_pos(cache, q_pos)
     h = embed_apply(params.embed, tokens[:, None], cfg)
     for l, layer in enumerate(params.layers):
+        h = constrain(h)
         x = rms_norm(h, layer.ln_attn, cfg.norm_eps)
         a = attn.attention_decode(layer.attn, x, q_pos, cache.k[l],
                                   cache.v[l], slot_pos, slot, cfg, window)
@@ -230,6 +233,7 @@ def decode_step_rowslots(params: Transformer, cfg: ModelConfig,
                       q_pos.to(torch.int32)[:, None])
     h = embed_apply(params.embed, tokens[:, None], cfg)
     for l, layer in enumerate(params.layers):
+        h = constrain(h)
         x = rms_norm(h, layer.ln_attn, cfg.norm_eps)
         a = attn.attention_decode_rowslots(layer.attn, x, q_pos, cache.k[l],
                                            cache.v[l], slot_pos, slots, cfg,
@@ -259,6 +263,7 @@ def prefill_paged(params: Transformer, cfg: ModelConfig,
     positions = make_positions(tokens, lengths)
     h = embed_apply(params.embed, tokens, cfg)
     for l, layer in enumerate(params.layers):
+        h = constrain(h)
         x = rms_norm(h, layer.ln_attn, cfg.norm_eps)
         a = attn.attention_prefill_paged(
             layer.attn, x, positions, cfg, window, cache.k_pages[l],
@@ -291,6 +296,7 @@ def prefill_tail_paged(params: Transformer, cfg: ModelConfig,
     h = embed_apply(params.embed, tokens, cfg)
     slot_pos = _compact_slot_pos(lengths, cache.window)
     for l, layer in enumerate(params.layers):
+        h = constrain(h)
         x = rms_norm(h, layer.ln_attn, cfg.norm_eps)
         a = attn.attention_prefill_tail_paged(
             layer.attn, x, positions, cfg, window, cache.k_pages[l],
@@ -314,6 +320,7 @@ def decode_step_paged(params: Transformer, cfg: ModelConfig,
                       q_pos.to(torch.int32)[:, None])
     h = embed_apply(params.embed, tokens[:, None], cfg)
     for l, layer in enumerate(params.layers):
+        h = constrain(h)
         x = rms_norm(h, layer.ln_attn, cfg.norm_eps)
         a = attn.attention_decode_paged(
             layer.attn, x, q_pos, cache.k_pages[l], cache.v_pages[l],

@@ -1052,3 +1052,62 @@ def test_train_step_on_the_card_matches_the_cpu(cuda_device, arch):
         _smoke().check_train_parity(arch)  # turns TF32 off
     finally:
         torch.backends.cuda.matmul.allow_tf32 = allow
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("Hq,Hkv,heads_split", [(8, 2, True), (8, 1, False)])
+def test_b5_b6_on_dtensor_shards_match_plain(cuda_device, dtype, Hq, Hkv,
+                                             heads_split):
+    """``ops.flash_prefill`` and ``ops.decode_attention`` on DTensors of a
+    fake (2, 2) mesh over ("data", "model") with CUDA shards (a replicated
+    input is chunked locally, so rank 0's shard holds real values): the
+    kernels run on rank 0's rows and, where the KV heads divide the model
+    axis, its heads, once a call, and its local output matches the plain
+    version's rows and heads on the plain tensors."""
+    from torch.distributed.tensor import DTensor, Replicate
+    from repro_torch.kernels import ops
+    from repro_torch.launch.mesh import fake_mesh
+    rng = np.random.default_rng(3)
+    B, T, D, W = 4, 96, 64, 80
+
+    def t(*shape):
+        return torch.from_numpy(rng.standard_normal(shape)).to(
+            device=cuda_device, dtype=dtype)
+
+    pos = torch.arange(T, dtype=torch.int32)[None].repeat(B, 1)
+    pos[1, :17] = -1
+    pos[1, 17:] -= 17
+    pos = pos.to(cuda_device)
+    q, k, v = t(B, T, Hq, D), t(B, T, Hkv, D), t(B, T, Hkv, D)
+    qd, kc, vc = t(B, Hq, D), t(B, W, Hkv, D), t(B, W, Hkv, D)
+    slot_pos = torch.arange(W, dtype=torch.int32)[None].repeat(B, 1)
+    slot_pos[2, 50:] = -1
+    slot_pos = slot_pos.to(cuda_device)
+    q_pos = torch.full((B,), W - 1, dtype=torch.int32, device=cuda_device)
+    hl = Hq // 2 if heads_split else Hq
+    with fake_mesh((2, 2), ("data", "model"), device_type="cuda") as mesh:
+        rep = [Replicate(), Replicate()]
+
+        def d(x):
+            return DTensor.from_local(x, mesh, rep, run_check=False)
+
+        ops.reset_counts()
+        got = ops.flash_prefill(d(q), d(k), d(v), d(pos), window=40)
+        gotd = ops.decode_attention(d(qd), d(kc), d(vc), d(slot_pos),
+                                    d(q_pos), window=60)
+        torch.cuda.synchronize()
+        launches = ops.launches()
+        assert launches["flash_prefill"] == 1
+        assert launches["decode_attention"] == 1
+        assert not any(ops.plain_calls.values())
+        want = ref.flash_prefill_ref(q.cpu(), k.cpu(), v.cpu(), pos.cpu(),
+                                     window=40).float()
+        torch.testing.assert_close(got.to_local().cpu().float(),
+                                   want[:B // 2, :, :hl], rtol=0,
+                                   atol=ATOL[dtype])
+        want = ref.decode_attention_ref(qd.cpu(), kc.cpu(), vc.cpu(),
+                                        slot_pos.cpu(), q_pos.cpu(),
+                                        window=60).float()
+        torch.testing.assert_close(gotd.to_local().cpu().float(),
+                                   want[:B // 2, :hl], rtol=0,
+                                   atol=ATOL[dtype])
