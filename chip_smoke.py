@@ -260,6 +260,14 @@ fails (nothing is caught):
    ``argument_bytes`` on the same mesh, and one decode step launches B6
    once a layer at 4 heads (the fake group's collectives move nothing,
    so (c) checks shapes, launches and bytes, not values).
+24. examples (``run_examples``, within about a minute): the port's
+   ``examples/torch_quickstart.py`` (the reduced llama served by dense
+   SCLS over two engines, token parity with one-shot generation 8/8, B5
+   and B6 launched) and the real section of
+   ``examples/torch_serving_cluster.py`` (``--kv-retain request`` over a
+   paged engine: ``reprefill_tokens == 0``, B1 and B2 launched), each in a
+   child process on the card (both at once) with its exit code checked;
+   their wall seconds and launches go on an ``{"examples": ...}`` line.
 
 One function (``run_slice``) runs phases 5-7, 9, 13-15 and 17-19, each a
 ``SLICES`` entry (launcher arguments and path).  Phase 22 alone:
@@ -4857,6 +4865,67 @@ def run_scale_out(card: str, dev: str = "cuda") -> dict:
             "shard_bytes": dict(launches=shard["launches"])}
 
 
+# ---------------------------------------------------------------------------
+# phase 24: the port's examples on the card
+# ---------------------------------------------------------------------------
+#: (label, the example's arguments, kernels that must launch, checks of its
+#: JSON summary line)
+EXAMPLES = (
+    ("quickstart", ["examples/torch_quickstart.py"],
+     ("flash_prefill", "decode_attention"),
+     lambda r: r["parity"] == r["checked"] == 8
+     and r["n_completed"] == r["n_requests"]),
+    ("serving_cluster_real", ["examples/torch_serving_cluster.py",
+                              "--section", "real"],
+     ("paged_prefill_write", "paged_decode_attention"),
+     lambda r: r["reprefill_tokens"] == 0 and r["n_completed"] == 3),
+)
+
+
+def run_examples(card: str) -> dict:
+    """Phase 24: the ``EXAMPLES`` in child processes on the card, started
+    together (the kernels' libraries already built), each one's exit
+    code, its summary line's checks and its kernels' launches checked."""
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    t0 = time.perf_counter()
+    procs = [(label, args, kernels, ok, subprocess.Popen(
+        [sys.executable, *args], cwd=ROOT, env=env, stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True))
+        for label, args, kernels, ok in EXAMPLES]
+    out = {}
+    try:
+        for label, args, kernels, ok, proc in procs:
+            stdout, stderr = proc.communicate(timeout=300)
+            wall = time.perf_counter() - t0
+            if proc.returncode != 0:
+                raise SystemExit(f"phase 24: {args[0]} exited "
+                                 f"{proc.returncode}:\n{stdout[-3000:]}"
+                                 f"\n{stderr[-3000:]}")
+            res = json.loads(stdout.strip().splitlines()[-1])
+            if not ok(res) or res["device"].split(":")[0] != "cuda":
+                raise SystemExit(f"phase 24: {label} failed its checks: "
+                                 f"{res}")
+            idle = [k for k in kernels if res["launches"][k] <= 0]
+            if idle or any(res["plain_calls"].values()):
+                raise SystemExit(f"phase 24: {label} launched no {idle}, "
+                                 f"or took a plain version: {res}")
+            out[label] = dict(wall_s=wall, example_wall_s=res["wall_s"],
+                              launches={k: res["launches"][k]
+                                        for k in kernels},
+                              **{k: res[k] for k in ("parity", "checked",
+                                                     "reprefill_tokens",
+                                                     "slices") if k in res})
+            log(f"phase 24: {label}: {wall:.1f} s, launches "
+                f"{out[label]['launches']}")
+    finally:
+        for *_, proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    print(json.dumps({"examples": dict(out, card=card)}), flush=True)
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the card",
@@ -4967,6 +5036,7 @@ def main() -> int:
     release_cuda()
     scls.update(run_scale_out(card))  # phase 23
     release_cuda()
+    run_examples(card)  # phase 24
     # every control fault of phase 4 must have failed its slice's gate
     weak = {f"{label} {fault}": gap for label, sm in scls.items()
             for fault, gap in sm.get("controls", {}).items()

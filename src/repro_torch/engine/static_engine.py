@@ -291,7 +291,10 @@ class StaticEngine:
         re-raises ``MemoryError`` when no parked victim remains."""
         while True:
             try:
-                self.allocator.extend(rid, need)
+                # grows the caller's reservation; serve_batch_paged unwinds
+                # it on MemoryError and retention frees it later via
+                # release_request/_evict
+                self.allocator.extend(rid, need)  # repro: transfer(allocator-pairing) — caller-owned reservation
                 return
             except MemoryError:
                 victim = self._lru_parked(protected)
@@ -377,7 +380,11 @@ class StaticEngine:
                     hit_pages = hit_pages[:n_hit]
                 need = (res.n_tokens if res else len(eff[i])) + slice_len
                 if res is None and hit_pages:
-                    self.allocator.share(rid, hit_pages)
+                    # retained past this call by design (kv_retain=
+                    # "request"): freed by release_request/_evict; the
+                    # except MemoryError arm below unwinds rows granted
+                    # in THIS call
+                    self.allocator.share(rid, hit_pages)  # repro: transfer(allocator-pairing) — retention owns it
                     fresh.append(rid)
                     self._extend_evicting(rid, need, batch_set)
                     shared_start[i] = len(hit_pages) * pg
@@ -386,10 +393,14 @@ class StaticEngine:
                     while True:
                         try:
                             if res is not None:
-                                if self.allocator.extend(rid, need):
+                                # both arms retained by design (see the
+                                # share above): freed via release_request/
+                                # _evict, unwound by the except MemoryError
+                                # arm below
+                                if self.allocator.extend(rid, need):  # repro: transfer(allocator-pairing) — retention owns it
                                     grown.append((rid, res.n_tokens))
                             else:
-                                self.allocator.reserve(rid, need)
+                                self.allocator.reserve(rid, need)  # repro: transfer(allocator-pairing) — see above
                                 fresh.append(rid)
                             break
                         except MemoryError:

@@ -18,7 +18,7 @@ but they update its tensors in place.
 """
 from __future__ import annotations
 
-from typing import List, NamedTuple
+from typing import List, NamedTuple, Tuple
 
 import numpy as np
 import torch
@@ -40,7 +40,8 @@ class PagedKVCache(NamedTuple):
 
 
 def init_page_pools(n_layers: int, n_pages: int, page_tokens: int, n_kv: int,
-                    head_dim: int, dtype: torch.dtype, device: torch.device):
+                    head_dim: int, dtype: torch.dtype, device: torch.device
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Zeroed (k_pages, v_pages) of ``n_pages`` usable pages plus the
     null page 0."""
     shape = (n_layers, n_pages + 1, page_tokens, n_kv, head_dim)

@@ -25,7 +25,7 @@ from typing import NamedTuple, Optional, Tuple
 
 import torch
 from torch import nn
-from torch.distributed.tensor import DTensor
+from torch.distributed.tensor import DTensor, Replicate, Shard
 
 from repro_torch.kernels import ops as kernel_ops
 from repro_torch.models.common import (Dense, ModelConfig, apply_rope,
@@ -436,8 +436,8 @@ def attention_decode(p: Attention, x: torch.Tensor, q_pos: torch.Tensor,
     q, k, v = _qkv(p, x, cfg)
     q = apply_rope(q, q_pos[:, None], cfg.rope_theta)
     k = apply_rope(k, q_pos[:, None], cfg.rope_theta)
-    k_cache[:, slot] = k[:, 0]
-    v_cache[:, slot] = v[:, 0]
+    write_slot(k_cache, slot, k[:, 0])
+    write_slot(v_cache, slot, v[:, 0])
     o = dense_decode_attend(q, k_cache, v_cache, slot_pos, q_pos, window)
     return p.wo(o.reshape(B, 1, -1))
 
@@ -519,6 +519,22 @@ def prefill_slot_pos(positions: torch.Tensor, cache_window: int
     return pos[:, T - W:]
 
 
+def write_slot(cache: torch.Tensor, slot: int, value: torch.Tensor) -> None:
+    """``cache[:, slot] = value``, in place.  On a DTensor whose dim 1 is
+    sharded (the reference's cache rule shards a window that happens to
+    equal the KV head count) an indexed write would land in a
+    redistributed copy and be lost, so the slot is written through a
+    mask over the whole window instead."""
+    if isinstance(cache, DTensor) and Shard(1) in cache.placements:
+        mesh = cache.device_mesh
+        hit = torch.arange(cache.shape[1], device=cache.device) == slot
+        hit = DTensor.from_local(hit.view(1, -1, *(1,) * (cache.ndim - 2)),
+                                 mesh, [Replicate()] * mesh.ndim)
+        cache.copy_(torch.where(hit, value.unsqueeze(1), cache))
+        return
+    cache[:, slot] = value
+
+
 def decode_slot(cache: KVCache) -> int:
     """Ring slot of the next decode write."""
     return cache.write_idx % cache.window
@@ -526,5 +542,5 @@ def decode_slot(cache: KVCache) -> int:
 
 def decode_slot_pos(cache: KVCache, q_pos: torch.Tensor) -> torch.Tensor:
     slot_pos = cache.slot_pos.clone()
-    slot_pos[:, decode_slot(cache)] = q_pos.to(torch.int32)
+    write_slot(slot_pos, decode_slot(cache), q_pos.to(torch.int32))
     return slot_pos

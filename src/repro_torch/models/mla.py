@@ -152,7 +152,7 @@ def mla_decode(p: MLA, x: torch.Tensor, q_pos: torch.Tensor,
     token."""
     q = _q_proj(p, x, q_pos[:, None], cfg)
     ckv, kr = _compress(p, x, q_pos[:, None], cfg)
-    ckv_cache[:, slot] = ckv[:, 0]
-    kr_cache[:, slot] = kr[:, 0]
+    attn.write_slot(ckv_cache, slot, ckv[:, 0])
+    attn.write_slot(kr_cache, slot, kr[:, 0])
     mask = attn.decode_mask(q_pos, slot_pos, window)
     return _expand_attend(p, q, ckv_cache, kr_cache, mask, cfg)

@@ -15,7 +15,10 @@ renormalised (``p / max(sum, 1e-9)``), and token t's k-th choice takes the
 next free slot of its expert in the order (token, k-slot).  An expert
 holds ``cap = max(1, int(group·top_k·capacity_factor / E))`` slots; a
 choice past them is dropped (weighs 0).  The shared experts are added on
-top, to every token.
+top, to every token.  On a mesh (a DTensor ``x``) the groups are still
+those of the global stream of B·T tokens, as in the reference's GSPMD
+program, and the experts stay sharded on their expert axis
+(``_moe_sharded``).
 
 The JAX package moves tokens with one-hot dispatch/combine einsums; the
 port gathers and scatters the same tokens into the same (E, cap, d)
@@ -33,7 +36,9 @@ JAX model, whatever ``tie_embeddings`` says.
 """
 from __future__ import annotations
 
-from typing import NamedTuple, Optional, Tuple, Union
+import math
+from typing import (Callable, List, NamedTuple, Optional, Tuple,
+                    Union)
 
 import torch
 import torch.nn.functional as F
@@ -86,9 +91,16 @@ class Experts(nn.Module):
 
     def forward(self, xe: torch.Tensor) -> torch.Tensor:
         """xe (E, C, d) -> (E, C, d): expert e's MLP on its C slots."""
-        h = activate(torch.bmm(xe, self.gate.w), self.act) \
-            * torch.bmm(xe, self.up.w)
-        return torch.bmm(h, self.down.w)
+        return expert_mlp(xe, self.gate.w, self.up.w, self.down.w, self.act)
+
+
+def expert_mlp(xe: torch.Tensor, gate: torch.Tensor, up: torch.Tensor,
+               down: torch.Tensor, act: str) -> torch.Tensor:
+    """xe (n, C, d) -> (n, C, d): the gated MLP of each of n experts, whose
+    stacked weights are ``gate``/``up`` (n, d, dff) and ``down`` (n, dff,
+    d), on its C slots."""
+    h = activate(torch.bmm(xe, gate), act) * torch.bmm(xe, up)
+    return torch.bmm(h, down)
 
 
 class MoELayer(nn.Module):
@@ -140,24 +152,32 @@ def _dispatch(probs: torch.Tensor, k: int, capacity: int) -> Routing:
     return Routing(top_i, slot, slot < capacity, top_p)
 
 
-def _group_apply(p: MoELayer, xg: torch.Tensor, r: Routing,
-                 capacity: int) -> torch.Tensor:
-    """One group's routed output: each kept choice's token copied into its
-    expert's slot, the experts run over their (E, C, d) buffers, and each
-    token's outputs summed under its combine weights (rounded to x's type
-    first, as the JAX combine einsum takes them).  A dropped choice writes
-    into a spare slot past the capacity that no expert reads, and weighs 0:
-    no host synchronisation."""
+def _group_apply(experts: Callable[[torch.Tensor], torch.Tensor],
+                 xg: torch.Tensor, r: Routing, capacity: int, n: int,
+                 span: Optional[Tuple[int, int]] = None) -> torch.Tensor:
+    """One group's routed output from its n experts, or, given ``span =
+    (first, n)``, from the experts ``first`` .. ``first + n - 1`` alone (a
+    rank's own on a mesh): each kept choice of theirs has its token copied
+    into its expert's slot, ``experts`` runs them over their (n, C, d)
+    buffers, and each token's outputs are summed under its combine weights
+    (rounded to x's type first, as the JAX combine einsum takes them).  A
+    dropped choice, or a choice of another rank's expert, writes into a
+    spare slot past the capacity that no expert reads, and weighs 0: no
+    host synchronisation."""
     g, d = xg.shape
     k = r.expert.shape[1]
-    E = p.router.shape[1]
-    slot = torch.where(r.keep, r.slot, capacity)
+    keep, e = r.keep, r.expert
+    if span is not None:
+        first, n = span
+        keep = keep & (e >= first) & (e < first + n)
+        e = (e - first).clamp(0, n - 1)
+    slot = torch.where(keep, r.slot, capacity)
     tok = torch.arange(g, device=xg.device)[:, None].expand(g, k)
-    xe = xg.new_zeros((E, capacity + 1, d))
-    xe[r.expert, slot] = xg[tok]
-    he = p.experts(xe[:, :capacity])                    # (E, C, d)
-    hk = he[r.expert, slot.clamp(max=capacity - 1)]     # (g, K, d)
-    w = torch.where(r.keep, r.weight, 0.0).to(xg.dtype).float()
+    xe = xg.new_zeros((n, capacity + 1, d))
+    xe[e, slot] = xg[tok]
+    he = experts(xe[:, :capacity])                      # (n, C, d)
+    hk = he[e, slot.clamp(max=capacity - 1)]            # (g, K, d)
+    w = torch.where(keep, r.weight, 0.0).to(xg.dtype).float()
     return (w[..., None] * hk.float()).sum(dim=1).to(xg.dtype)
 
 
@@ -168,15 +188,15 @@ def capacity(cfg: ModelConfig, group: int) -> int:
                       / cfg.n_experts))
 
 
-def _router_probs(p: MoELayer, xg: torch.Tensor) -> torch.Tensor:
-    return torch.softmax(xg.float() @ p.router, dim=-1)
+def _router_probs(router: torch.Tensor, xg: torch.Tensor) -> torch.Tensor:
+    return torch.softmax(xg.float() @ router, dim=-1)
 
 
 def route(p: MoELayer, xg: torch.Tensor, cfg: ModelConfig,
           cap: int) -> Routing:
     """xg (g, d) -> the group's routing under the router's float32
     softmax."""
-    return _dispatch(_router_probs(p, xg), cfg.top_k, cap)
+    return _dispatch(_router_probs(p.router, xg), cfg.top_k, cap)
 
 
 def _balance(probs: torch.Tensor, r: Routing) -> torch.Tensor:
@@ -197,25 +217,15 @@ def moe_apply(p: MoELayer, x: torch.Tensor, cfg: ModelConfig,
     ``moe_apply``.  The groups run one after another, as JAX's
     ``lax.map`` runs them, so one group's buffers are live at a time.
 
-    A DTensor ``x`` runs on each rank's local rows (``_moe_local``)."""
+    A DTensor ``x`` computes what ``x.full_tensor()`` would, with the
+    experts left sharded (``_moe_sharded``)."""
     if isinstance(x, DTensor):
-        return _moe_local(p, x, cfg, with_aux)
+        return _moe_sharded(p, x, cfg, with_aux)
     B, T, d = x.shape
-    g_total = B * T
-    xf = x.reshape(g_total, d)
-    group = min(MOE_GROUP, g_total)
-    pad = (-g_total) % group
-    if pad:
-        xf = F.pad(xf, (0, 0, 0, pad))
-    cap = capacity(cfg, group)
-    ys, balance = [], []
-    for xg in xf.split(group):
-        probs = _router_probs(p, xg)
-        r = _dispatch(probs, cfg.top_k, cap)
-        ys.append(_group_apply(p, xg, r, cap))
-        if with_aux:
-            balance.append(_balance(probs, r))
-    y = torch.cat(ys)[:g_total].reshape(B, T, d)
+    group = min(MOE_GROUP, B * T)
+    y, balance = _route_groups(p.router, p.experts, x.reshape(B * T, d),
+                               cfg, group, cfg.n_experts, None, with_aux)
+    y = y.reshape(B, T, d)
     if p.shared is not None:
         y = y + p.shared(x)
     if not with_aux:
@@ -223,39 +233,126 @@ def moe_apply(p: MoELayer, x: torch.Tensor, cfg: ModelConfig,
     return y, cfg.n_experts * torch.stack(balance).mean()
 
 
-class _Apply(nn.Module):
-    """``moe_apply`` over a layer, for ``functional_call``."""
+def _route_groups(router: torch.Tensor,
+                  experts: Callable[[torch.Tensor], torch.Tensor],
+                  xf: torch.Tensor, cfg: ModelConfig, group: int, n: int,
+                  span: Optional[Tuple[int, int]], with_aux: bool
+                  ) -> Tuple[torch.Tensor, List[torch.Tensor]]:
+    """xf (tokens, d) zero-padded to whole groups of ``group``, each group
+    routed with the capacity of ``group`` tokens and run through
+    ``experts`` (``_group_apply``'s n and span): (the tokens' outputs,
+    each group's balance term ``with_aux``)."""
+    n_tok = xf.shape[0]
+    pad = (-n_tok) % group
+    if pad:
+        xf = F.pad(xf, (0, 0, 0, pad))
+    cap = capacity(cfg, group)
+    ys, balance = [], []
+    for xg in xf.split(group):
+        probs = _router_probs(router, xg)
+        r = _dispatch(probs, cfg.top_k, cap)
+        ys.append(_group_apply(experts, xg, r, cap, n, span))
+        if with_aux:
+            balance.append(_balance(probs, r))
+    return torch.cat(ys)[:n_tok], balance
 
-    def __init__(self, p: MoELayer, cfg: ModelConfig, with_aux: bool):
-        super().__init__()
-        self.p, self.cfg, self.with_aux = p, cfg, with_aux
 
-    def forward(self, x):
-        return moe_apply(self.p, x, self.cfg, self.with_aux)
+def _whole(t: torch.Tensor) -> torch.Tensor:
+    return t.full_tensor() if isinstance(t, DTensor) else t
 
 
-def _moe_local(p: MoELayer, x: DTensor, cfg: ModelConfig, with_aux: bool):
-    """``moe_apply`` of a DTensor ``x`` (B,T,d): each rank routes its local
-    rows (batch over the "pod" / "data" axes where it divides) through the
-    layer's weights gathered whole, and its groups are its local rows'.
-    The expert-parallel all-to-all of the reference's GSPMD program is not
-    reproduced: the experts are all-gathered instead, and a group never
-    straddles two ranks' rows (so where the unsharded model's would, the
-    capacity drops differ).  The load-balance term is averaged over the
-    ranks (a ``Partial("avg")``)."""
+def _local_experts(p: MoELayer, mesh) -> Tuple[List[torch.Tensor], int,
+                                               Tuple[int, ...]]:
+    """(this rank's gate, up and down weights (n, ., .), the index of its
+    first expert, the mesh dims that shard the expert axis).  Each weight
+    keeps its shards of the expert axis (dim 0) and is gathered over every
+    other mesh dim (FSDP's dim of each expert)."""
+    ws = [m.w for m in (p.experts.gate, p.experts.up, p.experts.down)]
+    if not isinstance(ws[0], DTensor):
+        return ws, 0, ()
+    dims = {tuple(i for i, pl in enumerate(w.placements) if pl == Shard(0))
+            for w in ws}
+    if len(dims) != 1:
+        raise ValueError(f"the expert weights shard their expert axis over "
+                         f"different mesh dims: {sorted(dims)}")
+    (edims,) = dims
+    keep = [Shard(0) if i in edims else Replicate()
+            for i in range(mesh.ndim)]
+    local = [w.redistribute(mesh, keep).to_local() for w in ws]
+    sizes, coord = tuple(mesh.shape), mesh.get_coordinate()
+    if local[0].shape[0] * math.prod(sizes[i] for i in edims) \
+            != ws[0].shape[0]:
+        raise ValueError("the expert axis does not divide its mesh dims")
+    index = 0
+    for i in edims:  # DTensor's chunk order: the first mesh dim outermost
+        index = index * sizes[i] + coord[i]
+    return local, index * local[0].shape[0], edims
+
+
+def _moe_sharded(p: MoELayer, x: DTensor, cfg: ModelConfig, with_aux: bool):
+    """``moe_apply`` of a DTensor ``x`` (B,T,d), equal to it on
+    ``x.full_tensor()``: the groups are the global stream's, of
+    ``min(MOE_GROUP, B·T)`` tokens with the zero padding at its end, and
+    each has the capacity of that global group, so the same choices are
+    kept and dropped as unsharded.
+
+    The experts stay sharded on their expert axis (``_local_experts``):
+    each rank runs only its own experts' slots, on token rows that are
+    whole over the expert axis's mesh dims, and the outputs are summed
+    over those dims (a ``Partial`` redistributed to the rows: an
+    all-reduce, or a reduce-scatter where a row axis shards the experts
+    too).  Which token rows a rank routes:
+
+      * its own rows (batch over "pod" / "data" where it divides), when
+        they are a whole number of global groups and the stream needs no
+        padding (a long prefill): its groups are the global groups;
+      * otherwise (decode, a short prefill) the rows all-gathered over
+        the row axes -- B x T x d, small where this applies -- and every
+        rank routes every global group identically.
+
+    The router's probabilities and the dispatch are computed in full on
+    each rank (the router is gathered whole).  The load-balance term is
+    the mean over the global groups, ``Replicate`` on every mesh dim (the
+    per-rank sums are all-reduced over the row axes where each rank had
+    groups of its own).  The shared experts run on the local rows."""
     mesh = x.device_mesh
-    rows = kernel_ops.head_placements(mesh, x.shape[0], ())(None)
-    xl = x.redistribute(mesh, rows).to_local()
-    full = {f"p.{n}": (t.full_tensor() if isinstance(t, DTensor) else t)
-            for n, t in p.named_parameters()}
-    out = torch.func.functional_call(_Apply(p, cfg, with_aux), full, (xl,))
-    y, aux = out if with_aux else (out, None)
+    B, T, d = x.shape
+    n_tok = B * T
+    group = min(MOE_GROUP, n_tok)
+    rows = kernel_ops.head_placements(mesh, B, ())(None)
+    weights, first, edims = _local_experts(p, mesh)
+    tok = [Replicate() if i in edims else pl for i, pl in enumerate(rows)]
+    shards = math.prod(n for n, pl in zip(tuple(mesh.shape), tok)
+                       if isinstance(pl, Shard))
+    if n_tok % group or (n_tok // shards) % group:
+        tok = [Replicate()] * mesh.ndim
+    xl = x.redistribute(mesh, tok).to_local()
+
+    def experts(xe):
+        return expert_mlp(xe, *weights, cfg.act)
+
+    n = weights[0].shape[0]
+    y, balance = _route_groups(_whole(p.router), experts, xl.reshape(-1, d),
+                               cfg, group, n, (first, n), with_aux)
+    y = y.reshape(xl.shape)
+    summed = [Partial() if i in edims else pl for i, pl in enumerate(tok)]
+    y = DTensor.from_local(y, mesh, summed, run_check=False,
+                           shape=x.shape, stride=x.stride())
+    y = y.redistribute(mesh, rows).to_local()
+    if p.shared is not None:
+        shared = {name: _whole(t)
+                  for name, t in p.shared.named_parameters()}
+        xr = x.redistribute(mesh, rows).to_local()
+        y = y + torch.func.functional_call(p.shared, shared, (xr,))
     y = DTensor.from_local(y, mesh, rows, run_check=False)
     if not with_aux:
         return y
-    aux_pl = [Partial("avg") if isinstance(pl, Shard) else Replicate()
-              for pl in rows]
-    return y, DTensor.from_local(aux, mesh, aux_pl, run_check=False)
+    groups = -(-n_tok // group)
+    own = [Partial() if isinstance(pl, Shard) else Replicate() for pl in tok]
+    bal = DTensor.from_local(torch.stack(balance).sum(), mesh, own,
+                             run_check=False)
+    bal = bal.redistribute(mesh, [Replicate()] * mesh.ndim)
+    return y, cfg.n_experts * bal / groups
 
 
 # ---------------------------------------------------------------------------

@@ -269,7 +269,7 @@ class RealBackend:
                 # the engine's per-batch cache is); finish_batch releases
                 alloc = self.allocators[wid]
                 for r in batch.requests:
-                    alloc.reserve(r.rid, batch.input_len + batch.slice_len)
+                    alloc.reserve(r.rid, batch.input_len + batch.slice_len)  # repro: transfer(allocator-pairing) — finish_batch releases
             res = eng.serve_batch(prompts, batch.slice_len,
                                   forced_gen_lens=forced,
                                   already_generated=list(prev_tokens))

@@ -1,15 +1,17 @@
 """The port's scale-out: the collective recorder, the fake production mesh
 and its teardown, the dry-run on a fake multi-pod mesh, the B5/B6
-wrappers on DTensor shards, and the sharded steps on a real 4-process
-gloo group against the unsharded port (``repro_torch.launch.mesh``,
-``collectives``, ``dryrun``, ``kernels.ops.on_local_heads``).
+wrappers on DTensor shards, the MoE layer's collectives on a fake mesh,
+and the sharded steps on a real 4-process gloo group against the
+unsharded port (``repro_torch.launch.mesh``, ``collectives``, ``dryrun``,
+``kernels.ops.on_local_heads``, ``models.moe``).
 
 Every process group is destroyed before its test returns (the fake ones
 here; the gloo group lives in four child processes).  Tolerances: the
 sharded train step's loss and every updated leaf, and the sharded
 prefill's and decode steps' logits, within 1e-5 of the unsharded port's
 (relative to each tensor's largest |value|: the sums run in another
-order); the loss with the sequence-sharded residual stream within 1e-6
+order); the MoE layer's load-balance term within 1e-6 of the unsharded
+layer's; the loss with the sequence-sharded residual stream within 1e-6
 of the loss without; the local shards of B5/B6 on a fake mesh exactly
 the plain versions' rows and heads.
 """
@@ -170,16 +172,70 @@ def test_b5_b6_take_shards_on_a_fake_mesh():
     assert not dist.is_initialized()
 
 
+def test_moe_layer_keeps_its_experts_sharded_on_a_fake_mesh():
+    """The reduced deepseek-v2-lite-16b's MoE layer on a fake (2, 2) mesh
+    (its experts over "model"; with FSDP each expert's d_model over
+    "data" too), the token rows over "data": no collective gathers an
+    expert weight whole (4 experts x 128 x 64 float32, 131,072 bytes),
+    only FSDP's dim of a rank's own two experts.  Without FSDP the layer
+    moves tokens alone: at decode (8 tokens, fewer than a rank's group)
+    the rows gathered (4 x 128 float32) and the rank's output rows summed
+    over "model"; at 4 x 512 (each "data" rank's rows one global group of
+    1,024) the output rows summed alone."""
+    from torch.distributed.tensor.experimental import implicit_replication
+    from repro_torch.configs import get_config
+    from repro_torch.launch import collectives as col
+    from repro_torch.launch import sharding as shr
+    from repro_torch.launch.mesh import fake_mesh
+    from repro_torch.models.moe import moe_apply
+    from repro_torch.models.registry import get_model
+    cfg = get_config("deepseek-v2-lite-16b", reduced=True)
+    d, E, dff = cfg.d_model, cfg.n_experts, cfg.d_ff_expert
+    whole = E * d * dff * 4
+    for fsdp in (True, False):
+        with fake_mesh((2, 2), ("data", "model")) as mesh:
+            params = get_model(cfg).init(0, device="cpu")
+            shr.shard_params(params, shr.param_specs(params, mesh, cfg,
+                                                     fsdp=fsdp), mesh)
+            layer = params.layers[0].moe
+            got = {}
+            for B, T in ((4, 2), (4, 512)):
+                x = shr.place(torch.randn(B, T, d), (("data",), None, None),
+                              mesh)
+                with col.CollectiveRecorder() as rec, implicit_replication():
+                    y = moe_apply(layer, x, cfg)
+                assert y.shape == (B, T, d)
+                got[T] = rec.records
+        assert not dist.is_initialized()
+        gathers = [b for T in got for k, b in got[T] if k == "all-gather"]
+        assert max(gathers) < whole
+        if fsdp:
+            assert (whole // 2) in gathers  # a rank's two experts, whole
+        else:
+            assert got[2] == [("all-gather", 4 * 2 * d * 4),
+                              ("all-reduce", 2 * 2 * d * 4)]
+            assert got[512] == [("all-reduce", 2 * 512 * d * 4)]
+
+
 def test_sharded_steps_on_four_gloo_ranks(tmp_path):
     """Four processes, a real gloo group, a (2, 2) mesh over ("data",
     "model"), the weights carried from the JAX initialisation
     (``params_from_jax``): the sharded train step of the reduced llama
     (loss and every updated leaf), its loss with the residual stream
     sequence-sharded, and the sharded prefill and two decode steps of the
-    reduced llama and Mamba-2 all match the unsharded port."""
-    for arch, name in (("llama3.2-1b", "llama.pt"),
-                       ("mamba2-130m", "mamba.pt")):
-        _, _, _, tp = shared_models(arch)
+    reduced llama, Mamba-2, mixtral-8x22b and deepseek-v2-lite-16b all
+    match the unsharded port.  The MoE models run at capacity factor 1.0,
+    where the unsharded port drops choices: the sharded layer routes the
+    global token stream in the global groups, so the same choices drop
+    (mixtral's experts shard over both mesh dims, deepseek's over
+    "model"); each one's first MoE layer alone, with its load-balance
+    term, matches too, at 8 tokens and at 2,048 (each "data" rank's rows
+    one global group)."""
+    for arch, name, cf in (("llama3.2-1b", "llama.pt", None),
+                           ("mamba2-130m", "mamba.pt", None),
+                           ("mixtral-8x22b", "mixtral.pt", 1.0),
+                           ("deepseek-v2-lite-16b", "deepseek.pt", 1.0)):
+        _, _, _, tp = shared_models(arch, capacity_factor=cf)
         torch.save(tp.state_dict(), tmp_path / name)
     with socket.socket() as s:
         s.bind(("localhost", 0))
@@ -214,3 +270,13 @@ def test_sharded_steps_on_four_gloo_ranks(tmp_path):
             assert max(res[fam]["gaps"]) <= 1e-5, (fam, res[fam]["gaps"])
             assert res[fam]["plain_calls"][kernel] > 0
         assert res["llama"]["plain_calls"]["decode_attention"] == 4
+        for fam, experts in (("mixtral", "(Shard(dim=0), Shard(dim=0))"),
+                             ("deepseek", "(Shard(dim=1), Shard(dim=0))")):
+            moe = res[fam]
+            assert moe["expert_placements"] == experts
+            assert moe["dropped"] > 0, fam
+            assert max(moe["gaps"]) <= 1e-5, (fam, moe["gaps"])
+            layer = moe["layer"]
+            assert min(layer["dropped"]) > 0, (fam, layer["dropped"])
+            assert max(layer["gaps"]) <= 1e-5, (fam, layer["gaps"])
+            assert max(layer["aux_gaps"]) <= 1e-6, (fam, layer["aux_gaps"])

@@ -1,6 +1,7 @@
-"""Import hygiene of the port: ``repro_torch`` and ``chip_smoke.py`` use
-PyTorch and numpy, never JAX and never the JAX package ``repro`` (not
-even its jax-free modules: the port keeps its own copies)."""
+"""Import hygiene of the port: ``repro_torch``, ``chip_smoke.py`` and the
+port's examples (``examples/torch_*.py``) use PyTorch and numpy, never JAX
+and never the JAX package ``repro`` (not even its jax-free modules: the
+port keeps its own copies)."""
 import ast
 import os
 import pkgutil
@@ -49,6 +50,10 @@ def _sources():
             if f.endswith(".py"):
                 yield os.path.join(root, f)
     yield os.path.join(REPO, "chip_smoke.py")
+    examples = os.path.join(REPO, "examples")
+    for f in sorted(os.listdir(examples)):
+        if f.startswith("torch_") and f.endswith(".py"):
+            yield os.path.join(examples, f)
 
 
 def _forbidden_imports(path):

@@ -5,12 +5,18 @@ mesh over a real gloo group, and write what it measured to
 
   python torch_gloo_worker.py RANK WORLD PORT OUT_DIR
 
-``OUT_DIR`` holds the weights (``llama.pt``, ``mamba.pt``: the port's
-state dicts, carried from the JAX initialisation by the parent).  The
-comparisons: a train step (the loss and every updated leaf), the loss
-with and without the sequence-sharded residual stream, and a prefill and
-two decode steps of the dense model and of Mamba-2 (logits).
+``OUT_DIR`` holds the weights (``llama.pt``, ``mamba.pt``, ``mixtral.pt``,
+``deepseek.pt``: the port's state dicts, carried from the JAX
+initialisation by the parent; the MoE models at capacity factor
+``MOE_CAPACITY``).  The comparisons: a train step (the loss and every
+updated leaf), the loss with and without the sequence-sharded residual
+stream, a prefill and two decode steps of the dense model, of Mamba-2
+and of both MoE models (logits), and each MoE model's first MoE layer
+alone with its load-balance term, at a decode-sized and a long stream
+(``MOE_LAYER_SHAPES``).  The MoE runs also count the choices the
+unsharded port drops.
 """
+import contextlib
 import json
 import os
 import sys
@@ -18,6 +24,14 @@ import sys
 import torch
 from torch.distributed.tensor import DTensor
 from torch.distributed.tensor.experimental import implicit_replication
+
+#: the MoE models' capacity factor, at which the unsharded port drops
+#: choices (the reduced configs' 4.0 drops none)
+MOE_CAPACITY = 1.0
+#: (B, T) of the lone MoE layer: every rank routes the gathered stream
+#: (8 tokens), then each "data" rank's rows are one global group of 1,024
+#: (deepseek's experts shard over "model" only, so it routes them alone)
+MOE_LAYER_SHAPES = ((4, 2), (4, 512))
 
 
 def _full(t):
@@ -88,12 +102,55 @@ def train(out, mesh, shr):
                         "layers.0.attn.wq.w"].placements))
 
 
+@contextlib.contextmanager
+def _counting_drops(counts):
+    """Add each routing's dropped choices to ``counts["dropped"]``."""
+    from repro_torch.models import moe
+    dispatch = moe._dispatch
+
+    def counted(probs, k, cap):
+        r = dispatch(probs, k, cap)
+        counts["dropped"] += int((~r.keep).sum())
+        return r
+
+    moe._dispatch = counted
+    try:
+        yield
+    finally:
+        moe._dispatch = dispatch
+
+
+def moe_layer(cfg, ref, params, mesh, shr):
+    """The first MoE layer alone, unsharded and on the mesh (x's rows
+    over "data"), at each of ``MOE_LAYER_SHAPES``: the output's and the
+    load-balance term's gaps, and the choices the unsharded layer drops."""
+    from repro_torch.models.moe import moe_apply
+    g = torch.Generator().manual_seed(3)
+    out = dict(gaps=[], aux_gaps=[], dropped=[])
+    for B, T in MOE_LAYER_SHAPES:
+        x = torch.randn((B, T, cfg.d_model), generator=g)
+        counts = dict(dropped=0)
+        with _counting_drops(counts):
+            want, want_aux = moe_apply(ref.layers[0].moe, x, cfg,
+                                       with_aux=True)
+        xd = shr.place(x, (("data",), None, None), mesh)
+        with implicit_replication():
+            got, aux = moe_apply(params.layers[0].moe, xd, cfg,
+                                 with_aux=True)
+        out["gaps"].append(_gap(got, want))
+        out["aux_gaps"].append(abs(float(_full(aux)) - float(want_aux)))
+        out["dropped"].append(counts["dropped"])
+    return out
+
+
 def serve(out, mesh, shr, arch, weights):
     from repro_torch.configs import get_config
     from repro_torch.kernels import ops
     from repro_torch.launch.steps import make_decode_step, make_prefill_step
     from repro_torch.models.registry import get_model
     cfg = get_config(arch, reduced=True)
+    if cfg.family == "moe":
+        cfg = cfg.replace(capacity_factor=MOE_CAPACITY)
     model = get_model(cfg)
     state = torch.load(os.path.join(out, weights))
     B, T, W = 4, 8, 16
@@ -116,7 +173,9 @@ def serve(out, mesh, shr, arch, weights):
 
     ref = model.init(0, device="cpu")
     ref.load_state_dict(state)
-    want = run(ref, {"tokens": tokens, "lengths": lengths}, False)
+    counts = dict(dropped=0)
+    with _counting_drops(counts):
+        want = run(ref, {"tokens": tokens, "lengths": lengths}, False)
     params = model.init(0, device="cpu")
     params.load_state_dict(state)
     shr.shard_params(params, shr.param_specs(params, mesh, cfg), mesh)
@@ -125,8 +184,13 @@ def serve(out, mesh, shr, arch, weights):
     ops.reset_counts()
     with implicit_replication():
         got = run(params, batch, True)
-    return dict(gaps=[_gap(g, w) for g, w in zip(got, want)],
-                plain_calls=dict(ops.plain_calls))
+    res = dict(gaps=[_gap(g, w) for g, w in zip(got, want)],
+               plain_calls=dict(ops.plain_calls), dropped=counts["dropped"])
+    if cfg.family == "moe":
+        res["layer"] = moe_layer(cfg, ref, params, mesh, shr)
+        res["expert_placements"] = str(
+            params.layers[0].moe.experts.up.w.placements)
+    return res
 
 
 def main():
@@ -142,7 +206,11 @@ def main():
     try:
         res = dict(train=train(out, mesh, shr),
                    llama=serve(out, mesh, shr, "llama3.2-1b", "llama.pt"),
-                   mamba=serve(out, mesh, shr, "mamba2-130m", "mamba.pt"))
+                   mamba=serve(out, mesh, shr, "mamba2-130m", "mamba.pt"),
+                   mixtral=serve(out, mesh, shr, "mixtral-8x22b",
+                                 "mixtral.pt"),
+                   deepseek=serve(out, mesh, shr, "deepseek-v2-lite-16b",
+                                  "deepseek.pt"))
     finally:
         meshes.teardown()
     with open(os.path.join(out, f"rank{rank}.json"), "w") as f:
