@@ -91,7 +91,8 @@ fails (nothing is caught):
    to 8 of its 16 layers (``DEPTH_CUTS``, as in phases 6-8: the script's
    time limit),
    built by ``repro_torch.launch.serve`` (SCLS, one worker, persistent
-   paged KV with ``kv_retain="request"`` and prefix sharing), serves a
+   paged KV with ``kv_retain="request"`` and prefix sharing; the
+   estimator fixed to the paper testbed's, ``fixed_fit``), serves a
    CodeFuse trace plus requests that repeat an earlier prompt's leading
    pages.  Every request must complete, prefix sharing must hit, and each
    unfused kernel must have launched exactly once per layer per prefill
@@ -154,8 +155,9 @@ fails (nothing is caught):
    same way (``shapes`` entries with the run's statistics);
 13-15. the other dense configs at full width (bf16, random weights from
    a seeded ``torch.Generator``), each built by the launcher's
-   ``build_server`` (its wall time, weights and estimator fit included,
-   is reported as ``build_s``) and serving a CodeFuse trace (rate 2/s over
+   ``build_server`` (its wall time, weights and engines included, is
+   reported as ``build_s``; the estimator fixed by ``fixed_fit``, as in
+   every run_slice phase) and serving a CodeFuse trace (rate 2/s over
    6 s, ``max_gen`` 128 over slices of 32, a 40 GB KV budget):
    codeqwen1.5-7b (MHA 32/32, QKV bias, untied head) cut to 16 of its 32
    layers (``DEPTH_CUTS``: the script's time limit) on the persistent
@@ -252,7 +254,9 @@ fails (nothing is caught):
    ``make_decode_step``s greedily, its tokens equal to the unsharded
    steps' on the card (a ``stream_tie`` allowed), B5 once a layer and B6
    once a layer a step launched on the DTensor shards (no plain call);
-   one sharded ``make_train_step`` of the reduced float32 llama gives
+   then mamba2-130m at ``DEPTH_CUTS``' depth the same way, B7 once a
+   layer of the prefill launched on the shards (``SCALE_SERVE``); one
+   sharded ``make_train_step`` of the reduced float32 llama gives
    the loss and every leaf within ``TRAIN_TOL`` of the unsharded step;
    (c) a fake (1, 8) mesh with real CUDA tensors: codeqwen1.5-7b at full
    width (32/32 heads, 4 a rank) placed with a dense cache of 8 x 2048
@@ -268,6 +272,24 @@ fails (nothing is caught):
    paged engine: ``reprefill_tokens == 0``, B1 and B2 launched), each in a
    child process on the card (both at once) with its exit code checked;
    their wall seconds and launches go on an ``{"examples": ...}`` line.
+25. public heads (``run_public_heads``): (a) B1, B4, B5 and B6 in bf16
+   at the heads of six public models the kernels took no earlier
+   (``PUBLIC_HEADS``: Phi-3-mini 32/32 and GPT-NeoX-20B 64/64 at head
+   dim 96, Phi-2 32/32 at 80, StarCoder2-15B 48/4 and Llama-3.1-405B
+   128/8 at 128, Falcon-7B 71/1 at 64), each held against its plain
+   version at 8 x 576 (the decode kernels) or 8 x 512 (B5) to
+   ``DECODE_TOL`` and timed beside SDPA and its bound (entries of the
+   kernels' ``shapes``); (b) llama3.2-1b's widths at 2 layers with
+   Phi-3-mini's and Falcon-7B's heads (``public_config``: a config of
+   the script, not of the registry): phase 4's gate on the unfused,
+   fused and dense paths, then the persistent paged unfused engine, the
+   fused engine and dense SCLS ``StaticEngine`` serve 4 requests in two
+   slices, each stream equal to ``transformer.forward``'s greedy one but
+   for a near-tie, the kernels launched as the stages and steps imply;
+   a ``{"public_heads": ...}`` line.
+
+Each phase's seconds (and the kernels' build) are logged as it ends and
+printed on a ``{"seconds": ...}`` line.
 
 One function (``run_slice``) runs phases 5-7, 9, 13-15 and 17-19, each a
 ``SLICES`` entry (launcher arguments and path).  Phase 22 alone:
@@ -284,9 +306,9 @@ slice, phases 5 to 7 and 9, with every path's beside them, phases 13 to
 ``pg32_launches``, decode_attention's at group 16, recurrentgemma-9b's
 slice, as ``group16_launches``, flash_prefill's with a prefix, phase
 21's, as ``prefix_launches``, decode_attention's as cross-attention,
-the seamless slice's, as ``cross_launches``, and B5's and B6's on
+the seamless slice's, as ``cross_launches``, and B5's, B6's and B7's on
 DTensor shards, phase 23's, as ``sharded_launches``; times from phase
-3).
+3, the public heads' from phase 25).
 """
 from __future__ import annotations
 
@@ -1400,13 +1422,21 @@ def check_config_heads(arch: str, names, rows: dict,
     The entries go to the rows' ``shapes``, labelled "<arch> heads", and
     each row's ``max_abs_err`` covers them."""
     from repro_torch.configs import get_config
+    check_heads(get_config(arch), f"{arch} heads", names, rows, flush)
+
+
+def check_heads(cfg, tag: str, names, rows: dict, flush: torch.Tensor,
+                prefill_timed=PREFILL_TIMED,
+                dense_timed=DECODE_TIMED[-1]) -> None:
+    """``check_config_heads`` at ``cfg``'s heads: flash_prefill at
+    ``prefill_timed``, decode_attention at ``dense_timed``, the paged
+    decode kernels at ``PAGED_SMOKE`` and the writes at ``WRITE_SMOKE``,
+    those of ``names``, each entry labelled "<tag> <shape>"."""
     from repro_torch.kernels import flash_prefill as pkmod
     from repro_torch.kernels import fused_rope_decode_append as fkmod
     from repro_torch.kernels import fused_rope_prefill_write as fwkmod
     from repro_torch.kernels import paged_decode_attention as ukmod
     from repro_torch.kernels import paged_prefill_write as wkmod
-    cfg = get_config(arch)
-    tag = f"{arch} heads"
     pg = 16
     n_pages = pool_pages(cfg, CONFIG_M_AVAILABLE, pg)
     gen = torch.Generator(device="cuda")
@@ -1421,7 +1451,7 @@ def check_config_heads(arch: str, names, rows: dict,
                                          entry["max_ulps"])
 
     if "flash_prefill" in names:
-        for label, lens, T in PREFILL_TIMED:
+        for label, lens, T in prefill_timed:
             label = f"{tag} {label}"
             e, (q, k, v, pos) = hold_prefill(cfg, lens, T, None, gen, label)
             t_kernel, t_lib, b_ms, b_by, shape = time_prefill(
@@ -1431,7 +1461,7 @@ def check_config_heads(arch: str, names, rows: dict,
                                       bound_by=b_by, max_abs_err=e, **shape))
             del q, k, v, pos
     if "decode_attention" in names:
-        label, drows, W = DECODE_TIMED[-1]
+        label, drows, W = dense_timed
         add("decode_attention", hold_dense_decode(
             dense_decode_inputs(cfg, drows, W, gen), flush,
             f"{tag} {label}"))
@@ -2387,9 +2417,10 @@ FAMILY_SLICES = ("deepseek_slice", "recurrentgemma_slice", "mixtral_slice")
 #: llama3.2-1b paths (phases 5-8), the Mamba-2 slice (9), the
 #: codeqwen1.5-7b and minitron-4b slices (13-14) and the launcher's path
 #: (16, codeqwen1.5-7b) are cut to half their depth so that the whole
-#: script stays well inside its time limit (their walls follow the
-#: start-up estimator's batch and the host, and reached 75-138 s a slice
-#: at full depth; phase 20 still serves minitron-4b at full depth); every
+#: script stays well inside its time limit (their walls followed the
+#: start-up estimator's batch, fixed since by ``fixed_fit``, and the host,
+#: and reached 75-138 s a slice at full depth; phase 20 still serves
+#: minitron-4b at full depth); every
 #: kernel keeps its per-layer shapes
 DEPTH_CUTS = {"mixtral-8x22b": (4, "past one 80 GB card"),
               "llama3.2-1b": (8, "cut for the script's time limit"),
@@ -2404,6 +2435,26 @@ def served_config(arch: str):
     cfg = get_config(arch)
     return (cfg.replace(n_layers=DEPTH_CUTS[arch][0]) if arch in DEPTH_CUTS
             else cfg)
+
+
+@contextlib.contextmanager
+def fixed_fit():
+    """Inside ``with``, the launcher's start-up estimator fit
+    (``engine.profiler.fit_estimator``) returns the paper testbed's fitted
+    estimator (A100, LLaMA2-13B; ``serving.fitted_estimator`` of
+    ``a100_llama13b_profile``), as ``tests/test_torch_serving.py``'s
+    affinity case fixes it.  The run_slice phases take it: their checks
+    (launches, completions, re-prefill, prefix hits, logits) do not read
+    the fit, whose picks set their batches and so their wall time (1.1 to
+    12.4 rows across one tree's runs).  Phases 16 and 20 keep the
+    launcher's own fit."""
+    from repro_torch.core.estimator import a100_llama13b_profile
+    from repro_torch.engine import profiler
+    from repro_torch.serving import fitted_estimator
+    est = fitted_estimator(a100_llama13b_profile())
+    with mock.patch.object(profiler, "fit_estimator",
+                           lambda *a, **kw: (est, 0.0, 0.0)):
+        yield
 
 
 def served_depth(serve):
@@ -2596,10 +2647,11 @@ def run_slice(label: str) -> tuple:
     """Phases 5-7, 9, 13-15 and 17-19: the slice ``label`` of ``SLICES``,
     its model at full width, at the depth ``DEPTH_CUTS`` gives its arch
     (else its full depth), in bf16 with seeded random weights,
-    built by the launcher's ``build_server`` (weights, the estimator fit,
-    the memory model and the core: ``build_s``), whose core serves the
-    trace offline (``SchedulerCore.run``).  The fused path swaps the launcher's
-    paged engines for ``StaticEngine(attn_impl="fused")`` workers on its
+    built by the launcher's ``build_server`` (weights, the estimator, fixed
+    by ``fixed_fit``, the memory model and the core: ``build_s``), whose
+    core serves the trace offline (``SchedulerCore.run``).  The fused
+    path swaps the launcher's paged engines for
+    ``StaticEngine(attn_impl="fused")`` workers on its
     model, estimator and memory model, and first holds small fused and
     unfused engines against each other (``check_fused_engines``).  A
     transformer's served path is held against the plain forward
@@ -2629,7 +2681,7 @@ def run_slice(label: str) -> tuple:
                                   rows, n_steps)
         release_cuda()
     t0 = time.perf_counter()
-    with served_depth(serve):
+    with served_depth(serve), fixed_fit():
         server, vocab = serve.build_server(args)
     core = server.core
     engines = core.backend.engines
@@ -2716,8 +2768,8 @@ def run_slice(label: str) -> tuple:
             raise SystemExit(f"{label}: {len(record['stages'])} scan stages "
                              f"recorded, {summary['prefill_stages']} run")
         summary.update(check_long_prefill(model, params))
-    log(f"{label}: {cfg.name} set up in {t_build:.1f} s (weights, estimator "
-        f"fit, engines), served in {summary['wall_s']:.1f} s")
+    log(f"{label}: {cfg.name} set up in {t_build:.1f} s (weights, the fixed "
+        f"estimator, engines), served in {summary['wall_s']:.1f} s")
     return summary, record
 
 
@@ -4612,18 +4664,28 @@ def greedy_steps(model, params, batch, steps: int, cache_window: int,
     return torch.stack(toks, 1).cpu().tolist(), ms
 
 
-def check_sharded_serve(dev: str, mesh) -> dict:
-    """Phase 23 (b), serving: full-width llama3.2-1b (``DEPTH_CUTS``' depth)
+#: phase 23 (b)'s sharded serving runs: each arch with the kernels its
+#: steps launch on the shards, as (kernel, launches a layer of the
+#: prefill, launches a layer of a decode step)
+SCALE_SERVE = {"llama3.2-1b": (("flash_prefill", 1, 0),
+                               ("decode_attention", 0, 1)),
+               "mamba2-130m": (("ssd_scan", 1, 0),)}
+
+
+def check_sharded_serve(dev: str, mesh, arch: str = "llama3.2-1b") -> dict:
+    """Phase 23 (b), serving: full-width ``arch`` (``DEPTH_CUTS``' depth)
     through the prefill and decode steps unsharded, then with params,
     batch and cache DTensors on ``mesh``; greedy tokens equal but for a
-    ``stream_tie``, B5 and B6 launched on the shards as the steps imply."""
+    ``stream_tie``, the kernels of ``SCALE_SERVE`` (llama: B5 and B6;
+    mamba2-130m: B7 in the prefill, its decode a plain recurrence)
+    launched on the shards as the steps imply."""
     import numpy as np
     from torch.distributed.tensor.experimental import implicit_replication
     from repro_torch.kernels import ops
     from repro_torch.launch import sharding as shr
     from repro_torch.models.registry import get_model
     from repro_torch.testing import prefill_logits, stream_tie
-    cfg = served_config("llama3.2-1b")
+    cfg = served_config(arch)
     model = get_model(cfg)
     plain = model.init(0, device=dev)
     rng = np.random.default_rng(23)
@@ -4653,7 +4715,8 @@ def check_sharded_serve(dev: str, mesh) -> dict:
     launches = ops.launches() if dev == "cuda" else dict(ops.plain_calls)
     L = cfg.n_layers
     expect = {k: 0 for k in launches}
-    expect.update(flash_prefill=L, decode_attention=L * SCALE_STEPS)
+    expect.update({name: L * (pre + SCALE_STEPS * step)
+                   for name, pre, step in SCALE_SERVE[arch]})
     if launches != expect or (dev == "cuda" and any(
             ops.plain_calls.values())):
         raise SystemExit(f"phase 23: sharded serve launches {launches} != "
@@ -4664,13 +4727,13 @@ def check_sharded_serve(dev: str, mesh) -> dict:
         gap = stream_tie(ref, p, a, b)
         if gap is not None:
             ties.append(dict(request=i, gap=gap))
-    log(f"sharded serve (llama3.2-1b, {L} layers, full width, mesh "
+    log(f"sharded serve ({arch}, {L} layers, full width, mesh "
         f"{dict(zip(mesh.mesh_dim_names, mesh.shape))}): {len(ps)} x "
         f"{SCALE_STEPS} greedy tokens equal to the unsharded steps' "
         f"(near-ties {ties}); launches {launches}; ms a decode step "
         f"{sharded_ms:.2f} sharded vs {plain_ms:.2f} plain (host clock, "
         f"the DTensor dispatch included)")
-    return dict(launches=launches, near_ties=ties, rows=len(ps),
+    return dict(arch=arch, launches=launches, near_ties=ties, rows=len(ps),
                 steps=SCALE_STEPS, layers=L, ms_decode_step=sharded_ms,
                 ms_decode_step_plain=plain_ms)
 
@@ -4841,6 +4904,9 @@ def run_scale_out(card: str, dev: str = "cuda") -> dict:
                                 init_method=f"file://{SCALE_STORE}")
         try:
             serve = check_sharded_serve(dev, mesh)
+            if dev == "cuda":
+                release_cuda()
+            mamba = check_sharded_serve(dev, mesh, "mamba2-130m")
             train = check_sharded_train(dev, mesh)
         finally:
             meshes.teardown()
@@ -4855,13 +4921,14 @@ def run_scale_out(card: str, dev: str = "cuda") -> dict:
             if proc.poll() is None:
                 proc.kill()
                 proc.wait()
-    summary = dict(dryrun=dry, serve=serve, train=train,
+    summary = dict(dryrun=dry, serve=serve, serve_mamba=mamba, train=train,
                    shard_bytes={k: v for k, v in shard.items()
                                 if k != "dryrun"},
                    card=card, wall_s=time.perf_counter() - t0)
     print(json.dumps({"scale_out": summary}), flush=True)
     log(f"phase 23: {summary['wall_s']:.1f} s ({card})")
     return {"sharded_slice": dict(launches=serve["launches"]),
+            "sharded_mamba": dict(launches=mamba["launches"]),
             "shard_bytes": dict(launches=shard["launches"])}
 
 
@@ -4926,6 +4993,188 @@ def run_examples(card: str) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 25: the attention kernels at public heads outside the old instances
+# ---------------------------------------------------------------------------
+#: (label, n_heads, n_kv_heads, head_dim) of phase 25 (a): public models
+#: whose attention the kernels refused before every head dim that is a
+#: multiple of 16 up to 256 and every group ran: Phi-3-mini
+#: [arXiv:2404.14219], GPT-NeoX-20B [arXiv:2204.06745], Phi-2
+#: (hf:microsoft/phi-2), StarCoder2-15B [arXiv:2402.19173], Llama-3.1-405B
+#: [arXiv:2407.21783], Falcon-7B [arXiv:2311.16867]
+PUBLIC_HEADS = (("phi-3-mini", 32, 32, 96), ("gpt-neox-20b", 64, 64, 96),
+                ("phi-2", 32, 32, 80), ("starcoder2-15b", 48, 4, 128),
+                ("llama-3.1-405b", 128, 8, 128), ("falcon-7b", 71, 1, 64))
+#: the attention kernels phase 25 holds at each of ``PUBLIC_HEADS``
+DOMAIN_KERNELS = ("flash_prefill", "decode_attention",
+                  "paged_decode_attention", "fused_rope_decode_append")
+#: phase 25's dense decode shape: 8 rows over 576 slots (left pads, live
+#: tokens), the last empty, as the paged kernels' ``PAGED_SMOKE``
+DECODE_576 = ("8x576", ((0, 576), (16, 500), (64, 512), (5, 530),
+                        (100, 400), (0, 333), (40, 520), (0, 0)), 576)
+#: phase 25 (b): the engines at two of ``PUBLIC_HEADS`` on llama3.2-1b's
+#: widths cut to this many layers (a config of the script, not of the
+#: registry), prompts of these lengths, tokens each (two slices of 12)
+PUBLIC_ENGINE_HEADS = ("phi-3-mini", "falcon-7b")
+PUBLIC_LAYERS = 2
+PUBLIC_PROMPTS, PUBLIC_GEN, PUBLIC_SLICE = (40, 33, 57, 21), 24, 12
+
+
+def public_config(label: str, n_layers=None):
+    """llama3.2-1b's config with the heads of ``PUBLIC_HEADS``' ``label``
+    (and ``n_layers`` where given)."""
+    from repro_torch.configs import get_config
+    _, hq, hkv, d = next(h for h in PUBLIC_HEADS if h[0] == label)
+    cfg = get_config("llama3.2-1b").replace(
+        name=f"llama3.2-1b at {label}'s heads", n_heads=hq, n_kv_heads=hkv,
+        head_dim=d)
+    return cfg if n_layers is None else cfg.replace(n_layers=n_layers)
+
+
+def plain_streams(model, params, ps, n: int) -> tuple:
+    """Each prompt's ``n`` greedy tokens from ``transformer.forward`` (torch
+    attention, no kernel, no cache) and that forward as ``stream_tie``'s
+    reference (an int32 context in, its last-token logits out)."""
+    from repro_torch.models import transformer as tfm
+    cfg = model.cfg
+
+    def logits_of(ctx):
+        seq = torch.as_tensor(ctx, dtype=torch.int32, device="cuda")[None]
+        with torch.no_grad():
+            pos = tfm.make_positions(seq, torch.tensor(
+                [seq.shape[1]], dtype=torch.int32, device="cuda"))
+            return tfm.forward(params, cfg, seq, pos)[0, -1].float().cpu() \
+                .numpy()
+
+    streams = []
+    for p in ps:
+        ctx = list(p)
+        for _ in range(n):
+            ctx.append(int(logits_of(ctx).argmax()))
+        streams.append(ctx[len(p):])
+    return streams, logits_of
+
+
+def serve_public(model, params, path: str, ps, pg: int = 16) -> tuple:
+    """``ps`` served in slices of ``PUBLIC_SLICE`` to ``PUBLIC_GEN``
+    tokens each by a ``StaticEngine`` on ``path``: the persistent paged
+    unfused or fused engine (pages retained between slices) or dense SCLS
+    (each slice re-prefills prompt + generated).  Returns the streams and
+    the summary ``check_launches`` reads (launches counted over the run
+    alone)."""
+    from repro_torch.engine.static_engine import StaticEngine
+    from repro_torch.kernels import ops
+    paged = path != "dense"
+    kw = (dict(kv_layout="paged", page_tokens=pg, kv_pool_tokens=64 * pg,
+               attn_impl=path) if paged else {})
+    eng = StaticEngine(model, params, eos_id=1, len_bucket=8, device="cuda",
+                       **kw)
+    outs = [[] for _ in ps]
+    ops.reset_counts()
+    reprefill = 0
+    while any(len(o) < PUBLIC_GEN for o in outs):
+        skw = dict(forced_gen_lens=[PUBLIC_GEN - len(o) for o in outs],
+                   already_generated=[list(o) for o in outs])
+        res = (eng.serve_batch_paged(ps, PUBLIC_SLICE, list(range(len(ps))),
+                                     **skw) if paged
+               else eng.serve_batch(ps, PUBLIC_SLICE, **skw))
+        reprefill += res.reprefill_tokens
+        for o, r in zip(outs, res.results):
+            o.extend(r["tokens"])
+    torch.cuda.synchronize()
+    launches = ops.launches()
+    if any(ops.plain_calls.values()):
+        raise SystemExit(f"phase 25: {path} took plain versions "
+                         f"{ops.plain_calls}")
+    if paged:
+        for rid in range(len(ps)):
+            eng.release_request(rid)
+        if eng.allocator.free_blocks != eng.allocator.n_pages:
+            raise SystemExit(f"phase 25: the {path} engine leaked pages")
+    return outs, dict(n_layers=model.cfg.n_layers,
+                      prefill_stages=eng.n_prefill_stages,
+                      tail_prefill_stages=eng.n_tail_prefill_stages,
+                      decode_steps=eng.n_decode_steps, launches=launches,
+                      n_completed=len(ps), n_requests=len(ps),
+                      prefix_hit_tokens=0, reprefill_tokens=reprefill)
+
+
+def check_public_engines(label: str) -> dict:
+    """Phase 25 (b) at ``label``'s heads: llama3.2-1b's widths at
+    ``PUBLIC_LAYERS`` layers, seeded random weights.  Phase 4's gate on
+    each path (the serving functions' logits within ``REF_TOL`` of the
+    plain forward, control faults past it); then the paged unfused, the
+    fused and the dense SCLS engine serve ``PUBLIC_PROMPTS``: each stream
+    equals the plain forward's greedy stream but for a near-tie
+    (``stream_tie`` at ``REF_TOL``), and the kernels launch as the stages
+    and steps imply (``check_launches``)."""
+    import numpy as np
+    from repro_torch.models.registry import get_model
+    from repro_torch.testing import stream_tie
+    cfg = public_config(label, PUBLIC_LAYERS)
+    model = get_model(cfg)
+    params = model.init(0, device="cuda")
+    pg = 16
+    gates = {path: check_served_logits(model, params, path, pg)
+             for path in ("unfused", "fused", "dense")}
+    weak = {f"{path} {fault}": gap for path, g in gates.items()
+            for fault, gap in g["controls"].items()
+            if not gap > g["tolerance"]}
+    if weak:
+        raise SystemExit(f"phase 25 {label}: control faults within the "
+                         f"tolerance of the plain forward: {weak}")
+    rng = np.random.default_rng(25)
+    ps = [rng.integers(2, cfg.vocab_size, size=n).astype(np.int32)
+          for n in PUBLIC_PROMPTS]
+    want, ref = plain_streams(model, params, ps, PUBLIC_GEN)
+    out = {}
+    for path in ("unfused", "fused", "dense"):
+        got, summary = serve_public(model, params, path, ps, pg)
+        check_launches(f"phase 25 {label} {path}", summary,
+                       PATH_KERNELS[path])
+        ties = []
+        for i, (p, a, b) in enumerate(zip(ps, want, got)):
+            gap = stream_tie(ref, p, a, b, rel_tol=REF_TOL)
+            if gap is not None:  # the tokens before ``at`` were equal
+                at = next(j for j, (x, y) in enumerate(zip(a, b)) if x != y)
+                ties.append(dict(request=i, at=at, gap=gap))
+        log(f"phase 25 {label} ({cfg.n_heads}/{cfg.n_kv_heads}, D "
+            f"{cfg.head_dim}) {path}: {len(ps)} x {PUBLIC_GEN} tokens equal "
+            f"to the plain forward's but for near-ties {ties} (request, "
+            f"first token apart, the plain forward's top-2 gap there)")
+        out[path] = dict(summary, near_ties=ties,
+                         logits=gates[path])
+    del params
+    release_cuda()
+    return out
+
+
+def run_public_heads(rows: dict, card: str) -> dict:
+    """Phase 25: (a) B1, B4, B5 and B6 in bf16 at each of
+    ``PUBLIC_HEADS`` (llama3.2-1b's config with those heads): held
+    against their plain versions at 8 x 576 (the decode kernels; pages of
+    16) and 8 x 512 (B5) to ``DECODE_TOL`` and timed beside SDPA and the
+    bound (entries of the rows' ``shapes``, labelled "<label> heads");
+    (b) ``check_public_engines`` at ``PUBLIC_ENGINE_HEADS``.  Returns the
+    ``scls``-style entries of (b)'s runs."""
+    t0 = time.perf_counter()
+    flush = torch.empty(128 * 2 ** 20, dtype=torch.uint8, device="cuda")
+    for label, *_ in PUBLIC_HEADS:
+        check_heads(public_config(label), f"{label} heads", DOMAIN_KERNELS,
+                    rows, flush, prefill_timed=(PREFILL_TIMED[-1],),
+                    dense_timed=DECODE_576)
+        release_cuda()
+    del flush
+    release_cuda()
+    engines = {label: check_public_engines(label)
+               for label in PUBLIC_ENGINE_HEADS}
+    print(json.dumps({"public_heads": engines}), flush=True)
+    log(f"phase 25: {time.perf_counter() - t0:.1f} s ({card})")
+    return {f"public_{label}_{path}": dict(launches=run["launches"])
+            for label, runs in engines.items()
+            for path, run in runs.items()}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the card",
@@ -4947,10 +5196,17 @@ def main() -> int:
     log(f"card: {card}; torch {torch.__version__}, CUDA "
         f"{torch.version.cuda}; TF32 off for float32 matmul and cuDNN")
 
-    t0 = time.perf_counter()
+    laps, last = {}, [time.perf_counter()]
+
+    def lap(name: str) -> None:
+        """Logs and keeps the seconds since the previous lap."""
+        now = time.perf_counter()
+        laps[name] = round(now - last[0], 1)
+        last[0] = now
+        log(f"{name}: {laps[name]:.1f} s")
+
     logs = build.build_all()
-    log(f"build: {len(build.KERNELS)} kernels in "
-        f"{time.perf_counter() - t0:.1f} s")
+    lap(f"build ({len(build.KERNELS)} kernels, one nvcc each, at once)")
     for name, text in logs.items():  # registers, shared memory, spills
         for line in text.splitlines():
             if any(w in line for w in ("entry function", "registers",
@@ -4979,14 +5235,17 @@ def main() -> int:
     check_frontend_heads(by_name, flush)
     del flush
     release_cuda()
+    lap("phase 3 (the kernels at full width)")
     check_ils_parity()
     release_cuda()
+    lap("phase 4b (ILS engines, card vs CPU)")
     parity = [dict(arch=arch, **check_config_parity(arch, head_dim))
               for arch, head_dim in CONFIG_PARITY]
     parity += [dict(arch=arch, **check_config_parity(
         arch, served_capacity=True)) for arch in SERVED_CAPACITY_PARITY]
     print(json.dumps({"config_parity": parity}), flush=True)
     release_cuda()
+    lap("phase 4c (the configs' engines, card vs CPU)")
 
     scls, steps, writes = {}, {}, {}
     for label in ("slice", "fused_slice", "dense_slice"):
@@ -4995,21 +5254,27 @@ def main() -> int:
             steps[label], writes[label] = record["step"], record["writes"]
         del record
         release_cuda()
+    lap("phases 5-7 (llama3.2-1b's slices)")
     ils = run_ils(scls, steps)
     release_cuda()
+    lap("phase 8 (ILS)")
     check_engine_steps(steps, by_name, ENGINE_STEPS)
     steps = host_steps(steps)
     release_cuda()
+    lap("phase 10 (the decode kernels at llama's steps)")
     scls["mamba_slice"], record = run_slice("mamba_slice")
     stages = record["stages"]
     release_cuda()
+    lap("phase 9 (mamba2-130m's slice)")
     check_ssd_stages(stages, by_name["ssd_scan"])
     release_cuda()
+    lap("phase 11 (ssd_scan at the slice's stages)")
     check_write_stages(writes, by_name, ENGINE_WRITES)
     if save_to:
         save_steps(steps, stages, writes, save_to)
     steps, writes = {}, {}
     release_cuda()
+    lap("phase 12 (the writes at llama's stages)")
     for label in ("codeqwen_slice", "minitron_fused_slice",
                   "gemma_dense_slice"):
         scls[label], record = run_slice(label)
@@ -5018,25 +5283,38 @@ def main() -> int:
             writes[label] = record["writes"]
         del record
         release_cuda()
+    lap("phases 13-15 (the configs' slices)")
     check_engine_steps(steps, by_name, CONFIG_STEPS)
     release_cuda()
     check_write_stages(writes, by_name, CONFIG_WRITES)
     release_cuda()
+    lap("phases 10 and 12 at the configs' steps and stages")
     scls["launcher_path"] = run_launcher_path()
     release_cuda()
+    lap("phase 16 (the launcher's path)")
     for label in FAMILY_SLICES:  # phases 17-19
         scls[label], _ = run_slice(label)
         release_cuda()
+    lap("phases 17-19 (the MoE and hybrid slices)")
     scls["fleet"] = run_fleet()  # phase 20
     release_cuda()
+    lap("phase 20 (the fleet)")
     for arch, spec in FRONTEND_SERVE.items():  # phase 21
         scls[spec["label"]] = run_frontend_family(arch)
         release_cuda()
+    lap("phase 21 (the frontend families)")
     run_training(card)  # phase 22
     release_cuda()
+    lap("phase 22 (training)")
     scls.update(run_scale_out(card))  # phase 23
     release_cuda()
+    lap("phase 23 (scale-out)")
     run_examples(card)  # phase 24
+    release_cuda()
+    lap("phase 24 (the examples)")
+    scls.update(run_public_heads(by_name, card))  # phase 25
+    lap("phase 25 (public heads)")
+    print(json.dumps({"seconds": laps}), flush=True)
     # every control fault of phase 4 must have failed its slice's gate
     weak = {f"{label} {fault}": gap for label, sm in scls.items()
             for fault, gap in sm.get("controls", {}).items()
@@ -5075,9 +5353,11 @@ def main() -> int:
                          f"cross-attention")
     by_name["flash_prefill"]["prefix_launches"] = prefix
     by_name["decode_attention"]["cross_launches"] = cross
-    # B5 and B6 on DTensor shards: phase 23's one-card mesh
-    for name in ("flash_prefill", "decode_attention"):
-        n = by_path["sharded_slice"][name]
+    # B5, B6 and B7 on DTensor shards: phase 23's one-card mesh
+    for name, path in (("flash_prefill", "sharded_slice"),
+                       ("decode_attention", "sharded_slice"),
+                       ("ssd_scan", "sharded_mamba")):
+        n = by_path[path][name]
         if n <= 0:
             raise SystemExit(f"{name} never launched on DTensor shards")
         by_name[name]["sharded_launches"] = n

@@ -28,7 +28,8 @@
 // Design: the work is cut into q tiles of one row and kv head: BQ = R / G
 // query tokens times the G = Hq / Hkv query heads of the kv head, so each
 // K/V tile brought into shared memory serves every query head of its kv
-// head (R query rows: R = 128 for bf16, 8192 / D for float32).  The
+// head (R query rows: R = 128 for bf16, 8192 / D for float32; a larger
+// group as head blocks, below).  The
 // Pallas grid's sequential kv axis becomes a loop over K/V tiles of 64
 // keys (32 at D 128 in float32).
 //  - bfloat16, FlashAttention-3's shape on Hopper: one persistent block
@@ -57,7 +58,21 @@
 //    of a score are summed by shuffles.  Bound by one shared-memory
 //    operand per multiply-add.  K/V tiles hold 4096 / D keys above D 64
 //    (16 at D 256: 32 KB of static shared memory for K and V), so a block
-//    of 256 threads has 8192 / D query rows (32 at D 256: G <= 32).
+//    of 256 threads has 8192 / D query rows (32 at D 256: head blocks of
+//    at most 32 heads).
+//
+// Head dims and groups: an instance is compiled at a head dim D of {32,
+// 64, 128, 256} and serves every call head dim hd <= D that is a multiple
+// of 16 (the smallest instance at or above it): rows lie at stride hd;
+// bf16's tensor maps have hd as their inner dim, so TMA fills the boxes'
+// columns past hd with zeros, and float32's loads past hd are predicated
+// off (zeros); zero columns add nothing to q . k, and the output's
+// columns past hd are not stored.  A group of more query heads than a
+// block holds (64 in bf16; 64 or 8192 / D, the fewer, in float32) runs as
+// `rep` head blocks of ceil(G / rep) heads (the last one ragged), each
+// its own q tiles: a work item is a q tile of one row and head block.
+// The Q box of a ragged block reads the next KV head's heads (or zeros
+// past Hq) into rows that are computed and not stored.
 //
 // Where the trouble lies, and what the kernels do:
 //  - Tile skipping: a K/V tile is skipped only when no key in it can be
@@ -171,8 +186,8 @@ template <int D>
 __global__ void __launch_bounds__(kThreads) flash_prefill_kernel(
     const float* __restrict__ q, const float* __restrict__ k,
     const float* __restrict__ v, const int32_t* __restrict__ positions,
-    float* __restrict__ out, int T_len, int Hq, int Hkv, int bq, int n_qt,
-    int window, int prefix_len, float scale) {
+    float* __restrict__ out, int T_len, int Hq, int Hkv, int rep, int hd,
+    int bq, int n_qt, int window, int prefix_len, float scale) {
   using Cfg = Tile<D>;
   constexpr int kTpr = Cfg::kTpr, kBK = Cfg::kBK;
   constexpr int kPerRow = D / 4;
@@ -181,30 +196,32 @@ __global__ void __launch_bounds__(kThreads) flash_prefill_kernel(
   __shared__ int pos_s[kBK];
   __shared__ int q_stat[2];
 
-  const int G = Hq / Hkv;
+  const int G = Hq / Hkv, gb = (G + rep - 1) / rep;  // heads a block
   const int qt = blockIdx.x % n_qt;
-  const int h = (blockIdx.x / n_qt) % Hkv;
-  const int b = blockIdx.x / (n_qt * Hkv);
+  const int hb = (blockIdx.x / n_qt) % (Hkv * rep);
+  const int b = blockIdx.x / (n_qt * Hkv * rep);
+  const int h = hb / rep, g0 = (hb % rep) * gb;
   const int tid = threadIdx.x;
   const int r = tid / kTpr, part = tid % kTpr;
   const int q0 = qt * bq;
   const int q_end = min(q0 + bq, T_len);
-  const int t = q0 + r / G;
-  const int g = r % G;
-  const bool valid = r < bq * G && t < T_len;
+  const int t = q0 + r / gb;
+  const int g = r % gb;
+  const bool valid = r < bq * gb && t < T_len && g0 + g < G;
   const int64_t row0 = (int64_t)b * T_len;
   const int32_t* pos_row = positions + row0;
   query_span(pos_row, q0, q_end, q_stat);
 
   const int pq = valid ? pos_row[t] : -1;
   const int qi = valid ? t : -1;
-  const int64_t q_off = ((row0 + t) * Hq + (int64_t)h * G + g) * D;
+  const int64_t q_off = ((row0 + t) * Hq + (int64_t)h * G + g0 + g) * hd;
   float qf[4 * Cfg::kChunks], acc[4 * Cfg::kChunks];
 #pragma unroll
   for (int i = 0; i < Cfg::kChunks; ++i) {
-    const float4 x = valid ? *reinterpret_cast<const float4*>(
-                                 q + q_off + 4 * (part + kTpr * i))
-                           : make_float4(0.f, 0.f, 0.f, 0.f);
+    const int dim = 4 * (part + kTpr * i);
+    const float4 x = valid && dim < hd
+                         ? *reinterpret_cast<const float4*>(q + q_off + dim)
+                         : make_float4(0.f, 0.f, 0.f, 0.f);
     qf[4 * i] = x.x;
     qf[4 * i + 1] = x.y;
     qf[4 * i + 2] = x.z;
@@ -226,8 +243,8 @@ __global__ void __launch_bounds__(kThreads) flash_prefill_kernel(
     for (int i = tid; i < kBK * kPerRow; i += kThreads) {
       const int kk = i / kPerRow, c = i % kPerRow;
       float4 kv = make_float4(0.f, 0.f, 0.f, 0.f), vv = kv;
-      if (k0 + kk < T_len) {
-        const int64_t off = ((row0 + k0 + kk) * Hkv + h) * D + 4 * c;
+      if (k0 + kk < T_len && 4 * c < hd) {
+        const int64_t off = ((row0 + k0 + kk) * Hkv + h) * hd + 4 * c;
         kv = *reinterpret_cast<const float4*>(k + off);
         vv = *reinterpret_cast<const float4*>(v + off);
       }
@@ -290,26 +307,34 @@ __global__ void __launch_bounds__(kThreads) flash_prefill_kernel(
   if (!valid) return;
   const float inv = 1.f / l;
 #pragma unroll
-  for (int i = 0; i < Cfg::kChunks; ++i)
-    *reinterpret_cast<float4*>(out + q_off + 4 * (part + kTpr * i)) =
-        make_float4(acc[4 * i] * inv, acc[4 * i + 1] * inv,
-                    acc[4 * i + 2] * inv, acc[4 * i + 3] * inv);
+  for (int i = 0; i < Cfg::kChunks; ++i) {
+    const int dim = 4 * (part + kTpr * i);
+    if (dim < hd)
+      *reinterpret_cast<float4*>(out + q_off + dim) =
+          make_float4(acc[4 * i] * inv, acc[4 * i + 1] * inv,
+                      acc[4 * i + 2] * inv, acc[4 * i + 3] * inv);
+  }
 }
 
 template <int D>
-int launch(const void* q, const void* k, const void* v, const void* positions,
-           void* out, int B, int T_len, int Hq, int Hkv, int window,
-           int prefix_len, float scale, cudaStream_t stream) {
-  const int bq = Tile<D>::kRows / (Hq / Hkv);  // query tokens per block
+int launch(int hd, const void* q, const void* k, const void* v,
+           const void* positions, void* out, int B, int T_len, int Hq,
+           int Hkv, int window, int prefix_len, float scale,
+           cudaStream_t stream) {
+  const int G = Hq / Hkv;
+  const int most = Tile<D>::kRows < 64 ? Tile<D>::kRows : 64;
+  const int rep = (G + most - 1) / most;   // head blocks a kv head
+  const int gb = (G + rep - 1) / rep;      // heads a block
+  const int bq = Tile<D>::kRows / gb;      // query tokens per block
   const int n_qt = (T_len + bq - 1) / bq;
-  const int64_t blocks = (int64_t)B * Hkv * n_qt;
+  const int64_t blocks = (int64_t)B * Hkv * rep * n_qt;
   if (bq < 1 || blocks > INT_MAX)
     return static_cast<int>(cudaErrorInvalidValue);
   flash_prefill_kernel<D><<<static_cast<int>(blocks), kThreads, 0, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
       static_cast<const float*>(v), static_cast<const int32_t*>(positions),
-      static_cast<float*>(out), T_len, Hq, Hkv, bq, n_qt, window, prefix_len,
-      scale);
+      static_cast<float*>(out), T_len, Hq, Hkv, rep, hd, bq, n_qt, window,
+      prefix_len, scale);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -323,6 +348,7 @@ namespace tc {
 constexpr int kConsumers = 2;                      // warpgroups of 64 rows
 constexpr int kThreads = (kConsumers + 1) * 128;   // + the producer's
 constexpr int kRows = kConsumers * 64;             // query rows per block
+constexpr int kMostHeads = 64;                     // query heads a block
 constexpr int kBK = 64;                            // keys per K/V tile
 constexpr float kLog2e = 1.4426950408889634f;
 
@@ -558,12 +584,20 @@ __device__ __forceinline__ void wgmma_pv(float* d, const uint32_t* a,
   }
 }
 
-// Work item i (a q tile of one row and kv head): the q tiles with the
-// most keys (the last of each row) first.
+// Work item i (a q tile of one row and head block: query heads g0 ..
+// g0 + n - 1 of kv head h, gb = ceil(G / rep) a block): the q tiles with
+// the most keys (the last of each row) first.
 struct Item {
-  int qt, h, b;
-  __device__ __forceinline__ Item(int i, int B, int Hkv, int n_qt)
-      : qt(n_qt - 1 - i / (B * Hkv)), h(i % Hkv), b((i / Hkv) % B) {}
+  int qt, h, b, g0, n;
+  __device__ __forceinline__ Item(int i, int B, int Hkv, int rep, int G,
+                                  int n_qt) {
+    const int HB = Hkv * rep, gb = (G + rep - 1) / rep, hb = i % HB;
+    qt = n_qt - 1 - i / (B * HB);
+    b = (i / HB) % B;
+    h = hb / rep;
+    g0 = (hb % rep) * gb;
+    n = min(gb, G - g0);
+  }
 };
 
 // The it-th work item of this block: round it of the items, taken in
@@ -584,8 +618,8 @@ __global__ void __launch_bounds__(kThreads, 1) flash_prefill_kernel(
     const __grid_constant__ CUtensorMap k_map,
     const __grid_constant__ CUtensorMap v_map,
     const int32_t* __restrict__ positions, __nv_bfloat16* __restrict__ out,
-    int B, int T_len, int Hq, int Hkv, int bq, int n_qt, int window,
-    int prefix_len, float scale) {
+    int B, int T_len, int Hq, int Hkv, int rep, int hd, int bq, int n_qt,
+    int window, int prefix_len, float scale) {
   using C = Cfg<D>;
   extern __shared__ __align__(1024) uint8_t smem_raw[];
   // tiles at a 1024-byte boundary: the swizzle repeats every 8 rows
@@ -599,8 +633,8 @@ __global__ void __launch_bounds__(kThreads, 1) flash_prefill_kernel(
   const uint32_t q_full = empty_bar + C::kStages * 8;  // kQBufs Q tiles
   const uint32_t q_empty = q_full + 8 * C::kQBufs;
 
-  const int G = Hq / Hkv;
-  const int n_items = B * Hkv * n_qt;
+  const int G = Hq / Hkv, gb = (G + rep - 1) / rep;  // heads a block
+  const int n_items = B * Hkv * rep * n_qt;
   if (threadIdx.x == 0) {
     for (int s = 0; s < C::kStages; ++s) {
       mbar_init(full_bar + 8 * s, 32);        // the producer warp's lanes
@@ -628,7 +662,7 @@ __global__ void __launch_bounds__(kThreads, 1) flash_prefill_kernel(
     for (int it = 0; it * gridDim.x < n_items; ++it) {
       const int i = item_of(it);
       if (i >= n_items) break;
-      const Item w(i, B, Hkv, n_qt);
+      const Item w(i, B, Hkv, rep, G, n_qt);
       const int q0 = w.qt * bq, q_end = min(q0 + bq, T_len);
       const int32_t* pos_row = positions + (int64_t)w.b * T_len;
       // the q tile's largest and smallest valid position, and any pad
@@ -647,15 +681,16 @@ __global__ void __launch_bounds__(kThreads, 1) flash_prefill_kernel(
         q_min = min(q_min, __shfl_xor_sync(kFull, q_min, o));
         has_pad |= __shfl_xor_sync(kFull, has_pad, o);
       }
-      // Q: (D, G heads, bq tokens) boxes; past T zero-filled
+      // Q: (D, gb heads, bq tokens) boxes; past T, hd and Hq zero-filled
       const uint32_t qb = it % C::kQBufs;
       mbar_wait(q_empty + 8 * qb, ((it / C::kQBufs) & 1) ^ 1);
       if (lane == 0) {
-        mbar_arrive_tx(q_full + 8 * qb, 2 * D * G * bq);
+        mbar_arrive_tx(q_full + 8 * qb, 2 * D * gb * bq);
 #pragma unroll
         for (int c = 0; c < C::kBoxes; ++c)
           tma_load(q_tiles + qb * C::kQTile + c * C::kQBox, &q_map,
-                   q_full + 8 * qb, c * C::kBoxCols, w.h * G, q0, w.b);
+                   q_full + 8 * qb, c * C::kBoxCols, w.h * G + w.g0, q0,
+                   w.b);
       }
       const int n_kt = (T_len + kBK - 1) / kBK;
       for (int kt = 0; kt < n_kt; ++kt) {
@@ -725,7 +760,7 @@ __global__ void __launch_bounds__(kThreads, 1) flash_prefill_kernel(
   for (int it = 0; it * gridDim.x < n_items; ++it) {
     const int i = item_of(it);
     if (i >= n_items) break;
-    const Item w(i, B, Hkv, n_qt);
+    const Item w(i, B, Hkv, rep, G, n_qt);
     const int q0 = w.qt * bq;
     const int64_t row0 = (int64_t)w.b * T_len;
     int pq[2], qi[2];
@@ -734,11 +769,12 @@ __global__ void __launch_bounds__(kThreads, 1) flash_prefill_kernel(
 #pragma unroll
     for (int hh = 0; hh < 2; ++hh) {
       const int r = 64 * wg + 16 * warp + grp + 8 * hh;
-      const int t = q0 + r / G;
-      valid[hh] = r < bq * G && t < T_len;
+      const int t = q0 + r / gb;
+      valid[hh] = r < bq * gb && t < T_len && r % gb < w.n;
       pq[hh] = valid[hh] ? positions[row0 + t] : -1;
       qi[hh] = valid[hh] ? t : -1;
-      q_off[hh] = ((row0 + t) * Hq + (int64_t)w.h * G + r % G) * D;
+      q_off[hh] =
+          ((row0 + t) * Hq + (int64_t)w.h * G + w.g0 + r % gb) * hd;
     }
     // o[4 nd + e]: row grp (e < 2) or grp + 8, column 8 nd + 2 tig + e % 2
     float o[D / 2];
@@ -883,6 +919,7 @@ __global__ void __launch_bounds__(kThreads, 1) flash_prefill_kernel(
       const float inv = 1.f / l[hh];
 #pragma unroll
       for (int nd = 0; nd < D / 8; ++nd) {
+        if (8 * nd >= hd) break;  // hd is a multiple of 16
         const __nv_bfloat162 x = __floats2bfloat162_rn(
             o[4 * nd + 2 * hh] * inv, o[4 * nd + 2 * hh + 1] * inv);
         *reinterpret_cast<__nv_bfloat162*>(out + q_off[hh] + 8 * nd +
@@ -919,20 +956,21 @@ EncodeTiled encode_tiled() {
   return fn;
 }
 
-// The 4-D map (D, H, T, B) of a (B, T, H, D) bf16 tensor whose box is one
-// swizzle row of dims, `heads` heads and `tokens` tokens of one row: boxes
-// past T are filled with zeros and not read.
+// The 4-D map (hd, H, T, B) of a (B, T, H, hd) bf16 tensor whose box is
+// one swizzle row of dims, `heads` heads and `tokens` tokens of one row:
+// box elements past hd, H or T are filled with zeros and not read.
 template <int D>
 bool tensor_map(CUtensorMap* map, const void* base, int B, int T_len, int H,
-                int heads, int tokens) {
+                int hd, int heads, int tokens) {
   using C = Cfg<D>;
   const EncodeTiled encode = encode_tiled();
   if (encode == nullptr) return false;
-  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(D),
+  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(hd),
                               static_cast<cuuint64_t>(H),
                               static_cast<cuuint64_t>(T_len),
                               static_cast<cuuint64_t>(B)};
-  const cuuint64_t strides[3] = {2ull * D, 2ull * D * H, 2ull * D * H * T_len};
+  const cuuint64_t strides[3] = {2ull * hd, 2ull * hd * H,
+                                 2ull * hd * H * T_len};
   const cuuint32_t box[4] = {C::kBoxCols, static_cast<cuuint32_t>(heads),
                              static_cast<cuuint32_t>(tokens), 1};
   const cuuint32_t steps[4] = {1, 1, 1, 1};
@@ -958,20 +996,23 @@ int sm_count() {
 }
 
 template <int D>
-int launch(const void* q, const void* k, const void* v, const void* positions,
-           void* out, int B, int T_len, int Hq, int Hkv, int window,
-           int prefix_len, float scale, cudaStream_t stream) {
+int launch(int hd, const void* q, const void* k, const void* v,
+           const void* positions, void* out, int B, int T_len, int Hq,
+           int Hkv, int window, int prefix_len, float scale,
+           cudaStream_t stream) {
   const int G = Hq / Hkv;
-  const int bq = kRows / G;  // query tokens per q tile
+  const int rep = (G + kMostHeads - 1) / kMostHeads;  // head blocks
+  const int gb = (G + rep - 1) / rep;                 // heads a block
+  const int bq = kRows / gb;  // query tokens per q tile
   const int n_qt = (T_len + bq - 1) / bq;
-  const int64_t items = (int64_t)B * Hkv * n_qt;
+  const int64_t items = (int64_t)B * Hkv * rep * n_qt;
   const int n_sm = sm_count();
   if (bq < 1 || items > INT_MAX || n_sm == 0)
     return static_cast<int>(cudaErrorInvalidValue);
   CUtensorMap q_map, k_map, v_map;
-  if (!tensor_map<D>(&q_map, q, B, T_len, Hq, G, bq) ||
-      !tensor_map<D>(&k_map, k, B, T_len, Hkv, 1, kBK) ||
-      !tensor_map<D>(&v_map, v, B, T_len, Hkv, 1, kBK))
+  if (!tensor_map<D>(&q_map, q, B, T_len, Hq, hd, gb, bq) ||
+      !tensor_map<D>(&k_map, k, B, T_len, Hkv, hd, 1, kBK) ||
+      !tensor_map<D>(&v_map, v, B, T_len, Hkv, hd, 1, kBK))
     return static_cast<int>(cudaErrorInvalidValue);
   static bool opted_in = false;  // per instance: dynamic smem above 48 KB
   if (!opted_in) {
@@ -984,58 +1025,57 @@ int launch(const void* q, const void* k, const void* v, const void* positions,
   const int grid = static_cast<int>(items < n_sm ? items : n_sm);
   flash_prefill_kernel<D><<<grid, kThreads, Cfg<D>::kBytes, stream>>>(
       q_map, k_map, v_map, static_cast<const int32_t*>(positions),
-      static_cast<__nv_bfloat16*>(out), B, T_len, Hq, Hkv, bq, n_qt, window,
-      prefix_len, scale);
+      static_cast<__nv_bfloat16*>(out), B, T_len, Hq, Hkv, rep, hd, bq, n_qt,
+      window, prefix_len, scale);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace tc
 
 template <int D>
-int launch(int dtype, const void* q, const void* k, const void* v,
+int launch(int dtype, int hd, const void* q, const void* k, const void* v,
            const void* positions, void* out, int B, int T_len, int Hq,
            int Hkv, int window, int prefix_len, float scale,
            cudaStream_t stream) {
   if (dtype == 0)
-    return simt::launch<D>(q, k, v, positions, out, B, T_len, Hq, Hkv,
+    return simt::launch<D>(hd, q, k, v, positions, out, B, T_len, Hq, Hkv,
                            window, prefix_len, scale, stream);
   if (dtype == 1)
-    return tc::launch<D>(q, k, v, positions, out, B, T_len, Hq, Hkv, window,
-                         prefix_len, scale, stream);
+    return tc::launch<D>(hd, q, k, v, positions, out, B, T_len, Hq, Hkv,
+                         window, prefix_len, scale, stream);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
 }  // namespace
 
-// q (B,T,Hq,D); k/v (B,T,Hkv,D); positions (B,T) int32 (pads < 0); out
-// (B,T,Hq,D).  dtype 0 is float32, 1 is bfloat16; D in {32, 64, 128, 256};
-// Hq a multiple of Hkv with Hq / Hkv <= 64 (<= 8192 / D in float32); any
-// T >= 1; q, k, v and out 16-byte
-// aligned; window <= 0 means none; keys at positions [0, prefix_len) are
-// seen by every valid query (0: none).  Launches on `stream` and returns
-// cudaGetLastError(), or cudaErrorInvalidValue for a shape the kernel does
-// not take.
+// q (B,T,Hq,hd); k/v (B,T,Hkv,hd); positions (B,T) int32 (pads < 0); out
+// (B,T,Hq,hd).  dtype 0 is float32, 1 is bfloat16; hd a multiple of 16
+// in [16, 256] (on the instance D of {32, 64, 128, 256} at or above it);
+// Hq a multiple of Hkv, any group (above 64 query heads a KV head, or
+// 8192 / D in float32, as head blocks); any T >= 1; q, k, v and out
+// 16-byte aligned; window <= 0 means none; keys at positions [0,
+// prefix_len) are seen by every valid query (0: none).  Launches on
+// `stream` and returns cudaGetLastError(), or cudaErrorInvalidValue for a
+// shape the kernel does not take.
 extern "C" int flash_prefill_launch(int dtype, const void* q, const void* k,
                                     const void* v, const void* positions,
                                     void* out, int B, int T_len, int Hq,
-                                    int Hkv, int D, int window,
+                                    int Hkv, int hd, int window,
                                     int prefix_len, float scale,
                                     void* stream) {
   if (B == 0 || T_len == 0 || Hkv == 0) return 0;
-  if (Hq % Hkv || Hq / Hkv > 64)
+  if (Hkv < 0 || Hq < Hkv || Hq % Hkv || hd < 16 || hd > 256 || hd % 16)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (D == 32)
-    return launch<32>(dtype, q, k, v, positions, out, B, T_len, Hq, Hkv,
+  if (hd <= 32)
+    return launch<32>(dtype, hd, q, k, v, positions, out, B, T_len, Hq, Hkv,
                       window, prefix_len, scale, s);
-  if (D == 64)
-    return launch<64>(dtype, q, k, v, positions, out, B, T_len, Hq, Hkv,
+  if (hd <= 64)
+    return launch<64>(dtype, hd, q, k, v, positions, out, B, T_len, Hq, Hkv,
                       window, prefix_len, scale, s);
-  if (D == 128)
-    return launch<128>(dtype, q, k, v, positions, out, B, T_len, Hq, Hkv,
-                       window, prefix_len, scale, s);
-  if (D == 256)
-    return launch<256>(dtype, q, k, v, positions, out, B, T_len, Hq, Hkv,
-                       window, prefix_len, scale, s);
-  return static_cast<int>(cudaErrorInvalidValue);
+  if (hd <= 128)
+    return launch<128>(dtype, hd, q, k, v, positions, out, B, T_len, Hq,
+                       Hkv, window, prefix_len, scale, s);
+  return launch<256>(dtype, hd, q, k, v, positions, out, B, T_len, Hq, Hkv,
+                     window, prefix_len, scale, s);
 }

@@ -3,12 +3,13 @@
 // rotation of a pair, the slot mask of decode attention, where a slot's K/V row
 // lies (a page pool through the block table, or a dense cache), the
 // prefill writes' vectors per thread, and the dispatch over the compiled
-// (head dim, slot-wise lookup) instances.  The
+// (head dim, slot-wise lookup) instances of the attention kernels.  The
 // decode attention loop itself is split_attention.cuh.
 #pragma once
 
 #include <cstdint>
 #include <limits>
+#include <type_traits>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
@@ -162,24 +163,39 @@ inline int vectors_per_thread(int64_t n_vecs, int threads) {
              ? 2 : 1;
 }
 
-// Dispatch a launcher template over the compiled instances:
-// launch<T, D, pg % 8 != 0>::run(pg, args...) for D in {32, 64, 128, 256}
-// and any pg >= 1 (the page size is a run-time argument; the flag picks
-// the loop that looks each slot up), else cudaErrorInvalidValue.
-template <typename T, template <typename, int, bool> class L, int D,
-          typename... A>
-int dispatch_pg(int pg, A... args) {
-  return pg % 8 ? L<T, D, true>::run(pg, args...)
-                : L<T, D, false>::run(pg, args...);
+// The head dims the attention kernels are compiled for; a call's head dim
+// hd runs on the smallest at or above it (rows at stride hd, loads past
+// hd zero-filled): every multiple of 16 from 16 to 256.
+constexpr int kHeadDims[] = {32, 64, 96, 128, 160, 192, 256};
+
+// f(std::integral_constant<int, D>()) for the instance D that serves head
+// dim hd, else cudaErrorInvalidValue (hd not a multiple of 16 in [16,
+// 256]).
+template <typename F>
+int with_head_dim(int hd, F f) {
+  if (hd < 16 || hd > 256 || hd % 16)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (hd <= 32) return f(std::integral_constant<int, 32>());
+  if (hd <= 64) return f(std::integral_constant<int, 64>());
+  if (hd <= 96) return f(std::integral_constant<int, 96>());
+  if (hd <= 128) return f(std::integral_constant<int, 128>());
+  if (hd <= 160) return f(std::integral_constant<int, 160>());
+  if (hd <= 192) return f(std::integral_constant<int, 192>());
+  return f(std::integral_constant<int, 256>());
 }
+
+// Dispatch a launcher template over the compiled instances:
+// L<T, D, pg % 8 != 0>::run(pg, hd, args...) for the instance D of head
+// dim hd and any pg >= 1 (the page size is a run-time argument; the flag
+// picks the loop that looks each slot up), else cudaErrorInvalidValue.
 template <typename T, template <typename, int, bool> class L, typename... A>
-int dispatch(int D, int pg, A... args) {
+int dispatch(int hd, int pg, A... args) {
   if (pg < 1) return static_cast<int>(cudaErrorInvalidValue);
-  if (D == 32) return dispatch_pg<T, L, 32>(pg, args...);
-  if (D == 64) return dispatch_pg<T, L, 64>(pg, args...);
-  if (D == 128) return dispatch_pg<T, L, 128>(pg, args...);
-  if (D == 256) return dispatch_pg<T, L, 256>(pg, args...);
-  return static_cast<int>(cudaErrorInvalidValue);
+  return with_head_dim(hd, [&](auto d) {
+    constexpr int D = decltype(d)::value;
+    return pg % 8 ? L<T, D, true>::run(pg, hd, args...)
+                  : L<T, D, false>::run(pg, hd, args...);
+  });
 }
 
 }  // namespace paged

@@ -8,16 +8,16 @@
 // balance point.  The slices decode 1 to 16 rows of 8 KV heads, so one
 // block per (row, kv head) left most of the 132 SMs idle while each block
 // walked hundreds of slots.  So each kernel runs two passes:
-//  - Pass 1, grid (split, kv head, row): split s takes the row's slots
+//  - Pass 1, grid (split, head block, row): split s takes the row's slots
 //    [s * chunk, (s + 1) * chunk), chunk a multiple of the 16-slot step
 //    chosen by the wrapper from shapes alone (decode_attention.split_slots)
 //    so that the grid holds at least two blocks per SM.  The block writes
-//    its G query heads as floats to shared memory, then split_pass stages
-//    the range's slot_pos there (one coalesced read that also decides
-//    whether the split has a live slot) with, for a page pool, the range's
-//    block-table entries, all loads in flight before one barrier, and runs
-//    attend_split: its 4 warps
-//    take the range's 16-slot steps in turn (64-slot block tiles), each
+//    its query heads (at most kMaxG) as floats to shared memory, then
+//    split_pass stages the range's slot_pos there (one coalesced read
+//    that also decides whether the split has a live slot) with, for a
+//    page pool, the range's block-table entries, all loads in flight
+//    before one barrier, and runs attend_split: its 4 warps take the
+//    range's 16-slot steps in turn (64-slot block tiles), each
 //    warp with a cp.async ring of its own (2 to 4 steps in flight, by what
 //    ~16 KB hold; at head dim 256 see SplitSmem), a running softmax per
 //    query head and no block barrier in the loop.  A step's scores and
@@ -50,6 +50,20 @@
 //    indices and liveness is read per slot.
 //  - W need not divide the split or the step: slots past W are neither
 //    loaded (zero-filled copies) nor weighed (score -inf).
+//  - Head dims: an instance is compiled at a head dim D (kHeadDims) and
+//    serves every call head dim hd <= D that is a multiple of 16 (the
+//    smallest instance at or above it, with_head_dim).  Rows lie in
+//    memory at stride hd; a row's 16-byte chunks past hd are not loaded
+//    (the copies zero-fill them), nor are q's dims past hd (zeros in
+//    shared memory), so they add nothing to q . k, and the output's dims
+//    past hd are not stored.  The workspace is laid out at D.
+//  - Groups: the G query heads of a KV head run as `rep` head blocks of
+//    at most kMaxG heads (HeadBlock: ceil(G / rep) heads each, the last
+//    ragged), each its own block of the grid reading the KV head's slots,
+//    so any G runs (71 as eight blocks of 8 and one of 7).  Each block
+//    is one of kMaxG heads or fewer of the same instance: no new
+//    registers or shared memory.  The price is that every block of a KV
+//    head reads its slots (the others may find them in L2).
 //  - Where a slot's K/V row lies comes from a functor (paged_attention.cuh:
 //    DenseRows, PagedRows), asked once per 8-slot half of a step where
 //    the half's slots are contiguous (a dense cache, or pages of any
@@ -113,20 +127,21 @@ __device__ __forceinline__ void cp_async_wait() {
 // The stages are sized by the step, not the warps: 2 stages a warp in
 // bfloat16 (134 KB of rings, ~184 KB a block at G 8 and the longest
 // split: one block an SM, each warp's next step in flight while it
-// computes one), and 1 in float32 (4 x 2 stages would be 266 KB, past the
-// 227 KB a block may hold; a warp then loads a step and computes it in
-// turn, the 4 warps overlapping each other).  Four warps stay, as every
-// other instance has them, so that the in-block merge and the grid are
-// those of the other head dims.
+// computes one), and 1 in float32 at D 192 and 256 (4 x 2 stages would
+// be 200 and 266 KB, which with q and the merge pass the 227 KB a block
+// may hold; a warp then loads a step and computes it in turn, the 4 warps
+// overlapping each other).  Four warps stay, as every other instance has
+// them, so that the in-block merge and the grid are those of the other
+// head dims.
 template <typename T, int D>
 struct SplitSmem {
   static constexpr int kRow = D * static_cast<int>(sizeof(T));  // bytes
   static constexpr int kPadRow = kRow + 16;
   static constexpr int kPageBytes = 2 * kPage * kPadRow;  // K, then V
   // steps in flight per warp: as many as ~16 KB hold, 2 to 4; one where a
-  // step passes 32 KB (float32 at D 256)
+  // step passes 24 KB (float32 at D 192 and 256)
   static constexpr int kStages =
-      kPageBytes > 32768 ? 1
+      kPageBytes > 24576 ? 1
       : (16384 / kPageBytes >= 4 ? 4 : (16384 / kPageBytes >= 3 ? 3 : 2));
   static constexpr int kWarpBytes = kStages * kPageBytes +
                                     kMaxG * kPage * 4 +  // weights (G, step)
@@ -308,12 +323,13 @@ __device__ __forceinline__ uint32_t pack(float lo_x, float hi_x) {
 // part, two products) so that P keeps ~16 bits.  Lane (grp, tig) holds
 // head grp: its scores of slots 8 n + 2 tig + {0, 1} and output dims
 // 8 n + 2 tig + {0, 1}.  Rows 8..15 of each product are 0 (A's padding
-// rows); at head dim 256 they are not kept between products, which saves
-// the 64 registers that otherwise push the kernel past 255 and into
-// spills; the other head dims keep all four values of each fragment.
+// rows); at head dims 192 and 256 they are not kept between products,
+// which saves the 48 or 64 registers that otherwise push the kernel
+// toward 255 and into spills; the other head dims keep all four values
+// of each fragment.
 template <int D>
 struct MmaWarp {
-  static constexpr int kKept = D == 256 ? 2 : 4;  // values kept a fragment
+  static constexpr int kKept = D > 160 ? 2 : 4;  // values kept a fragment
   uint32_t qa[D / 16][2];  // head grp, dims 16 kk + 2 tig (+ 8)
   float m, l;              // running max; this lane's part of the sum
   float o[D / 8][kKept];   // [2], [3]: rows 8..15, always 0
@@ -434,10 +450,11 @@ using WarpOf = std::conditional_t<std::is_same_v<T, __nv_bfloat16>,
                                   MmaWarp<D>, SimtWarp<T, D>>;
 
 // Pass 1's work for one split: the slots [lo, hi) of a row (lo a multiple
-// of the step) for the G query heads of kv head h, with q (G, D) as floats
-// and the range's slot_pos (sp_s[i] for slot lo + i) in shared memory,
-// published by the caller; rows(slot) gives a slot's K/V row in the
-// (row, Hkv, D) arrays, asked for the first slot of each 8-slot half, or
+// of the step) for the G query heads of a head block of kv head h, with q
+// (G, D) as floats (zeros past the call's head dim hd <= D, the K/V rows'
+// stride) and the range's slot_pos (sp_s[i] for slot lo + i) in shared
+// memory, published by the caller; rows(slot) gives a slot's K/V row in
+// the (row, Hkv, hd) arrays, asked for the first slot of each 8-slot half, or
 // for every slot where Rows::kSlotwise.
 // uniform: the row has no live slot, so every slot of the split weighs 1
 // (the oracle's finite NEG_INF) and only V is read; otherwise steps
@@ -448,7 +465,7 @@ template <typename T, int D, typename Rows>
 __device__ __forceinline__ void attend_split(
     char* smem, const T* k_pages, const T* v_pages, Rows rows,
     const int32_t* sp_s, int qp, int lo, int hi, int G, int Hkv, int h,
-    int window, float scale, bool uniform, float* __restrict__ part) {
+    int hd, int window, float scale, bool uniform, float* __restrict__ part) {
   using S = SplitSmem<T, D>;
   constexpr int kStages = S::kStages;
   constexpr int kChunks = S::kRow / 16;  // 16-byte chunks of a row
@@ -493,9 +510,9 @@ __device__ __forceinline__ void attend_split(
         char* vb = kb + kPage * S::kPadRow;
         for (int e = lane; e < kPage * kChunks; e += 32) {
           const int t = e / kChunks, c = e % kChunks;
-          const bool in = first + t < hi;
+          const bool in = first + t < hi && c * kPerChunk < hd;
           const int64_t off =
-              in ? (rows(first + t) * Hkv + h) * D + c * kPerChunk : 0;
+              in ? (rows(first + t) * Hkv + h) * hd + c * kPerChunk : 0;
           const int at = t * S::kPadRow + c * 16;
           if (!uniform) cp_async_16(kb + at, k_pages + off, in);
           cp_async_16(vb + at, v_pages + off, in);
@@ -511,9 +528,9 @@ __device__ __forceinline__ void attend_split(
       char* vb = kb + kPage * S::kPadRow;
       for (int e = lane; e < kPage * kChunks; e += 32) {
         const int t = e / kChunks, c = e % kChunks;
-        const bool in = first + t < hi;
+        const bool in = first + t < hi && c * kPerChunk < hd;
         const int64_t off =
-            (((t < kHalf ? r0 : r1) + t) * Hkv + h) * D + c * kPerChunk;
+            (((t < kHalf ? r0 : r1) + t) * Hkv + h) * hd + c * kPerChunk;
         const int at = t * S::kPadRow + c * 16;
         if (!uniform) cp_async_16(kb + at, k_pages + (in ? off : 0), in);
         cp_async_16(vb + at, v_pages + (in ? off : 0), in);
@@ -599,17 +616,17 @@ struct NoPrologue {
 };
 
 // A pass-1 block after it has written its q (G, D) as floats at
-// SplitSmem::kQOff (or issued the loads of what `post` needs): stages the
-// split's slot_pos [lo, hi) of the row's W (sp_row) and the rows of its
-// slots by cp.async, all copies in flight at once; after the barrier that
-// publishes them, runs post(rows) (then a barrier); decides whether the
-// split, or else the row, has a live slot, and runs attend_split on the
-// split, or writes an empty partial.
+// SplitSmem::kQOff (stage_q; or issued the loads of what `post` needs):
+// stages the split's slot_pos [lo, hi) of the row's W (sp_row) and the
+// rows of its slots by cp.async, all copies in flight at once; after the
+// barrier that publishes them, runs post(rows) (then a barrier); decides
+// whether the split, or else the row, has a live slot, and runs
+// attend_split on the split, or writes an empty partial.
 template <typename T, int D, typename Rows, typename Post = NoPrologue>
 __device__ __forceinline__ void split_pass(
     char* smem, const T* k_pages, const T* v_pages, Rows rows,
     const int32_t* __restrict__ sp_row, int W, int qp, int lo, int hi, int G,
-    int Hkv, int h, int window, float scale, float* __restrict__ part,
+    int Hkv, int h, int hd, int window, float scale, float* __restrict__ part,
     Post post = Post()) {
   using S = SplitSmem<T, D>;
   static_assert(S::bytes(kMaxG, kMaxChunk, 1) <= 232448,
@@ -642,47 +659,78 @@ __device__ __forceinline__ void split_pass(
     uniform = true;  // a dead row: every slot weighs 1
   }
   attend_split<T, D>(smem, k_pages, v_pages, staged, sp_s, qp, lo, hi, G,
-                     Hkv, h, window, scale, uniform, part);
+                     Hkv, h, hd, window, scale, uniform, part);
 }
 
-// The split's partial in the float32 workspace (B, Hkv, n_split, G, D + 2)
-__device__ __forceinline__ float* partial(float* ws, int b, int h, int split,
-                                          int Hkv, int n_split, int G,
-                                          int D) {
-  return ws + ((static_cast<int64_t>(b) * Hkv + h) * n_split + split) * G *
-                  (D + 2);
+// The head blocks of a call: the G query heads of each KV head as `rep`
+// blocks of ceil(G / rep) <= kMaxG heads, the last one ragged.  Block hb
+// of the grid holds heads g0 .. g0 + n - 1 of KV head h.
+__host__ __device__ __forceinline__ int block_heads(int G, int rep) {
+  return (G + rep - 1) / rep;
+}
+struct HeadBlock {
+  int h, g0, n;
+  __device__ __forceinline__ HeadBlock(int hb, int G, int rep) {
+    const int gb = block_heads(G, rep);
+    h = hb / rep;
+    g0 = (hb % rep) * gb;
+    n = min(gb, G - g0);
+  }
+};
+
+// Writes a head block's q rows (n heads of hd values at q_row) as floats
+// into q_s (n, D), zeros past hd.
+template <typename T, int D>
+__device__ __forceinline__ void stage_q(float* q_s, const T* q_row, int n,
+                                        int hd) {
+  for (int i = threadIdx.x; i < n * D; i += kSplitThreads) {
+    const int g = i / D, x = i % D;
+    q_s[i] = x < hd ? to_float(q_row[g * hd + x]) : 0.f;
+  }
+}
+
+// The split's partial in the float32 workspace (B, Hkv * rep, n_split,
+// gb, D + 2), gb = block_heads(G, rep): a block of n <= gb heads writes
+// (m[n], l[n], acc[n][D]) at its start
+__device__ __forceinline__ float* partial(float* ws, int b, int hb,
+                                          int split, int n_blocks,
+                                          int n_split, int gb, int D) {
+  return ws + ((static_cast<int64_t>(b) * n_blocks + hb) * n_split + split) *
+                  gb * (D + 2);
 }
 
 // Pass 2: a warp per (row, query head) folds the row's n_split partials
 // of its head into one softmax (lane i holds dims [i D / 32, (i + 1) D /
-// 32); several partials' loads in flight) and writes the output in T.
-// Launched as pass 1's programmatic dependent: it starts while pass 1
-// finishes and waits for its writes.
+// 32); several partials' loads in flight) and writes the output's first
+// hd dims in T.  Launched as pass 1's programmatic dependent: it starts
+// while pass 1 finishes and waits for its writes.
 template <typename T, int D>
 __global__ void __launch_bounds__(kMergeThreads) merge_kernel(
     const float* __restrict__ ws, T* __restrict__ out, int B, int Hq,
-    int Hkv, int n_split) {
+    int Hkv, int rep, int n_split, int hd) {
   constexpr int kDims = D / 32;
   asm volatile("griddepcontrol.wait;\n" ::: "memory");
   const int lane = threadIdx.x & 31;
   const int row_head = blockIdx.x * (kMergeThreads / 32) + (threadIdx.x >> 5);
   if (row_head >= B * Hq) return;
   const int b = row_head / Hq, j = row_head % Hq;
-  const int G = Hq / Hkv, h = j / G, g = j % G;
-  const int stride = G * (D + 2);
+  const int G = Hq / Hkv, h = j / G;
+  const int gb = block_heads(G, rep), r = (j % G) / gb, g = (j % G) % gb;
+  const int n = min(gb, G - r * gb);  // heads of the block
+  const int stride = gb * (D + 2);
   const float* part =
-      ws + (static_cast<int64_t>(b) * Hkv + h) * n_split * stride;
+      ws + ((static_cast<int64_t>(b) * Hkv + h) * rep + r) * n_split * stride;
   float m = kMinusInf, l = 0.f, acc[kDims];
 #pragma unroll
   for (int x = 0; x < kDims; ++x) acc[x] = 0.f;
 #pragma unroll 4
   for (int p = 0; p < n_split; ++p) {
     const float* pp = part + p * stride;
-    const float mp = pp[g], lp = pp[G + g];
+    const float mp = pp[g], lp = pp[n + g];
     float ap[kDims];
 #pragma unroll
     for (int x = 0; x < kDims; ++x)
-      ap[x] = pp[2 * G + g * D + lane * kDims + x];
+      ap[x] = pp[2 * n + g * D + lane * kDims + x];
     if (mp == kMinusInf) continue;  // an empty partial weighs 0
     const float m_new = fmaxf(m, mp);
     const float c_old = expf(m - m_new), c_p = expf(mp - m_new);
@@ -691,16 +739,21 @@ __global__ void __launch_bounds__(kMergeThreads) merge_kernel(
     for (int x = 0; x < kDims; ++x) acc[x] = acc[x] * c_old + ap[x] * c_p;
     m = m_new;
   }
-  T* o = out + static_cast<int64_t>(row_head) * D + lane * kDims;
+  T* o = out + static_cast<int64_t>(row_head) * hd + lane * kDims;
 #pragma unroll
-  for (int x = 0; x < kDims; ++x) o[x] = from_float<T>(acc[x] / l);
+  for (int x = 0; x < kDims; ++x)
+    if (lane * kDims + x < hd) o[x] = from_float<T>(acc[x] / l);
 }
 
-// Host side.  Whether a split's shapes are taken: chunk a multiple of the
-// step, at most kMaxChunk slots, at most kMaxSplits splits, G <= kMaxG.
-inline bool split_shapes_ok(int Hq, int Hkv, int W, int chunk) {
-  return W >= 1 && Hkv >= 1 && Hq % Hkv == 0 && Hq / Hkv <= kMaxG &&
-         chunk >= kPage && chunk % kPage == 0 && chunk <= kMaxChunk &&
+// Host side.  Whether a split's shapes are taken: head blocks of at most
+// kMaxG heads and none empty, chunk a multiple of the step, at most
+// kMaxChunk slots, at most kMaxSplits splits.
+inline bool split_shapes_ok(int Hq, int Hkv, int rep, int W, int chunk) {
+  if (W < 1 || Hkv < 1 || rep < 1 || Hq % Hkv || Hq < Hkv) return false;
+  const int G = Hq / Hkv, gb = block_heads(G, rep);
+  return gb <= kMaxG && (rep - 1) * gb < G &&
+         static_cast<int64_t>(Hkv) * rep <= 65535 && chunk >= kPage &&
+         chunk % kPage == 0 && chunk <= kMaxChunk &&
          (W + chunk - 1) / chunk <= kMaxSplits;
 }
 
@@ -720,8 +773,8 @@ inline cudaError_t allow_smem(const void* kernel, size_t need, size_t most,
 // Launches pass 2 as the programmatic dependent of the kernel launched
 // last on `stream` (pass 1); returns the launch's error.
 template <typename T, int D>
-int launch_merge(const float* ws, T* out, int B, int Hq, int Hkv, int n_split,
-                 cudaStream_t stream) {
+int launch_merge(const float* ws, T* out, int B, int Hq, int Hkv, int rep,
+                 int n_split, int hd, cudaStream_t stream) {
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3((B * Hq + kMergeThreads / 32 - 1) / (kMergeThreads / 32));
   cfg.blockDim = dim3(kMergeThreads);
@@ -732,8 +785,8 @@ int launch_merge(const float* ws, T* out, int B, int Hq, int Hkv, int n_split,
   cfg.attrs = attr;
   cfg.numAttrs = 1;
   return static_cast<int>(
-      cudaLaunchKernelEx(&cfg, merge_kernel<T, D>, ws, out, B, Hq, Hkv,
-                         n_split));
+      cudaLaunchKernelEx(&cfg, merge_kernel<T, D>, ws, out, B, Hq, Hkv, rep,
+                         n_split, hd));
 }
 
 }  // namespace

@@ -7,11 +7,13 @@ Port of the Pallas kernel ``repro.kernels.decode_attention``.  Source:
 slots are split over several blocks (pass 1 writes float32 partial
 softmaxes to a workspace that this wrapper allocates, pass 2 merges them);
 one call launches both passes and counts one launch.  A group above
-``BLOCK_GROUP`` query heads per KV head (recurrentgemma-9b's 16) runs as
-``head_blocks(G)`` blocks of at most ``BLOCK_GROUP`` heads each, every
-one reading its KV head's slots.  The plain version is
-``kernels.ref.decode_attention_ref``; ``kernels.ops`` dispatches between
-the two by device.
+``split.BLOCK_GROUP`` (8) query heads per KV head (recurrentgemma-9b's
+16, Falcon-7B's 71) runs as ``split.head_blocks(G)`` blocks of at most 8
+heads each (the last ragged), every one reading its KV head's slots; any
+head dim that is a multiple of 16 up to 256 runs on the smallest
+compiled instance at or above it (``split.supports``).  The plain
+version is ``kernels.ref.decode_attention_ref``; ``kernels.ops``
+dispatches between the two by device.
 """
 from __future__ import annotations
 
@@ -21,17 +23,11 @@ from typing import Optional
 import torch
 
 from repro_torch.kernels import build
-from repro_torch.kernels.split import sm_count, split_slots, workspace
+from repro_torch.kernels.split import (DOMAIN, head_blocks, sm_count,
+                                       split_slots, supports, workspace)
 
 #: launches of the CUDA kernel since the last reset
 launches = 0
-
-#: shapes the kernel is compiled for (template instances in the source)
-HEAD_DIMS = (32, 64, 128, 256)
-#: most query heads one block of the split loop holds (``kMaxG``)
-BLOCK_GROUP = 8
-#: most query heads per KV head a call takes
-MAX_GROUP = 16
 
 _fn = None
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -51,14 +47,6 @@ def _launcher():
 def reset_launches() -> None:
     global launches
     launches = 0
-
-
-def head_blocks(G: int) -> int:
-    """Blocks that share a KV head's ``G`` query heads: the fewest that
-    divide G into groups of at most ``BLOCK_GROUP`` (1 up to 8, 2 at
-    16)."""
-    return next(r for r in range(1, G + 1)
-                if G % r == 0 and G // r <= BLOCK_GROUP)
 
 
 def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
@@ -98,17 +86,17 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
                          f"{tuple(q.shape)}, caches {tuple(k_cache.shape)}/"
                          f"{tuple(v_cache.shape)}, slot_pos "
                          f"{tuple(slot_pos.shape)}, q_pos {tuple(q_pos.shape)}")
-    if D not in HEAD_DIMS or Hq // Hkv > MAX_GROUP:
-        raise ValueError(f"decode_attention kernel: head_dim {D} not in "
-                         f"{HEAD_DIMS} or {Hq // Hkv} query heads per KV "
-                         f"head above {MAX_GROUP}")
+    if not supports(D, Hq // Hkv, q.dtype):
+        raise ValueError(f"decode_attention kernel: head_dim {D} with "
+                         f"{Hq // Hkv} query heads per KV head; the kernel "
+                         f"takes {DOMAIN}")
     if k_cache.data_ptr() % 16 or v_cache.data_ptr() % 16:
         raise ValueError("decode_attention kernel: the caches must be "
                          "16-byte aligned")
     out = torch.empty_like(q)
     rep = head_blocks(Hq // Hkv)
     chunk = split_slots(B, W, Hkv * rep, sm_count(dev))
-    ws = workspace(B, W, Hq, Hkv * rep, D, chunk, dev)
+    ws = workspace(B, W, Hq, Hkv, D, chunk, dev)
     fn = _launcher()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream

@@ -4,7 +4,10 @@ bidirectional prefix — the CUDA kernel's Python wrapper.
 Port of the Pallas kernel ``repro.kernels.flash_prefill``.  Source:
 ``csrc/flash_prefill.cu``.  ``prefix_len`` adds the JAX package's
 prefix-LM term (keys at positions below it are seen by every valid
-query): a VLM's image prefix, or a whole encoder (``prefix_len = T``).  The plain version is
+query): a VLM's image prefix, or a whole encoder (``prefix_len = T``).
+Any head dim that is a multiple of 16 up to 256 runs on the smallest
+compiled instance at or above it, and a group larger than a block holds
+as head blocks (``split.supports``).  The plain version is
 ``kernels.ref.flash_prefill_ref``; ``kernels.ops`` dispatches between the
 two by device.
 """
@@ -16,22 +19,18 @@ from typing import Optional
 import torch
 
 from repro_torch.kernels import build
+from repro_torch.kernels.split import DOMAIN, supports
 
 #: launches of the CUDA kernel since the last reset
 launches = 0
 #: those of them with a bidirectional prefix (``prefix_len > 0``)
 prefix_launches = 0
 
-#: head dims the kernel is compiled for (template instances in the source)
+#: head dims the kernel is compiled for (template instances in the
+#: source); it takes every head dim of ``supports`` on the smallest at or
+#: above it, and a group above 64 query heads a KV head (above 8192 / D
+#: in float32) as blocks of at most that many
 HEAD_DIMS = (32, 64, 128, 256)
-#: most query heads per KV head (a block holds 128 query rows in bf16)
-MAX_GROUP = 64
-
-
-def max_group(D: int, dtype: torch.dtype) -> int:
-    """Most query heads per KV head the kernel takes at head dim ``D``: a
-    float32 block holds 8192 / D query rows (32 at D 256)."""
-    return MAX_GROUP if dtype == torch.bfloat16 else min(MAX_GROUP, 8192 // D)
 
 _fn = None
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -86,10 +85,10 @@ def flash_prefill(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError(f"flash_prefill kernel: shapes q {tuple(q.shape)}, "
                          f"k {tuple(k.shape)}, v {tuple(v.shape)}, positions "
                          f"{tuple(positions.shape)}")
-    if D not in HEAD_DIMS or Hq // Hkv > max_group(D, q.dtype):
-        raise ValueError(f"flash_prefill kernel: head_dim {D} not in "
-                         f"{HEAD_DIMS} or {Hq // Hkv} query heads per KV "
-                         f"head above {max_group(D, q.dtype)}")
+    if not supports(D, Hq // Hkv, q.dtype):
+        raise ValueError(f"flash_prefill kernel: head_dim {D} with "
+                         f"{Hq // Hkv} query heads per KV head; the kernel "
+                         f"takes {DOMAIN}")
     if any(t.data_ptr() % 16 for t in (q, k, v)):
         raise ValueError("flash_prefill kernel: q, k and v must be 16-byte "
                          "aligned")

@@ -9,7 +9,9 @@ on the split-slot loop and workspace of ``kernels.split`` (pass 1
 rotates, appends and writes partials, pass 2 merges them); one call
 launches both passes and counts one launch.  The plain version is
 ``kernels.ref.fused_rope_decode_append_ref``; ``kernels.ops`` dispatches
-between the two by device.
+between the two by device.  Any head dim that is a multiple of 16 up to
+256 and any group run (``kernels.split.supports``); with several head
+blocks a KV head, each block that holds the new slot appends it itself.
 """
 from __future__ import annotations
 
@@ -20,8 +22,8 @@ import torch
 
 from repro_torch.kernels import build
 from repro_torch.kernels.fused_rope_prefill_write import inv_freq
-from repro_torch.kernels.paged_decode_attention import HEAD_DIMS, MAX_GROUP
-from repro_torch.kernels.split import sm_count, split_slots, workspace
+from repro_torch.kernels.split import (DOMAIN, head_blocks, sm_count,
+                                       split_slots, supports, workspace)
 
 #: launches of the CUDA kernel since the last reset
 launches = 0
@@ -36,7 +38,7 @@ def _launcher():
         fn = build.load(
             "fused_rope_decode_append").fused_rope_decode_append_launch
         fn.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 12 \
-            + [ctypes.c_int] * 8 + [ctypes.c_float, ctypes.c_void_p]
+            + [ctypes.c_int] * 9 + [ctypes.c_float, ctypes.c_void_p]
         fn.restype = ctypes.c_int
         _fn = fn
     return _fn
@@ -93,17 +95,18 @@ def fused_rope_decode_append(q: torch.Tensor, k_new: torch.Tensor,
                          f"block_table {tuple(block_table.shape)}, slot_pos "
                          f"{tuple(slot_pos.shape)}, slots "
                          f"{tuple(slots.shape)}, q_pos {tuple(q_pos.shape)}")
-    if D not in HEAD_DIMS or pg < 1 or Hq // Hkv > MAX_GROUP:
+    if not supports(D, Hq // Hkv, q.dtype) or pg < 1:
         raise ValueError(f"fused_rope_decode_append kernel: head_dim {D} "
-                         f"not in {HEAD_DIMS}, page_tokens {pg} below 1 or "
-                         f"{Hq // Hkv} query heads per KV head above "
-                         f"{MAX_GROUP}")
+                         f"with {Hq // Hkv} query heads per KV head, "
+                         f"page_tokens {pg}; the kernel takes {DOMAIN}, "
+                         f"pages of 1 slot or more")
     if k_pages.data_ptr() % 16 or v_pages.data_ptr() % 16:
         raise ValueError("fused_rope_decode_append kernel: the page pools "
                          "must be 16-byte aligned")
     freqs = inv_freq(D, theta, dev)
     out = torch.empty_like(q)
-    chunk = split_slots(B, nb * pg, Hkv, sm_count(dev))
+    rep = head_blocks(Hq // Hkv)
+    chunk = split_slots(B, nb * pg, Hkv * rep, sm_count(dev))
     ws = workspace(B, nb * pg, Hq, Hkv, D, chunk, dev)
     fn = _launcher()
     with torch.cuda.device(dev):
@@ -112,8 +115,8 @@ def fused_rope_decode_append(q: torch.Tensor, k_new: torch.Tensor,
                  v_new.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
                  block_table.data_ptr(), slot_pos.data_ptr(),
                  slots.data_ptr(), q_pos.data_ptr(), freqs.data_ptr(),
-                 out.data_ptr(), ws.data_ptr(), B, Hq, Hkv, D, nb, pg, chunk,
-                 window or 0, D ** -0.5, stream)
+                 out.data_ptr(), ws.data_ptr(), B, Hq, Hkv, rep, D, nb, pg,
+                 chunk, window or 0, D ** -0.5, stream)
         with build.LOCK:
             launches += 1
     if err:

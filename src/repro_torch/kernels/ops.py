@@ -13,7 +13,8 @@ the kernel untrained without a word: the training forwards (``Model.
 loss``) run the plain torch versions and reach none of these functions.
 
 **Shards.**  ``flash_prefill`` and ``decode_attention`` (B5 and B6, the
-kernels of the dense prefill and decode steps) also take DTensors on a
+kernels of the dense prefill and decode steps) and ``ssd_chunked_scan``
+(B7, by rows only: ``on_local_rows``) also take DTensors on a
 ``DeviceMesh``: ``on_local_heads`` runs the call on each rank's local
 shard (``local_map``'s work) -- rows over the mesh's "pod" / "data" axes
 where the batch divides, heads over "model" where both the query and the
@@ -56,8 +57,11 @@ plain_calls: Dict[str, int] = {name: 0 for name in _KERNELS}
 def _on_cpu(t: torch.Tensor, name: str) -> bool:
     if t.is_cuda:
         if isinstance(t, DTensor):
-            raise NotImplementedError(f"{name}: the kernel takes no DTensor "
-                                      f"shards yet (ROADMAP)")
+            raise NotImplementedError(
+                f"{name}: the paged kernels (paged_decode_attention, "
+                f"paged_prefill_write, fused_rope_decode_append, "
+                f"fused_rope_prefill_write) take no DTensor shards: the "
+                f"paged engines are never sharded")
         return False
     if t.device.type != "cpu":
         raise ValueError(f"{name}: no kernel for device {t.device}")
@@ -320,11 +324,15 @@ def ssd_chunked_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
                      B: torch.Tensor, C: torch.Tensor, chunk: int = 128):
     """Mamba-2 SSD chunked scan. x (B,T,H,P) float32; dt (B,T,H); A (H,);
     B/C (B,T,G,N), groups read per head (no broadcast) -> (y (B,T,H,P),
-    final_state (B,H,P,N)).  T must be a multiple of ``chunk``."""
+    final_state (B,H,P,N)).  T must be a multiple of ``chunk``.  DTensors
+    run on each rank's local rows (``on_local_rows``: rows over the "pod"
+    / "data" axes where the batch divides, heads and groups whole, so
+    ``ssd_scan.plan``'s checks apply to the local shapes); the local call
+    is the plain-tensor dispatch: the kernel for CUDA shards."""
     if x.shape[1] % chunk:
         raise ValueError(f"ssd_chunked_scan: T {x.shape[1]} is not a "
                          f"multiple of the chunk {chunk}")
-    if isinstance(x, DTensor) and not x.is_cuda:  # the plain version's rows
+    if isinstance(x, DTensor):  # each rank's rows: kernel or plain version
         return on_local_rows(
             lambda *t: ssd_chunked_scan(*t, chunk=chunk), x.shape[0], x, dt,
             A, B, C)

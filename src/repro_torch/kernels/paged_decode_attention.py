@@ -7,7 +7,11 @@ shares with ``decode_attention`` (``csrc/split_attention.cuh``, host side
 in ``kernels.split``): each row's slots are split over several blocks
 (pass 1 writes float32 partial softmaxes to a workspace that this wrapper
 allocates, pass 2 merges them); one call launches both passes and counts
-one launch.  The plain version
+one launch.  Any head dim that is a multiple of 16 up to 256 runs on the
+smallest compiled instance at or above it, any group as head blocks of
+at most 8 query heads (``kernels.split.supports``), and any page size (a
+run-time argument: pages of a multiple of 8 slots are looked up once per
+8 slots, any other size once per slot).  The plain version
 is ``kernels.ref.paged_decode_attention_ref``; ``kernels.ops`` dispatches
 between the two by device.
 """
@@ -19,16 +23,11 @@ from typing import Optional
 import torch
 
 from repro_torch.kernels import build
-from repro_torch.kernels.split import sm_count, split_slots, workspace
+from repro_torch.kernels.split import (DOMAIN, head_blocks, sm_count,
+                                       split_slots, supports, workspace)
 
 #: launches of the CUDA kernel since the last reset
 launches = 0
-
-#: shapes the kernel is compiled for (template instances in the source);
-#: any page size, a run-time argument (pages of a multiple of 8 slots
-#: looked up once per 8 slots, any other size once per slot)
-HEAD_DIMS = (32, 64, 128, 256)
-MAX_GROUP = 8
 
 _fn = None
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -39,7 +38,7 @@ def _launcher():
     if _fn is None:
         fn = build.load("paged_decode_attention").paged_decode_attention_launch
         fn.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 8 \
-            + [ctypes.c_int] * 8 + [ctypes.c_float, ctypes.c_void_p]
+            + [ctypes.c_int] * 9 + [ctypes.c_float, ctypes.c_void_p]
         fn.restype = ctypes.c_int
         _fn = fn
     return _fn
@@ -85,17 +84,18 @@ def paged_decode_attention(q: torch.Tensor, k_pages: torch.Tensor,
                          f"{tuple(v_pages.shape)}, block_table "
                          f"{tuple(block_table.shape)}, slot_pos "
                          f"{tuple(slot_pos.shape)}, q_pos {tuple(q_pos.shape)}")
-    if D not in HEAD_DIMS or pg < 1 or Hq // Hkv > MAX_GROUP:
-        raise ValueError(f"paged_decode_attention kernel: head_dim {D} not "
-                         f"in {HEAD_DIMS}, page_tokens {pg} below 1 or "
-                         f"{Hq // Hkv} query heads per KV head above "
-                         f"{MAX_GROUP}")
+    if not supports(D, Hq // Hkv, q.dtype) or pg < 1:
+        raise ValueError(f"paged_decode_attention kernel: head_dim {D} with "
+                         f"{Hq // Hkv} query heads per KV head, page_tokens "
+                         f"{pg}; the kernel takes {DOMAIN}, pages of 1 slot "
+                         f"or more")
     if k_pages.data_ptr() % 16 or v_pages.data_ptr() % 16:
         raise ValueError("paged_decode_attention kernel: the page pools "
                          "must be 16-byte aligned")
     out = torch.empty_like(q)
     # whole 16-slot steps (a page may straddle two splits)
-    chunk = split_slots(B, nb * pg, Hkv, sm_count(dev))
+    rep = head_blocks(Hq // Hkv)
+    chunk = split_slots(B, nb * pg, Hkv * rep, sm_count(dev))
     ws = workspace(B, nb * pg, Hq, Hkv, D, chunk, dev)
     fn = _launcher()
     with torch.cuda.device(dev):
@@ -103,8 +103,8 @@ def paged_decode_attention(q: torch.Tensor, k_pages: torch.Tensor,
         err = fn(_DTYPES[q.dtype], q.data_ptr(), k_pages.data_ptr(),
                  v_pages.data_ptr(), block_table.data_ptr(),
                  slot_pos.data_ptr(), q_pos.data_ptr(), out.data_ptr(),
-                 ws.data_ptr(), B, Hq, Hkv, D, nb, pg, chunk, window or 0,
-                 D ** -0.5, stream)
+                 ws.data_ptr(), B, Hq, Hkv, rep, D, nb, pg, chunk,
+                 window or 0, D ** -0.5, stream)
         with build.LOCK:
             launches += 1
     if err:

@@ -12,9 +12,10 @@ PyTorch counterpart of ``repro.kvcache.paged``, same layout:
 
 The pools are written in place by the model drivers (``layer`` views
 ``k_pages[l]`` are contiguous), never copied.  ``init_paged_kv_cache``,
-``write_prefill_pages`` and ``clear_row`` keep a cache of one row per
-``ContinuousEngine`` slot; like the JAX functions they return the cache,
-but they update its tensors in place.
+``write_prefill_pages``, ``append_prefill`` and ``clear_row`` keep a
+cache of one row per ``ContinuousEngine`` slot; like the JAX functions
+they return the cache, but they update its tensors in place.
+``gather_row`` materializes a row's logical K/V for tests.
 """
 from __future__ import annotations
 
@@ -34,9 +35,18 @@ class PagedKVCache(NamedTuple):
     lengths: torch.Tensor      # (B,) int32 real (unpadded) input lengths
 
     @property
+    def page_tokens(self) -> int:
+        return self.k_pages.shape[2]
+
+    @property
     def window(self) -> int:
         """Logical cache width per row."""
         return self.block_table.shape[1] * self.k_pages.shape[2]
+
+    @property
+    def n_pages(self) -> int:
+        """Physical pages including the null page."""
+        return self.k_pages.shape[1]
 
 
 def init_page_pools(n_layers: int, n_pages: int, page_tokens: int, n_kv: int,
@@ -101,6 +111,41 @@ def write_prefill_pages(cache: PagedKVCache, row: int, page_ids: List[int],
     return cache
 
 
+def append_prefill(cache: PagedKVCache, row: int, page_ids: List[int],
+                   k: torch.Tensor, v: torch.Tensor, start: int, n_new: int
+                   ) -> PagedKVCache:
+    """Append K/V (L, n_new, Hkv, D) for tokens ``[start, start + n_new)``
+    of one row, in place, in the compact layout (logical slot == absolute
+    position, no pad slots) of the persistent paged engine.
+
+    ``page_ids`` is the row's full page list (first block first).  Slots
+    before ``start`` (the retained prefix) are untouched; the row's
+    block_table, slot_pos and length are refreshed.  The host-side twin
+    of the batched prefill path, for single-row delta prefills and as a
+    reference in tests."""
+    L, _, pg, Hkv, D = cache.k_pages.shape
+    n_total = start + n_new
+    if n_total > len(page_ids) * pg:
+        raise ValueError(f"{n_total} slots exceed {len(page_ids)} pages "
+                         f"of {pg}")
+    nb = cache.block_table.shape[1]
+    if len(page_ids) > nb:
+        raise ValueError(f"{len(page_ids)} pages exceed the {nb}-block table")
+    dev = cache.k_pages.device
+    slots = torch.arange(start, n_total, device=dev)
+    pages = torch.tensor(page_ids, dtype=torch.long, device=dev)[slots // pg]
+    cache.k_pages[:, pages, slots % pg] = k[:, :n_new].to(cache.k_pages.dtype)
+    cache.v_pages[:, pages, slots % pg] = v[:, :n_new].to(cache.v_pages.dtype)
+    cache.block_table[row] = 0
+    cache.block_table[row, :len(page_ids)] = torch.tensor(
+        page_ids, dtype=torch.int32, device=dev)
+    cache.slot_pos[row] = -1
+    cache.slot_pos[row, :n_total] = torch.arange(n_total, dtype=torch.int32,
+                                                 device=dev)
+    cache.lengths[row] = n_total
+    return cache
+
+
 def clear_row(cache: PagedKVCache, row: int) -> PagedKVCache:
     """Evict a row, in place: point its blocks at the null page and mask
     every slot.  The page contents are left dirty: unmapped and masked they
@@ -132,3 +177,13 @@ def batch_slot_pos(lengths: List[int], n_blocks: int, page_tokens: int
     slots = np.arange(W, dtype=np.int32)[None]
     lens = np.asarray(lengths, np.int32)[:, None]
     return np.where(slots < lens, slots, -1).astype(np.int32)
+
+
+def gather_row(cache: PagedKVCache, row: int) -> Tuple[np.ndarray, np.ndarray]:
+    """Materialize row's logical (L, nb·pg, Hkv, D) K/V as numpy arrays —
+    a debug and test helper."""
+    L, _, pg, Hkv, D = cache.k_pages.shape
+    bt = cache.block_table[row].long()
+    k = cache.k_pages[:, bt].reshape(L, -1, Hkv, D)
+    v = cache.v_pages[:, bt].reshape(L, -1, Hkv, D)
+    return k.float().cpu().numpy(), v.float().cpu().numpy()

@@ -642,12 +642,22 @@ def test_decode_attention_at_group_16_matches_plain(cuda_device, dtype,
                                         Hq, Hkv, D, layout)
 
 
-def test_decode_attention_refuses_a_group_above_16(cuda_device):
-    q, kc, vc, sp, qp = _dense_decode_inputs(2, 20, 32, 1, 64,
-                                             torch.bfloat16, cuda_device)
+def test_decode_attention_refuses_a_head_dim_outside_its_domain(cuda_device):
+    """Any group runs now (32 query heads on one KV head included); a head
+    dim that is no multiple of 16, or above 256, raises naming the
+    domain, before any launch."""
+    args = _dense_decode_inputs(2, 20, 32, 1, 64, torch.bfloat16,
+                                cuda_device)
+    got = dense_decode_kernel.decode_attention(*args)
+    assert (got.float() - ref.decode_attention_ref(*args).float()).abs() \
+        .max().item() <= ATOL[torch.bfloat16]
     before = dense_decode_kernel.launches
-    with pytest.raises(ValueError, match="above 16"):
-        dense_decode_kernel.decode_attention(q, kc, vc, sp, qp)
+    for D in (72, 272, 8):
+        q, kc, vc, sp, qp = _dense_decode_inputs(2, 20, 4, 1, D,
+                                                 torch.bfloat16, cuda_device)
+        with pytest.raises(ValueError, match="multiples of 16 from 16 to "
+                                             "256"):
+            dense_decode_kernel.decode_attention(q, kc, vc, sp, qp)
     assert dense_decode_kernel.launches == before
 
 
@@ -671,17 +681,18 @@ def test_dense_attention_kernels_refuse_what_they_do_not_take(cuda_device):
                                      k[:, :, :1].repeat(1, 1, 4, 1), v[:, :, :1]
                                      .repeat(1, 1, 4, 1), pos)
     before = prefill_kernel.launches
-    with pytest.raises(ValueError, match="head_dim"):
-        prefill_kernel.flash_prefill(q[..., :16].contiguous(),
-                                     k[..., :16].contiguous(),
-                                     v[..., :16].contiguous(), pos)
+    for D in (72, 272):
+        with pytest.raises(ValueError, match="multiples of 16 from 16 to "
+                                             "256"):
+            prefill_kernel.flash_prefill(*_prefill_inputs(
+                2, 24, 8, 2, D, torch.float32, cuda_device))
     assert prefill_kernel.launches == before
-    # a float32 block holds 32 query rows at head_dim 256
-    q, k, v, pos = _prefill_inputs(1, 8, 64, 1, 256, torch.float32,
-                                   cuda_device)
-    with pytest.raises(ValueError, match="above 32"):
-        prefill_kernel.flash_prefill(q, k, v, pos)
-    assert prefill_kernel.launches == before
+    # a float32 block holds 32 query rows at head_dim 256: 64 query heads
+    # a KV head run as two head blocks of 32
+    args = _prefill_inputs(1, 8, 64, 1, 256, torch.float32, cuda_device)
+    got = prefill_kernel.flash_prefill(*args)
+    assert (got - ref.flash_prefill_ref(*args)).abs().max().item() <= \
+        ATOL[torch.float32]
 
     q, kc, vc, sp, qp = _dense_decode_inputs(3, 20, 8, 2, 64, torch.float32,
                                              cuda_device)
@@ -847,6 +858,140 @@ def test_decode_attention_as_cross_attention_matches_plain(cuda_device,
     assert (got[:, 0].float() - want.float()).abs().max().item() <= \
         ATOL[dtype]
     assert (got.float() - masked.float()).abs().max().item() <= ATOL[dtype]
+
+
+# ---------------------------------------------------------------------------
+# the attention kernels' domain: every head dim that is a multiple of 16
+# up to 256 (rounded up to a compiled instance) and every group
+# ---------------------------------------------------------------------------
+DOMAIN_DIMS = (16, 48, 80, 96, 160, 192, 240)
+DOMAIN_GROUPS = (3, 9, 12, 16, 24, 71)
+
+
+def _domain_kv(G):
+    """KV heads of a domain case: two (one for the prime group 71)."""
+    return 1 if G == 71 else 2
+
+
+def _close(got, want, dtype):
+    torch.cuda.synchronize()
+    assert torch.isfinite(got).all()
+    assert (got.float() - want.float()).abs().max().item() <= ATOL[dtype]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("G", DOMAIN_GROUPS)
+@pytest.mark.parametrize("D", DOMAIN_DIMS)
+@pytest.mark.parametrize("pg", [1, 16, 24])
+def test_paged_decode_attention_takes_every_head_dim_and_group(
+        cuda_device, dtype, D, G, pg):
+    """B1 against its plain version, with no window and with one of 6
+    slots; rows over several splits, the last a pad row."""
+    Hkv = _domain_kv(G)
+    nb = -(-150 // pg)
+    args = _decode_inputs(3, nb, pg, G * Hkv, Hkv, D, dtype, cuda_device,
+                          fills=[150, 37])
+    for window in (None, 6):
+        _close(decode_kernel.paged_decode_attention(*args, window=window),
+               ref.paged_decode_attention_ref(*args, window=window), dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("G", DOMAIN_GROUPS)
+@pytest.mark.parametrize("D", DOMAIN_DIMS)
+@pytest.mark.parametrize("pg", [1, 16, 24])
+def test_fused_rope_decode_append_takes_every_head_dim_and_group(
+        cuda_device, dtype, D, G, pg):
+    """B4 against its plain version (every head block of a split that
+    holds the new slot appends it): outputs within the tolerance, the
+    appended V bit-equal and K within an ulp, with no window and with one
+    of 6 slots; the new slot inside a split and first in one (64), the
+    last row a pad row."""
+    Hkv = _domain_kv(G)
+    fills = [150, 64, 0]
+    nb = 150 // pg + 2
+    for window in (None, 6):
+        args = _fused_decode_inputs(3, nb, pg, G * Hkv, Hkv, D, fills, dtype,
+                                    cuda_device)
+        kp, vp = args[7], args[8]
+        plain = args[:7] + [kp.clone(), vp.clone()]
+        got = fdecode_kernel.fused_rope_decode_append(*args, theta=THETA,
+                                                      window=window)
+        want = ref.fused_rope_decode_append_ref(*plain, theta=THETA,
+                                                window=window)
+        _close(got, want, dtype)
+        assert torch.equal(vp, plain[8])
+        assert _max_ulps(kp, plain[7]) <= 1
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("G", DOMAIN_GROUPS)
+@pytest.mark.parametrize("D", DOMAIN_DIMS)
+def test_flash_prefill_takes_every_head_dim_and_group(cuda_device, dtype, D,
+                                                      G):
+    """B5 against its plain version over left-padded rows (the last all
+    pads), with no window and with one of 7."""
+    Hkv = _domain_kv(G)
+    args = _prefill_inputs(3, 70, G * Hkv, Hkv, D, dtype, cuda_device)
+    for window in (None, 7):
+        _close(prefill_kernel.flash_prefill(*args, window=window),
+               ref.flash_prefill_ref(*args, window=window), dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("G", DOMAIN_GROUPS)
+@pytest.mark.parametrize("D", DOMAIN_DIMS)
+def test_decode_attention_takes_every_head_dim_and_group(cuda_device, dtype,
+                                                         D, G):
+    """B6 against its plain version on a ring cache over three splits,
+    with no window and with one of 6; the last row empty (the mean of its
+    V)."""
+    Hkv = _domain_kv(G)
+    args = _dense_decode_inputs(3, 150, G * Hkv, Hkv, D, dtype, cuda_device,
+                                layout="ring")
+    for window in (None, 6):
+        got = dense_decode_kernel.decode_attention(*args, window=window)
+        _close(got, ref.decode_attention_ref(*args, window=window), dtype)
+    mean_v = args[2][-1].float().mean(dim=0).repeat_interleave(G, 0)
+    assert (got[-1].float() - mean_v).abs().max().item() <= ATOL[dtype]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_decode_attention_at_falcon_heads_matches_plain(cuda_device, dtype):
+    """B6 at Falcon-7B's heads (71/1, D 64) over 8 rows of 576 slots: nine
+    head blocks a KV head over four splits, whose partials fill the whole
+    workspace (a workspace sized for fewer heads a block would be written
+    past its end)."""
+    from repro_torch.kernels import split
+    args = _dense_decode_inputs(8, 576, 71, 1, 64, dtype, cuda_device)
+    chunk = split.split_slots(8, 576, split.head_blocks(71),
+                              split.sm_count(cuda_device))
+    assert -(-576 // chunk) > 1
+    got = dense_decode_kernel.decode_attention(*args)
+    _close(got, ref.decode_attention_ref(*args), dtype)
+
+
+def test_attention_kernels_refuse_head_dims_outside_the_domain(cuda_device):
+    """D 8, 72 and 272 raise a ValueError naming the domain in each of the
+    four wrappers, before any launch and with no plain fallback."""
+    from repro_torch.kernels import ops
+    ops.reset_counts()
+    for D in (8, 72, 272):
+        dec = _decode_inputs(2, 4, 16, 4, 2, D, torch.bfloat16, cuda_device)
+        fused = _fused_decode_inputs(2, 4, 16, 4, 2, D, [20, 0],
+                                     torch.bfloat16, cuda_device)
+        pre = _prefill_inputs(2, 24, 4, 2, D, torch.bfloat16, cuda_device)
+        dense = _dense_decode_inputs(2, 20, 4, 2, D, torch.bfloat16,
+                                     cuda_device)
+        for fn, args in ((ops.paged_decode_attention, dec),
+                         (ops.fused_rope_decode_append, fused),
+                         (ops.flash_prefill, pre),
+                         (ops.decode_attention, dense)):
+            with pytest.raises(ValueError, match="multiples of 16 from 16 "
+                                                 "to 256"):
+                fn(*args)
+    assert not any(ops.launches().values())
+    assert not any(ops.plain_calls.values())
 
 
 # ---------------------------------------------------------------------------

@@ -356,15 +356,17 @@ def test_decode_attention_plain_at_group_16_matches_jax(D, dtype, atol,
 
 
 @pytest.mark.parametrize("G,want", [(1, 1), (6, 1), (8, 1), (12, 2),
-                                    (16, 2), (9, 3)])
+                                    (16, 2), (9, 2), (71, 9)])
 def test_decode_kernel_splits_a_group_above_8_into_head_blocks(G, want):
     """The kernel's blocks hold at most 8 query heads: a larger group runs
-    as the fewest equal blocks of at most 8 (two 8-head halves at 16), and
-    groups up to 8 keep one block, as before."""
-    from repro_torch.kernels import decode_attention as kmod
-    r = kmod.head_blocks(G)
-    assert r == want and G % r == 0 and G // r <= kmod.BLOCK_GROUP
-    assert kmod.MAX_GROUP == 16
+    as ceil(G / 8) blocks of ceil(G / blocks) heads, the last ragged and
+    none empty (two 8-head halves at 16, 8 x 8 + 7 at 71), and groups up
+    to 8 keep one block, as before; every group is taken."""
+    from repro_torch.kernels import split
+    r = split.head_blocks(G)
+    gb = split.block_heads(G)
+    assert r == want and gb <= split.BLOCK_GROUP and (r - 1) * gb < G <= r * gb
+    assert split.supports(256, G, torch.bfloat16)
 
 
 def test_decode_kernel_wrapper_refuses_cpu_tensors_at_group_16():

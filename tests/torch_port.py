@@ -72,10 +72,12 @@ def _perturb_norms(tree, seed=10):
 
 
 @functools.lru_cache(maxsize=None)
-def shared_models(arch="llama3.2-1b", head_dim=None, capacity_factor=None):
+def shared_models(arch="llama3.2-1b", head_dim=None, capacity_factor=None,
+                  heads=None):
     """(jax_model, jax_params, torch_model, torch_params) of the reduced
-    float32 ``arch`` (its ``head_dim`` or MoE ``capacity_factor`` replaced
-    where given, on both sides), with the JAX ``init(PRNGKey(0))`` weights
+    float32 ``arch`` (its ``head_dim``, MoE ``capacity_factor`` or
+    ``heads`` = (n_heads, n_kv_heads, head_dim) replaced where given, on
+    both sides), with the JAX ``init(PRNGKey(0))`` weights
     loaded into the port's module on the CPU (for mamba2-130m with the
     per-head parameters, for recurrentgemma-9b with the per-channel RG-LRU
     parameters, for a config with QKV biases with the biases, for the
@@ -92,6 +94,9 @@ def shared_models(arch="llama3.2-1b", head_dim=None, capacity_factor=None):
     if capacity_factor is not None:
         jcfg, tcfg = (c.replace(capacity_factor=capacity_factor)
                       for c in (jcfg, tcfg))
+    if heads is not None:
+        jcfg, tcfg = (c.replace(n_heads=heads[0], n_kv_heads=heads[1],
+                                head_dim=heads[2]) for c in (jcfg, tcfg))
     jm = jax_model(jcfg)
     jp = jm.init(jax.random.PRNGKey(0))
     tree = jax.tree.map(np.asarray, jp)
