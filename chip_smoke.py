@@ -9,7 +9,11 @@ that phase 12 recorded to PATH (``torch.save``), for
 ``scripts/compare_attention.py --steps PATH``.
 
 Phases, each of which ends the script with a non-zero exit code when it
-fails (nothing is caught):
+fails (nothing is caught).  Every engine on the card decodes as a user's
+would: each bucket's decode step captured once into a CUDA graph and
+replayed (``repro_torch.engine.graphs``); the kernels' launch counts
+include the replays' launches.  Only phase 26 also runs the engines'
+eager loops (``graphs.disabled()``), beside the graphs:
 
 1. device: the card's name and power limit from ``nvidia-smi``; float32
    matrix products are kept out of TF32;
@@ -287,6 +291,18 @@ fails (nothing is caught):
    slices, each stream equal to ``transformer.forward``'s greedy one but
    for a near-tie, the kernels launched as the stages and steps imply;
    a ``{"public_heads": ...}`` line.
+26. graphs (``run_graphs``, run after phase 4c): each captured path
+   (``GRAPH_PATHS``: llama3.2-1b paged unfused, paged fused, dense, ILS
+   dense and ILS paged; mamba2-130m dense; minitron-4b fused;
+   codeqwen1.5-7b unfused; full width at ``DEPTH_CUTS``' depth, bf16,
+   seeded weights) serves one fixed batch (8 fresh requests of 256 tokens,
+   32 decode steps) on one engine with its decode steps captured and under
+   ``graphs.disabled()``, in turns, then once each way under
+   ``torch.profiler``: every serve's streams equal, one capture (one
+   bucket), the decode kernel launched once a layer a replayed step; ms
+   per decode step and the device's busy share both ways, the capture's
+   seconds and the graph pool's bytes go on a ``{"graphs": ...}`` line a
+   path, after the card's reading.
 
 Each phase's seconds (and the kernels' build) are logged as it ends and
 printed on a ``{"seconds": ...}`` line.
@@ -2247,12 +2263,15 @@ def check_config_parity(arch: str, head_dim=None,
     if served_capacity:
         cfg = cfg.replace(capacity_factor=get_config(arch).capacity_factor)
     model = get_model(cfg)
-    drops = {"cpu": 0, "cuda": 0}
+    # counted on the device, so that a captured decode step counts its
+    # drops at every replay (a host read would break the capture)
+    drops = {dev: torch.zeros((), dtype=torch.int64, device=dev)
+             for dev in ("cpu", "cuda")}
     dispatch = moe._dispatch
 
     def counting(probs, k, cap):
         r = dispatch(probs, k, cap)
-        drops[probs.device.type] += int((~r.keep).sum())
+        drops[probs.device.type].add_((~r.keep).sum())
         return r
     cpu = model.init(0, device="cpu")
     perturb(cpu, model.cfg)
@@ -2339,6 +2358,7 @@ def check_config_parity(arch: str, head_dim=None,
             if gap is not None:
                 ties.append(dict(path=path, request=i, gap=gap))
         result[path] = launches
+    drops = {dev: int(n) for dev, n in drops.items()}
     if served_capacity and not min(drops.values()) > 0:
         raise SystemExit(f"{arch} at capacity factor "
                          f"{cfg.capacity_factor}: dropped choices {drops}, "
@@ -2489,12 +2509,13 @@ SESSION_TURN1, SESSION_GEN, SESSION_TAIL = 57, 24, 16
 def time_engine(engine) -> dict:
     """Sum the wall seconds of every serve call (the engine's own clock),
     of its prefill stages where the engine measures them, and of its
-    decode loops (each ends in a host transfer that waits for the device)
-    into the returned dict."""
+    decode loops (the steps' replays, ``_run_steps``, or the eager loop;
+    each ends in a host transfer that waits for the device) into the
+    returned dict."""
     acc = {"calls": 0, "wall_s": 0.0, "prefill_s": 0.0, "decode_s": 0.0}
     name = ("serve_batch_paged" if engine.kv_layout == "paged"
             else "serve_batch")
-    serve, loop = getattr(engine, name), engine._decode_loop
+    serve = getattr(engine, name)
 
     def timed_serve(*args, **kw):
         res = serve(*args, **kw)
@@ -2503,14 +2524,17 @@ def time_engine(engine) -> dict:
         acc["prefill_s"] += res.prefill_time or 0.0
         return res
 
-    def timed_loop(*args, **kw):
-        t0 = time.perf_counter()
-        out = loop(*args, **kw)
-        acc["decode_s"] += time.perf_counter() - t0
-        return out
+    def timed(loop):
+        def run(*args, **kw):
+            t0 = time.perf_counter()
+            out = loop(*args, **kw)
+            acc["decode_s"] += time.perf_counter() - t0
+            return out
+        return run
 
     setattr(engine, name, timed_serve)
-    engine._decode_loop = timed_loop
+    for loop in ("_run_steps", "_decode_loop"):
+        setattr(engine, loop, timed(getattr(engine, loop)))
     return acc
 
 
@@ -2518,12 +2542,16 @@ def serve_trace(label: str, engines, drive, extra: dict) -> dict:
     """Run ``drive()`` (it serves and returns the run's metrics and every
     request it served) with every kernel count set to 0 just before and
     read just after; check that every request completed with well-formed
-    output; print and return the slice's summary."""
+    output; print and return the slice's summary (with the engines'
+    captures in the run, their seconds and each engine's graph-pool
+    bytes after it)."""
     from repro_torch.kernels import ops
     vocab = engines[0].model.cfg.vocab_size
     timers = [time_engine(e) for e in engines]
     for e in engines:
         e.n_prefill_stages = e.n_tail_prefill_stages = e.n_decode_steps = 0
+    graphs0 = [(e.step_graphs.n_captures, e.step_graphs.capture_seconds)
+               for e in engines]
     torch.cuda.reset_peak_memory_stats()
     ops.reset_counts()
     t0 = time.perf_counter()
@@ -2546,7 +2574,14 @@ def serve_trace(label: str, engines, drive, extra: dict) -> dict:
                    serve_calls=sum(a["calls"] for a in timers),
                    engine_s=sum(a["wall_s"] for a in timers),
                    engine_prefill_s=sum(a["prefill_s"] for a in timers),
-                   engine_decode_s=decode_s, **extra)
+                   engine_decode_s=decode_s,
+                   graph_captures=sum(e.step_graphs.n_captures - n for e, (
+                       n, _) in zip(engines, graphs0)),
+                   graph_capture_s=sum(e.step_graphs.capture_seconds - s
+                                       for e, (_, s) in zip(engines,
+                                                            graphs0)),
+                   graph_pool_bytes=[e.step_graphs.pool_bytes()
+                                     for e in engines], **extra)
     print(json.dumps({label: summary}), flush=True)
     bad = [r.rid for r in requests
            if not r.done or r.output_tokens is None
@@ -2738,7 +2773,7 @@ def run_slice(label: str) -> tuple:
     if paged:
         extra["pool_pages"] = engines[0].allocator.n_pages
     L = cfg.n_layers
-    recorders = ((StepRecorder(L), PrefillRecorder(L)) if paged else
+    recorders = ((StepRecorder(cfg), PrefillRecorder(L)) if paged else
                  (StageRecorder(L),) if path == "ssm" else ())
     with contextlib.ExitStack() as stack:
         for rec in recorders:
@@ -3443,7 +3478,7 @@ def run_ils(scls: dict, steps: dict) -> dict:
         torch.cuda.synchronize()
         ops.reset_counts()
         t0 = time.perf_counter()
-        with StepRecorder(L if layout == "paged" else 0) as rec:
+        with StepRecorder(model.cfg if layout == "paged" else None) as rec:
             res = eng.serve(prompts, forced_gen_lens=forced, max_gen=max_gen)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
@@ -3549,38 +3584,45 @@ def check_long_prefill(model, params) -> dict:
 # phase 10: the paged decode kernels at the engines' own decode steps
 # ---------------------------------------------------------------------------
 class StepRecorder:
-    """Inside ``with``, wraps ``models.attention.attention_decode_paged``
-    (the paged engines' decode attention, once per layer per step) and
-    keeps a copy of the index inputs of each step's first layer: block
-    table, slot_pos (marking the new token), write slots and q_pos, with
-    the pool's shape.  ``n_layers`` 0 records nothing."""
+    """Inside ``with``, wraps ``engine.graphs.Step.__call__`` (one decode
+    iteration of an engine: a CUDA graph's replay, or its capture) and,
+    after each iteration of a paged engine's step, keeps a copy of the
+    iteration's index inputs from the step's static buffers: block table,
+    slot_pos (marking the new token), write slots and q_pos (the
+    ``StaticEngine``'s compact layout: its rows' lengths plus the step
+    just run; the ``ContinuousEngine``'s own buffers), with a layer's pool
+    shape.  ``cfg`` None records nothing."""
 
-    def __init__(self, n_layers: int):
-        self.n_layers, self.calls, self.steps = n_layers, 0, []
+    def __init__(self, cfg):
+        self.cfg, self.steps = cfg, []
 
     def __enter__(self):
-        from repro_torch.models import attention
-        orig = self._orig = attention.attention_decode_paged
+        from repro_torch.engine import graphs
+        orig = self._orig = graphs.Step.__call__
 
-        def recording(p, x, q_pos, k_pages, v_pages, block_table, slot_pos,
-                      slots, cfg, window, impl="unfused"):
-            if self.n_layers and self.calls % self.n_layers == 0:
-                self.steps.append(dict(
-                    bt=block_table.clone(), slot_pos=slot_pos.clone(),
-                    slots=slots.to(torch.int32, copy=True),
-                    q_pos=q_pos.to(torch.int32, copy=True),
-                    pool=tuple(k_pages.shape), Hq=cfg.n_heads,
-                    window=window))
-            self.calls += 1
-            return orig(p, x, q_pos, k_pages, v_pages, block_table,
-                        slot_pos, slots, cfg, window, impl=impl)
+        def recording(step):
+            orig(step)
+            b, cfg = step.bufs, self.cfg
+            cache = b.get("cache")
+            if cfg is None or not hasattr(cache, "block_table"):
+                return
+            if "wslots" in b:
+                slots, q_pos = b["wslots"], b["q_pos"]
+            else:
+                q_pos = slots = cache.lengths + (b["step"] - 1)
+            self.steps.append(dict(
+                bt=cache.block_table.clone(), slot_pos=cache.slot_pos.clone(),
+                slots=slots.to(torch.int32, copy=True),
+                q_pos=q_pos.to(torch.int32, copy=True),
+                pool=tuple(cache.k_pages.shape[1:]), Hq=cfg.n_heads,
+                window=cfg.sliding_window))
 
-        attention.attention_decode_paged = recording
+        graphs.Step.__call__ = recording
         return self
 
     def __exit__(self, *exc):
-        from repro_torch.models import attention
-        attention.attention_decode_paged = self._orig
+        from repro_torch.engine import graphs
+        graphs.Step.__call__ = self._orig
 
     def typical(self) -> dict:
         """The recorded step whose live slots are the median of the run's
@@ -4179,11 +4221,13 @@ def run_frontend_family(arch: str) -> dict:
                      frontend_extra(cfg, 1, rng, [frames])))
     counts = dict(prefill_stages=0, decode_steps=0, reprefill_tokens=0,
                   slices=0, engine_s=0.0, decode_s=0.0)
-    cross = {"calls": 0}
+    # each call on the card launches B6 once; counted on the device, so
+    # that a captured decode step counts its calls at every replay
+    calls = torch.zeros((), dtype=torch.int64, device="cuda")
     cross_attend = attn.cross_decode_attend
 
     def counted(*a, **kw):
-        cross["calls"] += 1  # each call on the card launches B6 once
+        calls.add_(1)
         return cross_attend(*a, **kw)
 
     torch.cuda.reset_peak_memory_stats()
@@ -4196,6 +4240,7 @@ def run_frontend_family(arch: str) -> dict:
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches, prefix = ops.launches(), pkmod.prefix_launches
+    cross = {"calls": int(calls)}
     plain = dict(ops.plain_calls)
     for (p, f, _), out in zip(jobs, outs):
         for i, toks in enumerate(out):
@@ -5175,6 +5220,200 @@ def run_public_heads(rows: dict, card: str) -> dict:
             for path, run in runs.items()}
 
 
+# ---------------------------------------------------------------------------
+# phase 26: the captured decode steps beside the eager loops
+# ---------------------------------------------------------------------------
+#: phase 26's paged engines: a pool for the batch and room to spare
+GRAPH_POOL = dict(kv_layout="paged", page_tokens=16, kv_pool_tokens=8 * 512)
+#: phase 26's paths: label -> (arch, engine, its keyword arguments); each
+#: model at full width and ``served_config``'s depth, bf16, seeded weights
+GRAPH_PATHS = {
+    "llama_unfused": ("llama3.2-1b", "static", GRAPH_POOL),
+    "llama_fused": ("llama3.2-1b", "static",
+                    dict(GRAPH_POOL, attn_impl="fused")),
+    "llama_dense": ("llama3.2-1b", "static", {}),
+    "llama_ils_dense": ("llama3.2-1b", "continuous",
+                        dict(max_slots=8, max_context=512)),
+    "llama_ils_paged": ("llama3.2-1b", "continuous",
+                        dict(max_slots=8, max_context=512, kv_layout="paged",
+                             page_tokens=16)),
+    "mamba2": ("mamba2-130m", "static", {}),
+    "minitron_fused": ("minitron-4b", "static",
+                       dict(GRAPH_POOL, attn_impl="fused")),
+    "codeqwen_unfused": ("codeqwen1.5-7b", "static", GRAPH_POOL),
+}
+#: phase 26's fixed batch: rows of fresh prompts, prompt tokens, decode
+#: steps (every row forced to run them all)
+GRAPH_ROWS, GRAPH_PROMPT, GRAPH_STEPS = 8, 256, 32
+#: each path's decode kernel (mamba2's decode step launches none)
+GRAPH_DECODE = {"unfused": "paged_decode_attention",
+                "fused": "fused_rope_decode_append",
+                "dense": "decode_attention"}
+
+
+def graph_engine(model, params, kind: str, kw: dict):
+    from repro_torch.engine.continuous_engine import ContinuousEngine
+    from repro_torch.engine.static_engine import StaticEngine
+    if kind == "continuous":
+        return ContinuousEngine(model, params, eos_id=1, len_bucket=16,
+                                device="cuda", **kw)
+    return StaticEngine(model, params, eos_id=1, len_bucket=16,
+                        device="cuda", **kw)
+
+
+def graph_serve(eng, ps) -> tuple:
+    """(every row's tokens, decode steps, host seconds of the decode
+    loops) of one serve of the fixed batch ``ps``: a ``ContinuousEngine``
+    serves it whole, a ``StaticEngine`` as one slice of ``GRAPH_STEPS``
+    (the paged one under fresh rids, released after)."""
+    forced = [GRAPH_STEPS] * len(ps)
+    loops = (("_decode",) if not hasattr(eng, "_run_steps")
+             else ("_run_steps", "_decode_loop"))
+    spent = [0.0]
+
+    def timed(fn):
+        def run(*a, **kw):
+            t0 = time.perf_counter()
+            out = fn(*a, **kw)  # each ends in a host transfer
+            spent[0] += time.perf_counter() - t0
+            return out
+        return run
+
+    steps0 = eng.n_decode_steps
+    with contextlib.ExitStack() as stack:
+        for name in loops:
+            stack.enter_context(mock.patch.object(
+                eng, name, timed(getattr(eng, name))))
+        if not hasattr(eng, "_run_steps"):
+            out = eng.serve(ps, forced_gen_lens=forced).outputs
+        elif eng.kv_layout == "paged":
+            rids = list(range(len(ps)))
+            res = eng.serve_batch_paged(ps, GRAPH_STEPS, rids,
+                                        forced_gen_lens=forced)
+            for rid in rids:
+                eng.release_request(rid)
+            out = [r["tokens"] for r in res.results]
+        else:
+            res = eng.serve_batch(ps, GRAPH_STEPS, forced_gen_lens=forced)
+            out = [r["tokens"] for r in res.results]
+    return out, eng.n_decode_steps - steps0, spent[0]
+
+
+def graph_window(eng, ps) -> dict:
+    """One serve of ``ps`` under ``torch.profiler`` (device activity
+    only): the device's busy share of the window's wall time (kernels of
+    the prefill and the decode steps) and the kinds of device event."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out, _, _ = graph_serve(eng, ps)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    events = [e for e in prof.key_averages() if dev_us(e) > 0]
+    busy = sum(dev_us(e) for e in events) / 1e6
+    return dict(tokens=out, wall_s=wall, device_busy_s=busy,
+                device_busy_share=busy / wall,
+                device_event_kinds=len(events))
+
+
+def run_graph_path(label: str, model, params) -> dict:
+    """Phase 26 for ``label``: one engine serves the fixed batch with its
+    decode steps captured (the first serve captures) and under
+    ``graphs.disabled()`` (its eager loop), in turns (eager, graph, graph,
+    eager), then once each way under the profiler.  Every serve's
+    streams must be equal, the engine must have captured exactly one
+    graph (one bucket), and the graph serves must launch the path's
+    decode kernel once a layer a step."""
+    import numpy as np
+    from repro_torch.engine import graphs
+    from repro_torch.kernels import ops
+    arch, kind, kw = GRAPH_PATHS[label]
+    eng = graph_engine(model, params, kind, kw)
+    rng = np.random.default_rng(26)
+    ps = [rng.integers(2, model.cfg.vocab_size, size=GRAPH_PROMPT)
+          .astype(np.int32) for _ in range(GRAPH_ROWS)]
+    streams, ms = {}, {"graph": [], "eager": []}
+    with torch.no_grad():
+        with graphs.disabled():
+            streams["eager warm-up"], _, _ = graph_serve(eng, ps)
+        ops.reset_counts()
+        streams["graph capture"], n, _ = graph_serve(eng, ps)
+        torch.cuda.synchronize()
+        first = dict(ops.launches())
+        for i, mode in enumerate(("eager", "graph", "graph", "eager")):
+            ops.reset_counts()
+            with (graphs.disabled() if mode == "eager"
+                  else contextlib.nullcontext()):
+                streams[f"{mode} {i}"], n, sec = graph_serve(eng, ps)
+            torch.cuda.synchronize()
+            ms[mode].append(sec / n * 1e3)
+            if mode == "graph":
+                replayed = dict(ops.launches())
+        windows = {}
+        for mode in ("eager", "graph"):
+            with (graphs.disabled() if mode == "eager"
+                  else contextlib.nullcontext()):
+                windows[mode] = graph_window(eng, ps)
+            streams[f"{mode} profiled"] = windows[mode].pop("tokens")
+    gc_ = eng.step_graphs
+    ref = streams["eager warm-up"]
+    differ = [k for k, v in streams.items() if v != ref]
+    path = kw.get("attn_impl", "unfused") if kw.get("kv_layout") == "paged" \
+        else ("ssm" if model.cfg.family == "ssm" else "dense")
+    decode = GRAPH_DECODE.get(path)
+    L = model.cfg.n_layers
+    summary = dict(
+        arch=model.cfg.name, engine=kind, path=path, layers=L,
+        rows=GRAPH_ROWS, prompt_tokens=GRAPH_PROMPT, decode_steps=n,
+        ms_per_decode_step=dict(graph=ms["graph"], eager=ms["eager"]),
+        eager_over_graph=sum(ms["eager"]) / sum(ms["graph"]),
+        device_busy_share={m: w["device_busy_share"]
+                           for m, w in windows.items()},
+        windows=windows, captures=gc_.n_captures,
+        capture_s=gc_.capture_seconds, buckets=[str(k) for k in gc_.keys()],
+        graph_pool_bytes=gc_.pool_bytes(),
+        arena_bytes=getattr(getattr(eng, "_arena", None), "nbytes", None),
+        launches_capture_serve=first, launches_graph_serve=replayed,
+        equal_streams=not differ)
+    print(json.dumps({"graphs": {label: summary}}), flush=True)
+    if differ:
+        raise SystemExit(f"phase 26 {label}: streams of {differ} differ "
+                         f"from the eager loop's")
+    if gc_.n_captures != 1 or len(gc_.keys()) != 1:
+        raise SystemExit(f"phase 26 {label}: {gc_.n_captures} captures of "
+                         f"{gc_.keys()}, not one a bucket")
+    if decode and replayed.get(decode) != L * n:
+        raise SystemExit(f"phase 26 {label}: a graph serve launched "
+                         f"{replayed} over {n} decode steps of {L} layers")
+    log(f"phase 26 {label}: {model.cfg.name} ({L} layers) {kind} {path}, "
+        f"{GRAPH_ROWS} x {GRAPH_PROMPT} tokens, {n} decode steps: ms a "
+        f"step graph {[f'{x:.3f}' for x in ms['graph']]} vs eager "
+        f"{[f'{x:.3f}' for x in ms['eager']]}; device busy "
+        f"{summary['device_busy_share']}; {gc_.n_captures} capture in "
+        f"{gc_.capture_seconds:.3f} s, graph pool "
+        f"{summary['graph_pool_bytes']} bytes; streams equal")
+    return summary
+
+
+def run_graphs(card: str) -> dict:
+    """Phase 26: every captured path (``GRAPH_PATHS``) through
+    ``run_graph_path``, one model at a time; the card's reading on the
+    line before the summaries."""
+    from repro_torch.models.registry import get_model
+    print(card, flush=True)
+    out, built = {}, None
+    for label, (arch, _, _) in GRAPH_PATHS.items():
+        if built is None or built[0] != arch:
+            built = None
+            release_cuda()
+            model = get_model(served_config(arch))
+            built = (arch, model, model.init(0, device="cuda"))
+        out[label] = run_graph_path(label, *built[1:])
+        release_cuda()
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the card",
@@ -5246,6 +5485,9 @@ def main() -> int:
     print(json.dumps({"config_parity": parity}), flush=True)
     release_cuda()
     lap("phase 4c (the configs' engines, card vs CPU)")
+    run_graphs(card)
+    release_cuda()
+    lap("phase 26 (captured decode steps beside the eager loops)")
 
     scls, steps, writes = {}, {}, {}
     for label in ("slice", "fused_slice", "dense_slice"):

@@ -112,3 +112,8 @@ class DocsRefsPass(AnalysisPass):
                     yield self.finding(
                         sf, lineno, f"broken link -> {target}",
                         hint="the link target moved or was deleted")
+
+    def count_refs(self, sf: SourceFile) -> int:
+        """Symbol-reference count of a document (the JAX pass's summary
+        figure)."""
+        return len(REF_RE.findall(sf.text))

@@ -10,6 +10,8 @@ refuses them, as the JAX one does).
 """
 from __future__ import annotations
 
+from typing import Dict
+
 from repro_torch.configs import (codeqwen1_5_7b, deepseek_v2_lite_16b,
                                  gemma_2b, llama3_2_1b, mamba2_130m,
                                  minitron_4b, mixtral_8x22b, paligemma_3b,
@@ -37,3 +39,8 @@ ARCHS = tuple(_MODULES)
 def get_config(arch: str, reduced: bool = False) -> ModelConfig:
     mod = _MODULES[arch]
     return mod.reduced() if reduced else mod.CONFIG
+
+
+def all_configs(reduced: bool = False) -> Dict[str, ModelConfig]:
+    """Every arch's config (reduced where asked), by arch id."""
+    return {a: get_config(a, reduced) for a in ARCHS}

@@ -25,9 +25,13 @@ KV layouts (``kv_layout``):
 
 Both layouts prefill a join through ``models.transformer.prefill`` (the
 ``flash_prefill`` kernel on the card).  Rows advance independently through
-per-row write slots.  The JAX engine's jitted calls become plain calls on
-the engine's ``device``; caches and page pools are updated in place.
-Dense-family models only, as in the JAX package.
+per-row write slots.  The JAX engine's jitted decode becomes one
+``engine.graphs.Step`` over the engine's fixed cache, whose tokens,
+positions and write slots are static buffers: a CUDA graph replayed on
+the card (``step_graphs``), the same closure on the CPU; its eager loop
+serves where ``graphs.eager_reason`` says.  The prefill runs eagerly.
+Caches and page pools are updated in place.  Dense-family models only, as
+in the JAX package.
 """
 from __future__ import annotations
 
@@ -39,6 +43,7 @@ import torch
 
 from repro_torch import DeviceLike, resolve_device
 from repro_torch.core.request import bucket_len
+from repro_torch.engine import graphs
 from repro_torch.engine.sampling import greedy
 from repro_torch.kvcache import (PageAllocator, clear_row,
                                  init_paged_kv_cache, write_prefill_pages)
@@ -94,6 +99,8 @@ class ContinuousEngine:
         #: each one kernel launch per layer on the card
         self.n_prefill_stages = 0
         self.n_decode_steps = 0
+        #: the decode step over the fixed cache (captured on the card)
+        self.step_graphs = graphs.GraphCache(self.device)
         self.alloc: Optional[PageAllocator] = None
         if kv_layout == "paged":
             if self.W % page_tokens:
@@ -162,17 +169,44 @@ class ContinuousEngine:
         base = bucket_len(prompt_len, self.len_bucket)
         return min(base + forced_cap, self.W)
 
+    def _decode_fn(self):
+        return (tfm.decode_step_paged if self.kv_layout == "paged"
+                else tfm.decode_step_rowslots)
+
     def _decode(self, cur: np.ndarray, q_pos: np.ndarray,
                 wslots: np.ndarray) -> np.ndarray:
-        args = (self._tensor(cur), self._tensor(q_pos), self._tensor(wslots))
-        if self.kv_layout == "paged":
-            logits, self.cache = tfm.decode_step_paged(
-                self.params, self.cfg, self.cache, *args)
-        else:
-            logits, self.cache = tfm.decode_step_rowslots(
-                self.params, self.cfg, self.cache, *args)
         self.n_decode_steps += 1
+        if graphs.eager_reason(self.params, self.cfg.family) is None:
+            step = self.step_graphs.get("decode") or self._decode_step()
+            b = step.bufs
+            for name, a in (("cur", cur), ("q_pos", q_pos),
+                            ("wslots", wslots)):
+                b[name].copy_(torch.from_numpy(a))
+            step()
+            return b["next"].cpu().numpy()  # host transfer: blocks
+        args = (self._tensor(cur), self._tensor(q_pos), self._tensor(wslots))
+        logits, new = self._decode_fn()(self.params, self.cfg, self.cache,
+                                        *args)
+        graphs.copy_back(self.cache, new)  # the step's buffers stay valid
         return greedy(logits).cpu().numpy()  # host transfer: blocks
+
+    def _decode_step(self) -> graphs.Step:
+        """The ``Step`` over the engine's cache (``bufs["cache"]``): one
+        decode iteration of every slot from the static (max_slots,)
+        tokens, positions and write slots to the static next tokens."""
+        cache, decode = self.cache, self._decode_fn()
+        bufs = {name: torch.zeros((self.max_slots,), dtype=torch.int32,
+                                  device=self.device)
+                for name in ("cur", "q_pos", "wslots", "next")}
+        bufs["cache"] = cache
+
+        def fn() -> None:
+            logits, new = decode(self.params, self.cfg, cache, bufs["cur"],
+                                 bufs["q_pos"], bufs["wslots"])
+            graphs.copy_back(cache, new)
+            bufs["next"].copy_(greedy(logits))
+
+        return self.step_graphs.add("decode", fn, bufs)
 
     # ------------------------------------------------------------------
     def serve(self, prompts: Sequence[np.ndarray],

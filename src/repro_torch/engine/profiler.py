@@ -3,7 +3,11 @@
 Profiles T_prefill(N, L) and τ_decode(l, N) on the real model through
 its dense ``prefill``/``decode_step`` at a grid of batch sizes and
 lengths, then fits Eq. 3/4 by least squares.  On a CUDA device every
-timed region ends in ``torch.cuda.synchronize``.
+timed region ends in ``torch.cuda.synchronize``.  The decode steps are
+timed as the engines run them: a decode step captured over static
+buffers (``engine.graphs``) and replayed, its capture paid before the
+clock starts, as the JAX profiler pays its compile; eagerly where
+``graphs.eager_reason`` says.
 """
 from __future__ import annotations
 
@@ -14,7 +18,34 @@ import numpy as np
 import torch
 
 from repro_torch.core.estimator import ServingTimeEstimator
+from repro_torch.engine import graphs
 from repro_torch.models.registry import Model
+
+
+def _decoder(model: Model, params, cache, cur: torch.Tensor):
+    """A callable that runs one decode step of ``cur`` over ``cache``,
+    advancing the cache and the step counter: a ``graphs.Step`` over an
+    arena copy of the cache (captured at its first call on the card), or
+    the model's eager step."""
+    dev = cur.device
+    if graphs.eager_reason(params, model.cfg.family) is not None:
+        state = {"cache": cache, "step": 0}
+
+        def eager() -> None:
+            _, state["cache"] = model.decode_step(params, state["cache"], cur,
+                                                  state["step"])
+            state["step"] += 1
+        return eager
+    static = graphs.Arena(dev).views(cache)
+    graphs.fill(static, cache)
+    step = torch.zeros((), dtype=torch.int64, device=dev)
+
+    def fn() -> None:
+        _, new = model.decode_step(params, static, cur, step)
+        graphs.copy_back(static, new)
+        step.add_(1)
+
+    return graphs.GraphCache(dev).add("decode", fn, dict(cache=static))
 
 
 def _sync(device: torch.device) -> None:
@@ -51,13 +82,14 @@ def profile_engine(model: Model, params, batch_sizes: Sequence[int],
             prefill_samples.append((N, L, best_p))
 
             cur = torch.argmax(last, -1).to(torch.int32)
-            model.decode_step(params, cache, cur, 0)  # warmup
+            decode = _decoder(model, params, cache, cur)
+            decode()  # warmup (and the capture)
             _sync(dev)
             best_d = np.inf
             for _ in range(repeats):
                 t0 = time.perf_counter()
-                for s in range(n_decode_iters):
-                    lg, cache = model.decode_step(params, cache, cur, s)
+                for _ in range(n_decode_iters):
+                    decode()
                 _sync(dev)
                 best_d = min(best_d, (time.perf_counter() - t0) / n_decode_iters)
             decode_samples.append((N, L, best_d))

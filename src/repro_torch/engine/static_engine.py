@@ -53,12 +53,26 @@ kernels) or ``"fused"`` (the ``fused_rope_prefill_write`` /
 The pools ``k_pages``/``v_pages`` are updated **in place**.  The JAX
 engine threads immutable pools through ``jit`` with buffer donation; in
 PyTorch a functional update would copy a pool that is most of the card's
-memory and double it.  The JAX ``jit(while_loop)`` decode becomes a
-Python loop with the same semantics: the condition ``step < S and not
+memory and double it.  The JAX ``jit(while_loop)`` decode becomes a host
+loop with the same semantics: the condition ``step < S and not
 all(done)`` is checked before each step, ``done |= (cur == eos) |
 (step + 1 >= forced)``, and the token computed last is kept as the
 resident's next token.  Pad rows read and write the null page 0, which is
 never observable.
+
+Each loop iteration is one ``engine.graphs.Step`` of the slice's bucket,
+the counterpart of the JAX engine's compiled serve function per bucket
+(``step_graphs``, its ``_compiled``): a CUDA graph replayed on the card,
+the same closure over the same static buffers on the CPU.  A paged
+bucket is ``("paged", attn_impl, B, nb, slice_len)`` over the engine's
+pools; a dense bucket ``("dense", B, L, slice_len, extra input shapes)``
+over one cache arena (``graphs.Arena``) that the slice's prefill cache is
+copied into, sized by the largest bucket so far (when it grows, every
+dense step is dropped and captured again).  The host's test of
+``all(done)`` stays once per iteration, as the ``while_loop``'s ``cond``.
+The prefills run eagerly.  The eager loops serve where
+``graphs.eager_reason`` says (``graphs.disabled()``, DTensor
+parameters).
 """
 from __future__ import annotations
 
@@ -70,6 +84,7 @@ import torch
 
 from repro_torch import DeviceLike, resolve_device
 from repro_torch.core.request import bucket_len
+from repro_torch.engine import graphs
 from repro_torch.engine.sampling import greedy
 from repro_torch.kvcache import (PageAllocator, PagedKVCache, PrefixIndex,
                                  batch_block_table, batch_slot_pos,
@@ -158,7 +173,10 @@ class StaticEngine:
         self.n_prefill_stages = 0
         self.n_tail_prefill_stages = 0
         self.n_decode_steps = 0
+        #: the decode step of each bucket (captured on the card)
+        self.step_graphs = graphs.GraphCache(self.device)
         if kv_layout == "dense":
+            self._arena = graphs.Arena(self.device)
             return
         self.page_tokens = page_tokens
         self.allocator = PageAllocator(kv_pool_tokens // page_tokens,
@@ -206,11 +224,67 @@ class StaticEngine:
         self.n_tail_prefill_stages += 1
         return greedy(logits).cpu().numpy()  # host transfer: blocks
 
+    def _eager(self) -> bool:
+        return graphs.eager_reason(self.params,
+                                   self.model.cfg.family) is not None
+
+    def _add_step(self, key, cache, B: int, slice_len: int,
+                  decode_step) -> graphs.Step:
+        """A new bucket's ``Step``: one iteration of the JAX
+        ``while_loop``'s body over static buffers (out (B, S), done (B,),
+        the step counter (0-d int64), cur and forced (B,)) and the bucket's
+        ``cache``, where ``decode_step(cur, step)`` runs the model's decode
+        step over ``cache`` and returns (logits, the new cache), whose new
+        leaves are copied back into ``cache``."""
+        dev = self.device
+        bufs = dict(
+            out=torch.empty((B, slice_len), dtype=torch.int32, device=dev),
+            done=torch.empty((B,), dtype=torch.bool, device=dev),
+            step=torch.empty((), dtype=torch.int64, device=dev),
+            cur=torch.empty((B,), dtype=torch.int32, device=dev),
+            forced=torch.empty((B,), dtype=torch.int32, device=dev),
+            cache=cache)
+        out, done, step, cur, forced = (
+            bufs[k] for k in ("out", "done", "step", "cur", "forced"))
+        eos = self.eos_id
+
+        def fn() -> None:
+            out.index_copy_(1, step.view(1), cur[:, None])
+            done.logical_or_((cur == eos) | (step + 1 >= forced))
+            logits, new = decode_step(cur, step)
+            graphs.copy_back(cache, new)
+            cur.copy_(greedy(logits))
+            step.add_(1)
+
+        return self.step_graphs.add(key, fn, bufs)
+
+    def _run_steps(self, step: graphs.Step, first: torch.Tensor,
+                   forced: np.ndarray, slice_len: int):
+        """``_decode_loop`` over a bucket's ``Step`` (``_add_step``): the
+        loop state is reset, then ``step()`` runs while ``step < S and not
+        all(done)``.
+        Returns (out (B, S), steps, done (B,), next tokens (B,)) on the
+        host."""
+        b = step.bufs
+        b["out"].fill_(-1)
+        b["done"].zero_()
+        b["step"].zero_()
+        b["cur"].copy_(first)
+        b["forced"].copy_(torch.from_numpy(forced))
+        n = 0
+        while n < slice_len and not bool(b["done"].all()):
+            step()
+            n += 1
+            self.n_decode_steps += 1
+        return (b["out"].cpu().numpy(), n, b["done"].cpu().numpy(),
+                b["cur"].cpu().numpy())
+
     def _decode_loop(self, cur: torch.Tensor, forced: np.ndarray,
                      slice_len: int, step_fn):
-        """The JAX ``while_loop`` as a Python loop: ``step_fn(cur, step)``
-        runs one decode iteration and returns its logits.  Returns
-        (out (B, S), steps, done (B,), next tokens (B,)) on the host."""
+        """The JAX ``while_loop`` as a Python loop, eagerly:
+        ``step_fn(cur, step)`` runs one decode iteration and returns its
+        logits.  Returns (out (B, S), steps, done (B,), next tokens (B,))
+        on the host."""
         forced_t = self._tensor(forced)
         B = cur.shape[0]
         out = torch.full((B, slice_len), -1, dtype=torch.int32,
@@ -231,6 +305,17 @@ class StaticEngine:
                       first_tok: np.ndarray, forced: np.ndarray):
         """One paged decode slice through the per-row block tables."""
         cfg = self.model.cfg
+        if not self._eager():
+            B, nb = block_table.shape
+            key = ("paged", self.attn_impl, B, nb, slice_len)
+            step = (self.step_graphs.get(key)
+                    or self._paged_step(key, B, nb, slice_len))
+            c = step.bufs["cache"]
+            for buf, a in ((c.block_table, block_table),
+                           (c.slot_pos, slot_pos), (c.lengths, row_len)):
+                buf.copy_(torch.from_numpy(np.ascontiguousarray(a)))
+            return self._run_steps(step, torch.from_numpy(first_tok),
+                                   forced, slice_len)
         cache = PagedKVCache(self._k_pages, self._v_pages,
                              self._tensor(block_table),
                              self._tensor(slot_pos), self._tensor(row_len))
@@ -246,6 +331,26 @@ class StaticEngine:
         return self._decode_loop(self._tensor(first_tok), forced, slice_len,
                                  step_fn)
 
+    def _paged_step(self, key, B: int, nb: int,
+                    slice_len: int) -> graphs.Step:
+        """A paged bucket's ``Step`` over the engine's pools and static
+        (B, nb) block table, (B, nb·pg) slot_pos and (B,) row lengths
+        (compact layout: slot == position)."""
+        i32 = dict(dtype=torch.int32, device=self.device)
+        cache = PagedKVCache(self._k_pages, self._v_pages,
+                             torch.zeros((B, nb), **i32),
+                             torch.full((B, nb * self.page_tokens), -1,
+                                        **i32),
+                             torch.zeros((B,), **i32))
+
+        def decode_step(cur: torch.Tensor, step: torch.Tensor):
+            q_pos = cache.lengths + step
+            return tfm.decode_step_paged(self.params, self.model.cfg, cache,
+                                         cur, q_pos, q_pos,
+                                         attn_impl=self.attn_impl)
+
+        return self._add_step(key, cache, B, slice_len, decode_step)
+
     def _serve_dense(self, tokens: np.ndarray, lengths: np.ndarray,
                      forced: np.ndarray, slice_len: int,
                      extra: Dict[str, np.ndarray]):
@@ -260,6 +365,24 @@ class StaticEngine:
             cache_window += extra["prefix_embeds"].shape[1]
         logits, cache = self.model.prefill(self.params, batch, cache_window)
         self.n_prefill_stages += 1
+        if not self._eager():
+            B = tokens.shape[0]
+            key = ("dense", B, tokens.shape[1], slice_len) + tuple(
+                (k, v.shape) for k, v in sorted(extra.items()))
+            step = self.step_graphs.get(key)
+            if step is None:
+                if not self._arena.fits(cache):
+                    self.step_graphs.clear()  # captured over the old arena
+                static = self._arena.views(cache)
+                step = self._add_step(
+                    key, static, B, slice_len,
+                    lambda cur, step: self.model.decode_step(
+                        self.params, static, cur, step))
+            graphs.fill(step.bufs["cache"], cache)
+            del cache
+            out, steps, done, _ = self._run_steps(step, greedy(logits),
+                                                  forced, slice_len)
+            return out, steps, done
 
         def step_fn(cur: torch.Tensor, step: int) -> torch.Tensor:
             nonlocal cache

@@ -10,6 +10,7 @@ A failed build raises; nothing falls back to the plain versions.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -17,7 +18,7 @@ import shutil
 import subprocess
 import threading
 from pathlib import Path
-from typing import Dict, List, Sequence
+from typing import Dict, Iterator, List, Sequence
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
@@ -34,6 +35,34 @@ _loaded: Dict[str, ctypes.CDLL] = {}
 #: share the libraries and the launch counts, and a count must lose no
 #: increment
 LOCK = threading.RLock()
+
+_capture = threading.local()
+
+
+def counted(name: str) -> bool:
+    """Whether a wrapper's launch of kernel ``name`` counts now.  While
+    this thread captures a CUDA graph (``capturing``) the launch is only
+    recorded into the graph, not made: the capture's tally keeps it, and
+    each replay of the graph adds it to the count
+    (``repro_torch.engine.graphs``), so that a count is always the
+    launches the card ran."""
+    tally = getattr(_capture, "tally", None)
+    if tally is None:
+        return True
+    tally[name] = tally.get(name, 0) + 1
+    return False
+
+
+@contextlib.contextmanager
+def capturing() -> Iterator[Dict[str, int]]:
+    """Inside ``with``, this thread's kernel launches go to the yielded
+    tally (kernel name -> launches) and not to the wrappers' counts."""
+    tally: Dict[str, int] = {}
+    _capture.tally = tally
+    try:
+        yield tally
+    finally:
+        _capture.tally = None
 
 
 def nvcc() -> str:

@@ -104,8 +104,9 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
                  v_cache.data_ptr(), slot_pos.data_ptr(), q_pos.data_ptr(),
                  out.data_ptr(), ws.data_ptr(), B, Hq, Hkv, rep, D, W, chunk,
                  window or 0, D ** -0.5, stream)
-        with build.LOCK:
-            launches += 1
+        if build.counted("decode_attention"):
+            with build.LOCK:
+                launches += 1
     if err:
         raise RuntimeError(f"decode_attention kernel launch failed: CUDA "
                            f"error {err}")

@@ -99,9 +99,10 @@ def flash_prefill(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         err = fn(_DTYPES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
                  positions.data_ptr(), out.data_ptr(), B, T, Hq, Hkv, D,
                  window or 0, prefix_len, D ** -0.5, stream)
-        with build.LOCK:
-            launches += 1
-            prefix_launches += prefix_len > 0
+        if build.counted("flash_prefill"):
+            with build.LOCK:
+                launches += 1
+                prefix_launches += prefix_len > 0
     if err:
         raise RuntimeError(f"flash_prefill kernel launch failed: CUDA error "
                            f"{err}")

@@ -117,8 +117,9 @@ def fused_rope_decode_append(q: torch.Tensor, k_new: torch.Tensor,
                  slots.data_ptr(), q_pos.data_ptr(), freqs.data_ptr(),
                  out.data_ptr(), ws.data_ptr(), B, Hq, Hkv, rep, D, nb, pg,
                  chunk, window or 0, D ** -0.5, stream)
-        with build.LOCK:
-            launches += 1
+        if build.counted("fused_rope_decode_append"):
+            with build.LOCK:
+                launches += 1
     if err:
         raise RuntimeError(f"fused_rope_decode_append kernel launch failed: "
                            f"CUDA error {err}")

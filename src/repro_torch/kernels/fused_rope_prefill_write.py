@@ -115,8 +115,9 @@ def fused_rope_prefill_write(k_new: torch.Tensor, v_new: torch.Tensor,
                  positions.data_ptr(), block_table.data_ptr(),
                  freqs.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
                  B, T, block_table.shape[1], pg, Hkv, D, stream)
-        with build.LOCK:
-            launches += 1
+        if build.counted("fused_rope_prefill_write"):
+            with build.LOCK:
+                launches += 1
     if err:
         raise RuntimeError(f"fused_rope_prefill_write kernel launch failed: "
                            f"CUDA error {err}")

@@ -12,6 +12,11 @@ cut from the autograd graph, which would leave everything upstream of
 the kernel untrained without a word: the training forwards (``Model.
 loss``) run the plain torch versions and reach none of these functions.
 
+**Counts.**  ``launches()`` counts the launches the card ran.  A wrapper
+counts its own launch, except while its thread captures a CUDA graph,
+where the launch is only recorded (``build.counted``); each replay of a
+captured graph adds what its capture recorded (``add_launches``).
+
 **Shards.**  ``flash_prefill`` and ``decode_attention`` (B5 and B6, the
 kernels of the dense prefill and decode steps) and ``ssd_chunked_scan``
 (B7, by rows only: ``on_local_rows``) also take DTensors on a
@@ -83,6 +88,15 @@ def _refuse_grad(name: str, *tensors: torch.Tensor) -> None:
 def launches() -> Dict[str, int]:
     """Kernel launches since the last ``reset_counts``."""
     return {name: mod.launches for name, mod in _KERNELS.items()}
+
+
+def add_launches(tally: Dict[str, int]) -> None:
+    """Add ``tally`` (kernel name -> launches) to the counts: a captured
+    graph's replay launches the kernels its capture recorded
+    (``build.capturing``) without calling their wrappers."""
+    with build.LOCK:
+        for name, n in tally.items():
+            _KERNELS[name].launches += n
 
 
 def reset_counts() -> None:

@@ -105,8 +105,9 @@ def paged_decode_attention(q: torch.Tensor, k_pages: torch.Tensor,
                  slot_pos.data_ptr(), q_pos.data_ptr(), out.data_ptr(),
                  ws.data_ptr(), B, Hq, Hkv, rep, D, nb, pg, chunk,
                  window or 0, D ** -0.5, stream)
-        with build.LOCK:
-            launches += 1
+        if build.counted("paged_decode_attention"):
+            with build.LOCK:
+                launches += 1
     if err:
         raise RuntimeError(f"paged_decode_attention kernel launch failed: "
                            f"CUDA error {err}")

@@ -88,8 +88,9 @@ def paged_prefill_write(k_new: torch.Tensor, v_new: torch.Tensor,
                  block_table.data_ptr(), k_pages.data_ptr(),
                  v_pages.data_ptr(), B, T, block_table.shape[1], pg,
                  row_bytes, stream)
-        with build.LOCK:
-            launches += 1
+        if build.counted("paged_prefill_write"):
+            with build.LOCK:
+                launches += 1
     if err:
         raise RuntimeError(f"paged_prefill_write kernel launch failed: "
                            f"CUDA error {err}")

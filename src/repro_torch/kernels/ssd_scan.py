@@ -185,8 +185,9 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
                  scratch["cb"].data_ptr(), scratch["state"].data_ptr(),
                  scratch["cum"].data_ptr(), scratch["decay"].data_ptr(),
                  Bsz, T, H, P, N, G, chunk, stream)
-        with build.LOCK:
-            launches += 1
+        if build.counted("ssd_scan"):
+            with build.LOCK:
+                launches += 1
     if err:
         raise RuntimeError(f"ssd_scan kernel launch failed: CUDA error {err} "
                            f"(plan {pl['grids']}, shared memory "

@@ -21,7 +21,7 @@ and runs its plain version for CPU tensors.
 """
 from __future__ import annotations
 
-from typing import NamedTuple, Optional, Tuple
+from typing import NamedTuple, Optional, Tuple, Union
 
 import torch
 from torch import nn
@@ -50,7 +50,8 @@ class KVCache(NamedTuple):
     k: torch.Tensor         # (L, B, W, Hkv, D)
     v: torch.Tensor         # (L, B, W, Hkv, D)
     slot_pos: torch.Tensor  # (B, W) int32 absolute position per slot, -1 empty
-    write_idx: int          # next global slot counter
+    write_idx: Union[int, torch.Tensor]  # next global slot counter (a 0-d
+    #                         int64 tensor on the engines' captured steps)
     lengths: torch.Tensor   # (B,) int32 real (unpadded) input lengths
 
     @property
@@ -426,10 +427,12 @@ def cross_decode_attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 def attention_decode(p: Attention, x: torch.Tensor, q_pos: torch.Tensor,
                      k_cache: torch.Tensor, v_cache: torch.Tensor,
-                     slot_pos: torch.Tensor, slot: int, cfg: ModelConfig,
+                     slot_pos: torch.Tensor, slot: Union[int, torch.Tensor],
+                     cfg: ModelConfig,
                      window: Optional[int]) -> torch.Tensor:
     """One-token decode over a dense cache. x (B,1,d); k/v_cache
-    (B,W,Hkv,D) of one layer, written in place at ``slot``; ``slot_pos``
+    (B,W,Hkv,D) of one layer, written in place at ``slot`` (``write_slot``:
+    an int or a 0-d int64 tensor); ``slot_pos``
     already includes the current token's position.  The attention is
     ``dense_decode_attend``'s."""
     B = x.shape[0]
@@ -519,12 +522,16 @@ def prefill_slot_pos(positions: torch.Tensor, cache_window: int
     return pos[:, T - W:]
 
 
-def write_slot(cache: torch.Tensor, slot: int, value: torch.Tensor) -> None:
+def write_slot(cache: torch.Tensor, slot: Union[int, torch.Tensor],
+               value: torch.Tensor) -> None:
     """``cache[:, slot] = value``, in place.  On a DTensor whose dim 1 is
     sharded (the reference's cache rule shards a window that happens to
     equal the KV head count) an indexed write would land in a
     redistributed copy and be lost, so the slot is written through a
-    mask over the whole window instead."""
+    mask over the whole window instead.  A ``slot`` that is a 0-d int64
+    tensor (an engine's captured step, ``engine.graphs``) is written by
+    ``index_copy_``, which reads it on the device: a Python index would
+    be read on the host and baked into the capture."""
     if isinstance(cache, DTensor) and Shard(1) in cache.placements:
         mesh = cache.device_mesh
         hit = torch.arange(cache.shape[1], device=cache.device) == slot
@@ -532,11 +539,16 @@ def write_slot(cache: torch.Tensor, slot: int, value: torch.Tensor) -> None:
                                  mesh, [Replicate()] * mesh.ndim)
         cache.copy_(torch.where(hit, value.unsqueeze(1), cache))
         return
+    if isinstance(slot, torch.Tensor):
+        cache.index_copy_(1, slot.view(1),
+                          value.unsqueeze(1).to(cache.dtype))
+        return
     cache[:, slot] = value
 
 
-def decode_slot(cache: KVCache) -> int:
-    """Ring slot of the next decode write."""
+def decode_slot(cache: KVCache) -> Union[int, torch.Tensor]:
+    """Ring slot of the next decode write (a 0-d tensor where
+    ``write_idx`` is one)."""
     return cache.write_idx % cache.window
 
 

@@ -39,7 +39,7 @@ stacked as (L, B, S, Hkv, D).
 """
 from __future__ import annotations
 
-from typing import NamedTuple, Optional, Tuple
+from typing import NamedTuple, Optional, Tuple, Union
 
 import torch
 from torch import nn
@@ -279,12 +279,13 @@ def prefill(params: EncDecModel, cfg: ModelConfig, src_embeds: torch.Tensor,
 
 
 def decode_step(params: EncDecModel, cfg: ModelConfig, cache: EncDecCache,
-                tokens: torch.Tensor, step: int,
+                tokens: torch.Tensor, step: Union[int, torch.Tensor],
                 window: Optional[int] = None
                 ) -> Tuple[torch.Tensor, EncDecCache]:
     """One decoder iteration: self-attention over the dense cache and
     cross-attention over the source frames, both on ``decode_attention``.
-    tokens (B,); step 0-based."""
+    tokens (B,); step 0-based (an int, or a 0-d int64 tensor, as
+    ``transformer.decode_step``'s)."""
     window = window if window is not None else cfg.sliding_window
     sc = cache.self_cache
     q_pos = sc.lengths + step

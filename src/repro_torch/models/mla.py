@@ -19,7 +19,7 @@ writes the step's latent and rope key into the layer's cache tensors at
 """
 from __future__ import annotations
 
-from typing import NamedTuple, Optional, Tuple
+from typing import NamedTuple, Optional, Tuple, Union
 
 import torch
 from torch import nn
@@ -33,7 +33,8 @@ class MLACache(NamedTuple):
     ckv: torch.Tensor       # (L, B, W, r)
     kr: torch.Tensor        # (L, B, W, dr)
     slot_pos: torch.Tensor  # (B, W) int32 absolute position per slot
-    write_idx: int          # next global slot counter
+    write_idx: Union[int, torch.Tensor]  # next global slot counter (as
+    #                         KVCache's)
     lengths: torch.Tensor   # (B,) int32
 
     @property
@@ -145,11 +146,12 @@ def mla_prefill(p: MLA, x: torch.Tensor, positions: torch.Tensor,
 
 def mla_decode(p: MLA, x: torch.Tensor, q_pos: torch.Tensor,
                ckv_cache: torch.Tensor, kr_cache: torch.Tensor,
-               slot_pos: torch.Tensor, slot: int, cfg: ModelConfig,
+               slot_pos: torch.Tensor, slot: Union[int, torch.Tensor],
+               cfg: ModelConfig,
                window: Optional[int]) -> torch.Tensor:
     """x (B,1,d); ckv_cache (B,W,r) and kr_cache (B,W,dr) of one layer,
-    written in place at ``slot``; ``slot_pos`` already marks the current
-    token."""
+    written in place at ``slot`` (``attention.write_slot``'s); ``slot_pos``
+    already marks the current token."""
     q = _q_proj(p, x, q_pos[:, None], cfg)
     ckv, kr = _compress(p, x, q_pos[:, None], cfg)
     attn.write_slot(ckv_cache, slot, ckv[:, 0])

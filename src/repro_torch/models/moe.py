@@ -530,11 +530,12 @@ def prefill(params: MoEModel, cfg: ModelConfig, tokens: torch.Tensor,
 
 
 def decode_step(params: MoEModel, cfg: ModelConfig, cache: MoECache,
-                tokens: torch.Tensor, step: int,
+                tokens: torch.Tensor, step: Union[int, torch.Tensor],
                 window: Optional[int] = None
                 ) -> Tuple[torch.Tensor, MoECache]:
     """One decode iteration over the caches (written in place). tokens
-    (B,); step 0-based.  GQA attention goes through
+    (B,); step 0-based (an int, or a 0-d int64 tensor, as
+    ``transformer.decode_step``'s).  GQA attention goes through
     ``attention.attention_decode`` (the decode_attention kernel on the
     card), MLA's stays plain torch.  The MoE group is the step's B
     tokens."""

@@ -28,7 +28,7 @@ attention layer); ``decode_step`` writes it in place.
 """
 from __future__ import annotations
 
-from typing import NamedTuple, Optional, Tuple
+from typing import NamedTuple, Optional, Tuple, Union
 
 import torch
 import torch.nn.functional as F
@@ -53,7 +53,7 @@ class RGCache(NamedTuple):
     tail_conv: torch.Tensor  # (Tt, B, W-1, d_lru)
     tail_h: torch.Tensor     # (Tt, B, d_lru) float32
     slot_pos: torch.Tensor   # (B, Wloc)
-    write_idx: int
+    write_idx: Union[int, torch.Tensor]  # as KVCache's
     lengths: torch.Tensor    # (B,) int32
 
 
@@ -359,10 +359,11 @@ def prefill(params: RecurrentGemma, cfg: ModelConfig, tokens: torch.Tensor,
 
 
 def decode_step(params: RecurrentGemma, cfg: ModelConfig, cache: RGCache,
-                tokens: torch.Tensor, step: int
+                tokens: torch.Tensor, step: Union[int, torch.Tensor]
                 ) -> Tuple[torch.Tensor, RGCache]:
     """One decode iteration; the conv tails, LRU states and attention
-    rings are updated in place."""
+    rings are updated in place.  ``step`` (0-based) and ``write_idx`` are
+    ints, or 0-d int64 tensors on an engine's captured step."""
     q_pos = cache.lengths + step
     # the group axis leads, so the ring's width is attn_k.shape[2]
     ring = KVCache(cache.attn_k, cache.attn_v, cache.slot_pos,

@@ -28,7 +28,7 @@ every valid token sees the whole prefix both ways (``flash_prefill``'s
 """
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import Optional, Tuple, Union
 
 import torch
 from torch import nn
@@ -198,10 +198,13 @@ def prefill(params: Transformer, cfg: ModelConfig, tokens: torch.Tensor,
 
 
 def decode_step(params: Transformer, cfg: ModelConfig, cache: KVCache,
-                tokens: torch.Tensor, step: int,
+                tokens: torch.Tensor, step: Union[int, torch.Tensor],
                 window: Optional[int] = None
                 ) -> Tuple[torch.Tensor, KVCache]:
-    """One decode iteration over a dense cache. tokens (B,); step 0-based."""
+    """One decode iteration over a dense cache. tokens (B,); step
+    0-based.  ``step`` and ``cache.write_idx`` are ints, or 0-d int64
+    tensors (an engine's captured step, ``engine.graphs``: read on the
+    device, so that a replay advances them)."""
     window = window if window is not None else cfg.sliding_window
     q_pos = cache.lengths + step
     slot = attn.decode_slot(cache)

@@ -1,10 +1,16 @@
 """The port's last public helpers against the JAX package's:
 ``repro_torch.kvcache``'s ``append_prefill``, ``gather_row`` and the
 ``PagedKVCache.page_tokens`` / ``n_pages`` properties (the same seeded
-inputs through both, results equal), and
+inputs through both, results equal),
 ``repro_torch.engine.sampling.temperature_sample`` (JAX's PRNG stream is
 not reproduced: the top-k support, the zero-temperature limit and the
-frequencies of a seeded run are held to JAX's rule instead)."""
+frequencies of a seeded run are held to JAX's rule instead),
+``repro_torch.configs.all_configs`` (the same names and fields) and
+``DocsRefsPass.count_refs`` (the same counts over the repository's
+documents)."""
+import dataclasses
+import pathlib
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -165,3 +171,39 @@ def test_temperature_sample_frequencies_match_softmax():
         temperature, top_k))
     np.testing.assert_allclose(np.bincount(jax_draws, minlength=logits.size)
                                / n, p, atol=0.015)
+
+
+@pytest.mark.parametrize("reduced", [False, True])
+def test_all_configs_match_jax(reduced):
+    """The same arch ids, every field equal (the dtype by name)."""
+    from repro.configs import all_configs as jax_all
+    from repro_torch.configs import all_configs
+    ours, theirs = all_configs(reduced), jax_all(reduced)
+    assert sorted(ours) == sorted(theirs)
+    for arch, cfg in ours.items():
+        for f in dataclasses.fields(cfg):
+            got, want = getattr(cfg, f.name), getattr(theirs[arch], f.name)
+            if f.name == "dtype":
+                got, want = str(got).split(".")[-1], jnp.dtype(want).name
+            assert got == want, (arch, f.name)
+
+
+def _documents():
+    repo = pathlib.Path(__file__).resolve().parents[1]
+    return repo, [repo / "README.md"] + sorted((repo / "docs").glob("*.md"))
+
+
+@pytest.mark.parametrize("doc", [p.name for p in _documents()[1]])
+def test_count_refs_matches_jax(doc):
+    """``count_refs`` of README.md and each of docs/*.md, port and JAX
+    pass, equal (and the repository's documents do name code)."""
+    from repro.analysis.framework import SourceFile as JaxSourceFile
+    from repro.analysis.passes.docs_refs import DocsRefsPass as JaxPass
+    from repro_torch.analysis.framework import SourceFile
+    from repro_torch.analysis.passes.docs_refs import DocsRefsPass
+    repo, paths = _documents()
+    path = next(p for p in paths if p.name == doc)
+    ours = DocsRefsPass().count_refs(SourceFile(repo, path))
+    assert ours == JaxPass().count_refs(JaxSourceFile(repo, path))
+    if doc == "paper_map.md":
+        assert ours > 0

@@ -1,7 +1,8 @@
 """``chip_smoke.py``'s phase-10 helpers on the CPU: the recorder of the
 paged engines' decode steps (``StepRecorder``) on the reduced float32
-llama3.2-1b's paged ILS engine, and the live pool slots that the paged
-decode kernels' bounds count (``paged_shape``)."""
+llama3.2-1b's paged ILS engine and persistent paged engine, and the live
+pool slots that the paged decode kernels' bounds count
+(``paged_shape``)."""
 import importlib.util
 import pathlib
 
@@ -34,23 +35,23 @@ def engine():
 
 @pytest.mark.parametrize("n_steps_cut", [None, 1])
 def test_step_recorder_keeps_each_decode_step(smoke, engine, n_steps_cut):
-    """One record per decode iteration (the first layer's call), the new
-    token's slot marked with its position, the model's attention restored
-    on exit; ``typical`` returns the upper-median step by live slots.
-    With ``n_layers`` 0 nothing is recorded."""
-    from repro_torch.models import attention
-    orig = attention.attention_decode_paged
+    """One record per decode iteration (read from the engine's step
+    buffers after the step: ``graphs.Step.__call__`` wrapped), the new
+    token's slot marked with its position, the step restored on exit;
+    ``typical`` returns the upper-median step by live slots.  With no
+    config nothing is recorded."""
+    from repro_torch.engine import graphs
+    orig = graphs.Step.__call__
     cfg = engine.cfg
     rng = np.random.default_rng(0)
     ps = [rng.integers(2, cfg.vocab_size, size=n).astype(np.int32)
           for n in (10, 20, 5, 30, 12)]
     engine.n_decode_steps = 0
-    n_layers = cfg.n_layers if n_steps_cut is None else 0
-    with smoke.StepRecorder(n_layers) as rec:
-        assert attention.attention_decode_paged is not orig
+    with smoke.StepRecorder(cfg if n_steps_cut is None else None) as rec:
+        assert graphs.Step.__call__ is not orig
         engine.serve(ps, forced_gen_lens=[6, 9, 4, 12, 3], max_gen=16)
-    assert attention.attention_decode_paged is orig
-    assert rec.calls == cfg.n_layers * engine.n_decode_steps > 0
+    assert graphs.Step.__call__ is orig
+    assert engine.n_decode_steps > 0
     if n_steps_cut is not None:
         assert rec.steps == []
         with pytest.raises(SystemExit):
@@ -67,6 +68,29 @@ def test_step_recorder_keeps_each_decode_step(smoke, engine, n_steps_cut):
     assert got["stats"]["steps"] == len(live)
     assert got["stats"]["mean_live_slots"] == pytest.approx(np.mean(live))
     assert torch.equal(got["bt"], rec.steps[got["stats"]["step"]]["bt"])
+
+
+def test_step_recorder_reads_the_static_engines_steps(smoke, engine):
+    """The persistent paged ``StaticEngine``'s steps are recorded too: one
+    a decode iteration, each row's new slot marked with its position
+    (rows' lengths plus the step just run, the compact layout), pad rows
+    on the null page."""
+    from repro_torch.engine.static_engine import StaticEngine
+    cfg = engine.cfg
+    eng = StaticEngine(engine.model, engine.params, eos_id=1, len_bucket=8,
+                       kv_layout="paged", page_tokens=8, kv_pool_tokens=256,
+                       device="cpu")
+    rng = np.random.default_rng(1)
+    ps = [rng.integers(2, cfg.vocab_size, size=n).astype(np.int32)
+          for n in (10, 20, 5)]
+    with smoke.StepRecorder(cfg) as rec:
+        res = eng.serve_batch_paged(ps, 4, [0, 1, 2], forced_gen_lens=[4] * 3)
+    assert len(rec.steps) == res.steps == eng.n_decode_steps == 4
+    for j, st in enumerate(rec.steps):
+        assert st["q_pos"][:3].tolist() == [n + j for n in (10, 20, 5)]
+        marked = st["slot_pos"].gather(1, st["slots"].long()[:, None])[:, 0]
+        assert torch.equal(marked, st["q_pos"])
+        assert st["bt"][3].tolist() == [0] * st["bt"].shape[1]
 
 
 def test_paged_shape_counts_distinct_live_pool_rows(smoke):
