@@ -9,11 +9,15 @@ that phase 12 recorded to PATH (``torch.save``), for
 ``scripts/compare_attention.py --steps PATH``.
 
 Phases, each of which ends the script with a non-zero exit code when it
-fails (nothing is caught).  Every engine on the card decodes as a user's
-would: each bucket's decode step captured once into a CUDA graph and
+fails (nothing is caught).  Every engine on the card serves as a user's
+would: each bucket's prefill and decode loop (a ``StaticEngine``: one
+graph whose WHILE node runs the slice's steps; a ``ContinuousEngine``:
+its join prefill and its decode step) captured once into CUDA graphs and
 replayed (``repro_torch.engine.graphs``); the kernels' launch counts
-include the replays' launches.  Only phase 26 also runs the engines'
-eager loops (``graphs.disabled()``), beside the graphs:
+include the replays' launches, and the loop's condition kernel
+(``graph_loop``) launches once a decode step and once a slice.  Only
+phase 26 also runs the engines' eager paths (``graphs.disabled()``),
+beside the graphs:
 
 1. device: the card's name and power limit from ``nvidia-smi``; float32
    matrix products are kept out of TF32;
@@ -54,6 +58,11 @@ eager loops (``graphs.disabled()``), beside the graphs:
    seamless-m4t-large-v2's encoder (8 rows of 1024 frames, some invalid,
    16/16, head_dim 64, prefix_len 1024), decode_attention as seamless's
    cross-attention over those frames, each also beside its plain version;
+   last the decode loop's condition kernel (``graph_loop``, no Pallas
+   kernel's port: the ``lax.while_loop``'s cond) held against its plain
+   version over 64 conditions, timed at 8 rows, and its cost a step
+   inside a WHILE loop of 1024 steps beside a replay a step with the
+   host's test (``check_graph_loop``);
 4. reference (run by each transformer slice, phases 5-7 and 13-15, before
    it serves): on a small input, the slice's served path (through its
    kernels) is held against the plain full forward of the same model on
@@ -136,7 +145,8 @@ eager loops (``graphs.disabled()``), beside the graphs:
 10. engine steps (run after phase 8, and after phase 15 for the configs):
    while the paged slices and the paged ILS run served, the index inputs
    of each paged decode step (block table, slot_pos, write slots, q_pos)
-   were recorded; paged_decode_attention at the llama unfused slice's,
+   were recorded (``StepRecorder``: rebuilt from each loop's static
+   buffers and the steps it read back); paged_decode_attention at the llama unfused slice's,
    the paged ILS run's and the codeqwen1.5-7b slice's typical step, and
    fused_rope_decode_append at the llama fused slice's, the ILS run's and
    the minitron-4b slice's (the step whose live slots are the run's
@@ -150,7 +160,8 @@ eager loops (``graphs.disabled()``), beside the graphs:
 12. prefill stages (run after phase 11, and after phase 15 for the
    configs): while the paged slices served, the index inputs of each
    prefill stage's write (positions, block table, stage-A' tails
-   included) were recorded (``PrefillRecorder``); paged_prefill_write at
+   included) were recorded (``PrefillRecorder``: rebuilt from each
+   prefill graph's static buffers); paged_prefill_write at
    the llama unfused slice's and the codeqwen1.5-7b slice's median stage
    (by valid tokens) and largest, and fused_rope_prefill_write at the
    llama fused slice's and the minitron-4b slice's, each over random pools
@@ -243,8 +254,9 @@ eager loops (``graphs.disabled()``), beside the graphs:
    removed after) and loaded into a fresh model on the card, every leaf
    and the plain forward's logits bit-equal; one more step of each under
    ``torch.profiler`` for the device's busy share; and every kernel
-   wrapper, called on the card with an input that requires grad, raises
-   and launches nothing;
+   wrapper whose inputs can require grad (all but ``graph_loop``'s),
+   called on the card with an input that requires grad, raises and
+   launches nothing;
 23. scale-out (``run_scale_out``, within about 90 s): (a) the dry-run
    (``repro_torch.launch.dryrun``, CPU only, the card hidden from it) of
    paligemma-3b x train_4k and codeqwen1.5-7b x decode_32k on the fake
@@ -294,15 +306,20 @@ eager loops (``graphs.disabled()``), beside the graphs:
 26. graphs (``run_graphs``, run after phase 4c): each captured path
    (``GRAPH_PATHS``: llama3.2-1b paged unfused, paged fused, dense, ILS
    dense and ILS paged; mamba2-130m dense; minitron-4b fused;
-   codeqwen1.5-7b unfused; full width at ``DEPTH_CUTS``' depth, bf16,
-   seeded weights) serves one fixed batch (8 fresh requests of 256 tokens,
-   32 decode steps) on one engine with its decode steps captured and under
+   codeqwen1.5-7b unfused; mixtral-8x22b and recurrentgemma-9b dense;
+   full width at ``DEPTH_CUTS``' depth, bf16, seeded weights) serves one
+   fixed batch (8 fresh requests of 256 tokens, 32 decode steps) on one
+   engine with its prefills and loops captured and under
    ``graphs.disabled()``, in turns, then once each way under
-   ``torch.profiler``: every serve's streams equal, one capture (one
-   bucket), the decode kernel launched once a layer a replayed step; ms
-   per decode step and the device's busy share both ways, the capture's
-   seconds and the graph pool's bytes go on a ``{"graphs": ...}`` line a
-   path, after the card's reading.
+   ``torch.profiler`` and once each way counting the host's waits
+   (``host_waits``): every serve's streams and decode steps equal, one
+   capture a distinct bucket of each kind, a static engine's slice one
+   loop call (one host read a dense slice, two a paged one), the decode
+   kernel launched once a layer a replayed step and ``graph_loop`` once
+   a step and once a slice; ms a slice and a decode step, the device's
+   busy share (prefill included) and host waits both ways, captures and
+   their seconds by kind and the graph pool's bytes go on a ``{"graphs":
+   ...}`` line a path, after the card's reading.
 
 Each phase's seconds (and the kernels' build) are logged as it ends and
 printed on a ``{"seconds": ...}`` line.
@@ -317,7 +334,8 @@ c.run_training(c.card_reading())"``; phase 23 alone: the same with
 The last line of standard output is ``{"ok": true, "device": {...}}``; the
 line before it is the ``nvidia-smi`` reading and the one before that the
 per-kernel JSON (launches from each kernel's llama3.2-1b or mamba2-130m
-slice, phases 5 to 7 and 9, with every path's beside them, phases 13 to
+slice, phases 5 to 7 and 9, graph_loop's from the dense slice, with
+every path's beside them, phases 13 to
 21 included, paged_decode_attention's at pg 32, the fleet's, as
 ``pg32_launches``, decode_attention's at group 16, recurrentgemma-9b's
 slice, as ``group16_launches``, flash_prefill's with a prefix, phase
@@ -1412,6 +1430,105 @@ def check_ssd_scan(gen: torch.Generator, flush: torch.Tensor) -> dict:
                 shape=entry, shapes=[entry])
 
 
+#: the decode loop's condition kernel at the main path's shapes: rows of
+#: the dense slice's batch bucket and its slice length; and the steps of
+#: the loop whose per-step cost phase 3 times (a body of one add)
+LOOP_ROWS, LOOP_LIMIT, LOOP_TIMED_STEPS = 8, 32, 1024
+
+
+def check_graph_loop(flush: torch.Tensor) -> dict:
+    """The decode loop's condition kernel (``graph_loop``; no Pallas
+    kernel's port: the ``lax.while_loop``'s cond of the JAX engines'
+    ``_serve_fn``): its predicate launched alone held against
+    ``graph_loop_ref`` over steps below, at and past the limit and done
+    flags none, all and all but one (rows 1 to 300), then timed at
+    ``LOOP_ROWS`` rows beside its plain version; and the cost it adds per
+    step inside a replay: a ``graphs.Loop`` whose body is one add, run for
+    ``LOOP_TIMED_STEPS`` steps in one replay, beside the same body
+    replayed as a one-step graph with the host's test between steps (the
+    port's loop before the WHILE node)."""
+    from repro_torch.engine import graphs
+    from repro_torch.kernels import graph_loop as kmod
+    from repro_torch.kernels import ref
+    dev = torch.device("cuda")
+    wrong = 0
+    for B in (1, 8, 64, 300):
+        for s_ in (0, LOOP_LIMIT - 1, LOOP_LIMIT, LOOP_LIMIT + 1):
+            for live in (None, 0, B - 1, "all"):
+                done = torch.ones(B, dtype=torch.bool, device=dev)
+                if live == "all":
+                    done.zero_()
+                elif live is not None:
+                    done[live] = False
+                step = torch.tensor(s_, dtype=torch.int64, device=dev)
+                got = kmod.graph_loop(step, done, LOOP_LIMIT)
+                want = ref.graph_loop_ref(step, done, LOOP_LIMIT)
+                wrong += int(got.item() != want.item())
+    log(f"graph_loop: {wrong} of 64 conditions differ from the plain "
+        f"version")
+    if wrong:
+        raise SystemExit("graph_loop disagrees with its plain version")
+    step = torch.zeros((), dtype=torch.int64, device=dev)
+    done = torch.zeros(LOOP_ROWS, dtype=torch.bool, device=dev)
+    t_kernel = time_ms(lambda: kmod.graph_loop(step, done, LOOP_LIMIT),
+                       flush, label="graph_loop kernel")
+    t_plain = time_ms(lambda: ref.graph_loop_ref(step, done, LOOP_LIMIT),
+                      flush, label="graph_loop plain")
+    b_ms, b_by = bound(8 + LOOP_ROWS + 4, LOOP_ROWS)
+    # the loop's cost per step: one replay of LOOP_TIMED_STEPS steps
+    cache = graphs.GraphCache(dev)
+    bufs = dict(step=step, done=done, out=torch.zeros(1, device=dev),
+                cur=torch.zeros(1, device=dev))
+
+    def body() -> None:
+        bufs["out"].add_(1.0)
+        step.add_(1)
+
+    with torch.no_grad():
+        loop = cache.add_loop("loop", body, bufs, LOOP_TIMED_STEPS)
+        loop()  # warm-up and capture
+        single = cache.add("step", body, bufs)
+        step.zero_()
+        single()  # warm-up and capture
+    n = LOOP_TIMED_STEPS
+
+    def by_loop() -> None:
+        step.zero_()
+        loop.graph.replay()
+
+    def by_host() -> None:
+        step.zero_()
+        while bool(ref.graph_loop_ref(step, done, n)):
+            single.graph.replay()
+
+    t_loop = time_ms(by_loop, flush, iters=5, label="graph_loop loop") / n
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(3):
+        by_host()
+    torch.cuda.synchronize()
+    t_host = (time.perf_counter() - t0) / 3 / n * 1e3
+    if int(step) != n or float(bufs["out"]) <= 0:
+        raise SystemExit(f"graph_loop: the timed loop ran {int(step)} of "
+                         f"{n} steps")
+    log(f"graph_loop {LOOP_ROWS} rows: kernel {t_kernel:.4f} ms, plain "
+        f"{t_plain:.4f} ms, bound {b_ms:.2e} ms; a step of a one-add body "
+        f"{t_loop * 1e3:.2f} us in the WHILE loop, {t_host * 1e3:.2f} us "
+        f"replayed a step at a time with the host's test")
+    return dict(name="graph_loop", route="cuda",
+                source="src/repro_torch/kernels/csrc/graph_loop.cu",
+                replaces="src/repro/engine/static_engine.py:177",
+                replaces_note="not a Pallas kernel: the lax.while_loop "
+                "cond of the JAX engines' _serve_fn, (step < slice_len) & "
+                "~all(done)",
+                max_abs_err=float(wrong), ms=t_kernel, kernel_ms=t_kernel,
+                plain_ms=t_plain, bound_ms=b_ms, bound_by=b_by,
+                library_ms=None, loop_step_ms=t_loop,
+                host_step_ms=t_host,
+                shape=dict(B=LOOP_ROWS, limit=LOOP_LIMIT,
+                           loop_steps_timed=n))
+
+
 #: the KV budget of phases 13-15 (bytes; the paged slices' page pool),
 #: which also sizes phase 3's pools at the other configs' heads
 CONFIG_M_AVAILABLE = 40e9
@@ -2141,8 +2258,10 @@ def check_ils_parity() -> None:
     ops.reset_counts()
     got = se.serve_batch(ps, slice_len=16, forced_gen_lens=forced)
     launches = ops.launches()
+    loop = launches.pop("graph_loop")  # once a step and once a slice
     if (launches["flash_prefill"] != L * se.n_prefill_stages
             or launches["decode_attention"] != L * se.n_decode_steps
+            or loop != se.n_decode_steps + se.n_loops
             or sum(launches.values()) != L * (se.n_prefill_stages
                                               + se.n_decode_steps)):
         raise SystemExit(f"dense static engine on the card: launches "
@@ -2296,7 +2415,7 @@ def check_config_parity(arch: str, head_dim=None,
               ("fused", dict(paged, attn_impl="fused"), FUSED)))
     ties, result = [], {}
     stat_names = ("n_prefill_stages", "n_tail_prefill_stages",
-                  "n_decode_steps")
+                  "n_decode_steps", "n_loops")
     for path, kw, used in paths:
         def build(idx):
             """CPU and card engines (over the rows ``idx`` of ``extra``)."""
@@ -2341,8 +2460,9 @@ def check_config_parity(arch: str, head_dim=None,
             n_layers=L, layers_by_kernel=kernel_layers_by_name(model.cfg),
             prefill_stages=stats["n_prefill_stages"],
             tail_prefill_stages=stats["n_tail_prefill_stages"],
-            decode_steps=stats["n_decode_steps"], launches=launches,
-            n_completed=len(ps), n_requests=len(ps), **counts), used)
+            decode_steps=stats["n_decode_steps"], loops=stats["n_loops"],
+            launches=launches, n_completed=len(ps), n_requests=len(ps),
+            **counts), used)
         stages = 2 if path == "dense" else 1
         if dict(ops.plain_calls) != launches or \
                 stats["n_prefill_stages"] != stages:
@@ -2509,9 +2629,9 @@ SESSION_TURN1, SESSION_GEN, SESSION_TAIL = 57, 24, 16
 def time_engine(engine) -> dict:
     """Sum the wall seconds of every serve call (the engine's own clock),
     of its prefill stages where the engine measures them, and of its
-    decode loops (the steps' replays, ``_run_steps``, or the eager loop;
-    each ends in a host transfer that waits for the device) into the
-    returned dict."""
+    decode loops (a ``graphs.Loop``'s replay, ``_run_loop``, which for a
+    dense slice holds its prefill too, or the eager loop; each ends in a
+    host transfer that waits for the device) into the returned dict."""
     acc = {"calls": 0, "wall_s": 0.0, "prefill_s": 0.0, "decode_s": 0.0}
     name = ("serve_batch_paged" if engine.kv_layout == "paged"
             else "serve_batch")
@@ -2533,7 +2653,7 @@ def time_engine(engine) -> dict:
         return run
 
     setattr(engine, name, timed_serve)
-    for loop in ("_run_steps", "_decode_loop"):
+    for loop in ("_run_loop", "_decode_loop"):
         setattr(engine, loop, timed(getattr(engine, loop)))
     return acc
 
@@ -2550,6 +2670,7 @@ def serve_trace(label: str, engines, drive, extra: dict) -> dict:
     timers = [time_engine(e) for e in engines]
     for e in engines:
         e.n_prefill_stages = e.n_tail_prefill_stages = e.n_decode_steps = 0
+        e.n_loops = 0
     graphs0 = [(e.step_graphs.n_captures, e.step_graphs.capture_seconds)
                for e in engines]
     torch.cuda.reset_peak_memory_stats()
@@ -2567,6 +2688,7 @@ def serve_trace(label: str, engines, drive, extra: dict) -> dict:
     summary = dict(dataclasses.asdict(metrics), wall_s=wall,
                    prefill_stages=stages, tail_prefill_stages=tail_stages,
                    decode_steps=steps,
+                   loops=sum(e.n_loops for e in engines),
                    decode_ms_per_step=decode_s / max(steps, 1) * 1e3,
                    launches=launches, plain_calls=plain,
                    n_layers=kernel_layers(engines[0].model.cfg),
@@ -2580,6 +2702,8 @@ def serve_trace(label: str, engines, drive, extra: dict) -> dict:
                    graph_capture_s=sum(e.step_graphs.capture_seconds - s
                                        for e, (_, s) in zip(engines,
                                                             graphs0)),
+                   graph_captures_by_kind=[dict(e.step_graphs.captures)
+                                           for e in engines],
                    graph_pool_bytes=[e.step_graphs.pool_bytes()
                                      for e in engines], **extra)
     print(json.dumps({label: summary}), flush=True)
@@ -2623,18 +2747,24 @@ def check_launches(label: str, summary: dict, used) -> None:
     (``kernel_layers``: ``n_layers`` in the summary) per prefill stage
     (the writes, ssd_scan), stage-A prefill (flash_prefill: the tail
     prefills attend over gathered pages) or decode step (the decode
-    attentions); every other kernel never launched."""
+    attentions), and the decode loop's condition (graph_loop) once per
+    step and once more per slice decoded through a ``graphs.Loop``
+    (``loops`` in the summary; none in an eager run); every other kernel
+    never launched."""
     n_layers = summary["n_layers"]
     stages = summary["prefill_stages"]
+    loops = summary.get("loops", 0)
     per = {"paged_prefill_write": stages,
            "fused_rope_prefill_write": stages,
            "flash_prefill": stages - summary["tail_prefill_stages"],
            "ssd_scan": stages,
            "paged_decode_attention": summary["decode_steps"],
            "fused_rope_decode_append": summary["decode_steps"],
-           "decode_attention": summary["decode_steps"]}
+           "decode_attention": summary["decode_steps"],
+           "graph_loop": summary["decode_steps"] + loops if loops else 0}
+    used = set(used) | ({"graph_loop"} if loops else set())
     launches = summary["launches"]
-    layers = summary.get("layers_by_kernel", {})
+    layers = dict(graph_loop=1, **summary.get("layers_by_kernel", {}))
     want = {k: layers.get(k, n_layers) * per[k] if k in used else 0
             for k in launches}
     if launches != want or any(launches[k] <= 0 for k in used):
@@ -2773,8 +2903,8 @@ def run_slice(label: str) -> tuple:
     if paged:
         extra["pool_pages"] = engines[0].allocator.n_pages
     L = cfg.n_layers
-    recorders = ((StepRecorder(cfg), PrefillRecorder(L)) if paged else
-                 (StageRecorder(L),) if path == "ssm" else ())
+    recorders = ((StepRecorder(cfg), PrefillRecorder()) if paged else
+                 (StageRecorder(cfg.ssm_chunk),) if path == "ssm" else ())
     with contextlib.ExitStack() as stack:
         for rec in recorders:
             stack.enter_context(rec)
@@ -3196,7 +3326,7 @@ def run_fleet() -> dict:
             timers = [time_engine(e) for e in engines]
             for e in engines:
                 e.n_prefill_stages = e.n_tail_prefill_stages = 0
-                e.n_decode_steps = 0
+                e.n_decode_steps = e.n_loops = 0
             spies = [inst["spy"] for inst in insts]
             ops.reset_counts()
             t0 = time.perf_counter()
@@ -3352,7 +3482,7 @@ def run_fleet() -> dict:
         wall_s=wall, trace_wall_s=trace_wall,
         prefill_stages=sum(e.n_prefill_stages for e in engines),
         tail_prefill_stages=sum(e.n_tail_prefill_stages for e in engines),
-        decode_steps=steps,
+        decode_steps=steps, loops=sum(e.n_loops for e in engines),
         decode_ms_per_step=decode_s / max(steps, 1) * 1e3,
         launches=launches, plain_calls=plain,
         n_layers=kernel_layers(model.cfg),
@@ -3583,46 +3713,78 @@ def check_long_prefill(model, params) -> dict:
 # ---------------------------------------------------------------------------
 # phase 10: the paged decode kernels at the engines' own decode steps
 # ---------------------------------------------------------------------------
+def capturing() -> bool:
+    """Whether this thread's current stream is capturing a CUDA graph
+    (never without a card)."""
+    return torch.cuda.is_available() and \
+        torch.cuda.is_current_stream_capturing()
+
+
 class StepRecorder:
     """Inside ``with``, wraps ``engine.graphs.Step.__call__`` (one decode
-    iteration of an engine: a CUDA graph's replay, or its capture) and,
-    after each iteration of a paged engine's step, keeps a copy of the
-    iteration's index inputs from the step's static buffers: block table,
-    slot_pos (marking the new token), write slots and q_pos (the
-    ``StaticEngine``'s compact layout: its rows' lengths plus the step
-    just run; the ``ContinuousEngine``'s own buffers), with a layer's pool
-    shape.  ``cfg`` None records nothing."""
+    iteration of a ``ContinuousEngine``: a CUDA graph's replay, or its
+    capture) and ``engine.graphs.Loop.__call__`` (a ``StaticEngine``
+    slice's whole decode loop: one replay) and keeps a copy of each decode
+    iteration's index inputs, rebuilt from the static buffers after the
+    call: block table, slot_pos (marking the new token), write slots and
+    q_pos, with a layer's pool shape.  A ``ContinuousEngine`` step's are
+    its own buffers; a paged ``StaticEngine`` loop's iteration j (of the
+    steps the loop read back) has q_pos = slots = its rows' lengths + j
+    and slot_pos marking slots below lengths + j + 1 (the compact layout:
+    slot == position).  Calls made while a stream captures are not
+    recorded (their buffers hold nothing yet).  ``cfg`` None records
+    nothing."""
 
     def __init__(self, cfg):
         self.cfg, self.steps = cfg, []
 
+    def _paged(self, cache) -> bool:
+        return (self.cfg is not None and hasattr(cache, "block_table")
+                and not capturing())
+
+    def _keep(self, cache, slot_pos, slots, q_pos) -> None:
+        cfg = self.cfg
+        self.steps.append(dict(
+            bt=cache.block_table.clone(), slot_pos=slot_pos,
+            slots=slots.to(torch.int32, copy=True),
+            q_pos=q_pos.to(torch.int32, copy=True),
+            pool=tuple(cache.k_pages.shape[1:]), Hq=cfg.n_heads,
+            window=cfg.sliding_window))
+
     def __enter__(self):
         from repro_torch.engine import graphs
-        orig = self._orig = graphs.Step.__call__
+        step_call = self._step_call = graphs.Step.__call__
+        loop_call = self._loop_call = graphs.Loop.__call__
 
-        def recording(step):
-            orig(step)
-            b, cfg = step.bufs, self.cfg
+        def recording_step(step):
+            step_call(step)
+            b = step.bufs
             cache = b.get("cache")
-            if cfg is None or not hasattr(cache, "block_table"):
-                return
-            if "wslots" in b:
-                slots, q_pos = b["wslots"], b["q_pos"]
-            else:
-                q_pos = slots = cache.lengths + (b["step"] - 1)
-            self.steps.append(dict(
-                bt=cache.block_table.clone(), slot_pos=cache.slot_pos.clone(),
-                slots=slots.to(torch.int32, copy=True),
-                q_pos=q_pos.to(torch.int32, copy=True),
-                pool=tuple(cache.k_pages.shape[1:]), Hq=cfg.n_heads,
-                window=cfg.sliding_window))
+            if "wslots" in b and self._paged(cache):
+                self._keep(cache, cache.slot_pos.clone(), b["wslots"],
+                           b["q_pos"])
 
-        graphs.Step.__call__ = recording
+        def recording_loop(loop):
+            out = loop_call(loop)
+            cache = loop.bufs.get("cache")
+            if self._paged(cache):
+                lengths = cache.lengths.long()
+                slots = torch.arange(cache.slot_pos.shape[1],
+                                     device=lengths.device)[None]
+                for j in range(int(out["step"])):
+                    self._keep(cache, torch.where(
+                        slots < (lengths + j + 1)[:, None], slots,
+                        -1).to(torch.int32), lengths + j, lengths + j)
+            return out
+
+        graphs.Step.__call__ = recording_step
+        graphs.Loop.__call__ = recording_loop
         return self
 
     def __exit__(self, *exc):
         from repro_torch.engine import graphs
-        graphs.Step.__call__ = self._orig
+        graphs.Step.__call__ = self._step_call
+        graphs.Loop.__call__ = self._loop_call
 
     def typical(self) -> dict:
         """The recorded step whose live slots are the median of the run's
@@ -3651,36 +3813,39 @@ class StepRecorder:
 
 
 class StageRecorder:
-    """Inside ``with``, wraps ``kernels.ops.ssd_chunked_scan`` (the Mamba-2
-    prefill's scan, once per layer per stage) and keeps the shape of each
-    stage's first layer: rows B, tokens T (a multiple of the chunk) and
-    each row's valid tokens, counted where some head's dt is not 0 (the
-    mixer zeroes dt at pads; rows are left-padded, and a batch-bucket pad
-    row holds the one pad token the engine gives it)."""
+    """Inside ``with``, wraps ``engine.graphs.Loop.__call__`` (a dense
+    ``StaticEngine`` slice: the Mamba-2 prefill, whose scan runs once per
+    layer, then the decode loop, in one replay) and keeps the shape of
+    each slice's prefill stage, rebuilt from the loop's static inputs:
+    rows B, tokens T (the bucketed length, left-padded to a whole chunk as
+    the model pads it) and each row's valid tokens (its static length; a
+    batch-bucket pad row holds the one pad token the engine gives it).
+    Calls made while a stream captures are not recorded."""
 
-    def __init__(self, n_layers: int):
-        self.n_layers, self.calls, self.stages = n_layers, 0, []
+    def __init__(self, chunk: int):
+        self.chunk, self.stages = chunk, []
 
     def __enter__(self):
-        from repro_torch.kernels import ops
-        orig = self._orig = ops.ssd_chunked_scan
+        from repro_torch.engine import graphs
+        orig = self._orig = graphs.Loop.__call__
 
-        def recording(x, dt, A, B, C, chunk=128):
-            if self.calls % self.n_layers == 0:  # counted on the device
+        def recording(loop):
+            out = orig(loop)
+            b = loop.bufs
+            if loop.head is not None and "lengths" in b and \
+                    not capturing():
+                B, L = b["tokens"].shape
                 self.stages.append(dict(
-                    B=x.shape[0], T=x.shape[1], chunk=chunk,
-                    lengths=(dt != 0).any(-1).sum(1)))
-            self.calls += 1
-            return orig(x, dt, A, B, C, chunk)
+                    B=B, T=-(-L // self.chunk) * self.chunk,
+                    chunk=self.chunk, lengths=b["lengths"].tolist()))
+            return out
 
-        ops.ssd_chunked_scan = recording
+        graphs.Loop.__call__ = recording
         return self
 
     def __exit__(self, *exc):
-        from repro_torch.kernels import ops
-        ops.ssd_chunked_scan = self._orig
-        for st in self.stages:
-            st["lengths"] = st["lengths"].tolist()
+        from repro_torch.engine import graphs
+        graphs.Loop.__call__ = self._orig
 
 
 def timed_stages(stages: list) -> list:
@@ -3733,43 +3898,49 @@ WRITES = ("paged_prefill_write", "fused_rope_prefill_write")
 
 
 class PrefillRecorder:
-    """Inside ``with``, wraps ``kernels.ops.paged_prefill_write`` and
-    ``kernels.ops.fused_rope_prefill_write`` (the paged engines' prefill
-    writes, once per layer per stage, stage-A' tails included) and keeps a
-    copy of each stage's first layer's index inputs: the kernel, positions
-    and block table, with the pool's shape; on exit they move to the host
-    with the stage's rows, tokens, valid tokens and whether a row starts
-    past a shared prefix (a tail)."""
+    """Inside ``with``, wraps ``engine.graphs.Prefill.__call__`` (a paged
+    engine's prefill stage, stage A or a stage-A' tail: one replay that
+    runs the prefill write once per layer) and keeps each stage's index
+    inputs, rebuilt from the prefill's static buffers: the kernel (by the
+    bucket's ``attn_impl``), the positions the model gives the write
+    (``transformer.make_positions`` of the tokens and lengths, shifted
+    past the shared prefix for a tail), the block table and a layer's
+    pool shape; on exit they move to the host with the stage's rows,
+    tokens, valid tokens and whether a row starts past a shared prefix (a
+    tail).  Calls made while a stream captures are not recorded, nor the
+    joins' prefills (``ContinuousEngine``: no paged write)."""
 
-    def __init__(self, n_layers: int):
-        self.n_layers, self.calls, self.stages = n_layers, 0, []
+    def __init__(self):
+        self.stages = []
 
     def __enter__(self):
-        from repro_torch.kernels import ops
-        self._orig = {name: getattr(ops, name) for name in WRITES}
+        from repro_torch.engine import graphs
+        from repro_torch.models.transformer import make_positions
+        orig = self._orig = graphs.Prefill.__call__
 
-        def recorder(name):
-            orig = self._orig[name]
+        def recording(pre):
+            orig(pre)
+            b = pre.bufs
+            if pre.kind not in ("prefill", "tail") or capturing():
+                return
+            start = b.get("start")
+            if start is None:
+                pos = make_positions(b["tokens"], b["lengths"])
+            else:
+                base = make_positions(b["tokens"], b["lengths"] - start)
+                pos = torch.where(base >= 0, base + start[:, None],
+                                  -1).to(torch.int32)
+            self.stages.append(dict(
+                kernel=WRITES[pre.key[1] == "fused"],
+                positions=pos, bt=b["block_table"].clone(),
+                pool=tuple(b["cache"].k_pages.shape[1:])))
 
-            def recording(k_new, v_new, positions, block_table, k_pages,
-                          v_pages, *args, **kw):
-                if self.calls % self.n_layers == 0:
-                    self.stages.append(dict(
-                        kernel=name, positions=positions.clone(),
-                        bt=block_table.clone(), pool=tuple(k_pages.shape)))
-                self.calls += 1
-                return orig(k_new, v_new, positions, block_table, k_pages,
-                            v_pages, *args, **kw)
-            return recording
-
-        for name in WRITES:
-            setattr(ops, name, recorder(name))
+        graphs.Prefill.__call__ = recording
         return self
 
     def __exit__(self, *exc):
-        from repro_torch.kernels import ops
-        for name, fn in self._orig.items():
-            setattr(ops, name, fn)
+        from repro_torch.engine import graphs
+        graphs.Prefill.__call__ = self._orig
         for st in self.stages:
             pos = st["positions"] = st["positions"].cpu()
             st["bt"] = st["bt"].cpu()
@@ -4144,8 +4315,9 @@ def serve_frontend(model, params, ps, forced, extra: dict,
     unfinished requests, builds a dense engine over their rows of
     ``extra`` and re-prefills prompt + generated (the encoder re-runs).
     Adds the engines' prefill stages, decode steps, re-prefill tokens,
-    slices, wall seconds and decode-loop seconds (``time_engine``) to
-    ``counts``; returns the streams."""
+    slices decoded through a ``graphs.Loop``, wall seconds and
+    decode-loop seconds (``time_engine``) to ``counts``; returns the
+    streams."""
     from repro_torch.engine.static_engine import StaticEngine
     outs = [[] for _ in ps]
     while True:
@@ -4167,6 +4339,7 @@ def serve_frontend(model, params, ps, forced, extra: dict,
             outs[i] = outs[i] + res.results[s_]["tokens"]
         counts["prefill_stages"] += eng.n_prefill_stages
         counts["decode_steps"] += eng.n_decode_steps
+        counts["loops"] += eng.n_loops
         counts["reprefill_tokens"] += res.reprefill_tokens
         counts["slices"] += 1
         counts["engine_s"] += res.wall_time
@@ -4219,8 +4392,8 @@ def run_frontend_family(arch: str) -> dict:
         jobs.append(([rng.integers(2, cfg.vocab_size, size=n_prompt)
                       .astype(np.int32)], [n_gen],
                      frontend_extra(cfg, 1, rng, [frames])))
-    counts = dict(prefill_stages=0, decode_steps=0, reprefill_tokens=0,
-                  slices=0, engine_s=0.0, decode_s=0.0)
+    counts = dict(prefill_stages=0, decode_steps=0, loops=0,
+                  reprefill_tokens=0, slices=0, engine_s=0.0, decode_s=0.0)
     # each call on the card launches B6 once; counted on the device, so
     # that a captured decode step counts its calls at every replay
     calls = torch.zeros((), dtype=torch.int64, device="cuda")
@@ -4259,6 +4432,7 @@ def run_frontend_family(arch: str) -> dict:
         want = {"flash_prefill": cfg.n_layers * stages,
                 "decode_attention": cfg.n_layers * steps}
         want_prefix, want_cross = cfg.n_layers * stages, 0
+    want["graph_loop"] = steps + counts["loops"]
     want = {k: want.get(k, 0) for k in launches}
     n_req = sum(len(p) for p, _, _ in jobs)
     summary = dict(arch=cfg.name, path="dense", n_requests=n_req,
@@ -4539,9 +4713,16 @@ def check_checkpoint_round_trip(run: dict, path: str) -> dict:
     return dict(checkpoint_bytes=size, save_s=save_s, load_s=load_s)
 
 
+#: kernels whose inputs are integers and flags alone, which cannot require
+#: grad: their wrappers have nothing to refuse (the decode loop's
+#: condition reads the step counter and the done flags)
+NO_GRAD_INPUTS = ("graph_loop",)
+
+
 def kernel_guard_cases(dev):
-    """(name, call) of every kernel wrapper of ``kernels.ops`` on tiny
-    CUDA inputs, one of which requires grad."""
+    """(name, call) of every kernel wrapper of ``kernels.ops`` whose
+    inputs can require grad (all but ``NO_GRAD_INPUTS``) on tiny CUDA
+    inputs, one of which requires grad."""
     from repro_torch.kernels import ops
 
     def f(*shape, grad=False):
@@ -4576,9 +4757,10 @@ def kernel_guard_cases(dev):
 
 
 def check_kernel_guard() -> list:
-    """Every kernel wrapper, called on the card with grad mode on and an
-    input that requires grad, raises (the kernels have no backward) and
-    launches nothing."""
+    """Every kernel wrapper whose inputs can require grad (all but
+    ``NO_GRAD_INPUTS``), called on the card with grad mode on and an input
+    that requires grad, raises (the kernels have no backward) and launches
+    nothing."""
     from repro_torch.kernels import ops
     refused = []
     ops.reset_counts()
@@ -4589,10 +4771,11 @@ def check_kernel_guard() -> list:
             if "no backward" in str(e):
                 refused.append(name)
     launched = {k: v for k, v in ops.launches().items() if v}
-    log(f"kernel guard: {len(refused)} of {len(ops.launches())} wrappers "
-        f"refuse inputs that require grad ({', '.join(refused)}); "
-        f"launched: {launched or 'nothing'}")
-    if len(refused) != len(ops.launches()) or launched:
+    guarded = [k for k in ops.launches() if k not in NO_GRAD_INPUTS]
+    log(f"kernel guard: {len(refused)} of the {len(guarded)} wrappers whose "
+        f"inputs can require grad refuse such inputs "
+        f"({', '.join(refused)}); launched: {launched or 'nothing'}")
+    if refused != guarded or launched:
         raise SystemExit(f"phase 22: wrappers that did not refuse a grad "
                          f"input, or launches: {refused}, {launched}")
     return refused
@@ -5139,9 +5322,10 @@ def serve_public(model, params, path: str, ps, pg: int = 16) -> tuple:
     return outs, dict(n_layers=model.cfg.n_layers,
                       prefill_stages=eng.n_prefill_stages,
                       tail_prefill_stages=eng.n_tail_prefill_stages,
-                      decode_steps=eng.n_decode_steps, launches=launches,
-                      n_completed=len(ps), n_requests=len(ps),
-                      prefix_hit_tokens=0, reprefill_tokens=reprefill)
+                      decode_steps=eng.n_decode_steps, loops=eng.n_loops,
+                      launches=launches, n_completed=len(ps),
+                      n_requests=len(ps), prefix_hit_tokens=0,
+                      reprefill_tokens=reprefill)
 
 
 def check_public_engines(label: str) -> dict:
@@ -5221,7 +5405,7 @@ def run_public_heads(rows: dict, card: str) -> dict:
 
 
 # ---------------------------------------------------------------------------
-# phase 26: the captured decode steps beside the eager loops
+# phase 26: the captured prefills and decode loops beside the eager paths
 # ---------------------------------------------------------------------------
 #: phase 26's paged engines: a pool for the batch and room to spare
 GRAPH_POOL = dict(kv_layout="paged", page_tokens=16, kv_pool_tokens=8 * 512)
@@ -5241,6 +5425,8 @@ GRAPH_PATHS = {
     "minitron_fused": ("minitron-4b", "static",
                        dict(GRAPH_POOL, attn_impl="fused")),
     "codeqwen_unfused": ("codeqwen1.5-7b", "static", GRAPH_POOL),
+    "mixtral_dense": ("mixtral-8x22b", "static", {}),
+    "recurrentgemma_dense": ("recurrentgemma-9b", "static", {}),
 }
 #: phase 26's fixed batch: rows of fresh prompts, prompt tokens, decode
 #: steps (every row forced to run them all)
@@ -5249,6 +5435,10 @@ GRAPH_ROWS, GRAPH_PROMPT, GRAPH_STEPS = 8, 256, 32
 GRAPH_DECODE = {"unfused": "paged_decode_attention",
                 "fused": "fused_rope_decode_append",
                 "dense": "decode_attention"}
+#: host reads a serve of the fixed batch makes with graphs: a dense slice
+#: one (its loop's results), a paged slice two (the prefill's first tokens,
+#: then the loop's), ILS one a join and one a decode iteration
+GRAPH_HOST_READS = {"dense": 1, "ssm": 1, "unfused": 2, "fused": 2}
 
 
 def graph_engine(model, params, kind: str, kw: dict):
@@ -5262,41 +5452,66 @@ def graph_engine(model, params, kind: str, kw: dict):
 
 
 def graph_serve(eng, ps) -> tuple:
-    """(every row's tokens, decode steps, host seconds of the decode
-    loops) of one serve of the fixed batch ``ps``: a ``ContinuousEngine``
-    serves it whole, a ``StaticEngine`` as one slice of ``GRAPH_STEPS``
-    (the paged one under fresh rids, released after)."""
+    """(every row's tokens, decode steps, host seconds of the serve, host
+    seconds of its prefill stages where the engine clocks them (the paged
+    ones), else None) of one serve of the fixed batch ``ps``: a
+    ``ContinuousEngine`` serves it whole, a ``StaticEngine`` as one slice
+    of ``GRAPH_STEPS`` (the paged one under fresh rids, released after).
+    Each serve ends in a host read that waits for the device."""
     forced = [GRAPH_STEPS] * len(ps)
-    loops = (("_decode",) if not hasattr(eng, "_run_steps")
-             else ("_run_steps", "_decode_loop"))
-    spent = [0.0]
-
-    def timed(fn):
-        def run(*a, **kw):
-            t0 = time.perf_counter()
-            out = fn(*a, **kw)  # each ends in a host transfer
-            spent[0] += time.perf_counter() - t0
-            return out
-        return run
-
     steps0 = eng.n_decode_steps
-    with contextlib.ExitStack() as stack:
-        for name in loops:
-            stack.enter_context(mock.patch.object(
-                eng, name, timed(getattr(eng, name))))
-        if not hasattr(eng, "_run_steps"):
-            out = eng.serve(ps, forced_gen_lens=forced).outputs
-        elif eng.kv_layout == "paged":
-            rids = list(range(len(ps)))
-            res = eng.serve_batch_paged(ps, GRAPH_STEPS, rids,
-                                        forced_gen_lens=forced)
-            for rid in rids:
-                eng.release_request(rid)
-            out = [r["tokens"] for r in res.results]
-        else:
-            res = eng.serve_batch(ps, GRAPH_STEPS, forced_gen_lens=forced)
-            out = [r["tokens"] for r in res.results]
-    return out, eng.n_decode_steps - steps0, spent[0]
+    prefill_s = None
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    if not hasattr(eng, "serve_batch"):
+        out = eng.serve(ps, forced_gen_lens=forced).outputs
+    elif eng.kv_layout == "paged":
+        rids = list(range(len(ps)))
+        res = eng.serve_batch_paged(ps, GRAPH_STEPS, rids,
+                                    forced_gen_lens=forced)
+        for rid in rids:
+            eng.release_request(rid)
+        out = [r["tokens"] for r in res.results]
+        prefill_s = res.prefill_time
+    else:
+        res = eng.serve_batch(ps, GRAPH_STEPS, forced_gen_lens=forced)
+        out = [r["tokens"] for r in res.results]
+    spent = time.perf_counter() - t0
+    return out, eng.n_decode_steps - steps0, spent, prefill_s
+
+
+@contextlib.contextmanager
+def host_waits():
+    """Inside ``with``, counts the host's reads of CUDA tensors
+    (``cpu``, ``item``, ``tolist``, ``bool``, ``int``, ``float``: each
+    waits for the device to reach the value) and the blocking copies of
+    host tensors into CUDA ones (``copy_`` from the CPU: each waits for the
+    stream to drain) in the yielded dict; not for timing (it wraps every
+    ``copy_``)."""
+    counts = {"reads": 0, "h2d_copies": 0}
+    names = ("cpu", "item", "tolist", "__bool__", "__int__", "__float__")
+    orig = {n: getattr(torch.Tensor, n) for n in names + ("copy_",)}
+
+    def reader(fn):
+        def read(t, *a, **kw):
+            if t.is_cuda:
+                counts["reads"] += 1
+            return fn(t, *a, **kw)
+        return read
+
+    def copier(dst, src, *a, **kw):
+        if dst.is_cuda and isinstance(src, torch.Tensor) and not src.is_cuda:
+            counts["h2d_copies"] += 1
+        return orig["copy_"](dst, src, *a, **kw)
+
+    try:
+        for n in names:
+            setattr(torch.Tensor, n, reader(orig[n]))
+        torch.Tensor.copy_ = copier
+        yield counts
+    finally:
+        for n, fn in orig.items():
+            setattr(torch.Tensor, n, fn)
 
 
 def graph_window(eng, ps) -> dict:
@@ -5307,7 +5522,7 @@ def graph_window(eng, ps) -> dict:
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        out, _, _ = graph_serve(eng, ps)
+        out, _, _, _ = graph_serve(eng, ps)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     events = [e for e in prof.key_averages() if dev_us(e) > 0]
@@ -5319,13 +5534,17 @@ def graph_window(eng, ps) -> dict:
 
 def run_graph_path(label: str, model, params) -> dict:
     """Phase 26 for ``label``: one engine serves the fixed batch with its
-    decode steps captured (the first serve captures) and under
-    ``graphs.disabled()`` (its eager loop), in turns (eager, graph, graph,
-    eager), then once each way under the profiler.  Every serve's
-    streams must be equal, the engine must have captured exactly one
-    graph (one bucket), and the graph serves must launch the path's
-    decode kernel once a layer a step."""
+    prefills and decode loops captured (the first serve captures) and
+    under ``graphs.disabled()`` (its eager paths), in turns (eager, graph,
+    graph, eager), then once each way under the profiler and once each way
+    counting the host's waits.  Every serve's streams and decode steps
+    must be equal; the engine must have captured exactly one graph per
+    distinct bucket of each kind (a static engine: one loop replay per
+    slice, and a dense slice one host read); a graph serve must launch
+    the path's decode kernel once a layer a step and the loop's condition
+    once a step and once a slice."""
     import numpy as np
+    from collections import Counter
     from repro_torch.engine import graphs
     from repro_torch.kernels import ops
     arch, kind, kw = GRAPH_PATHS[label]
@@ -5333,75 +5552,125 @@ def run_graph_path(label: str, model, params) -> dict:
     rng = np.random.default_rng(26)
     ps = [rng.integers(2, model.cfg.vocab_size, size=GRAPH_PROMPT)
           .astype(np.int32) for _ in range(GRAPH_ROWS)]
-    streams, ms = {}, {"graph": [], "eager": []}
-    with torch.no_grad():
+    streams, steps = {}, {}
+    ms = {m: dict(slice=[], step=[], step_after_prefill=[])
+          for m in ("graph", "eager")}
+    loop_calls = [0]
+    loop_call = graphs.Loop.__call__
+
+    def counted_loop(loop):
+        loop_calls[0] += 1
+        return loop_call(loop)
+
+    with torch.no_grad(), mock.patch.object(graphs.Loop, "__call__",
+                                            counted_loop):
         with graphs.disabled():
-            streams["eager warm-up"], _, _ = graph_serve(eng, ps)
+            streams["eager warm-up"], steps["eager warm-up"], _, _ = \
+                graph_serve(eng, ps)
         ops.reset_counts()
-        streams["graph capture"], n, _ = graph_serve(eng, ps)
+        streams["graph capture"], steps["graph capture"], cap_s, _ = \
+            graph_serve(eng, ps)
         torch.cuda.synchronize()
         first = dict(ops.launches())
+        replayed, loops = None, []
         for i, mode in enumerate(("eager", "graph", "graph", "eager")):
             ops.reset_counts()
+            calls0 = loop_calls[0]
             with (graphs.disabled() if mode == "eager"
                   else contextlib.nullcontext()):
-                streams[f"{mode} {i}"], n, sec = graph_serve(eng, ps)
+                key = f"{mode} {i}"
+                streams[key], n, sec, pre_s = graph_serve(eng, ps)
             torch.cuda.synchronize()
-            ms[mode].append(sec / n * 1e3)
+            steps[key] = n
+            ms[mode]["slice"].append(sec * 1e3)
+            ms[mode]["step"].append(sec / n * 1e3)
+            if pre_s is not None:
+                ms[mode]["step_after_prefill"].append((sec - pre_s) / n * 1e3)
             if mode == "graph":
                 replayed = dict(ops.launches())
-        windows = {}
+                loops.append(loop_calls[0] - calls0)
+        windows, waits = {}, {}
         for mode in ("eager", "graph"):
             with (graphs.disabled() if mode == "eager"
                   else contextlib.nullcontext()):
                 windows[mode] = graph_window(eng, ps)
-            streams[f"{mode} profiled"] = windows[mode].pop("tokens")
+                streams[f"{mode} profiled"] = windows[mode].pop("tokens")
+                with host_waits() as waits[mode]:
+                    streams[f"{mode} counted"], _, _, _ = graph_serve(eng, ps)
     gc_ = eng.step_graphs
     ref = streams["eager warm-up"]
     differ = [k for k, v in streams.items() if v != ref]
+    if len(set(steps.values())) != 1:
+        differ.append(f"decode steps {steps}")
     path = kw.get("attn_impl", "unfused") if kw.get("kv_layout") == "paged" \
         else ("ssm" if model.cfg.family == "ssm" else "dense")
     decode = GRAPH_DECODE.get(path)
-    L = model.cfg.n_layers
+    L = kernel_layers(model.cfg)
+    n = steps["graph 1"]
+    buckets = Counter(graphs._kind(k) for k in gc_.keys())
     summary = dict(
-        arch=model.cfg.name, engine=kind, path=path, layers=L,
-        rows=GRAPH_ROWS, prompt_tokens=GRAPH_PROMPT, decode_steps=n,
-        ms_per_decode_step=dict(graph=ms["graph"], eager=ms["eager"]),
-        eager_over_graph=sum(ms["eager"]) / sum(ms["graph"]),
+        arch=model.cfg.name, engine=kind, path=path,
+        layers=model.cfg.n_layers, kernel_layers=L, rows=GRAPH_ROWS,
+        prompt_tokens=GRAPH_PROMPT, decode_steps=n,
+        ms_per_slice={m: v["slice"] for m, v in ms.items()},
+        ms_per_decode_step={m: v["step"] for m, v in ms.items()},
+        ms_per_decode_step_after_prefill={
+            m: v["step_after_prefill"] for m, v in ms.items()},
+        eager_over_graph=sum(ms["eager"]["slice"])
+        / sum(ms["graph"]["slice"]),
+        capture_serve_ms=cap_s * 1e3,
         device_busy_share={m: w["device_busy_share"]
                            for m, w in windows.items()},
-        windows=windows, captures=gc_.n_captures,
-        capture_s=gc_.capture_seconds, buckets=[str(k) for k in gc_.keys()],
+        windows=windows, host_waits_per_serve=waits,
+        loop_calls_per_graph_serve=loops, captures=gc_.n_captures,
+        captures_by_kind=dict(gc_.captures),
+        capture_s_by_kind=dict(gc_.seconds), capture_s=gc_.capture_seconds,
+        buckets=[str(k) for k in gc_.keys()],
         graph_pool_bytes=gc_.pool_bytes(),
         arena_bytes=getattr(getattr(eng, "_arena", None), "nbytes", None),
         launches_capture_serve=first, launches_graph_serve=replayed,
         equal_streams=not differ)
     print(json.dumps({"graphs": {label: summary}}), flush=True)
     if differ:
-        raise SystemExit(f"phase 26 {label}: streams of {differ} differ "
-                         f"from the eager loop's")
-    if gc_.n_captures != 1 or len(gc_.keys()) != 1:
-        raise SystemExit(f"phase 26 {label}: {gc_.n_captures} captures of "
-                         f"{gc_.keys()}, not one a bucket")
+        raise SystemExit(f"phase 26 {label}: {differ} differ from the eager "
+                         f"path's")
+    if dict(gc_.captures) != dict(buckets):
+        raise SystemExit(f"phase 26 {label}: captures {gc_.captures} of "
+                         f"{gc_.keys()}, not one a bucket of each kind")
     if decode and replayed.get(decode) != L * n:
         raise SystemExit(f"phase 26 {label}: a graph serve launched "
                          f"{replayed} over {n} decode steps of {L} layers")
-    log(f"phase 26 {label}: {model.cfg.name} ({L} layers) {kind} {path}, "
-        f"{GRAPH_ROWS} x {GRAPH_PROMPT} tokens, {n} decode steps: ms a "
-        f"step graph {[f'{x:.3f}' for x in ms['graph']]} vs eager "
-        f"{[f'{x:.3f}' for x in ms['eager']]}; device busy "
-        f"{summary['device_busy_share']}; {gc_.n_captures} capture in "
-        f"{gc_.capture_seconds:.3f} s, graph pool "
-        f"{summary['graph_pool_bytes']} bytes; streams equal")
+    if kind == "static":
+        reads = waits["graph"]["reads"]
+        if loops != [1, 1] or replayed.get("graph_loop") != n + 1 or \
+                reads != GRAPH_HOST_READS[path]:
+            raise SystemExit(f"phase 26 {label}: {loops} loop calls, "
+                             f"graph_loop launched {replayed} over {n} "
+                             f"steps, {reads} host reads per slice")
+    elif replayed.get("graph_loop"):
+        raise SystemExit(f"phase 26 {label}: the ILS engine ran a loop")
+    log(f"phase 26 {label}: {model.cfg.name} ({model.cfg.n_layers} layers) "
+        f"{kind} {path}, {GRAPH_ROWS} x {GRAPH_PROMPT} tokens, {n} decode "
+        f"steps: ms a slice graph "
+        f"{[f'{x:.3f}' for x in ms['graph']['slice']]} vs eager "
+        f"{[f'{x:.3f}' for x in ms['eager']['slice']]}; device busy "
+        f"{summary['device_busy_share']}; host waits {waits}; captures "
+        f"{dict(gc_.captures)} in {gc_.capture_seconds:.3f} s, graph pool "
+        f"{summary['graph_pool_bytes']} bytes; streams and steps equal")
     return summary
 
 
 def run_graphs(card: str) -> dict:
     """Phase 26: every captured path (``GRAPH_PATHS``) through
-    ``run_graph_path``, one model at a time; the card's reading on the
-    line before the summaries."""
+    ``run_graph_path``, one model at a time, after one profiled matrix
+    product (the profiler's own start-up is then outside the paths'
+    windows); the card's reading on the line before the summaries."""
+    from torch.profiler import ProfilerActivity, profile
     from repro_torch.models.registry import get_model
     print(card, flush=True)
+    x = torch.ones((256, 256), device="cuda")
+    with profile(activities=[ProfilerActivity.CUDA]):
+        (x @ x).sum().item()
     out, built = {}, None
     for label, (arch, _, _) in GRAPH_PATHS.items():
         if built is None or built[0] != arch:
@@ -5465,6 +5734,7 @@ def main() -> int:
     rows += [check(cfg, gen, flush)
              for check in (check_flash_prefill, check_dense_decode)]
     rows.append(check_ssd_scan(gen, flush))
+    rows.append(check_graph_loop(flush))
     by_name = {row["name"]: row for row in rows}
     release_cuda()
     for arch, names in CONFIG_HEADS:
@@ -5487,7 +5757,7 @@ def main() -> int:
     lap("phase 4c (the configs' engines, card vs CPU)")
     run_graphs(card)
     release_cuda()
-    lap("phase 26 (captured decode steps beside the eager loops)")
+    lap("phase 26 (captured prefills and loops beside the eager paths)")
 
     scls, steps, writes = {}, {}, {}
     for label in ("slice", "fused_slice", "dense_slice"):
@@ -5570,7 +5840,8 @@ def main() -> int:
     main_path = {**dict.fromkeys(UNFUSED, "slice"),
                  **dict.fromkeys(FUSED, "fused_slice"),
                  **dict.fromkeys(DENSE, "dense_slice"),
-                 **dict.fromkeys(SSM, "mamba_slice")}
+                 **dict.fromkeys(SSM, "mamba_slice"),
+                 "graph_loop": "dense_slice"}
     for row in rows:
         row["launches"] = by_path[main_path[row["name"]]][row["name"]]
         row["launches_by_path"] = {k: v[row["name"]]

@@ -25,12 +25,15 @@ KV layouts (``kv_layout``):
 
 Both layouts prefill a join through ``models.transformer.prefill`` (the
 ``flash_prefill`` kernel on the card).  Rows advance independently through
-per-row write slots.  The JAX engine's jitted decode becomes one
-``engine.graphs.Step`` over the engine's fixed cache, whose tokens,
-positions and write slots are static buffers: a CUDA graph replayed on
-the card (``step_graphs``), the same closure on the CPU; its eager loop
-serves where ``graphs.eager_reason`` says.  The prefill runs eagerly.
-Caches and page pools are updated in place.  Dense-family models only, as
+per-row write slots.  The JAX engine's jitted join prefill and decode
+become ``engine.graphs``' captured work (``step_graphs``): a
+``graphs.Prefill`` per join width ``("join", L)`` into one static
+single-row cache, which the join then inserts eagerly (JAX's ``.at[].set``
+runs outside its jit too), and one ``graphs.Step`` (``"decode"``) over the
+engine's fixed cache, whose tokens, positions and write slots are static
+buffers: CUDA graphs replayed on the card, the same closures on the CPU;
+the eager paths serve where ``graphs.eager_reason`` says.  Caches and page
+pools are updated in place.  Dense-family models only, as
 in the JAX package.
 """
 from __future__ import annotations
@@ -101,6 +104,8 @@ class ContinuousEngine:
         self.n_decode_steps = 0
         #: the decode step over the fixed cache (captured on the card)
         self.step_graphs = graphs.GraphCache(self.device)
+        #: the joins' static single-row cache (``_join``)
+        self._single = None
         self.alloc: Optional[PageAllocator] = None
         if kv_layout == "paged":
             if self.W % page_tokens:
@@ -136,14 +141,48 @@ class ContinuousEngine:
         return torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
 
     def _run_prefill(self, prompt: np.ndarray):
+        """A join's prefill of one row, left-padded to its ``len_bucket``
+        width L, into a single-row cache of width W: through the
+        ``("join", L)`` ``graphs.Prefill`` (the JAX engine's jitted
+        prefill), or eagerly where ``graphs.eager_reason`` says.  Returns
+        (first token, L, the single-row cache)."""
         L = bucket_len(len(prompt), self.len_bucket)
         toks = np.full((1, L), self.pad_id, np.int32)
         toks[0, L - len(prompt):] = prompt
-        last_logits, single = tfm.prefill(
-            self.params, self.cfg, self._tensor(toks),
-            self._tensor(np.asarray([len(prompt)], np.int32)), self.W)
+        lens = np.asarray([len(prompt)], np.int32)
         self.n_prefill_stages += 1
+        if graphs.eager_reason(self.params, self.cfg.family) is None:
+            pre = self.step_graphs.get(("join", L)) or self._join(L)
+            pre.bufs["tokens"].copy_(torch.from_numpy(toks))
+            pre.bufs["lengths"].copy_(torch.from_numpy(lens))
+            pre()
+            return int(pre.bufs["first"][0]), L, self._single
+        last_logits, single = tfm.prefill(
+            self.params, self.cfg, self._tensor(toks), self._tensor(lens),
+            self.W)
         return int(greedy(last_logits)[0]), L, single
+
+    def _join(self, L: int) -> graphs.Prefill:
+        """The ``Prefill`` of a join of width ``L``: static tokens (1, L)
+        and lengths (1,) in, the first token (1,) and the single-row
+        cache out.  Every width's prefill writes the one static
+        single-row cache ``_single`` (its layout is W's, whatever L;
+        made at the first join), which ``_insert`` / ``_insert_paged``
+        read."""
+        i32 = dict(dtype=torch.int32, device=self.device)
+        bufs = dict(tokens=torch.zeros((1, L), **i32),
+                    lengths=torch.ones((1,), **i32),
+                    first=torch.zeros((1,), **i32))
+
+        def fn() -> None:
+            last, single = tfm.prefill(self.params, self.cfg, bufs["tokens"],
+                                       bufs["lengths"], self.W)
+            if self._single is None:
+                self._single = graphs.Arena(self.device).views(single)
+            graphs.fill(self._single, single)
+            bufs["first"].copy_(greedy(last))
+
+        return self.step_graphs.add_prefill(("join", L), fn, bufs)
 
     def _insert(self, row: int, prompt: np.ndarray):
         """Dense join, in place: returns (first_token, padded width)."""

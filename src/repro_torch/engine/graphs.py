@@ -1,37 +1,47 @@
-"""Captured decode steps, one per bucket: the port's counterpart of the JAX
+"""Captured work, one per bucket: the port's counterpart of the JAX
 engines' compiled executables (``repro.engine.static_engine``'s
 ``_compiled`` cache of jitted serve functions, one per slice length and
-traced anew per input shape, and ``repro.engine.continuous_engine``'s
-jitted decode).
+traced anew per input shape, its jitted paged prefills, and
+``repro.engine.continuous_engine``'s jitted join prefill and decode).
 
-A ``Step`` is one decode iteration written as a closure over *static*
-tensors (``Step.bufs``): every input the iteration reads and every
-output it writes lives in a buffer that the engine fills with ``copy_``
-before its loop and reads after it, the step counter and a dense cache's
-ring index are 0-d device tensors that the iteration advances, and every
-new cache leaf the model returns is copied back into its buffer inside
-the iteration, so that the next call reads it.
+Three kinds of captured work, each a closure over *static* tensors
+(``bufs``): every input it reads and every output it writes lives in a
+buffer that the engine fills with ``copy_`` before the call and reads
+after it; the step counter and a dense cache's ring index are 0-d device
+tensors that an iteration advances, and every new cache leaf the model
+returns is copied back into its buffer inside the closure.
 
-On a CUDA device the first call of a bucket runs the closure on a side
-stream, eagerly (the warm-up: it is that call's real step, so the
+  * ``Step``: one decode iteration per call (``ContinuousEngine``'s step,
+    the profiler's decode timing);
+  * ``Prefill``: one prefill per call (the paged engines' prefill and tail
+    prefill, ``ContinuousEngine``'s join, the profiler's prefill timing);
+  * ``Loop``: a slice's whole decode loop per call, the counterpart of
+    ``lax.while_loop``: on the card one replay of a graph whose WHILE
+    conditional node runs the body while ``step < S and not all(done)``,
+    the condition set on the device by ``kernels.graph_loop``'s kernel, so
+    the host waits once per slice; the dense engine's loop runs its
+    ``Prefill`` first, in the same graph.
+
+On a CUDA device the first call of a bucket runs the closures on a side
+stream, eagerly (the warm-up: it is that call's real work, so the
 kernels' first-use build, cuBLAS's handles and the allocator's blocks
-never land inside a capture), then captures it into a
-``torch.cuda.CUDAGraph``; every later call replays the graph.  A capture
-that fails raises: nothing retries eagerly.  All graphs of one
-``GraphCache`` share one memory pool, which is safe because an engine
-replays one graph at a time and each iteration leaves its results in the
-static buffers, outside the pool.  On a CPU device the same closure runs
-on the same buffers, uncaptured, so the CPU tests exercise the code the
-card replays.
+never land inside a capture), then captures them into
+``torch.cuda.CUDAGraph``s; every later call replays.  A capture, an edit
+of a loop's graph or an instantiation that fails raises: nothing retries
+eagerly.  All graphs of one ``GraphCache`` share one memory pool, which
+is safe because an engine replays one graph at a time and each call leaves
+its results in the static buffers, outside the pool.  On a CPU device the
+same closures run on the same buffers, uncaptured, so the CPU tests
+exercise the code the card replays.
 
-The engines keep their eager loops (a decode step op by op over per-step
-tensors and a Python step counter) for three cases, named by
-``eager_reason``: inside ``disabled()``, the counterpart of
+The engines keep their eager paths (a prefill and a decode step op by op
+over per-call tensors and a Python step counter) for three cases, named
+by ``eager_reason``: inside ``disabled()``, the counterpart of
 ``jax.disable_jit()``, which ``chip_smoke.py`` and the tests use to hold
 the two against each other; parameters that are DTensors (sharded
-serving: the JAX engines take no mesh, and capturing collectives is not
-ported); and a family of ``EAGER_FAMILIES`` (none: every family's decode
-step is captured).
+serving: the JAX engines take no mesh, so there is nothing of theirs to
+port); and a family of ``EAGER_FAMILIES`` (none: every family's prefill
+and decode step are captured).
 """
 from __future__ import annotations
 
@@ -41,10 +51,11 @@ import threading
 import time
 from typing import Callable, Dict, Hashable, Iterator, List, Optional, Tuple
 
+import numpy as np
 import torch
 from torch.distributed.tensor import DTensor
 
-from repro_torch.kernels import build
+from repro_torch.kernels import build, graph_loop
 from repro_torch.kernels import ops as kernel_ops
 
 #: families whose engines decode eagerly on every device (none)
@@ -95,67 +106,234 @@ def _no_gc() -> Iterator[None]:
             gc.enable()
 
 
+def _capture(owner: "GraphCache", fn: Callable[[], None],
+             keep_graph: bool = False
+             ) -> Tuple[torch.cuda.CUDAGraph, Dict[str, int]]:
+    """``fn()`` captured on ``owner``'s side stream into a new graph of its
+    pool (``keep_graph``: the raw graph is kept for editing and the graph is
+    not instantiated), with the kernel launches the capture recorded.  The
+    caller has warmed ``fn`` up.  A capture that fails raises."""
+    main = torch.cuda.current_stream(owner.device)
+    side = owner.side_stream()
+    side.wait_stream(main)
+    with torch.cuda.stream(side):
+        graph = torch.cuda.CUDAGraph(keep_graph=keep_graph)
+        with _CAPTURE_LOCK, _no_gc(), build.capturing() as tally:
+            graph.capture_begin(pool=owner.pool(),
+                                capture_error_mode="thread_local")
+            try:
+                fn()
+            except BaseException:
+                with contextlib.suppress(Exception):
+                    graph.capture_end()  # leave the stream usable
+                raise
+            graph.capture_end()
+    main.wait_stream(side)
+    return graph, dict(tally)
+
+
+@contextlib.contextmanager
+def _on_side(owner: "GraphCache") -> Iterator[None]:
+    """Inside ``with``, work runs on ``owner``'s side stream, ordered
+    after and before the current stream's (a warm-up before a capture:
+    the allocator's blocks and cuBLAS's workspace are the side stream's,
+    as the capture's will be)."""
+    main = torch.cuda.current_stream(owner.device)
+    side = owner.side_stream()
+    side.wait_stream(main)
+    with torch.cuda.stream(side):
+        yield
+    main.wait_stream(side)
+
+
+def _kind(key: Hashable) -> str:
+    return str(key[0] if isinstance(key, tuple) else key)
+
+
 class Step:
-    """One bucket's decode iteration: ``fn()`` over the static tensors
-    ``bufs`` (name -> tensor, or a tree of tensors for a cache).  Call it
-    once per iteration."""
+    """One bucket's captured work: ``fn()`` over the static tensors
+    ``bufs`` (name -> tensor, or a tree of tensors for a cache).  Each call
+    runs it once: a decode iteration (``ContinuousEngine``'s, the
+    profiler's) or, as a ``Prefill``, a prefill."""
 
     def __init__(self, cache: "GraphCache", fn: Callable[[], None],
-                 bufs: Dict[str, object]):
+                 bufs: Dict[str, object], key: Hashable = "step"):
         self._cache, self.fn, self.bufs = cache, fn, bufs
+        #: the bucket's key, and its kind (the key's first element)
+        self.key, self.kind = key, _kind(key)
         self.graph: Optional[torch.cuda.CUDAGraph] = None
         #: kernel launches one replay makes (the capture's tally)
         self.launches: Dict[str, int] = {}
 
     def __call__(self) -> None:
-        if not self._cache.capture:
+        owner = self._cache
+        if not owner.capture:
             self.fn()
         elif self.graph is None:
-            self._capture()
+            t0 = time.perf_counter()
+            with _on_side(owner):
+                self.fn()  # the warm-up is this call's work
+            self.graph, self.launches = _capture(owner, self.fn)
+            owner.captured(self.kind, time.perf_counter() - t0)
         else:
             self.graph.replay()
             kernel_ops.add_launches(self.launches)
 
-    def _capture(self) -> None:
+
+class Prefill(Step):
+    """A bucket's prefill, captured: the model's prefill over static
+    inputs (tokens, lengths, start, block table, extra inputs) whose every
+    output that the host or another graph reads afterwards (the first
+    tokens, a dense cache, ``ContinuousEngine``'s single-row cache) the
+    closure copies into a buffer allocated outside the graphs' pool.  One
+    call is one prefill; a replay adds its capture's launches once."""
+
+
+class Loop:
+    """A bucket's decode loop on the device: the counterpart of the JAX
+    engines' ``lax.while_loop``.  ``fn()`` is one iteration (the body) over
+    the static ``bufs``, which hold the 0-d int64 counter ``step`` that it
+    advances and the (B,) bool ``done`` that it sets; the loop runs the
+    body while ``step < limit and not all(done)`` (``kernels.ops.
+    graph_loop``), from ``step`` 0.  ``head`` (a ``Prefill``) runs once
+    before the loop: the dense engine's prefill, in the same graph.
+
+    On a CUDA device the first call runs the head and one body eagerly
+    (the warm-up, which is that call's prefill and first step), then
+    captures the head and the body and rewrites the body's graph into a
+    WHILE conditional node (``kernels.graph_loop.build_loop``), and runs
+    the rest of its loop as a replay (``_first``); every later call is one
+    replay, whose launches are the head's once, the body's times the steps
+    it ran and the condition kernel's once per step and once before the
+    loop.  On a CPU device the same closures run in a Python loop under
+    the plain condition.  Each call returns the ``READS`` of ``bufs`` on
+    the host, read in one transfer."""
+
+    #: the buffers a call brings back to the host
+    READS = ("out", "step", "done", "cur")
+
+    def __init__(self, cache: "GraphCache", fn: Callable[[], None],
+                 bufs: Dict[str, object], limit: int, key: Hashable,
+                 head: Optional[Prefill] = None):
+        self._cache, self.fn, self.bufs = cache, fn, bufs
+        self.key, self.kind = key, _kind(key)
+        self.limit, self.head = limit, head
+        self.graph: Optional[torch.cuda.CUDAGraph] = None
+        #: kernel launches of one body (the body's capture's tally)
+        self.launches: Dict[str, int] = {}
+
+    def _goes_on(self) -> bool:
+        return bool(kernel_ops.graph_loop(self.bufs["step"],
+                                          self.bufs["done"], self.limit))
+
+    def _run(self) -> None:
+        self.bufs["step"].zero_()
+        if self.head is not None:
+            self.head.fn()
+        while self._goes_on():
+            self.fn()
+
+    def __call__(self) -> Dict[str, np.ndarray]:
         owner = self._cache
-        main = torch.cuda.current_stream(owner.device)
-        side = owner.side_stream()
-        side.wait_stream(main)
-        t0 = time.perf_counter()
-        with torch.cuda.stream(side):
-            self.fn()  # the warm-up is this call's step
-            graph = torch.cuda.CUDAGraph()
-            with _CAPTURE_LOCK, _no_gc(), build.capturing() as tally:
-                graph.capture_begin(pool=owner.pool(),
-                                    capture_error_mode="thread_local")
-                try:
-                    self.fn()
-                except BaseException:
-                    with contextlib.suppress(Exception):
-                        graph.capture_end()  # leave the stream usable
-                    raise
-                graph.capture_end()
-        main.wait_stream(side)
-        self.graph, self.launches = graph, dict(tally)
-        owner.n_captures += 1
-        owner.capture_seconds += time.perf_counter() - t0
+        if not owner.capture:
+            self._run()
+            return self._read()
+        if self.graph is None:
+            t0 = time.perf_counter()
+            out = self._first()
+            owner.captured(self.kind, time.perf_counter() - t0)
+            return out
+        self.bufs["step"].zero_()
+        self.graph.replay()
+        out = self._read()
+        if self.head is not None:
+            kernel_ops.add_launches(self.head.launches)
+        self._count(int(out["step"]))
+        return out
+
+    def _count(self, n: int) -> None:
+        """Add a loop replay's launches: ``n`` bodies and ``n + 1``
+        conditions."""
+        kernel_ops.add_launches({k: v * n for k, v in self.launches.items()})
+        kernel_ops.add_launches({"graph_loop": n + 1})
+
+    def _first(self) -> Dict[str, np.ndarray]:
+        """A bucket's first call on the card: the head and one body run
+        eagerly on the side stream (the warm-up: this call's prefill and
+        first step), then the head (kept) and the body are captured and
+        the body's graph becomes the loop's (a failure raises and keeps no
+        graph); the rest of this call's loop is one replay of a loop graph
+        of the body alone, from the step the warm-up left."""
+        owner, b = self._cache, self.bufs
+        with _on_side(owner):
+            b["step"].zero_()
+            if self.head is not None:
+                self.head.fn()
+            goes_on = self._goes_on()
+            if goes_on:
+                self.fn()
+        head = rest = None
+        if self.head is not None:
+            head, self.head.launches = _capture(owner, self.head.fn,
+                                                keep_graph=True)
+        graph, tally = _capture(owner, self.fn, keep_graph=True)
+        graph_loop.build_loop(graph, b["step"], b["done"], self.limit,
+                              head=head)
+        if goes_on:
+            if head is None:
+                rest = graph
+            else:
+                rest, _ = _capture(owner, self.fn, keep_graph=True)
+                graph_loop.build_loop(rest, b["step"], b["done"],
+                                      self.limit)
+        #: the head's graph, kept: the loop's graph holds a clone of it
+        self.head_graph = head
+        self.graph, self.launches = graph, tally
+        if rest is not None:
+            rest.replay()
+        out = self._read()
+        if rest is not None:
+            self._count(int(out["step"]) - 1)
+        return out
+
+    def _read(self) -> Dict[str, np.ndarray]:
+        """``READS`` on the host, in one transfer."""
+        bufs = [self.bufs[k] for k in self.READS]
+        flat = torch.cat([t.reshape(-1).to(torch.int64)
+                          for t in bufs]).cpu().numpy()
+        out, i = {}, 0
+        for name, t in zip(self.READS, bufs):
+            dtype = torch.empty((), dtype=t.dtype).numpy().dtype
+            out[name] = flat[i:i + t.numel()].astype(dtype).reshape(
+                tuple(t.shape))
+            i += t.numel()
+        return out
 
 
 class GraphCache:
-    """bucket key -> ``Step``, for one engine on ``device`` (the JAX
-    engine's ``_compiled``).  ``capture`` is whether steps are captured:
-    on a CUDA device, not on the CPU."""
+    """bucket key -> captured work (``Step``, ``Prefill``, ``Loop``), for
+    one engine on ``device`` (the JAX engine's ``_compiled``).  ``capture``
+    is whether the work is captured: on a CUDA device, not on the CPU."""
 
     def __init__(self, device: torch.device):
         self.device = device
         self.capture = device.type == "cuda"
-        self._steps: Dict[Hashable, Step] = {}
+        self._entries: Dict[Hashable, object] = {}
         self._pool = None
         self._stream: Optional[torch.cuda.Stream] = None
-        #: graphs captured and the wall seconds spent capturing them, warm-up
-        #: steps included
+        #: buckets captured and the wall seconds spent capturing them,
+        #: warm-ups included, in all and by kind (a key's first element:
+        #: "dense", "paged", "prefill", "tail", "join", "decode")
         self.n_captures = 0
         self.capture_seconds = 0.0
+        self.captures: Dict[str, int] = {}
+        self.seconds: Dict[str, float] = {}
+
+    def captured(self, kind: str, seconds: float) -> None:
+        self.n_captures += 1
+        self.capture_seconds += seconds
+        self.captures[kind] = self.captures.get(kind, 0) + 1
+        self.seconds[kind] = self.seconds.get(kind, 0.0) + seconds
 
     def pool(self):
         if self._pool is None:
@@ -167,22 +345,43 @@ class GraphCache:
             self._stream = torch.cuda.Stream(self.device)
         return self._stream
 
-    def get(self, key: Hashable) -> Optional[Step]:
-        return self._steps.get(key)
+    def get(self, key: Hashable):
+        return self._entries.get(key)
 
     def add(self, key: Hashable, fn: Callable[[], None],
             bufs: Dict[str, object]) -> Step:
-        step = self._steps[key] = Step(self, fn, bufs)
+        """A decode ``Step`` under ``key``."""
+        step = self._entries[key] = Step(self, fn, bufs, key)
         return step
 
-    def keys(self) -> List[Hashable]:
-        return list(self._steps)
+    def add_prefill(self, key: Hashable, fn: Callable[[], None],
+                    bufs: Dict[str, object]) -> Prefill:
+        """A ``Prefill`` under ``key``."""
+        pre = self._entries[key] = Prefill(self, fn, bufs, key)
+        return pre
 
-    def clear(self) -> None:
-        """Drop every step (and its graph) and the memory pool: once its
-        last graph is gone the allocator frees the pool and takes its id
-        no more, so the next capture opens a new one."""
-        self._steps.clear()
+    def add_loop(self, key: Hashable, fn: Callable[[], None],
+                 bufs: Dict[str, object], limit: int,
+                 head: Optional[Callable[[], None]] = None) -> Loop:
+        """A ``Loop`` of body ``fn`` under ``key``, after the prefill
+        ``head`` where one is given (captured with it as one graph)."""
+        pre = Prefill(self, head, bufs, key) if head is not None else None
+        loop = self._entries[key] = Loop(self, fn, bufs, limit, key,
+                                         head=pre)
+        return loop
+
+    def keys(self) -> List[Hashable]:
+        return list(self._entries)
+
+    def clear(self, keep: Optional[Hashable] = None) -> None:
+        """Drop every entry but ``keep``'s, which must not be captured yet
+        (and every dropped graph), and the memory pool: once its last graph
+        is gone the allocator frees the pool and takes its id no more, so
+        the next capture opens a new one."""
+        kept = self._entries.get(keep)
+        if getattr(kept, "graph", None) is not None:
+            raise ValueError(f"clear: {keep!r} is captured over the pool")
+        self._entries = {keep: kept} if kept is not None else {}
         self._pool = None
 
     def pool_bytes(self) -> Optional[int]:

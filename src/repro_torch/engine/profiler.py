@@ -3,11 +3,12 @@
 Profiles T_prefill(N, L) and τ_decode(l, N) on the real model through
 its dense ``prefill``/``decode_step`` at a grid of batch sizes and
 lengths, then fits Eq. 3/4 by least squares.  On a CUDA device every
-timed region ends in ``torch.cuda.synchronize``.  The decode steps are
-timed as the engines run them: a decode step captured over static
-buffers (``engine.graphs``) and replayed, its capture paid before the
-clock starts, as the JAX profiler pays its compile; eagerly where
-``graphs.eager_reason`` says.
+timed region ends in ``torch.cuda.synchronize``.  The prefills and the
+decode steps are timed as the engines run them: a prefill
+(``graphs.Prefill``) and a decode step (``graphs.Step``) captured over
+static buffers and replayed, each capture paid before the clock starts,
+as the JAX profiler pays its compile of the jitted prefill and
+``decode_step``; eagerly where ``graphs.eager_reason`` says.
 """
 from __future__ import annotations
 
@@ -48,6 +49,31 @@ def _decoder(model: Model, params, cache, cur: torch.Tensor):
     return graphs.GraphCache(dev).add("decode", fn, dict(cache=static))
 
 
+def _prefiller(model: Model, params, batch, cache_window: int):
+    """(a callable that runs ``model.prefill(params, batch,
+    cache_window)``, the dict whose "last" and "cache" it leaves the last
+    logits and the cache in): a ``graphs.Prefill`` over ``batch``'s
+    tensors that copies them into buffers made at its first call (captured
+    at its first call on the card), or the eager prefill."""
+    dev = batch["tokens"].device
+    bufs: dict = {}
+    if graphs.eager_reason(params, model.cfg.family) is not None:
+        def eager() -> None:
+            bufs["last"], bufs["cache"] = model.prefill(params, batch,
+                                                        cache_window)
+        return eager, bufs
+
+    def fn() -> None:
+        last, cache = model.prefill(params, batch, cache_window)
+        if "cache" not in bufs:
+            bufs["last"] = torch.empty_like(last)
+            bufs["cache"] = graphs.Arena(dev).views(cache)
+        bufs["last"].copy_(last)
+        graphs.fill(bufs["cache"], cache)
+
+    return graphs.GraphCache(dev).add_prefill("prefill", fn, bufs), bufs
+
+
 def _sync(device: torch.device) -> None:
     if device.type == "cuda":
         torch.cuda.synchronize(device)
@@ -71,15 +97,17 @@ def profile_engine(model: Model, params, batch_sizes: Sequence[int],
                      "lengths": torch.full((N,), L, dtype=torch.int32,
                                            device=dev)}
             cache_window = L + n_decode_iters + 1
-            last, cache = model.prefill(params, batch, cache_window)  # warmup
+            prefill, out = _prefiller(model, params, batch, cache_window)
+            prefill()  # warmup (and the capture)
             _sync(dev)
             best_p = np.inf
             for _ in range(repeats):
                 t0 = time.perf_counter()
-                model.prefill(params, batch, cache_window)
+                prefill()
                 _sync(dev)
                 best_p = min(best_p, time.perf_counter() - t0)
             prefill_samples.append((N, L, best_p))
+            last, cache = out["last"], out["cache"]
 
             cur = torch.argmax(last, -1).to(torch.int32)
             decode = _decoder(model, params, cache, cur)

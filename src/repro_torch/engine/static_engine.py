@@ -53,26 +53,29 @@ kernels) or ``"fused"`` (the ``fused_rope_prefill_write`` /
 The pools ``k_pages``/``v_pages`` are updated **in place**.  The JAX
 engine threads immutable pools through ``jit`` with buffer donation; in
 PyTorch a functional update would copy a pool that is most of the card's
-memory and double it.  The JAX ``jit(while_loop)`` decode becomes a host
-loop with the same semantics: the condition ``step < S and not
-all(done)`` is checked before each step, ``done |= (cur == eos) |
-(step + 1 >= forced)``, and the token computed last is kept as the
-resident's next token.  Pad rows read and write the null page 0, which is
-never observable.
+memory and double it.  The JAX ``jit(while_loop)`` decode keeps its
+semantics: the condition ``step < S and not all(done)`` is checked before
+each step, ``done |= (cur == eos) | (step + 1 >= forced)``, and the token
+computed last is kept as the resident's next token.  Pad rows read and
+write the null page 0, which is never observable.
 
-Each loop iteration is one ``engine.graphs.Step`` of the slice's bucket,
-the counterpart of the JAX engine's compiled serve function per bucket
-(``step_graphs``, its ``_compiled``): a CUDA graph replayed on the card,
-the same closure over the same static buffers on the CPU.  A paged
-bucket is ``("paged", attn_impl, B, nb, slice_len)`` over the engine's
-pools; a dense bucket ``("dense", B, L, slice_len, extra input shapes)``
-over one cache arena (``graphs.Arena``) that the slice's prefill cache is
-copied into, sized by the largest bucket so far (when it grows, every
-dense step is dropped and captured again).  The host's test of
-``all(done)`` stays once per iteration, as the ``while_loop``'s ``cond``.
-The prefills run eagerly.  The eager loops serve where
-``graphs.eager_reason`` says (``graphs.disabled()``, DTensor
-parameters).
+The JAX engine's compiled executables become ``engine.graphs``' captured
+work per bucket (``step_graphs``, its ``_compiled``): CUDA graphs replayed
+on the card, the same closures over the same static buffers on the CPU.
+A slice's decode is one ``graphs.Loop``, the ``while_loop`` on the
+device: one replay runs every step under a WHILE node whose condition a
+kernel sets (``kernels.graph_loop``), and the host reads the loop's
+out, steps, done and next tokens once.  A paged bucket's loop is
+``("paged", attn_impl, B, nb, slice_len)`` over the engine's pools; its
+prefill and tail prefill are ``graphs.Prefill``s, ``("prefill",
+attn_impl, B, L, nb)`` and ``("tail", attn_impl, B, L, nb)``, whose first
+tokens come back to the host as in JAX.  A dense bucket ``("dense", B, L,
+slice_len, extra input shapes)`` is the JAX ``_serve_fn``: its prefill and
+its loop in one graph, over one cache arena (``graphs.Arena``) that the
+prefill's cache is copied into, sized by the largest bucket so far (when
+it grows, every other dense graph is dropped and captured again).  The
+eager paths serve where ``graphs.eager_reason`` says
+(``graphs.disabled()``, DTensor parameters).
 """
 from __future__ import annotations
 
@@ -173,6 +176,10 @@ class StaticEngine:
         self.n_prefill_stages = 0
         self.n_tail_prefill_stages = 0
         self.n_decode_steps = 0
+        #: slices decoded through a ``graphs.Loop``: each tests its
+        #: condition once per step and once before the first
+        #: (``graph_loop``'s launches on the card)
+        self.n_loops = 0
         #: the decode step of each bucket (captured on the card)
         self.step_graphs = graphs.GraphCache(self.device)
         if kv_layout == "dense":
@@ -203,47 +210,100 @@ class StaticEngine:
 
     def _prefill_paged(self, tokens: np.ndarray, lengths: np.ndarray,
                        block_table: np.ndarray) -> np.ndarray:
+        self.n_prefill_stages += 1
+        if not self._eager():
+            return self._replay_prefill("prefill", block_table.shape[1],
+                                        tokens=tokens, lengths=lengths,
+                                        block_table=block_table)
         cache = self._empty_cache(self._tensor(block_table))
         logits, _ = tfm.prefill_paged(self.params, self.model.cfg,
                                       self._tensor(tokens),
                                       self._tensor(lengths), cache,
                                       attn_impl=self.attn_impl)
-        self.n_prefill_stages += 1
         return greedy(logits).cpu().numpy()  # host transfer: blocks
 
     def _prefill_tail_paged(self, tokens: np.ndarray, start: np.ndarray,
                             lengths: np.ndarray,
                             block_table: np.ndarray) -> np.ndarray:
+        self.n_prefill_stages += 1
+        self.n_tail_prefill_stages += 1
+        if not self._eager():
+            return self._replay_prefill("tail", block_table.shape[1],
+                                        tokens=tokens, start=start,
+                                        lengths=lengths,
+                                        block_table=block_table)
         cache = self._empty_cache(self._tensor(block_table))
         logits, _ = tfm.prefill_tail_paged(self.params, self.model.cfg,
                                            self._tensor(tokens),
                                            self._tensor(start),
                                            self._tensor(lengths), cache,
                                            attn_impl=self.attn_impl)
-        self.n_prefill_stages += 1
-        self.n_tail_prefill_stages += 1
         return greedy(logits).cpu().numpy()  # host transfer: blocks
+
+    def _replay_prefill(self, kind: str, nb: int,
+                        **inputs: np.ndarray) -> np.ndarray:
+        """A paged prefill (``kind`` "prefill") or tail prefill ("tail")
+        through its bucket's ``graphs.Prefill``, ``(kind, attn_impl, B, L,
+        nb)`` (the JAX engine's jitted ``_prefill_paged`` /
+        ``_prefill_tail_paged``): the inputs are copied into its static
+        buffers, the pools are written in place, and the first tokens come
+        back to the host (a blocking transfer, as in JAX)."""
+        B, L = inputs["tokens"].shape
+        key = (kind, self.attn_impl, B, L, nb)
+        pre = self.step_graphs.get(key) or self._add_prefill(key, **inputs)
+        for name, a in inputs.items():
+            pre.bufs[name].copy_(torch.from_numpy(np.ascontiguousarray(a)))
+        pre()
+        return pre.bufs["first"].cpu().numpy()  # host transfer: blocks
+
+    def _add_prefill(self, key, **inputs: np.ndarray) -> graphs.Prefill:
+        """A paged bucket's ``Prefill`` over static tokens, lengths, block
+        table (and, for a tail, start) of ``inputs``' shapes, the engine's
+        pools, and the static first tokens (B,)."""
+        bufs = {name: self._tensor(a) for name, a in inputs.items()}
+        B = inputs["tokens"].shape[0]
+        bufs["first"] = torch.zeros((B,), dtype=torch.int32,
+                                    device=self.device)
+        cache = bufs["cache"] = self._empty_cache(bufs["block_table"])
+        cfg, impl = self.model.cfg, self.attn_impl
+
+        def fn() -> None:
+            if "start" in bufs:
+                logits, _ = tfm.prefill_tail_paged(
+                    self.params, cfg, bufs["tokens"], bufs["start"],
+                    bufs["lengths"], cache, attn_impl=impl)
+            else:
+                logits, _ = tfm.prefill_paged(self.params, cfg,
+                                              bufs["tokens"],
+                                              bufs["lengths"], cache,
+                                              attn_impl=impl)
+            bufs["first"].copy_(greedy(logits))
+
+        return self.step_graphs.add_prefill(key, fn, bufs)
 
     def _eager(self) -> bool:
         return graphs.eager_reason(self.params,
                                    self.model.cfg.family) is not None
 
-    def _add_step(self, key, cache, B: int, slice_len: int,
-                  decode_step) -> graphs.Step:
-        """A new bucket's ``Step``: one iteration of the JAX
-        ``while_loop``'s body over static buffers (out (B, S), done (B,),
-        the step counter (0-d int64), cur and forced (B,)) and the bucket's
-        ``cache``, where ``decode_step(cur, step)`` runs the model's decode
-        step over ``cache`` and returns (logits, the new cache), whose new
-        leaves are copied back into ``cache``."""
+    def _loop_bufs(self, B: int, slice_len: int,
+                   **more: object) -> Dict[str, object]:
+        """A bucket's loop state: out (B, S), done (B,), the step counter
+        (0-d int64), cur and forced (B,), and ``more``."""
         dev = self.device
-        bufs = dict(
+        return dict(
             out=torch.empty((B, slice_len), dtype=torch.int32, device=dev),
             done=torch.empty((B,), dtype=torch.bool, device=dev),
             step=torch.empty((), dtype=torch.int64, device=dev),
             cur=torch.empty((B,), dtype=torch.int32, device=dev),
             forced=torch.empty((B,), dtype=torch.int32, device=dev),
-            cache=cache)
+            **more)
+
+    def _body(self, bufs: Dict[str, object], decode_step):
+        """One iteration of the JAX ``while_loop``'s body over a bucket's
+        loop state (``_loop_bufs``) and cache ``bufs["cache"]``, where
+        ``decode_step(cur, step)`` runs the model's decode step over that
+        cache and returns (logits, the new cache), whose new leaves are
+        copied back into it."""
         out, done, step, cur, forced = (
             bufs[k] for k in ("out", "done", "step", "cur", "forced"))
         eos = self.eos_id
@@ -252,32 +312,30 @@ class StaticEngine:
             out.index_copy_(1, step.view(1), cur[:, None])
             done.logical_or_((cur == eos) | (step + 1 >= forced))
             logits, new = decode_step(cur, step)
-            graphs.copy_back(cache, new)
+            graphs.copy_back(bufs["cache"], new)
             cur.copy_(greedy(logits))
             step.add_(1)
 
-        return self.step_graphs.add(key, fn, bufs)
+        return fn
 
-    def _run_steps(self, step: graphs.Step, first: torch.Tensor,
-                   forced: np.ndarray, slice_len: int):
-        """``_decode_loop`` over a bucket's ``Step`` (``_add_step``): the
-        loop state is reset, then ``step()`` runs while ``step < S and not
-        all(done)``.
-        Returns (out (B, S), steps, done (B,), next tokens (B,)) on the
-        host."""
-        b = step.bufs
+    def _run_loop(self, loop: graphs.Loop, forced: np.ndarray,
+                  first: Optional[np.ndarray] = None):
+        """``_decode_loop`` through a bucket's ``Loop``: the loop state is
+        reset (``cur`` from ``first``, or from the loop's own prefill),
+        then one call runs the loop while ``step < S and not all(done)``
+        and brings out, steps, done and the next tokens to the host in
+        one transfer.  Returns them as ``_decode_loop`` does."""
+        b = loop.bufs
         b["out"].fill_(-1)
         b["done"].zero_()
-        b["step"].zero_()
-        b["cur"].copy_(first)
+        if first is not None:
+            b["cur"].copy_(torch.from_numpy(first))
         b["forced"].copy_(torch.from_numpy(forced))
-        n = 0
-        while n < slice_len and not bool(b["done"].all()):
-            step()
-            n += 1
-            self.n_decode_steps += 1
-        return (b["out"].cpu().numpy(), n, b["done"].cpu().numpy(),
-                b["cur"].cpu().numpy())
+        r = loop()
+        steps = int(r["step"])
+        self.n_loops += 1
+        self.n_decode_steps += steps
+        return r["out"], steps, r["done"], r["cur"]
 
     def _decode_loop(self, cur: torch.Tensor, forced: np.ndarray,
                      slice_len: int, step_fn):
@@ -308,14 +366,13 @@ class StaticEngine:
         if not self._eager():
             B, nb = block_table.shape
             key = ("paged", self.attn_impl, B, nb, slice_len)
-            step = (self.step_graphs.get(key)
-                    or self._paged_step(key, B, nb, slice_len))
-            c = step.bufs["cache"]
+            loop = (self.step_graphs.get(key)
+                    or self._paged_loop(key, B, nb, slice_len))
+            c = loop.bufs["cache"]
             for buf, a in ((c.block_table, block_table),
                            (c.slot_pos, slot_pos), (c.lengths, row_len)):
                 buf.copy_(torch.from_numpy(np.ascontiguousarray(a)))
-            return self._run_steps(step, torch.from_numpy(first_tok),
-                                   forced, slice_len)
+            return self._run_loop(loop, forced, first_tok)
         cache = PagedKVCache(self._k_pages, self._v_pages,
                              self._tensor(block_table),
                              self._tensor(slot_pos), self._tensor(row_len))
@@ -331,9 +388,9 @@ class StaticEngine:
         return self._decode_loop(self._tensor(first_tok), forced, slice_len,
                                  step_fn)
 
-    def _paged_step(self, key, B: int, nb: int,
-                    slice_len: int) -> graphs.Step:
-        """A paged bucket's ``Step`` over the engine's pools and static
+    def _paged_loop(self, key, B: int, nb: int,
+                    slice_len: int) -> graphs.Loop:
+        """A paged bucket's ``Loop`` over the engine's pools and static
         (B, nb) block table, (B, nb·pg) slot_pos and (B,) row lengths
         (compact layout: slot == position)."""
         i32 = dict(dtype=torch.int32, device=self.device)
@@ -342,6 +399,7 @@ class StaticEngine:
                              torch.full((B, nb * self.page_tokens), -1,
                                         **i32),
                              torch.zeros((B,), **i32))
+        bufs = self._loop_bufs(B, slice_len, cache=cache)
 
         def decode_step(cur: torch.Tensor, step: torch.Tensor):
             q_pos = cache.lengths + step
@@ -349,7 +407,8 @@ class StaticEngine:
                                          cur, q_pos, q_pos,
                                          attn_impl=self.attn_impl)
 
-        return self._add_step(key, cache, B, slice_len, decode_step)
+        return self.step_graphs.add_loop(key, self._body(bufs, decode_step),
+                                         bufs, slice_len)
 
     def _serve_dense(self, tokens: np.ndarray, lengths: np.ndarray,
                      forced: np.ndarray, slice_len: int,
@@ -357,32 +416,23 @@ class StaticEngine:
         """Prefill into a dense cache of ``L + slice_len`` slots (``+ P``
         for the VLM's prefix), then the decode loop (the JAX
         ``_serve_fn``); returns (out, steps, done)."""
-        batch = {"tokens": self._tensor(tokens),
-                 "lengths": self._tensor(lengths),
-                 **{k: self._tensor(v) for k, v in extra.items()}}
         cache_window = tokens.shape[1] + slice_len
         if self.model.cfg.family == "vlm" and "prefix_embeds" in extra:
             cache_window += extra["prefix_embeds"].shape[1]
-        logits, cache = self.model.prefill(self.params, batch, cache_window)
         self.n_prefill_stages += 1
+        inputs = {"tokens": tokens, "lengths": lengths, **extra}
         if not self._eager():
-            B = tokens.shape[0]
-            key = ("dense", B, tokens.shape[1], slice_len) + tuple(
-                (k, v.shape) for k, v in sorted(extra.items()))
-            step = self.step_graphs.get(key)
-            if step is None:
-                if not self._arena.fits(cache):
-                    self.step_graphs.clear()  # captured over the old arena
-                static = self._arena.views(cache)
-                step = self._add_step(
-                    key, static, B, slice_len,
-                    lambda cur, step: self.model.decode_step(
-                        self.params, static, cur, step))
-            graphs.fill(step.bufs["cache"], cache)
-            del cache
-            out, steps, done, _ = self._run_steps(step, greedy(logits),
-                                                  forced, slice_len)
+            key = ("dense", tokens.shape[0], tokens.shape[1], slice_len) \
+                + tuple((k, v.shape) for k, v in sorted(extra.items()))
+            loop = self.step_graphs.get(key) or self._dense_loop(
+                key, inputs, slice_len, cache_window)
+            for name, a in inputs.items():
+                loop.bufs[name].copy_(
+                    torch.from_numpy(np.ascontiguousarray(a)))
+            out, steps, done, _ = self._run_loop(loop, forced)
             return out, steps, done
+        batch = {k: self._tensor(v) for k, v in inputs.items()}
+        logits, cache = self.model.prefill(self.params, batch, cache_window)
 
         def step_fn(cur: torch.Tensor, step: int) -> torch.Tensor:
             nonlocal cache
@@ -393,6 +443,36 @@ class StaticEngine:
         out, steps, done, _ = self._decode_loop(greedy(logits), forced,
                                                 slice_len, step_fn)
         return out, steps, done
+
+    def _dense_loop(self, key, inputs: Dict[str, np.ndarray],
+                    slice_len: int, cache_window: int) -> graphs.Loop:
+        """A dense bucket's ``Loop`` with its ``Prefill`` ahead of it in
+        one graph (the JAX ``_serve_fn``): the prefill reads the static
+        ``inputs`` (tokens, lengths, the extra inputs), copies its cache
+        into the engine's arena (``graphs.Arena``; the ring index becomes
+        its 0-d leaf) and sets ``cur`` to its first tokens; the loop
+        decodes over the arena.  The arena's views are made at the first
+        prefill, which knows the cache's layout; an arena that must grow
+        for them drops every other bucket's graph first (they were captured
+        over the old buffer)."""
+        statics = {name: self._tensor(a) for name, a in inputs.items()}
+        bufs = self._loop_bufs(inputs["tokens"].shape[0], slice_len,
+                               **statics)
+
+        def prefill() -> None:
+            logits, cache = self.model.prefill(self.params, statics,
+                                               cache_window)
+            if "cache" not in bufs:
+                if not self._arena.fits(cache):
+                    self.step_graphs.clear(keep=key)
+                bufs["cache"] = self._arena.views(cache)
+            graphs.fill(bufs["cache"], cache)
+            bufs["cur"].copy_(greedy(logits))
+
+        body = self._body(bufs, lambda cur, step: self.model.decode_step(
+            self.params, bufs["cache"], cur, step))
+        return self.step_graphs.add_loop(key, body, bufs, slice_len,
+                                         head=prefill)
 
     # ------------------------------------------------------------------
     def _evict(self, rid: int) -> None:

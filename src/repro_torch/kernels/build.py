@@ -26,7 +26,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 KERNELS = ("paged_prefill_write", "paged_decode_attention",
            "fused_rope_prefill_write", "fused_rope_decode_append",
-           "flash_prefill", "decode_attention", "ssd_scan")
+           "flash_prefill", "decode_attention", "ssd_scan", "graph_loop")
 
 _loaded: Dict[str, ctypes.CDLL] = {}
 

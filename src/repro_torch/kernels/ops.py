@@ -42,6 +42,7 @@ from repro_torch.kernels import decode_attention as _dense_decode_kernel
 from repro_torch.kernels import flash_prefill as _prefill_kernel
 from repro_torch.kernels import fused_rope_decode_append as _fdecode_kernel
 from repro_torch.kernels import fused_rope_prefill_write as _fwrite_kernel
+from repro_torch.kernels import graph_loop as _loop_kernel
 from repro_torch.kernels import paged_decode_attention as _decode_kernel
 from repro_torch.kernels import paged_prefill_write as _write_kernel
 from repro_torch.kernels import ssd_scan as _ssd_kernel
@@ -53,7 +54,8 @@ _KERNELS = {"paged_prefill_write": _write_kernel,
             "fused_rope_decode_append": _fdecode_kernel,
             "flash_prefill": _prefill_kernel,
             "decode_attention": _dense_decode_kernel,
-            "ssd_scan": _ssd_kernel}
+            "ssd_scan": _ssd_kernel,
+            "graph_loop": _loop_kernel}
 
 #: calls that took a kernel's plain version (CPU tensors), by kernel
 plain_calls: Dict[str, int] = {name: 0 for name in _KERNELS}
@@ -354,3 +356,15 @@ def ssd_chunked_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
         return ref.ssd_scan_ref(x, dt, A, B, C, chunk)
     _refuse_grad("ssd_scan", x, dt, A, B, C)
     return _ssd_kernel.ssd_scan(x, dt, A, B, C, chunk)
+
+
+def graph_loop(step: torch.Tensor, done: torch.Tensor,
+               limit: int) -> torch.Tensor:
+    """The decode loop's condition ``step < limit and not all(done)``: step
+    0-d int64, done (B,) bool -> 0-d bool, on their device.  On the card
+    its kernel is what the captured loop's WHILE node reads
+    (``graph_loop.build_loop``); this call launches it alone."""
+    if _on_cpu(step, "graph_loop"):
+        return ref.graph_loop_ref(step, done, limit)
+    _refuse_grad("graph_loop", step, done)
+    return _loop_kernel.graph_loop(step, done, limit)

@@ -254,3 +254,11 @@ def ssd_scan_ref(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
         * torch.exp(cum)[..., None]
     y = (y_intra + y_inter).reshape(Bsz, T, H, P)
     return y, h
+
+
+def graph_loop_ref(step: torch.Tensor, done: torch.Tensor,
+                   limit: int) -> torch.Tensor:
+    """The decode loop's condition (the JAX engines' ``while_loop``
+    ``cond``): ``step < limit and not all(done)`` for a 0-d int64 step
+    counter and (B,) bool flags, as a 0-d bool tensor."""
+    return (step < limit) & ~done.all()

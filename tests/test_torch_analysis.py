@@ -218,13 +218,14 @@ def test_cuda_conventions_accepts_a_conforming_tree():
 
 
 def test_cuda_conventions_holds_the_ports_kernels():
-    """The pass reads the port's seven kernels (KERNELS) and finds each
+    """The pass reads the port's eight kernels (KERNELS: the seven
+    Pallas kernels' ports and the decode loop's condition) and finds each
     one's wrapper, plain version and card test."""
     from repro_torch.kernels.build import KERNELS
     pa = CudaConventionsPass()
     files = pa.files(REPO)
     assert REPO / "tests" / "test_torch_cuda.py" in files
-    assert len(KERNELS) == 7
+    assert len(KERNELS) == 8
     assert pa.run(REPO, [SourceFile(REPO, p) for p in files]) == []
 
 

@@ -15,6 +15,7 @@ from repro_torch.kernels import decode_attention as dense_decode_kernel
 from repro_torch.kernels import flash_prefill as prefill_kernel
 from repro_torch.kernels import fused_rope_decode_append as fdecode_kernel
 from repro_torch.kernels import fused_rope_prefill_write as fwrite_kernel
+from repro_torch.kernels import graph_loop as loop_kernel
 from repro_torch.kernels import paged_decode_attention as decode_kernel
 from repro_torch.kernels import paged_prefill_write as write_kernel
 from repro_torch.kernels import ref
@@ -1256,3 +1257,42 @@ def test_b5_b6_on_dtensor_shards_match_plain(cuda_device, dtype, Hq, Hkv,
         torch.testing.assert_close(gotd.to_local().cpu().float(),
                                    want[:B // 2, :hl], rtol=0,
                                    atol=ATOL[dtype])
+
+
+@pytest.mark.parametrize("B", [1, 3, 256, 300])
+def test_graph_loop_matches_plain(cuda_device, B):
+    """The decode loop's condition kernel (its predicate launched alone)
+    equals ``graph_loop_ref``'s ``step < limit and not all(done)`` over
+    steps below, at and past the limit and flags none, all, and all but
+    one done (the last row and the first live), through the module's
+    entry and the ``ops`` wrapper."""
+    from repro_torch.kernels import ops
+    for s in (0, 5, 9, 10, 11):
+        for pattern in ("none", "all", "last live", "first live"):
+            done = torch.zeros(B, dtype=torch.bool)
+            if pattern != "none":
+                done[:] = True
+            if pattern == "last live":
+                done[-1] = False
+            if pattern == "first live":
+                done[0] = False
+            step = torch.tensor(s, dtype=torch.int64)
+            want = ref.graph_loop_ref(step, done, 10)
+            got = loop_kernel.graph_loop(step.to(cuda_device),
+                                         done.to(cuda_device), 10)
+            via_ops = ops.graph_loop(step.to(cuda_device),
+                                     done.to(cuda_device), 10)
+            assert got.dtype == torch.bool and got.dim() == 0
+            assert bool(got.cpu()) == bool(want) == bool(via_ops.cpu())
+
+
+def test_graph_loop_refuses_what_it_does_not_take(cuda_device):
+    """A step counter that is not 0-d int64, or done flags that are not a
+    non-empty (B,) bool tensor, raise before any launch."""
+    step = torch.zeros((), dtype=torch.int64, device=cuda_device)
+    done = torch.zeros(4, dtype=torch.bool, device=cuda_device)
+    for bad_step, bad_done in ((step.int(), done), (step[None], done),
+                               (step, done.int()), (step, done[:0]),
+                               (step.cpu(), done)):
+        with pytest.raises((TypeError, ValueError)):
+            loop_kernel.graph_loop(bad_step, bad_done, 4)

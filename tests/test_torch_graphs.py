@@ -15,8 +15,11 @@ threads that launch meanwhile), ``disabled()`` per thread, and the rule
 that keeps an engine eager.
 
 The tests marked ``cuda`` run on the card and skip here: a replay gives
-the eager loop's tokens and page pools bit for bit on each captured path,
-each bucket is captured once, and a step that cannot be captured raises.
+the eager paths' tokens, decode steps and page pools bit for bit on each
+captured path, and launch counts that add up to the eager ones; each
+bucket is captured once (a dense bucket's prefill and loop as one graph);
+and a step or loop that cannot be captured, or a graph that cannot be
+rewritten into a loop, raises.
 JAX is imported inside the CPU tests only, so on the card
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_graphs.py
@@ -98,9 +101,10 @@ def test_paged_static_engine_steps_match_jax_and_eager(attn_impl):
         for r, res in zip(rids, got.results):
             outs[r] = outs.get(r, []) + res["tokens"]
     assert got.prefix_hit_tokens > 0
-    keys = run.step_graphs.keys()
-    assert [k[:4] for k in keys] == [("paged", attn_impl, 4, 4),
-                                     ("paged", attn_impl, 8, 8)]
+    assert run.step_graphs.keys() == [
+        ("prefill", attn_impl, 4, 16, 2), ("paged", attn_impl, 4, 4, 6),
+        ("prefill", attn_impl, 2, 32, 4), ("tail", attn_impl, 1, 8, 4),
+        ("paged", attn_impl, 8, 8, 6)]
     assert eager.step_graphs.keys() == []
 
 
@@ -163,7 +167,7 @@ def test_continuous_engine_step_matches_jax_and_eager(layout):
         assert got.outputs == other.outputs
         assert got.join_order == other.join_order
         assert got.iterations == other.iterations
-    assert run.step_graphs.keys() == ["decode"]
+    assert run.step_graphs.keys() == [("join", 8), ("join", 16), "decode"]
     assert eager.step_graphs.keys() == []
 
 
@@ -204,8 +208,10 @@ def test_dense_buckets_reuse_add_and_drop_on_arena_growth(llama):
 
 
 def test_paged_buckets_reuse_and_add(llama):
-    """A slice in a bucket seen before reuses its step; a new batch
-    bucket, block-table bucket or slice length adds one."""
+    """A slice in a bucket seen before reuses its loop, and a prefill in a
+    (B, L, nb) bucket seen before its prefill; a new batch bucket,
+    block-table bucket or slice length adds a loop, a new B, L or nb a
+    prefill."""
     from repro_torch.engine.static_engine import StaticEngine
     model, params = llama
     eng = StaticEngine(model, params, eos_id=1, len_bucket=8,
@@ -213,14 +219,23 @@ def test_paged_buckets_reuse_and_add(llama):
                        device="cpu")
     ps = _prompts(model.cfg.vocab_size, (5, 7, 40), 5)
     eng.serve_batch_paged(ps[:2], 4, [0, 1])
+    pre = eng.step_graphs.get(("prefill", "unfused", 2, 8, 1))
     eng.serve_batch_paged(ps[:2], 4, [0, 1])  # resumed, same buckets
-    assert eng.step_graphs.keys() == [("paged", "unfused", 2, 4, 4)]
+    assert eng.step_graphs.keys() == [("prefill", "unfused", 2, 8, 1),
+                                      ("paged", "unfused", 2, 4, 4)]
+    eng.serve_batch_paged(ps[:2], 4, [3, 4])  # fresh rows, same buckets
+    assert eng.step_graphs.get(("prefill", "unfused", 2, 8, 1)) is pre
+    assert len(eng.step_graphs.keys()) == 2
     eng.serve_batch_paged(ps[:2], 2, [0, 1])
     eng.serve_batch_paged(ps[2:], 4, [2])
-    eng.serve_batch_paged(ps, 4, [0, 1, 2])
+    eng.serve_batch_paged(ps, 4, [0, 1, 2])  # stale residents: prefilled
+    eng.serve_batch_paged(ps[:1], 4, [5])  # B 1: a new prefill bucket
     assert eng.step_graphs.keys() == [
-        ("paged", "unfused", 2, 4, 4), ("paged", "unfused", 2, 4, 2),
-        ("paged", "unfused", 1, 8, 4), ("paged", "unfused", 4, 8, 4)]
+        ("prefill", "unfused", 2, 8, 1), ("paged", "unfused", 2, 4, 4),
+        ("paged", "unfused", 2, 4, 2), ("prefill", "unfused", 1, 40, 5),
+        ("paged", "unfused", 1, 8, 4), ("prefill", "unfused", 4, 40, 5),
+        ("paged", "unfused", 4, 8, 4), ("prefill", "unfused", 1, 8, 1),
+        ("paged", "unfused", 1, 4, 4)]
 
 
 def test_capture_tally_moves_launches_to_replays():
@@ -345,7 +360,9 @@ CARD_PATHS = {
 
 
 def _card_serve(card_models, path):
-    """(tokens, engine) of ``path`` serving two slices (one for ILS)."""
+    """(tokens, engine) of ``path`` serving two slices (one for ILS): the
+    first slice's rows end at different forced lengths, the second's run
+    to the slice's end."""
     from repro_torch.engine.continuous_engine import ContinuousEngine
     from repro_torch.engine.static_engine import StaticEngine
     arch, kind, kw = CARD_PATHS[path]
@@ -359,12 +376,14 @@ def _card_serve(card_models, path):
         eng = StaticEngine(model, params, eos_id=1, len_bucket=8,
                            device="cuda", **kw)
         toks = []
-        for _ in range(2):  # the second slice resumes (or re-prefills)
+        for forced in ([3, 8, 5], None):  # the second resumes / re-prefills
             if eng.kv_layout == "paged":
                 res = eng.serve_batch_paged(ps, 8, [0, 1, 2],
+                                            forced_gen_lens=forced,
                                             already_generated=toks or None)
             else:
-                res = eng.serve_batch(ps, 8, already_generated=toks or None)
+                res = eng.serve_batch(ps, 8, forced_gen_lens=forced,
+                                      already_generated=toks or None)
             toks = [t + r["tokens"] for t, r in
                     zip(toks or [[]] * len(ps), res.results)]
         return toks, eng
@@ -373,14 +392,31 @@ def _card_serve(card_models, path):
 @pytest.mark.cuda
 @pytest.mark.parametrize("path", list(CARD_PATHS))
 def test_replay_equals_eager_bit_for_bit(card_models, path):
-    """Graph replays give the eager loop's tokens, and on the paged paths
-    its page pools, bit for bit."""
+    """Graph replays (a static engine's prefills and device loops, an ILS
+    engine's joins and steps) give the eager paths' tokens and decode
+    steps, and on the paged paths their page pools, bit for bit."""
+    from repro_torch.kernels import ops
+    ops.reset_counts()
     got, eng = _card_serve(card_models, path)
+    torch.cuda.synchronize()
+    graph_launches = ops.launches()
+    ops.reset_counts()
     with graphs.disabled():
         want, ref = _card_serve(card_models, path)
+    torch.cuda.synchronize()
+    eager_launches = ops.launches()
     assert got == want
+    assert eng.n_decode_steps == ref.n_decode_steps
+    assert eng.n_prefill_stages == ref.n_prefill_stages
     assert eng.step_graphs.n_captures >= 1
     assert ref.step_graphs.n_captures == 0
+    # the replays' tallies add up to the eager launches, the loop's
+    # condition once a step and once a slice
+    loops = getattr(eng, "n_loops", 0)
+    assert graph_launches.pop("graph_loop") == \
+        (eng.n_decode_steps + loops if loops else 0)
+    assert eager_launches.pop("graph_loop") == 0
+    assert graph_launches == eager_launches
     if eng.kv_layout == "paged":
         pools = ((e.cache.k_pages, e.cache.v_pages) if hasattr(e, "cache")
                  else (e._k_pages, e._v_pages) for e in (eng, ref))
@@ -390,8 +426,10 @@ def test_replay_equals_eager_bit_for_bit(card_models, path):
 
 @pytest.mark.cuda
 def test_one_capture_per_bucket(card_models):
-    """Slices in one bucket replay one graph; a new bucket captures one
-    more; the launches counted are the replays' too."""
+    """Slices in one bucket replay one prefill graph and one loop graph; a
+    new bucket captures one more of each; the launches counted are the
+    replays' too: a layer's kernel once a prefill stage or decode step,
+    the loop's condition once a step and once a slice."""
     from repro_torch.engine.static_engine import StaticEngine
     from repro_torch.kernels import ops
     model, params = card_models["llama3.2-1b"]
@@ -405,12 +443,44 @@ def test_one_capture_per_bucket(card_models):
             eng.serve_batch_paged(ps, 8, rids, forced_gen_lens=[8, 8])
             for rid in rids:
                 eng.release_request(rid)
-        assert eng.step_graphs.n_captures == 1
+        assert eng.step_graphs.captures == {"prefill": 1, "paged": 1}
         eng.serve_batch_paged(ps[:1], 8, [6], forced_gen_lens=[8])
     torch.cuda.synchronize()
-    assert eng.step_graphs.n_captures == 2
-    assert ops.launches()["paged_decode_attention"] == \
-        model.cfg.n_layers * eng.n_decode_steps
+    assert eng.step_graphs.captures == {"prefill": 2, "paged": 2}
+    assert eng.step_graphs.n_captures == 4
+    L = model.cfg.n_layers
+    launches = ops.launches()
+    assert launches["paged_decode_attention"] == L * eng.n_decode_steps
+    assert launches["paged_prefill_write"] == L * eng.n_prefill_stages
+    assert launches["graph_loop"] == eng.n_decode_steps + eng.n_loops == \
+        4 * 8 + 4
+
+
+@pytest.mark.cuda
+def test_dense_bucket_is_one_capture_of_prefill_and_loop(card_models):
+    """A dense bucket captures its prefill and its loop once, as one
+    graph: a second slice in the bucket replays it (one loop call, whose
+    host read is the slice's only one) and gives the eager path's
+    tokens."""
+    from repro_torch.engine.static_engine import StaticEngine
+    model, params = card_models["llama3.2-1b"]
+    ps = _prompts(model.cfg.vocab_size, (17, 40, 9), 9)
+    with torch.no_grad():
+        eng = StaticEngine(model, params, eos_id=1, len_bucket=8,
+                           device="cuda")
+        runs = [eng.serve_batch(ps, 8, forced_gen_lens=[8, 3, 6])
+                for _ in range(2)]
+        with graphs.disabled():
+            ref = StaticEngine(model, params, eos_id=1, len_bucket=8,
+                               device="cuda").serve_batch(
+                ps, 8, forced_gen_lens=[8, 3, 6])
+    assert eng.step_graphs.captures == {"dense": 1}
+    assert eng.step_graphs.keys() == [("dense", 4, 40, 8)]
+    assert eng.n_loops == 2
+    for res in runs:
+        assert [r["tokens"] for r in res.results] == \
+            [r["tokens"] for r in ref.results]
+        assert res.steps == ref.steps == 8
 
 
 @pytest.mark.cuda
@@ -429,5 +499,36 @@ def test_failed_capture_raises(card_models):
     with pytest.raises(RuntimeError):
         step()
     assert step.graph is None and cache.n_captures == 0
+    torch.cuda.synchronize()
+    assert float(torch.ones(2, device=dev).sum()) == 2.0
+
+
+@pytest.mark.cuda
+def test_failed_loop_capture_or_edit_raises(card_models):
+    """A loop body that reads a device value on the host runs its warm-up
+    loop, then its capture raises and no graph is kept; a graph captured
+    without ``keep_graph`` cannot be rewritten into a loop and raises; the
+    device stays usable."""
+    from repro_torch.kernels import graph_loop
+    dev = torch.device("cuda")
+    cache = graphs.GraphCache(dev)
+    bufs = dict(step=torch.zeros((), dtype=torch.int64, device=dev),
+                done=torch.zeros(2, dtype=torch.bool, device=dev),
+                out=torch.zeros(2, dtype=torch.int32, device=dev),
+                cur=torch.zeros(2, dtype=torch.int32, device=dev))
+
+    def body():
+        bufs["out"].add_(int(bufs["out"].sum()) + 1)  # a host read
+        bufs["step"].add_(1)
+
+    loop = cache.add_loop("bad", body, bufs, 3)
+    with pytest.raises(RuntimeError):
+        loop()
+    assert loop.graph is None and cache.n_captures == 0
+    plain = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(plain):
+        bufs["cur"].add_(1)
+    with pytest.raises(RuntimeError):
+        graph_loop.build_loop(plain, bufs["step"], bufs["done"], 3)
     torch.cuda.synchronize()
     assert float(torch.ones(2, device=dev).sum()) == 2.0

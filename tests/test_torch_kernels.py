@@ -163,7 +163,7 @@ def test_dispatch_counts_plain_calls_and_no_kernel_launch_on_cpu():
                                "fused_rope_decode_append": 0,
                                "flash_prefill": 0,
                                "decode_attention": 0,
-                               "ssd_scan": 0}
+                               "ssd_scan": 0, "graph_loop": 0}
     assert ops.launches() == dict.fromkeys(ops.plain_calls, 0)
     ops.reset_counts()
     assert not any(ops.plain_calls.values())

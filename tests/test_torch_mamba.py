@@ -562,7 +562,8 @@ def test_serve_batch_eos_driven_row_matches_jax(engines, models):
 def test_launcher_serves_mamba_through_dense_scls_on_cpu():
     """``--arch mamba2-130m --reduced --device cpu``: every request
     completes, requests that outlive a slice re-prefill, and the only
-    kernel wrapper called is ssd_scan's, on its plain version."""
+    kernel wrappers called are ssd_scan's and the decode loop's condition
+    (graph_loop), on their plain versions."""
     from repro_torch.kernels import ops
     from repro_torch.launch import serve
     ops.reset_counts()
@@ -572,7 +573,9 @@ def test_launcher_serves_mamba_through_dense_scls_on_cpu():
     assert m.n_requests >= 4 and m.n_completed == m.n_requests
     assert m.reprefill_tokens > 0
     assert ops.plain_calls["ssd_scan"] > 0
-    assert not any(n for k, n in ops.plain_calls.items() if k != "ssd_scan")
+    assert ops.plain_calls["graph_loop"] > 0
+    assert not any(n for k, n in ops.plain_calls.items()
+                   if k not in ("ssd_scan", "graph_loop"))
     assert not any(ops.launches().values())
 
 

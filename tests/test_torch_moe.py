@@ -446,7 +446,8 @@ def test_launcher_serves_moe_through_dense_scls_on_cpu(arch):
     """``--arch <moe> --reduced --device cpu``: every request completes,
     requests that outlive a slice re-prefill; mixtral's attention goes
     through flash_prefill's and decode_attention's plain versions, MLA's
-    through neither (plain torch by design)."""
+    through neither (plain torch by design); both test the decode loop's
+    condition through graph_loop's."""
     from repro_torch.kernels import ops
     from repro_torch.launch import serve
     ops.reset_counts()
@@ -456,8 +457,8 @@ def test_launcher_serves_moe_through_dense_scls_on_cpu(arch):
     assert m.n_requests >= 4 and m.n_completed == m.n_requests
     assert m.reprefill_tokens > 0
     used = {k for k, n in ops.plain_calls.items() if n}
-    assert used == (set() if arch.startswith("deepseek")
-                    else {"flash_prefill", "decode_attention"})
+    assert used == ({"graph_loop"} if arch.startswith("deepseek")
+                    else {"flash_prefill", "decode_attention", "graph_loop"})
     assert not any(ops.launches().values())
 
 

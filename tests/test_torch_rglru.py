@@ -278,9 +278,9 @@ def test_serve_batch_matches_jax_over_two_slices(models):
 
 def test_launcher_serves_the_hybrid_through_dense_scls_on_cpu():
     """``--arch recurrentgemma-9b --reduced --device cpu``: every request
-    completes, requests that outlive a slice re-prefill, and the local
+    completes, requests that outlive a slice re-prefill, the local
     attention goes through flash_prefill's and decode_attention's plain
-    versions."""
+    versions and the decode loop's condition through graph_loop's."""
     from repro_torch.kernels import ops
     from repro_torch.launch import serve
     ops.reset_counts()
@@ -290,7 +290,7 @@ def test_launcher_serves_the_hybrid_through_dense_scls_on_cpu():
     assert m.n_requests >= 4 and m.n_completed == m.n_requests
     assert m.reprefill_tokens > 0
     assert {k for k, n in ops.plain_calls.items() if n} == \
-        {"flash_prefill", "decode_attention"}
+        {"flash_prefill", "decode_attention", "graph_loop"}
     assert not any(ops.launches().values())
 
 

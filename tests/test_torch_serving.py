@@ -85,15 +85,15 @@ def test_launcher_slice_retain_on_cpu(kv_layout):
     default serving path) with either memory model: every request
     completes, requests that outlive a slice re-prefill (``max_gen`` 12 >
     ``slice_len`` 6), and the dense attention runs through the plain
-    versions of flash_prefill and decode_attention only, nothing
-    launched."""
+    versions of flash_prefill and decode_attention only (and the decode
+    loop's condition through graph_loop's), nothing launched."""
     from repro_torch.kernels import ops
     from repro_torch.launch import serve
     ops.reset_counts()
     m = serve.main(LAUNCH_CPU + ["--kv-layout", kv_layout])
     assert m.n_requests >= 4 and m.n_completed == m.n_requests
     assert m.reprefill_tokens > 0 and m.prefix_hit_tokens == 0
-    dense = ("flash_prefill", "decode_attention")
+    dense = ("flash_prefill", "decode_attention", "graph_loop")
     assert all(ops.plain_calls[k] > 0 for k in dense)
     assert not any(n for k, n in ops.plain_calls.items() if k not in dense)
     assert not any(ops.launches().values())

@@ -37,11 +37,12 @@ def engine():
 def test_step_recorder_keeps_each_decode_step(smoke, engine, n_steps_cut):
     """One record per decode iteration (read from the engine's step
     buffers after the step: ``graphs.Step.__call__`` wrapped), the new
-    token's slot marked with its position, the step restored on exit;
-    ``typical`` returns the upper-median step by live slots.  With no
-    config nothing is recorded."""
+    token's slot marked with its position, the step and the loop restored
+    on exit; ``typical`` returns the upper-median step by live slots.
+    With no config nothing is recorded."""
     from repro_torch.engine import graphs
     orig = graphs.Step.__call__
+    orig_loop = graphs.Loop.__call__
     cfg = engine.cfg
     rng = np.random.default_rng(0)
     ps = [rng.integers(2, cfg.vocab_size, size=n).astype(np.int32)
@@ -51,6 +52,7 @@ def test_step_recorder_keeps_each_decode_step(smoke, engine, n_steps_cut):
         assert graphs.Step.__call__ is not orig
         engine.serve(ps, forced_gen_lens=[6, 9, 4, 12, 3], max_gen=16)
     assert graphs.Step.__call__ is orig
+    assert graphs.Loop.__call__ is orig_loop
     assert engine.n_decode_steps > 0
     if n_steps_cut is not None:
         assert rec.steps == []
@@ -71,10 +73,12 @@ def test_step_recorder_keeps_each_decode_step(smoke, engine, n_steps_cut):
 
 
 def test_step_recorder_reads_the_static_engines_steps(smoke, engine):
-    """The persistent paged ``StaticEngine``'s steps are recorded too: one
-    a decode iteration, each row's new slot marked with its position
-    (rows' lengths plus the step just run, the compact layout), pad rows
-    on the null page."""
+    """The persistent paged ``StaticEngine``'s steps are recorded too,
+    rebuilt from its loop's static buffers after the slice's one loop
+    call: one a decode iteration, each row's new slot marked with its
+    position (rows' lengths plus the step just run, the compact layout),
+    pad rows on the null page; the eager loop's pools and tokens are the
+    same as what the recorded steps describe."""
     from repro_torch.engine.static_engine import StaticEngine
     cfg = engine.cfg
     eng = StaticEngine(engine.model, engine.params, eos_id=1, len_bucket=8,
@@ -86,11 +90,15 @@ def test_step_recorder_reads_the_static_engines_steps(smoke, engine):
     with smoke.StepRecorder(cfg) as rec:
         res = eng.serve_batch_paged(ps, 4, [0, 1, 2], forced_gen_lens=[4] * 3)
     assert len(rec.steps) == res.steps == eng.n_decode_steps == 4
+    final = eng.step_graphs.get(("paged", "unfused", 4, 4, 4)).bufs["cache"]
     for j, st in enumerate(rec.steps):
         assert st["q_pos"][:3].tolist() == [n + j for n in (10, 20, 5)]
         marked = st["slot_pos"].gather(1, st["slots"].long()[:, None])[:, 0]
         assert torch.equal(marked, st["q_pos"])
         assert st["bt"][3].tolist() == [0] * st["bt"].shape[1]
+        assert int((st["slot_pos"] >= 0).sum()) == 35 + 4 * (j + 1)
+    # the last step's slot_pos is the one the loop left in its buffers
+    assert torch.equal(rec.steps[-1]["slot_pos"], final.slot_pos)
 
 
 def test_paged_shape_counts_distinct_live_pool_rows(smoke):
@@ -118,12 +126,13 @@ def test_paged_shape_counts_distinct_live_pool_rows(smoke):
 
 def test_stage_recorder_keeps_each_mamba_prefill_stage(smoke):
     """One record per prefill stage of the reduced float32 mamba2-130m's
-    dense engine (the first layer's scan): rows, chunk-padded tokens and
-    each row's valid tokens, the prompt's own length on the first slice
-    and prompt + generated on the re-prefill, batch-bucket pad rows the
-    one pad token the engine gives them; the
-    ops' scan restored on exit.  ``timed_stages`` picks the upper median by
-    rows x tokens and the largest."""
+    dense engine, rebuilt from its loop's static inputs: rows,
+    chunk-padded tokens and each row's valid tokens, the prompt's own
+    length on the first slice and prompt + generated on the re-prefill,
+    batch-bucket pad rows the one pad token the engine gives them; each
+    the scan's own shape (its first layer's, seen through the ops'
+    wrapper); the loop restored on exit.  ``timed_stages`` picks the upper
+    median by rows x tokens and the largest."""
     from repro_torch.configs import get_config
     from repro_torch.engine.static_engine import StaticEngine
     from repro_torch.kernels import ops
@@ -136,17 +145,30 @@ def test_stage_recorder_keeps_each_mamba_prefill_stage(smoke):
     lens = [5, 23, 9]
     ps = [rng.integers(2, model.cfg.vocab_size, size=n).astype(np.int32)
           for n in lens]
-    orig = ops.ssd_chunked_scan
+    from repro_torch.engine import graphs
+    orig, scan = graphs.Loop.__call__, ops.ssd_chunked_scan
+    seen = []
+
+    def watched(x, dt, *a, **kw):
+        seen.append(dict(B=x.shape[0], T=x.shape[1],
+                         lengths=(dt != 0).any(-1).sum(1).tolist()))
+        return scan(x, dt, *a, **kw)
+
     engine.n_prefill_stages = 0
-    with smoke.StageRecorder(model.cfg.n_layers) as rec:
-        assert ops.ssd_chunked_scan is not orig
-        first = engine.serve_batch(ps, 4, forced_gen_lens=[6, 6, 6])
-        gen = [r["tokens"] for r in first.results]
-        engine.serve_batch(ps[:2], 4, forced_gen_lens=[2, 2],
-                           already_generated=gen[:2])
-    assert ops.ssd_chunked_scan is orig
-    assert rec.calls == model.cfg.n_layers * engine.n_prefill_stages
+    ops.ssd_chunked_scan = watched
+    try:
+        with smoke.StageRecorder(model.cfg.ssm_chunk) as rec:
+            assert graphs.Loop.__call__ is not orig
+            first = engine.serve_batch(ps, 4, forced_gen_lens=[6, 6, 6])
+            gen = [r["tokens"] for r in first.results]
+            engine.serve_batch(ps[:2], 4, forced_gen_lens=[2, 2],
+                               already_generated=gen[:2])
+    finally:
+        ops.ssd_chunked_scan = scan
+    assert graphs.Loop.__call__ is orig
     assert len(rec.stages) == engine.n_prefill_stages == 2
+    assert [{k: st[k] for k in ("B", "T", "lengths")} for st in rec.stages] \
+        == seen[::model.cfg.n_layers]
     Q = model.cfg.ssm_chunk
     for st in rec.stages:
         assert st["T"] % Q == 0 and st["chunk"] == Q
@@ -172,11 +194,11 @@ def test_stage_recorder_keeps_each_mamba_prefill_stage(smoke):
 @pytest.mark.parametrize("impl", ["unfused", "fused"])
 def test_prefill_recorder_keeps_each_paged_prefill_stage(smoke, impl):
     """One record per prefill stage of the reduced float32 llama3.2-1b's
-    paged ``StaticEngine`` (the first layer's write): a fresh prompt, then
-    in one call a resumed resident, a fresh stage A and a stage-A' tail
-    past two shared pages, each through its ``impl``'s write; positions
-    and block table as the engine passed them, the tail marked; the ops'
-    writes restored on exit.  ``timed_writes`` picks the upper median by
+    paged ``StaticEngine``, rebuilt from its prefill's static buffers: a
+    fresh prompt, then in one call a resumed resident, a fresh stage A and
+    a stage-A' tail past two shared pages, each through its ``impl``'s
+    write; positions and block table as the engine passed them to the
+    first layer's write, the tail marked; the prefill restored on exit.  ``timed_writes`` picks the upper median by
     valid tokens and the largest, the stages phase 12 times."""
     from repro_torch.configs import get_config
     from repro_torch.engine.static_engine import StaticEngine
@@ -191,20 +213,36 @@ def test_prefill_recorder_keeps_each_paged_prefill_stage(smoke, impl):
     src, tail, fresh = (rng.integers(2, model.cfg.vocab_size, size=n)
                         .astype(np.int32) for n in (21, 7, 11))
     joiner = np.concatenate([src[:16], tail])
-    orig = {name: getattr(ops, name) for name in smoke.WRITES}
-    engine.n_prefill_stages = engine.n_tail_prefill_stages = 0
-    with smoke.PrefillRecorder(model.cfg.n_layers) as rec:
-        assert all(getattr(ops, n) is not f for n, f in orig.items())
-        first = engine.serve_batch_paged([src], 8, [1], forced_gen_lens=[24])
-        engine.serve_batch_paged(
-            [src, joiner, fresh], 8, [1, 2, 3], forced_gen_lens=[16, 12, 12],
-            already_generated=[first.results[0]["tokens"], [], []])
-    assert all(getattr(ops, n) is f for n, f in orig.items())
-    assert rec.calls == model.cfg.n_layers * engine.n_prefill_stages
-    assert len(rec.stages) == engine.n_prefill_stages == 3
-    assert engine.n_tail_prefill_stages == 1
+    from repro_torch.engine import graphs
+    orig = graphs.Prefill.__call__
     name = "fused_rope_prefill_write" if impl == "fused" else \
         "paged_prefill_write"
+    write, seen = getattr(ops, name), []
+
+    def watched(k_new, v_new, positions, block_table, *a, **kw):
+        seen.append((positions.clone(), block_table.clone()))
+        return write(k_new, v_new, positions, block_table, *a, **kw)
+
+    engine.n_prefill_stages = engine.n_tail_prefill_stages = 0
+    setattr(ops, name, watched)
+    try:
+        with smoke.PrefillRecorder() as rec:
+            assert graphs.Prefill.__call__ is not orig
+            first = engine.serve_batch_paged([src], 8, [1],
+                                             forced_gen_lens=[24])
+            engine.serve_batch_paged(
+                [src, joiner, fresh], 8, [1, 2, 3],
+                forced_gen_lens=[16, 12, 12],
+                already_generated=[first.results[0]["tokens"], [], []])
+    finally:
+        setattr(ops, name, write)
+    assert graphs.Prefill.__call__ is orig
+    assert len(rec.stages) == engine.n_prefill_stages == 3
+    # each stage's rebuilt inputs are the ones its first layer's write got
+    for st, (pos, bt) in zip(rec.stages, seen[::model.cfg.n_layers]):
+        assert torch.equal(st["positions"], pos)
+        assert torch.equal(st["bt"], bt)
+    assert engine.n_tail_prefill_stages == 1
     assert all(st["kernel"] == name for st in rec.stages)
     assert sorted(st["valid"] for st in rec.stages) == [7, 11, 21]
     for st in rec.stages:
